@@ -10,14 +10,18 @@ line each on stdout:
 2. k1: the render kernel against its plain version at the main-path shape
    (7680 frames of 10 sub-positions, 9×9, u=5) and at 13×13.
 3. k2_k3: the deep-ResNet embedding forward (K2) and backward (K3)
-   against autograd through the plain version, TF32 off, at three shapes.
+   against autograd through the plain version, TF32 off, at five shapes
+   (among them both batch sizes of the main path, and every conv tile);
+   two calls on the same inputs must agree bitwise; the kernel launches
+   inside one forward and one backward are counted by kind.
 4. slice: the training cycle of GeneralTransformer(deep_resnet) at full
    width and full data through ``train.loop.run_training`` for 2 cycles
    (batch 8, then 16), after rendering the validation suite; launch
    counters reset just before and read just after.
 
 Then a ``kernels`` line with each kernel's launches on the main path, error,
-times and bound, the card's name and power limit, and as the last line
+times (``ms`` around the wrapper, ``device_ms`` of its launches alone) and
+bound, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Without a CUDA device, or without the package beside this file,
 it exits non-zero and prints no result.
@@ -37,6 +41,7 @@ ROOT = Path(__file__).resolve().parent
 PKG = "moleculardiffusion_mivit_tpu_torch"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -61,8 +66,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events, after warm-up."""
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3, device_only: bool = False) -> float:
+    """Median time of one call between two CUDA events, after warm-up. The
+    card idles while the host prepares and launches, so this includes the
+    wrapper's host time wherever the host is the slower side. With
+    ``device_only`` the card is first kept busy for ~1 ms, the call's
+    launches queue up behind that, and the events bracket their execution
+    alone (for calls whose host time is below that millisecond)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -70,6 +80,8 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -78,9 +90,16 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes: float, flops: float, flops_3xtf32: float = 0.0):
+    """Least time (ms) for ``nbytes`` moved, ``flops`` f32 operations outside
+    the tensor cores and ``flops_3xtf32`` f32-grade operations that the
+    kernel runs as three TF32 tensor-core operations each; and what bounds
+    it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (flops / PEAK_F32_FLOP_PER_S + 3 * flops_3xtf32 / PEAK_TF32_FLOP_PER_S) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes"
+    return t_ops, "operations (3xTF32)" if flops_3xtf32 else "operations"
 
 
 def phase_k1(torch):
@@ -102,6 +121,7 @@ def phase_k1(torch):
         check(bool(torch.isfinite(got).all()), f"K1 S={s}: non-finite frames")
         check(err <= 1e-5 * scale, f"K1 S={s}: max|Δ| {err} > 1e-5·{scale}")
         ms = time_ms(torch, lambda: render_frames(x, y, w, sigma, s, u))
+        device_ms = time_ms(torch, lambda: render_frames(x, y, w, sigma, s, u), device_only=True)
         plain_ms = time_ms(torch, lambda: render_frames_reference(x, y, w, sigma, s, u))
         g_pts = s * u
         nbytes = 4 * (3 * b * p + b * s * s)
@@ -110,10 +130,9 @@ def phase_k1(torch):
         # output pixel and p: one multiply-add
         flops = b * p * (2 * g_pts * 5 + 2 + s) + b * s * s * p * 2
         bound_ms, by = bound(nbytes, flops)
-        rows[s] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-        emit({"phase": "k1", "B": b, "P": p, "S": s, "u": u, "max_abs_err": err,
-              "tol": 1e-5 * scale, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": by})
+        rows[s] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=by)
+        emit({"phase": "k1", "B": b, "P": p, "S": s, "u": u, "tol": 1e-5 * scale, **rows[s]})
     return rows[9]
 
 
@@ -141,15 +160,34 @@ def _embedding_inputs(torch, b, t, s, seed):
 
 
 def _embedding_flops(r, n, e):
-    convs = 9 * 1 * 32 + 9 * 32 * 64 + 9 * 64 * 64 + 32 * 64 + 9 * 64 * 128 + 9 * 128 * 128 + 64 * 128
-    return 2 * r * convs + 2 * n * 128 * e
+    """``(simt, tensor_core)`` f32-grade operations of one forward: the
+    initial conv and the fc run outside the tensor cores, the six convs at
+    32..128 channels on them."""
+    convs = 9 * 32 * 64 + 9 * 64 * 64 + 32 * 64 + 9 * 64 * 128 + 9 * 128 * 128 + 64 * 128
+    return 2 * r * 9 * 1 * 32 + 2 * n * 128 * e, 2 * r * convs
+
+
+def _defined(fe, outs):
+    """The tensors of a K2 or K3 result without the undefined tails of the
+    (7, ., 128) per-BN rows."""
+    flat = []
+    for t in outs:
+        if t.ndim >= 2 and t.shape[0] == 7 and t.shape[-1] == 128:
+            flat += [t[i, ..., :c] for i, (_, c) in enumerate(fe.BN_LAYOUT)]
+        else:
+            flat.append(t)
+    return flat
 
 
 def phase_k2_k3(torch):
     from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
 
     record = None
-    for (b, t, s) in ((1, 30, 9), (16, 30, 9), (1, 10, 13)):
+    # Batch 1, 16 and 13x13 are the timed shapes; batch 8 (19,440 rows, what
+    # cycle 0 of the main path below runs) and batch 4 (9,720 rows) are here
+    # because the conv picks its tile from (rows, channels): between them the
+    # five shapes launch every tile the launcher can choose (conv_rows.cuh).
+    for (b, t, s) in ((1, 30, 9), (16, 30, 9), (1, 10, 13), (8, 30, 9), (4, 30, 9)):
         x, kernels, scales, biases, wfc, bfc = _embedding_inputs(torch, b, t, s, seed=b + t + s)
         leaves = [x, *kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
         emb_k, st_k = fe.fused_deep_resnet_embed(x, kernels, scales, biases, wfc, bfc)
@@ -172,7 +210,8 @@ def phase_k2_k3(torch):
         bi = fe._pack_rows([v.detach() for v in biases.values()]).contiguous()
         xs = x.detach().reshape(n, s, s).contiguous()
         wf, bf = wfc.detach(), bfc.detach()
-        _, _, saved = fe.deep_resnet_embed_fwd(xs, weights, sc, bi, wf, bf)
+        emb_1, stats_1, saved = fe.deep_resnet_embed_fwd(xs, weights, sc, bi, wf, bf)
+        stages_fwd = fe.last_stage_launches()
 
         # Gradients. K3 is held, at 1e-3·max|g| per gradient, against
         # autograd in float64 through the plain version given K2's ReLU
@@ -212,23 +251,51 @@ def phase_k2_k3(torch):
             check(l2 <= 1e-2, f"K3 {b,t,s}: gradient {i} relative L2 {l2} to the plain f32 version")
             err_bwd, worst, worst_l2 = max(err_bwd, ek), max(worst, ek / scale), max(worst_l2, l2)
 
+        # Determinism: a second call of each kernel on the same inputs gives
+        # the same bits (fixed-order reductions, no atomics).
         g2 = g_out.reshape(n, e).contiguous()
+        emb_2, stats_2, saved_2 = fe.deep_resnet_embed_fwd(xs, weights, sc, bi, wf, bf)
+        first = [emb_1, stats_1, *(saved[k] for k, _ in fe.SAVED), saved["pooled"]]
+        second = [emb_2, stats_2, *(saved_2[k] for k, _ in fe.SAVED), saved_2["pooled"]]
+        for i, (u, v) in enumerate(zip(_defined(fe, first), _defined(fe, second))):
+            check(torch.equal(u, v), f"K2 {b,t,s}: output {i} differs between two calls")
+        bwd_1 = fe.deep_resnet_embed_bwd(xs, weights, sc, bi, wf, bf, saved, g2)
+        stages_bwd = fe.last_stage_launches()
+        bwd_2 = fe.deep_resnet_embed_bwd(xs, weights, sc, bi, wf, bf, saved, g2)
+        flat = lambda r: _defined(fe, [r[0], *r[1], *r[2:]])  # noqa: E731
+        for i, (u, v) in enumerate(zip(flat(bwd_1), flat(bwd_2))):
+            check(torch.equal(u, v), f"K3 {b,t,s}: gradient {i} differs between two calls")
+        check(stages_fwd["conv_tensor_core"] == 6 and stages_bwd["conv_tensor_core"] == 6
+              and stages_bwd["wgrad_tensor_core"] == 6, f"tensor-core stages {stages_fwd} {stages_bwd}")
+
         fwd_ms = time_ms(torch, lambda: fe.deep_resnet_embed_fwd(xs, weights, sc, bi, wf, bf))
         bwd_ms = time_ms(torch, lambda: fe.deep_resnet_embed_bwd(xs, weights, sc, bi, wf, bf, saved, g2))
+        fwd_dev_ms = time_ms(torch, lambda: fe.deep_resnet_embed_fwd(xs, weights, sc, bi, wf, bf),
+                             device_only=True)
+        bwd_dev_ms = time_ms(torch, lambda: fe.deep_resnet_embed_bwd(xs, weights, sc, bi, wf, bf, saved, g2),
+                             device_only=True)
         with torch.no_grad():
             plain_fwd_ms = time_ms(torch, lambda: fe.deep_resnet_embed_reference(
                 x, kernels, scales, biases, wfc, bfc))
         plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(emb_r, leaves, g_out, retain_graph=True))
-        flops = _embedding_flops(r, n, e)
+        simt, tensor = _embedding_flops(r, n, e)
         param_bytes = 4 * sum(w.numel() for w in weights) + 4 * (2 * 7 * 128 + 128 * e + e)
-        b2, by2 = bound(4 * r + param_bytes + 4 * n * e + 4 * 7 * 2 * 128, flops)
+        b2, by2 = bound(4 * r + param_bytes + 4 * n * e + 4 * 7 * 2 * 128, simt, tensor)
         # backward: a data-gradient and a weight-gradient product per conv
-        b3, by3 = bound(4 * n * e + 4 * r + param_bytes + 4 * r + param_bytes, 2 * flops)
+        b3, by3 = bound(4 * n * e + 4 * r + param_bytes + 4 * r + param_bytes, 2 * simt, 2 * tensor)
+        f32_bound = lambda k: bound(0, k * (simt + tensor))[0]  # noqa: E731
         row = {"phase": "k2_k3", "B": b, "T": t, "S": s, "rows": r,
+               "deterministic": True,
+               "stage_launches": {"k2": stages_fwd, "k3": stages_bwd,
+                                  "k2_total": sum(stages_fwd.values()),
+                                  "k3_total": sum(stages_bwd.values())},
+               "bound_ms_if_f32_simt": {"k2": f32_bound(1), "k3": f32_bound(2)},
                "k3_worst_rel_err": worst, "k3_worst_rel_l2_to_plain_f32": worst_l2,
                "relu_inputs_off_k2_pattern_f64": flips,
-               "k2": dict(max_abs_err=err_fwd, ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=b2, bound_by=by2),
-               "k3": dict(max_abs_err=err_bwd, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=b3, bound_by=by3)}
+               "k2": dict(max_abs_err=err_fwd, ms=fwd_ms, device_ms=fwd_dev_ms, plain_ms=plain_fwd_ms,
+                          bound_ms=b2, bound_by=by2),
+               "k3": dict(max_abs_err=err_bwd, ms=bwd_ms, device_ms=bwd_dev_ms, plain_ms=plain_bwd_ms,
+                          bound_ms=b3, bound_by=by3)}
         emit(row)
         if (b, t, s) == (16, 30, 9):
             record = row
@@ -328,6 +395,11 @@ def main() -> None:
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
+        # "bytes" or "operations"; which operations were counted goes beside it
+        what, _, detail = k["bound_by"].partition(" ")
+        k["bound_by"] = what
+        if detail:
+            k["bound_operations"] = detail.strip("()")
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

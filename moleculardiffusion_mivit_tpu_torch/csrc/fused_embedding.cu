@@ -1,5 +1,5 @@
 // K2 and K3: the DeepResNetEmbedding training forward and backward for
-// NVIDIA Hopper (sm_90a), plain f32 (no tensor cores).
+// NVIDIA Hopper (sm_90a), on the TF32 tensor cores with f32-grade accuracy.
 //
 // Replaces moleculardiffusion_mivit_tpu/ops/fused_embedding.py:
 //   K2  _core_fwd_impl (body _fwd_kernel / _fwd_stages)
@@ -11,195 +11,259 @@
 // returned so the caller applies the running-stat EMA. The backward gives
 // every parameter gradient and the input gradient.
 //
-// What bounds it on this card: the 3x3 convs at 64 and 128 channels, about
-// 5.7e5 multiply-add FLOP per activation row forward and twice that
-// backward (rows R = batch * frames * S * S; R = 19,440 at batch 8), against
-// 67 TFLOP/s of f32 outside the tensor cores. Activations are 32..128 f32
-// per row, so a whole layer (R * 128 * 4 B = 10 MB at batch 8) is far above
-// a block's 227 KB of shared memory, and training BN needs statistics over
-// all R rows before any row can be normalised. The TPU design (everything
-// resident in 110 MB of VMEM, rolls + masks, recompute in the backward)
-// cannot carry over.
+// What bounds it on this card. The 3x3 convs at 32..128 channels are
+// 2.87e5 multiply-adds per activation row forward and twice that backward
+// (rows R = batch * frames * S * S; 38,880 at batch 16). The port is held
+// to f32 accuracy (gradients to 1e-3 of their maximum against float64), and
+// one TF32 product keeps three digits, so every product runs as three TF32
+// tensor-core products on operands split into a big and a small part
+// (tf32_mma.cuh): the arithmetic bound is 3 * flops / 495 TFLOP/s, 0.135 ms
+// forward and 0.270 ms backward at 38,880 rows, where f32 FMAs outside the
+// tensor cores would need 0.333 / 0.666 ms. The kernels are bound by what
+// surrounds the tensor core, not by it: every product needs its A operand
+// read from shared memory, masked and split, and its result added in f32
+// beside it; mma.sync (the weight gradients, and the convs at few rows)
+// also reads B itself and tops out at ~63% of the data-sheet rate
+// (bench/mma_rate.cu), wgmma (the convs at many rows) reads B from shared
+// memory on its own and leaves the warps the A side and the adds. The
+// 12 saved activations are 4 KB per row (159 MB at 38,880 rows, above the
+// 50 MB L2), so the elementwise passes over them are bound by memory and
+// take about a fifth of the time. At the batch-1 shape (2,430 rows) neither
+// bounds it: the work is ~10 us of arithmetic spread over 22 (forward) and
+// 47 (backward) dependent launches, so the time is latency: of each launch
+// and of the chain of pipeline stages inside each block.
 //
 // Design: a short sequence of launches on the caller's stream, holding
 // activations in device memory in the channels-last (R, C) row layout.
-//  - conv_rows: implicit-GEMM 3x3 SAME (or 1x1) conv, 64x64 output tiles,
-//    K = taps * Cin looped through shared memory in chunks of 16. The halo
-//    is an index computed inside each S x S image (no padding rows, no
-//    masks). With `flip` it reads the weights as the flipped transpose,
-//    which makes the same kernel the data gradient; `add` and `mask` fuse
-//    the residual-gradient sum and the ReLU mask into its epilogue.
-//  - bn_stats: per-block mean and centred sum of squares (two passes over
-//    the block's rows), merged in a fixed order with Chan's formula by a
-//    second small launch: stable at 155k rows where E[x^2]-E[x]^2 cancels,
-//    and deterministic.
+//  - pack_weights: one launch splits the six GEMM-shaped weights into
+//    (big, small) TF32 parts laid out as the tensor core reads them from
+//    shared memory, and for the backward also flips the taps and
+//    transposes, so the data gradient is the same conv kernel.
+//  - conv_rows_tc (conv_rows.cuh): implicit-GEMM 3x3 SAME or 1x1 conv with
+//    wgmma m64nNk8 TF32 (128- and 64-row tiles) or mma.sync m16n8k8 TF32
+//    (32-row tiles, few rows), three products per f32 product. The input slab
+//    of a row tile is loaded once per channel chunk with cp.async and read
+//    by all 9 taps at row offsets; the image border is a per-pixel table of
+//    validity bits; weight tiles are a ring three stages deep. The tile is
+//    chosen from (R, Co) so the grid covers the 132 SMs at 2,430 rows too.
+//    `add` and `mask` fuse the residual-gradient sum and the ReLU mask into
+//    the epilogue. In the forward the epilogue also writes each tile's
+//    per-channel mean and centred sum of squares from the accumulators, so
+//    no pass re-reads a conv output for the BatchNorm statistics.
+//  - bn_stats_final: merges the tile partials (mean, centred sum of squares)
+//    in double about the batch mean, in a fixed order: stable at 155k rows
+//    where E[x^2]-E[x]^2 cancels, deterministic.
 //  - bn_act: BN apply + optional second BN branch (the skip) + ReLU.
-//  - pool_fc / pool_fc_bwd: one block per image.
-//  - wgrad_rows: weight gradients as per-chunk partial products over row
-//    chunks, then a fixed-order sum of the chunks: deterministic, no
+//  - conv0_*: the initial conv (1 input channel) and its gradients are
+//    bandwidth work, not GEMMs: plain SIMT kernels with the same validity
+//    table.
+//  - pool_fc / pool_fc_bwd / fc_wgrad: one block per image; a 16 x 16 tile
+//    of fc weights per block.
+//  - wgrad_rows_tc (conv_rows.cuh): weight gradients as tensor-core products
+//    g^T x slab per row chunk, the 9 taps sharing one slab and one split of
+//    g, then a fixed-order sum of the chunks in double: deterministic, no
 //    atomics on parameter gradients.
 //  - bn_bwd_partial / colsum_final / bn_bwd_apply: BN backward.
-// Every reduction over rows (the BN statistics, the BN-backward sums, the
-// sum of the weight-gradient chunks) accumulates in double: above ~10^4
-// rows the gradients through seven batch-statistics BNs are ill-conditioned
-// enough that float sums cost visible accuracy, and these reductions move
-// few bytes, so the double rate does not bound them.
+// Every reduction over rows beyond one tile (the BN merge, the BN-backward
+// sums, the sum of the weight-gradient chunks) accumulates in double: above
+// ~10^4 rows the gradients through seven batch-statistics BNs are
+// ill-conditioned enough that float sums cost visible accuracy, and these
+// reductions move few bytes, so the double rate does not bound them. Each
+// merge of per-block partials is spread over C / 16 blocks: a single block
+// would pull every partial through one SM.
 // The backward reads the forward's saved pre-BN conv outputs, the post-ReLU
 // activations and the BN statistics (saved by the caller through
 // ctx.save_for_backward) instead of recomputing the forward: device memory
-// is not scarce here (~1 KB per row), and recomputation would double the
+// is not scarce here (~4 KB per row), and recomputation would double the
 // conv work of the backward. x-hat is recomputed from the pre-BN value and
 // the statistics inside each BN-backward kernel rather than stored.
+// Not done here: the 1x1 skip conv shares its input with conv1 but needs
+// its own accumulators, which the 128-register budget of two blocks per SM
+// has no room for, so it stays a launch of its own, and so do the two data
+// gradients that sum into one buffer; the weight gradients stay on mma.sync
+// (wgmma takes a TF32 B operand only with its reduction index contiguous,
+// and here that index is the row, shifted by an odd offset per tap); BN +
+// ReLU are not applied while the next conv loads its slab, because the
+// backward needs the post-ReLU activations in memory anyway.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
+#include "conv_rows.cuh"
+
 namespace {
+
+using conv::ceil_div;
 
 constexpr int C0 = 32, C1 = 64, C2 = 128, CMAX = 128;
 constexpr float kEps = 1e-5f;
-constexpr int BM = 64, BN = 64, BK = 16, NT = 256;
-constexpr int kStatRows = 256;      // rows per block of the BN reductions
-constexpr int kTargetBlocks = 528;  // 4 per SM: grid size the wgrad aims at
+constexpr int NT = 256;
+constexpr int kStatRows = 64;   // rows per block of the SIMT reductions over rows
+constexpr int kFinalThreads = 1024;  // one block merges the per-block partials
+constexpr int kMinTileRows = 32;  // smallest conv tile: most BN partials per row
 
-__device__ __forceinline__ int src_row(int r, int tap, int S, int SS, int taps) {
-  if (taps == 1) return r;
-  const int pix = r % SS;
-  const int h = pix / S;
-  const int w = pix - h * S;
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const int sh = h + dy, sw = w + dx;
-  if (sh < 0 || sh >= S || sw < 0 || sw >= S) return -1;
-  return r + dy * S + dx;
+// The six GEMM-shaped conv weights, in the order of `enum Ptr`.
+struct WeightShape {
+  int taps, ci, co;
+};
+constexpr int kNumPacked = 6;
+constexpr WeightShape kPackedShapes[kNumPacked] = {
+    {9, C0, C1}, {1, C0, C1}, {9, C1, C1}, {9, C1, C2}, {1, C1, C2}, {9, C2, C2}};
+constexpr int packed_floats_before(int n) {
+  int total = 0;
+  for (int i = 0; i < n; ++i)
+    total += 2 * kPackedShapes[i].taps * kPackedShapes[i].ci * kPackedShapes[i].co;
+  return total;
+}
+constexpr int kPackedFloats = packed_floats_before(kNumPacked);
+// Largest set of weight-gradient partials: (target blocks + tiles) * tile.
+constexpr long long kWgradFloats =
+    static_cast<long long>(conv::kWgTargetBlocks + 8) * 9 * conv::CIB * conv::COB;
+
+// Kernel launches of the last entry call, by kind (deep_resnet_last_launches).
+enum Kind {
+  K_PACK, K_CONV_TC, K_CONV0, K_BN_STATS, K_BN_ACT, K_POOL_FC, K_WGRAD_TC, K_WGRAD_SIMT,
+  K_SUM_CHUNKS, K_BN_BWD, NKIND
+};
+int g_launches[NKIND];
+
+inline int launched(Kind k) {
+  ++g_launches[k];
+  return static_cast<int>(cudaGetLastError());
 }
 
-// y[r, c] = mask(add[r, c] + sum_k A[r, k] * B[k, c]), k = (tap, ci),
-// A[r, (tap, ci)] = x[src_row(r, tap), ci], B = w (K, Co) or, with flip, the
-// tap-flipped transpose of a (taps * Co, Ci) weight.
-__global__ void __launch_bounds__(NT) conv_rows_kernel(
-    const float* __restrict__ x, const float* __restrict__ w, const float* add,
-    const float* __restrict__ mask, float* y, int R, int S, int Ci, int Co,
-    int taps, int flip) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const int K = taps * Ci, SS = S * S;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int m = i / BK, kk = i % BK;
-      const int r = row0 + m, k = k0 + kk;
-      float v = 0.f;
-      if (r < R && k < K) {
-        const int tap = k / Ci, ci = k - tap * Ci;
-        const int s = src_row(r, tap, S, SS, taps);
-        if (s >= 0) v = x[static_cast<size_t>(s) * Ci + ci];
-      }
-      As[kk][m] = v;
+struct PackItem {
+  const float* src;
+  float* dst;
+  int taps, K, N;
+};
+struct PackList {
+  PackItem item[kNumPacked];
+};
+
+// dst = the GEMM operand B[tap][k][n] of a conv weight stored (taps, ci, co),
+// split as big = tf32(w), small = tf32(w - big) (big + small = w to 2^-21,
+// relative) and laid out as conv_rows_tc_kernel reads it:
+// [tap][K / 8][big, small][N / 8][2][8][4], each [8][4] a core matrix of
+// column n0 + r at rows k0 + 2 q + h (h the half, r the column, q the float).
+// Forward: K = ci, N = co, B = w. With flip (the data gradient): K = co,
+// N = ci, B[tap][k][n] = w[taps - 1 - tap][n][k].
+__global__ void pack_weights_kernel(PackList list, int flip) {
+  const PackItem it = list.item[blockIdx.y];
+  const int nb = it.N / 8, kb = it.K / 8;
+  const int n = it.taps * kb * nb * 16;  // one thread per core-matrix row: (tap, kb, nb, h, r)
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int r = i % 8, h = (i / 8) % 2, blk = i / 16;
+    const int col = (blk % nb) * 8 + r;
+    const int k0 = ((blk / nb) % kb) * 8 + h;
+    const int tap = blk / (nb * kb);
+    float big[4], small[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + 2 * q;
+      const float v = flip ? it.src[((it.taps - 1 - tap) * it.N + col) * it.K + k]
+                           : it.src[(tap * it.K + k) * it.N + col];
+      uint32_t b, s;
+      tc::split_tf32(v, b, s);
+      big[q] = __uint_as_float(b);
+      small[q] = __uint_as_float(tc::to_tf32(__uint_as_float(s)));
     }
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int kk = i / BN, n = i % BN;
-      const int k = k0 + kk, c = col0 + n;
-      float v = 0.f;
-      if (k < K && c < Co) {
-        if (flip) {
-          const int tap = k / Ci, ci = k - tap * Ci;
-          v = w[(static_cast<size_t>(taps - 1 - tap) * Co + c) * Ci + ci];
-        } else {
-          v = w[static_cast<size_t>(k) * Co + c];
-        }
-      }
-      Bs[kk][n] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= Co) continue;
-      const size_t o = static_cast<size_t>(r) * Co + c;
-      float v = acc[i][j];
-      if (add) v += add[o];
-      if (mask && !(mask[o] > 0.f)) v = 0.f;
-      y[o] = v;
-    }
+    // float4 index of (tap, kb, part, nb, h, r)
+    const int o = ((blk / nb) * 2 * nb + blk % nb) * 16 + h * 8 + r;
+    reinterpret_cast<float4*>(it.dst)[o] = make_float4(big[0], big[1], big[2], big[3]);
+    reinterpret_cast<float4*>(it.dst)[o + nb * 16] =
+        make_float4(small[0], small[1], small[2], small[3]);
   }
 }
 
-// partial[chunk, k, c] = sum over the chunk's rows r of A[r, k] * g[r, c]
-__global__ void __launch_bounds__(NT) wgrad_rows_kernel(
-    const float* __restrict__ x, const float* __restrict__ g,
-    float* __restrict__ partial, int R, int S, int Ci, int Co, int taps,
-    int rows_per_chunk) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Gs[BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * BM, c0 = blockIdx.y * BN, chunk = blockIdx.z;
-  const int K = taps * Ci, SS = S * S;
-  const int r_begin = chunk * rows_per_chunk;
-  const int r_end = min(R, r_begin + rows_per_chunk);
-  float acc[4][4] = {};
-  for (int rb = r_begin; rb < r_end; rb += BK) {
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int kk = i % BM, rr = i / BM;
-      const int r = rb + rr, k = k0 + kk;
-      float v = 0.f;
-      if (r < r_end && k < K) {
-        const int tap = k / Ci, ci = k - tap * Ci;
-        const int s = src_row(r, tap, S, SS, taps);
-        if (s >= 0) v = x[static_cast<size_t>(s) * Ci + ci];
-      }
-      As[rr][kk] = v;
-    }
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int cc = i % BN, rr = i / BN;
-      const int r = rb + rr, c = c0 + cc;
-      Gs[rr][cc] = (r < r_end && c < Co) ? g[static_cast<size_t>(r) * Co + c] : 0.f;
-    }
-    __syncthreads();
+__device__ __forceinline__ int tap_offset(int t, int S) { return (t / 3 - 1) * S + (t % 3 - 1); }
+
+// Initial conv, 1 -> 32 channels: z[r, c] = sum_t x[r + off(t)] * w[t, c].
+__global__ void __launch_bounds__(NT) conv0_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ z,
+    const int* __restrict__ valid, int R, int S) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= R * C0) return;
+  const int r = i / C0, c = i % C0;
+  const int vm = valid[r % (S * S)];
+  float acc = 0.f;
 #pragma unroll
-    for (int rr = 0; rr < BK; ++rr) {
-      float a[4], b[4];
+  for (int t = 0; t < 9; ++t)
+    if ((vm >> t) & 1) acc = fmaf(x[r + tap_offset(t, S)], w[t * C0 + c], acc);
+  z[i] = acc;
+}
+
+// Its data gradient, one warp per pixel:
+// gx[r] = sum_{t, c} d[r + off(t), c] * w[8 - t, c].
+__global__ void __launch_bounds__(NT) conv0_dgrad_kernel(
+    const float* __restrict__ d, const float* __restrict__ w, float* __restrict__ gx,
+    const int* __restrict__ valid, int R, int S) {
+  const int r = (blockIdx.x * NT + threadIdx.x) / 32, lane = threadIdx.x % 32;
+  if (r >= R) return;
+  const int vm = valid[r % (S * S)];
+  float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[rr][ty * 4 + i];
+  for (int t = 0; t < 9; ++t)
+    if ((vm >> t) & 1)
+      s = fmaf(d[static_cast<size_t>(r + tap_offset(t, S)) * C0 + lane], w[(8 - t) * C0 + lane], s);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Gs[rr][tx * 4 + j];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) gx[r] = s;
+}
+
+// Its weight gradient: partial[chunk, t, c] = sum over the chunk's rows of
+// x[r + off(t)] * d[r, c].
+__global__ void __launch_bounds__(NT) conv0_wgrad_kernel(
+    const float* __restrict__ x, const float* __restrict__ d, float* __restrict__ partial,
+    const int* __restrict__ valid, int R, int S, int rows_per_chunk) {
+  __shared__ float red[NT / C0][9][C0];
+  const int c = threadIdx.x % C0, lane = threadIdx.x / C0;
+  const int r_begin = blockIdx.x * rows_per_chunk, r_end = min(R, r_begin + rows_per_chunk);
+  const int SS = S * S;
+  float acc[9] = {};
+  for (int r = r_begin + lane; r < r_end; r += NT / C0) {
+    const float g = d[static_cast<size_t>(r) * C0 + c];
+    const int vm = valid[r % SS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int t = 0; t < 9; ++t)
+      if ((vm >> t) & 1) acc[t] = fmaf(x[r + tap_offset(t, S)], g, acc[t]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (c < Co) partial[(static_cast<size_t>(chunk) * K + k) * Co + c] = acc[i][j];
-    }
+  for (int t = 0; t < 9; ++t) red[lane][t][c] = acc[t];
+  __syncthreads();
+  for (int i = threadIdx.x; i < 9 * C0; i += NT) {
+    float s = 0.f;
+    for (int l = 0; l < NT / C0; ++l) s += red[l][i / C0][i % C0];
+    partial[static_cast<size_t>(blockIdx.x) * 9 * C0 + i] = s;
   }
+}
+
+// out[c, e] = sum_n pooled[n, c] * g[n, e]: a 16 x 16 tile of fc weights per
+// block, the images brought through shared memory 32 at a time; f32 within
+// a batch of 32, double across batches.
+__global__ void __launch_bounds__(NT) fc_wgrad_kernel(
+    const float* __restrict__ pooled, const float* __restrict__ g, float* __restrict__ out,
+    int N, int E) {
+  __shared__ float p_s[32][16 + 1];
+  __shared__ float g_s[32][16 + 1];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int c0 = blockIdx.x * 16, e0 = blockIdx.y * 16;
+  double total = 0.0;
+  for (int n0 = 0; n0 < N; n0 += 32) {
+    for (int i = threadIdx.x; i < 32 * 16; i += NT) {
+      const int r = i / 16, col = i % 16, n = n0 + r;
+      p_s[r][col] = n < N ? pooled[static_cast<size_t>(n) * C2 + c0 + col] : 0.f;
+      g_s[r][col] = n < N && e0 + col < E ? g[static_cast<size_t>(n) * E + e0 + col] : 0.f;
+    }
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) s = fmaf(p_s[r][ty], g_s[r][tx], s);
+    total += s;
+    __syncthreads();
+  }
+  if (e0 + tx < E) out[static_cast<size_t>(c0 + ty) * E + e0 + tx] = static_cast<float>(total);
 }
 
 __global__ void sum_chunks_kernel(const float* __restrict__ partial,
@@ -212,7 +276,9 @@ __global__ void sum_chunks_kernel(const float* __restrict__ partial,
 }
 
 // Per block of kStatRows rows: partial[blk, 0, c] = mean, [blk, 1, c] =
-// centred sum of squares, accumulated in double. Needs C <= NT.
+// centred sum of squares, accumulated in double. Needs C <= NT. Used for the
+// initial conv's output; the tensor-core convs write the same partials per
+// tile from their epilogue.
 __global__ void __launch_bounds__(NT) bn_stats_partial_kernel(
     const float* __restrict__ z, double* __restrict__ partial, int R, int C) {
   __shared__ double red[NT];
@@ -248,24 +314,62 @@ __global__ void __launch_bounds__(NT) bn_stats_partial_kernel(
   }
 }
 
-// Chan's merge of the block partials, in block order.
+// The kernels that merge per-block partials give kFinalCols columns to a
+// block and split the blocks to merge among kFinalThreads / kFinalCols lanes:
+// one block alone would pull every partial through a single SM.
+constexpr int kFinalCols = 16, kFinalLanes = kFinalThreads / kFinalCols;
+
+// Sum over the lanes' values for the thread's column, in two levels of 8 in
+// lane order (fixed, so the result does not depend on timing). All threads
+// of the block call it.
+__device__ __forceinline__ double sum_over_lanes(double v, double* buf) {
+  static_assert(kFinalLanes == 64, "two levels of 8");
+  const int col = threadIdx.x % kFinalCols, lane = threadIdx.x / kFinalCols;
+  __syncthreads();  // buf may still be read from a previous call
+  buf[threadIdx.x] = v;
+  __syncthreads();
+  double t = 0.0;
+  if (lane < 8)
+    for (int l = 0; l < 8; ++l) t += buf[(lane * 8 + l) * kFinalCols + col];
+  __syncthreads();
+  if (lane < 8) buf[threadIdx.x] = t;
+  __syncthreads();
+  t = 0.0;
+  for (int l = 0; l < 8; ++l) t += buf[l * kFinalCols + col];
+  return t;
+}
+
+// Merge of the partials (mean_b, centred sum of squares m2_b) of `nblk`
+// blocks of `block_rows` rows (the last one shorter) into the batch
+// statistics: mean = sum n_b mean_b / R, then
+// var = sum (m2_b + n_b (mean_b - mean)^2) / R, the pairwise-update formula
+// written about the final mean: no E[x^2] - E[x]^2 cancellation, stable at
+// 155k rows. In double: each lane sums a contiguous run of blocks in order,
+// then the lanes are summed in order. Grid C / kFinalCols.
 // st[0:C] = mean, st[CMAX:CMAX+C] = biased var, st[2*CMAX:2*CMAX+C] = rstd
-__global__ void bn_stats_final_kernel(const double* __restrict__ partial,
-                                      float* __restrict__ st, int nblk, int R,
-                                      int C) {
-  const int c = threadIdx.x;
-  if (c >= C) return;
-  double n_a = 0.0, mean = 0.0, m2 = 0.0;
-  for (int b = 0; b < nblk; ++b) {
-    const double n_b = min(kStatRows, R - b * kStatRows);
-    const double mb = partial[(static_cast<size_t>(b) * 2) * C + c];
-    const double m2b = partial[(static_cast<size_t>(b) * 2 + 1) * C + c];
-    const double n = n_a + n_b;
-    const double delta = mb - mean;
-    mean += delta * (n_b / n);
-    m2 += m2b + delta * delta * (n_a * n_b / n);
-    n_a = n;
+__global__ void __launch_bounds__(kFinalThreads) bn_stats_final_kernel(
+    const double* __restrict__ partial, float* __restrict__ st, int nblk, int block_rows, int R,
+    int C) {
+  __shared__ double buf[kFinalThreads];
+  const int c = blockIdx.x * kFinalCols + threadIdx.x % kFinalCols;
+  const int lane = threadIdx.x / kFinalCols;
+  const int per = (nblk + kFinalLanes - 1) / kFinalLanes;
+  const int b0 = min(nblk, lane * per), b1 = min(nblk, b0 + per);
+  double s = 0.0;
+#pragma unroll 4
+  for (int b = b0; b < b1; ++b)
+    s = fma(static_cast<double>(min(block_rows, R - b * block_rows)),
+            partial[(static_cast<size_t>(b) * 2) * C + c], s);
+  const double mean = sum_over_lanes(s, buf) / R;
+  s = 0.0;
+#pragma unroll 4
+  for (int b = b0; b < b1; ++b) {
+    const double d = partial[(static_cast<size_t>(b) * 2) * C + c] - mean;
+    s += fma(static_cast<double>(min(block_rows, R - b * block_rows)), d * d,
+             partial[(static_cast<size_t>(b) * 2 + 1) * C + c]);
   }
+  const double m2 = sum_over_lanes(s, buf);
+  if (lane != 0) return;
   const float var = static_cast<float>(m2 / R);
   st[c] = static_cast<float>(mean);
   st[CMAX + c] = var;
@@ -288,7 +392,9 @@ __global__ void bn_act_kernel(const float* __restrict__ za, const float* __restr
 }
 
 // partial[blk, 0, c] = sum g, [blk, 1, c] = sum g * xhat (xhat from z, st;
-// skipped when z is null), accumulated in double. Needs C <= NT.
+// skipped when z is null) over the block's kStatRows rows. Each thread sums
+// its rows in four independent f32 chains (at most kStatRows / 4 terms each);
+// everything beyond that accumulates in double. Needs C <= NT.
 __global__ void __launch_bounds__(NT) bn_bwd_partial_kernel(
     const float* __restrict__ g, const float* __restrict__ z,
     const float* __restrict__ st, double* __restrict__ partial, int R, int C) {
@@ -296,17 +402,23 @@ __global__ void __launch_bounds__(NT) bn_bwd_partial_kernel(
   __shared__ double red1[NT];
   const int c = threadIdx.x % C, lane = threadIdx.x / C, lanes = NT / C;
   const int r0 = blockIdx.x * kStatRows, r1 = min(R, r0 + kStatRows);
-  double s0 = 0.0, s1 = 0.0;
+  float a0[4] = {}, a1[4] = {};
   if (lane < lanes) {
     const float mean = z ? st[c] : 0.f, rstd = z ? st[2 * CMAX + c] : 0.f;
-    for (int r = r0 + lane; r < r1; r += lanes) {
-      const size_t o = static_cast<size_t>(r) * C + c;
-      s0 += g[o];
-      if (z) s1 = fma(static_cast<double>(g[o]), static_cast<double>((z[o] - mean) * rstd), s1);
+    for (int r = r0 + lane; r < r1; r += 4 * lanes) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int rr = r + u * lanes;
+        if (rr >= r1) continue;
+        const size_t o = static_cast<size_t>(rr) * C + c;
+        const float gv = g[o];
+        a0[u] += gv;
+        if (z) a1[u] = fmaf(gv, (z[o] - mean) * rstd, a1[u]);
+      }
     }
   }
-  red0[threadIdx.x] = s0;
-  red1[threadIdx.x] = s1;
+  red0[threadIdx.x] = (static_cast<double>(a0[0]) + a0[1]) + (static_cast<double>(a0[2]) + a0[3]);
+  red1[threadIdx.x] = (static_cast<double>(a1[0]) + a1[1]) + (static_cast<double>(a1[2]) + a1[3]);
   __syncthreads();
   if (lane == 0) {
     double t0 = 0.0, t1 = 0.0;
@@ -319,16 +431,26 @@ __global__ void __launch_bounds__(NT) bn_bwd_partial_kernel(
   }
 }
 
-__global__ void colsum_final_kernel(const double* __restrict__ partial,
-                                    float* __restrict__ out0, float* __restrict__ out1,
-                                    int nblk, int C) {
-  const int c = threadIdx.x;
-  if (c >= C) return;
+// Sums of the per-block partials, in double: each lane sums a contiguous
+// run of blocks in order, then the lanes are summed in order. Grid
+// ceil(C / kFinalCols).
+__global__ void __launch_bounds__(kFinalThreads) colsum_final_kernel(
+    const double* __restrict__ partial, float* __restrict__ out0, float* __restrict__ out1,
+    int nblk, int C) {
+  __shared__ double buf[kFinalThreads];
+  const int c = blockIdx.x * kFinalCols + threadIdx.x % kFinalCols;
+  const int lane = threadIdx.x / kFinalCols;
+  const int per = (nblk + kFinalLanes - 1) / kFinalLanes;
+  const int b0 = c < C ? min(nblk, lane * per) : nblk, b1 = min(nblk, b0 + per);
   double t0 = 0.0, t1 = 0.0;
-  for (int b = 0; b < nblk; ++b) {
+#pragma unroll 4
+  for (int b = b0; b < b1; ++b) {
     t0 += partial[(static_cast<size_t>(b) * 2) * C + c];
     t1 += partial[(static_cast<size_t>(b) * 2 + 1) * C + c];
   }
+  t0 = sum_over_lanes(t0, buf);
+  t1 = sum_over_lanes(t1, buf);
+  if (lane != 0 || c >= C) return;
   out0[c] = static_cast<float>(t0);
   if (out1) out1[c] = static_cast<float>(t1);
 }
@@ -397,67 +519,108 @@ __global__ void pool_fc_bwd_kernel(const float* __restrict__ g, const float* __r
     if (e_ != 0) return e_;          \
   } while (0)
 
-inline int ceil_div(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
-
 inline int elementwise_blocks(int R, int C) {
-  return std::min(ceil_div(static_cast<long long>(R) * C, NT), 132 * 16);
+  return std::min(ceil_div(static_cast<long long>(R) * C, NT), conv::kSMs * 16);
 }
 
-int conv(const float* x, const float* w, const float* add, const float* mask, float* y,
-         int R, int S, int Ci, int Co, int taps, int flip, cudaStream_t st) {
-  dim3 grid(ceil_div(R, BM), ceil_div(Co, BN));
-  conv_rows_kernel<<<grid, NT, 0, st>>>(x, w, add, mask, y, R, S, Ci, Co, taps, flip);
-  return static_cast<int>(cudaGetLastError());
+// Floats of the BN-partial region of the scratch: doubles for the smallest
+// conv tile and for the kStatRows-row SIMT reductions.
+inline long long stat_floats(int R) {
+  const long long tiles = 2LL * ceil_div(R, kMinTileRows) * CMAX;
+  const long long blocks = 2LL * ceil_div(R, kStatRows) * NT;
+  return 2 * std::max(tiles, blocks);
 }
 
-int wgrad(const float* x, const float* g, float* out, float* scratch, int R, int S, int Ci,
-          int Co, int taps, cudaStream_t st) {
-  const int K = taps * Ci;
-  const int tiles = ceil_div(K, BM) * ceil_div(Co, BN);
-  int chunks = std::max(1, std::min(ceil_div(R, BK), ceil_div(kTargetBlocks, tiles)));
-  const int rows_per_chunk = ceil_div(ceil_div(R, chunks), BK) * BK;
-  chunks = ceil_div(R, rows_per_chunk);
-  dim3 grid(ceil_div(K, BM), ceil_div(Co, BN), chunks);
-  wgrad_rows_kernel<<<grid, NT, 0, st>>>(x, g, scratch, R, S, Ci, Co, taps, rows_per_chunk);
-  CHECK(static_cast<int>(cudaGetLastError()));
-  sum_chunks_kernel<<<ceil_div(K * Co, NT), NT, 0, st>>>(scratch, out, K * Co, chunks);
-  return static_cast<int>(cudaGetLastError());
+// What every launcher needs of one entry call. The scratch holds, in order,
+// the BN partials (doubles), the packed weights and the weight-gradient
+// partials.
+struct Call {
+  int R, S;
+  cudaStream_t st;
+  const int* valid;
+  double* stat;
+  float* packed;
+  float* wg;
+  const float* w[kNumPacked];  // packed GEMM operands, in kPackedShapes order
+
+  Call(void* const* p, int n, int s, void* stream, int scratch_index, int valid_index)
+      : R(n * s * s), S(s), st(static_cast<cudaStream_t>(stream)),
+        valid(static_cast<const int*>(p[valid_index])) {
+    float* scratch = static_cast<float*>(p[scratch_index]);
+    stat = reinterpret_cast<double*>(scratch);
+    packed = scratch + stat_floats(R);
+    wg = packed + kPackedFloats;
+    for (int i = 0; i < kNumPacked; ++i) w[i] = packed + packed_floats_before(i);
+  }
+};
+
+int pack_weights(const Call& c, void* const* p, int first_weight, int flip) {
+  PackList list;
+  int largest = 0;
+  for (int i = 0; i < kNumPacked; ++i) {
+    const WeightShape s = kPackedShapes[i];
+    list.item[i] = {static_cast<const float*>(p[first_weight + i]),
+                    c.packed + packed_floats_before(i), s.taps, flip ? s.co : s.ci,
+                    flip ? s.ci : s.co};
+    largest = std::max(largest, s.taps * s.ci * s.co);
+  }
+  pack_weights_kernel<<<dim3(ceil_div(largest, 4 * NT), kNumPacked), NT, 0, c.st>>>(list, flip);
+  return launched(K_PACK);
 }
 
-int bn_stats(const float* z, float* stats, float* scratch, int R, int C, cudaStream_t st) {
-  const int nblk = ceil_div(R, kStatRows);
-  double* partial = reinterpret_cast<double*>(scratch);
-  bn_stats_partial_kernel<<<nblk, NT, 0, st>>>(z, partial, R, C);
-  CHECK(static_cast<int>(cudaGetLastError()));
-  bn_stats_final_kernel<<<1, NT, 0, st>>>(partial, stats, nblk, R, C);
-  return static_cast<int>(cudaGetLastError());
+// Tensor-core conv; with `stats` also the BN statistics of its output.
+int conv_tc(const Call& c, const float* x, const float* wp, const float* add, const float* mask,
+            float* y, float* stats, int Ci, int Co, int taps) {
+  int bm = 0;
+  CHECK(conv::launch_conv(x, wp, add, mask, y, stats ? c.stat : nullptr, c.valid, c.R, c.S, Ci,
+                          Co, taps, &bm, c.st));
+  ++g_launches[K_CONV_TC];
+  if (!stats) return 0;
+  bn_stats_final_kernel<<<Co / kFinalCols, kFinalThreads, 0, c.st>>>(c.stat, stats, ceil_div(c.R, bm), bm, c.R, Co);
+  return launched(K_BN_STATS);
 }
 
-int bn_act(const float* za, const float* sta, const float* sca, const float* bia,
+int sum_chunks(const Call& c, float* out, int n, int chunks) {
+  sum_chunks_kernel<<<ceil_div(n, NT), NT, 0, c.st>>>(c.wg, out, n, chunks);
+  return launched(K_SUM_CHUNKS);
+}
+
+int wgrad_tc(const Call& c, const float* x, const float* g, float* out, int Ci, int Co,
+             int taps) {
+  int chunks = 0;
+  if (taps == 9) {
+    CHECK(conv::launch_wgrad<9>(x, g, c.wg, c.valid, c.R, c.S, Ci, Co, &chunks, c.st));
+  } else {
+    CHECK(conv::launch_wgrad<1>(x, g, c.wg, c.valid, c.R, c.S, Ci, Co, &chunks, c.st));
+  }
+  ++g_launches[K_WGRAD_TC];
+  return sum_chunks(c, out, taps * Ci * Co, chunks);
+}
+
+int bn_act(const Call& c, const float* za, const float* sta, const float* sca, const float* bia,
            const float* zb, const float* stb, const float* scb, const float* bib, float* out,
-           int R, int C, cudaStream_t st) {
-  bn_act_kernel<<<elementwise_blocks(R, C), NT, 0, st>>>(za, sta, sca, bia, zb, stb, scb, bib,
-                                                         out, R, C);
-  return static_cast<int>(cudaGetLastError());
+           int C) {
+  bn_act_kernel<<<elementwise_blocks(c.R, C), NT, 0, c.st>>>(za, sta, sca, bia, zb, stb, scb,
+                                                             bib, out, c.R, C);
+  return launched(K_BN_ACT);
 }
 
 // Column sums of g and of g * xhat into out0 (d bias) and out1 (d scale).
-int colsum(const float* g, const float* z, const float* stats, float* out0, float* out1,
-           float* scratch, int R, int C, cudaStream_t st) {
-  const int nblk = ceil_div(R, kStatRows);
-  double* partial = reinterpret_cast<double*>(scratch);
-  bn_bwd_partial_kernel<<<nblk, NT, 0, st>>>(g, z, stats, partial, R, C);
-  CHECK(static_cast<int>(cudaGetLastError()));
-  colsum_final_kernel<<<1, NT, 0, st>>>(partial, out0, out1, nblk, C);
-  return static_cast<int>(cudaGetLastError());
+int colsum(const Call& c, const float* g, const float* z, const float* stats, float* out0,
+           float* out1, int rows, int C) {
+  const int nblk = ceil_div(rows, kStatRows);
+  bn_bwd_partial_kernel<<<nblk, NT, 0, c.st>>>(g, z, stats, c.stat, rows, C);
+  CHECK(launched(K_BN_BWD));
+  colsum_final_kernel<<<ceil_div(C, kFinalCols), kFinalThreads, 0, c.st>>>(c.stat, out0, out1, nblk, C);
+  return launched(K_BN_BWD);
 }
 
-int bn_bwd(const float* g, const float* z, const float* stats, const float* sc, float* dsc,
-           float* dbi, float* out, float* scratch, int R, int C, cudaStream_t st) {
-  CHECK(colsum(g, z, stats, dbi, dsc, scratch, R, C, st));
-  bn_bwd_apply_kernel<<<elementwise_blocks(R, C), NT, 0, st>>>(g, z, stats, sc, dbi, dsc, out,
-                                                               R, C);
-  return static_cast<int>(cudaGetLastError());
+int bn_bwd(const Call& c, const float* g, const float* z, const float* stats, const float* sc,
+           float* dsc, float* dbi, float* out, int C) {
+  CHECK(colsum(c, g, z, stats, dbi, dsc, c.R, C));
+  bn_bwd_apply_kernel<<<elementwise_blocks(c.R, C), NT, 0, c.st>>>(g, z, stats, sc, dbi, dsc,
+                                                                   out, c.R, C);
+  return launched(K_BN_BWD);
 }
 
 }  // namespace
@@ -468,11 +631,12 @@ extern "C" {
 // builds it from the same list). Weights keep the JAX layout: 3x3 kernels
 // tap-major (9 * cin, cout), 1x1 kernels (cin, cout), fc (128, E); BN scales
 // and biases packed (7, 128) in BN_LAYOUT order; stats (7, 3, 128) =
-// mean, biased var, rstd per BN.
+// mean, biased var, rstd per BN; VALID the S*S tap-validity words (bit t set
+// where tap t of that pixel reads inside the image).
 enum Ptr {
   X, WI, W1C1, W1SK, W1C2, W2C1, W2SK, W2C2, SC, BI, WFC, BFC,
   Z0, A, Z1P, Z1, Z2P, IP1, Y1, Z1BP, Z1B, Z2BP, IP2, Y2, POOLED, STATS,
-  EMB, SCRATCH,
+  EMB, SCRATCH, VALID,
   GEMB, GX, GWI, GW1C1, GW1SK, GW1C2, GW2C1, GW2SK, GW2C2, GSC, GBI, GWFC, GBFC,
   BUF_G, BUF_D1, BUF_D2,
   NPTR
@@ -482,95 +646,113 @@ int deep_resnet_num_ptrs() { return NPTR; }
 
 // Floats of scratch either entry needs for R activation rows.
 long long deep_resnet_scratch_floats(int R) {
-  const long long bn = 4LL * ceil_div(R, kStatRows) * NT;  // doubles
-  const long long wg = static_cast<long long>(kTargetBlocks + 64) * BM * BN;
-  return bn > wg ? bn : wg;
+  return stat_floats(R) + kPackedFloats + kWgradFloats;
+}
+
+// Kernel launches the last call of either entry made, by kind, in the
+// order of `enum Kind`; returns the number of kinds.
+int deep_resnet_last_launches(int* out) {
+  for (int k = 0; k < NKIND; ++k) out[k] = g_launches[k];
+  return NKIND;
 }
 
 int deep_resnet_embed_fwd(void* const* p, int N, int S, int E, void* stream) {
   auto f = [p](int i) { return static_cast<float*>(p[i]); };
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int R = N * S * S;
+  const Call c(p, N, S, stream, SCRATCH, VALID);
+  std::fill(g_launches, g_launches + NKIND, 0);
+  const int R = c.R;
   float* sc = f(SC);
   float* bi = f(BI);
   float* stats = f(STATS);
-  float* scr = f(SCRATCH);
   auto S_ = [&](int i) { return stats + i * 3 * CMAX; };
   auto SC_ = [&](int i) { return sc + i * CMAX; };
   auto BI_ = [&](int i) { return bi + i * CMAX; };
+  const float* none = nullptr;
 
-  CHECK(conv(f(X), f(WI), nullptr, nullptr, f(Z0), R, S, 1, C0, 9, 0, st));
-  CHECK(bn_stats(f(Z0), S_(0), scr, R, C0, st));
-  CHECK(bn_act(f(Z0), S_(0), SC_(0), BI_(0), nullptr, nullptr, nullptr, nullptr, f(A), R, C0, st));
+  CHECK(pack_weights(c, p, W1C1, 0));
 
-  CHECK(conv(f(A), f(W1C1), nullptr, nullptr, f(Z1P), R, S, C0, C1, 9, 0, st));
-  CHECK(bn_stats(f(Z1P), S_(1), scr, R, C1, st));
-  CHECK(bn_act(f(Z1P), S_(1), SC_(1), BI_(1), nullptr, nullptr, nullptr, nullptr, f(Z1), R, C1, st));
-  CHECK(conv(f(Z1), f(W1C2), nullptr, nullptr, f(Z2P), R, S, C1, C1, 9, 0, st));
-  CHECK(bn_stats(f(Z2P), S_(2), scr, R, C1, st));
-  CHECK(conv(f(A), f(W1SK), nullptr, nullptr, f(IP1), R, S, C0, C1, 1, 0, st));
-  CHECK(bn_stats(f(IP1), S_(3), scr, R, C1, st));
-  CHECK(bn_act(f(Z2P), S_(2), SC_(2), BI_(2), f(IP1), S_(3), SC_(3), BI_(3), f(Y1), R, C1, st));
+  conv0_fwd_kernel<<<ceil_div(static_cast<long long>(R) * C0, NT), NT, 0, c.st>>>(
+      f(X), f(WI), f(Z0), c.valid, R, S);
+  CHECK(launched(K_CONV0));
+  bn_stats_partial_kernel<<<ceil_div(R, kStatRows), NT, 0, c.st>>>(f(Z0), c.stat, R, C0);
+  CHECK(launched(K_BN_STATS));
+  bn_stats_final_kernel<<<C0 / kFinalCols, kFinalThreads, 0, c.st>>>(c.stat, S_(0), ceil_div(R, kStatRows), kStatRows, R, C0);
+  CHECK(launched(K_BN_STATS));
+  CHECK(bn_act(c, f(Z0), S_(0), SC_(0), BI_(0), none, none, none, none, f(A), C0));
 
-  CHECK(conv(f(Y1), f(W2C1), nullptr, nullptr, f(Z1BP), R, S, C1, C2, 9, 0, st));
-  CHECK(bn_stats(f(Z1BP), S_(4), scr, R, C2, st));
-  CHECK(bn_act(f(Z1BP), S_(4), SC_(4), BI_(4), nullptr, nullptr, nullptr, nullptr, f(Z1B), R, C2, st));
-  CHECK(conv(f(Z1B), f(W2C2), nullptr, nullptr, f(Z2BP), R, S, C2, C2, 9, 0, st));
-  CHECK(bn_stats(f(Z2BP), S_(5), scr, R, C2, st));
-  CHECK(conv(f(Y1), f(W2SK), nullptr, nullptr, f(IP2), R, S, C1, C2, 1, 0, st));
-  CHECK(bn_stats(f(IP2), S_(6), scr, R, C2, st));
-  CHECK(bn_act(f(Z2BP), S_(5), SC_(5), BI_(5), f(IP2), S_(6), SC_(6), BI_(6), f(Y2), R, C2, st));
+  CHECK(conv_tc(c, f(A), c.w[0], none, none, f(Z1P), S_(1), C0, C1, 9));
+  CHECK(bn_act(c, f(Z1P), S_(1), SC_(1), BI_(1), none, none, none, none, f(Z1), C1));
+  CHECK(conv_tc(c, f(Z1), c.w[2], none, none, f(Z2P), S_(2), C1, C1, 9));
+  CHECK(conv_tc(c, f(A), c.w[1], none, none, f(IP1), S_(3), C0, C1, 1));
+  CHECK(bn_act(c, f(Z2P), S_(2), SC_(2), BI_(2), f(IP1), S_(3), SC_(3), BI_(3), f(Y1), C1));
 
-  pool_fc_kernel<<<N, C2, 0, st>>>(f(Y2), f(WFC), f(BFC), f(POOLED), f(EMB), S * S, E);
-  return static_cast<int>(cudaGetLastError());
+  CHECK(conv_tc(c, f(Y1), c.w[3], none, none, f(Z1BP), S_(4), C1, C2, 9));
+  CHECK(bn_act(c, f(Z1BP), S_(4), SC_(4), BI_(4), none, none, none, none, f(Z1B), C2));
+  CHECK(conv_tc(c, f(Z1B), c.w[5], none, none, f(Z2BP), S_(5), C2, C2, 9));
+  CHECK(conv_tc(c, f(Y1), c.w[4], none, none, f(IP2), S_(6), C1, C2, 1));
+  CHECK(bn_act(c, f(Z2BP), S_(5), SC_(5), BI_(5), f(IP2), S_(6), SC_(6), BI_(6), f(Y2), C2));
+
+  pool_fc_kernel<<<N, C2, 0, c.st>>>(f(Y2), f(WFC), f(BFC), f(POOLED), f(EMB), S * S, E);
+  return launched(K_POOL_FC);
 }
 
 int deep_resnet_embed_bwd(void* const* p, int N, int S, int E, void* stream) {
   auto f = [p](int i) { return static_cast<float*>(p[i]); };
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int R = N * S * S;
+  const Call c(p, N, S, stream, SCRATCH, VALID);
+  std::fill(g_launches, g_launches + NKIND, 0);
+  const int R = c.R;
   float* stats = f(STATS);
-  float* scr = f(SCRATCH);
   float* G = f(BUF_G);
   float* D1 = f(BUF_D1);
   float* D2 = f(BUF_D2);
-  auto S_ = [&](int i) { return stats + i * 3 * CMAX; };
-  auto SC_ = [&](int i) { return f(SC) + i * CMAX; };
-  auto GSC_ = [&](int i) { return f(GSC) + i * CMAX; };
-  auto GBI_ = [&](int i) { return f(GBI) + i * CMAX; };
+  // BN i of BN_LAYOUT with pre-BN input z: its parameter gradients, and dz to `out`
+  auto bn = [&](const float* g, int i, int z, float* out, int C) {
+    return bn_bwd(c, g, f(z), stats + i * 3 * CMAX, f(SC) + i * CMAX, f(GSC) + i * CMAX,
+                  f(GBI) + i * CMAX, out, C);
+  };
+  const float* none = nullptr;
+
+  // the data gradients read the weights tap-flipped and transposed
+  CHECK(pack_weights(c, p, W1C1, 1));
 
   // fc and mean pool; G = d(pre-ReLU output of block 2)
-  pool_fc_bwd_kernel<<<N, C2, 0, st>>>(f(GEMB), f(WFC), f(Y2), G, S * S, E);
-  CHECK(static_cast<int>(cudaGetLastError()));
-  CHECK(wgrad(f(POOLED), f(GEMB), f(GWFC), scr, N, 1, C2, E, 1, st));
-  CHECK(colsum(f(GEMB), nullptr, nullptr, f(GBFC), nullptr, scr, N, E, st));
+  pool_fc_bwd_kernel<<<N, 4 * C2, 0, c.st>>>(f(GEMB), f(WFC), f(Y2), G, S * S, E);
+  CHECK(launched(K_POOL_FC));
+  fc_wgrad_kernel<<<dim3(C2 / 16, ceil_div(E, 16)), NT, 0, c.st>>>(f(POOLED), f(GEMB), f(GWFC), N, E);
+  CHECK(launched(K_WGRAD_SIMT));
+  CHECK(colsum(c, f(GEMB), none, none, f(GBFC), nullptr, N, E));
 
   // residual block 2: bn2 and skip bn both receive G
-  CHECK(bn_bwd(G, f(Z2BP), S_(5), SC_(5), GSC_(5), GBI_(5), D1, scr, R, C2, st));
-  CHECK(bn_bwd(G, f(IP2), S_(6), SC_(6), GSC_(6), GBI_(6), D2, scr, R, C2, st));
-  CHECK(wgrad(f(Z1B), D1, f(GW2C2), scr, R, S, C2, C2, 9, st));
-  CHECK(conv(D1, f(W2C2), nullptr, f(Z1B), G, R, S, C2, C2, 9, 1, st));
-  CHECK(bn_bwd(G, f(Z1BP), S_(4), SC_(4), GSC_(4), GBI_(4), D1, scr, R, C2, st));
-  CHECK(wgrad(f(Y1), D1, f(GW2C1), scr, R, S, C1, C2, 9, st));
-  CHECK(wgrad(f(Y1), D2, f(GW2SK), scr, R, S, C1, C2, 1, st));
-  CHECK(conv(D2, f(W2SK), nullptr, nullptr, G, R, S, C2, C1, 1, 1, st));
-  CHECK(conv(D1, f(W2C1), G, f(Y1), G, R, S, C2, C1, 9, 1, st));
+  CHECK(bn(G, 5, Z2BP, D1, C2));
+  CHECK(bn(G, 6, IP2, D2, C2));
+  CHECK(wgrad_tc(c, f(Z1B), D1, f(GW2C2), C2, C2, 9));
+  CHECK(conv_tc(c, D1, c.w[5], none, f(Z1B), G, nullptr, C2, C2, 9));
+  CHECK(bn(G, 4, Z1BP, D1, C2));
+  CHECK(wgrad_tc(c, f(Y1), D1, f(GW2C1), C1, C2, 9));
+  CHECK(wgrad_tc(c, f(Y1), D2, f(GW2SK), C1, C2, 1));
+  CHECK(conv_tc(c, D2, c.w[4], none, none, G, nullptr, C2, C1, 1));
+  CHECK(conv_tc(c, D1, c.w[3], G, f(Y1), G, nullptr, C2, C1, 9));
 
   // residual block 1
-  CHECK(bn_bwd(G, f(Z2P), S_(2), SC_(2), GSC_(2), GBI_(2), D1, scr, R, C1, st));
-  CHECK(bn_bwd(G, f(IP1), S_(3), SC_(3), GSC_(3), GBI_(3), D2, scr, R, C1, st));
-  CHECK(wgrad(f(Z1), D1, f(GW1C2), scr, R, S, C1, C1, 9, st));
-  CHECK(conv(D1, f(W1C2), nullptr, f(Z1), G, R, S, C1, C1, 9, 1, st));
-  CHECK(bn_bwd(G, f(Z1P), S_(1), SC_(1), GSC_(1), GBI_(1), D1, scr, R, C1, st));
-  CHECK(wgrad(f(A), D1, f(GW1C1), scr, R, S, C0, C1, 9, st));
-  CHECK(wgrad(f(A), D2, f(GW1SK), scr, R, S, C0, C1, 1, st));
-  CHECK(conv(D2, f(W1SK), nullptr, nullptr, G, R, S, C1, C0, 1, 1, st));
-  CHECK(conv(D1, f(W1C1), G, f(A), G, R, S, C1, C0, 9, 1, st));
+  CHECK(bn(G, 2, Z2P, D1, C1));
+  CHECK(bn(G, 3, IP1, D2, C1));
+  CHECK(wgrad_tc(c, f(Z1), D1, f(GW1C2), C1, C1, 9));
+  CHECK(conv_tc(c, D1, c.w[2], none, f(Z1), G, nullptr, C1, C1, 9));
+  CHECK(bn(G, 1, Z1P, D1, C1));
+  CHECK(wgrad_tc(c, f(A), D1, f(GW1C1), C0, C1, 9));
+  CHECK(wgrad_tc(c, f(A), D2, f(GW1SK), C0, C1, 1));
+  CHECK(conv_tc(c, D2, c.w[1], none, none, G, nullptr, C1, C0, 1));
+  CHECK(conv_tc(c, D1, c.w[0], G, f(A), G, nullptr, C1, C0, 9));
 
   // initial conv
-  CHECK(bn_bwd(G, f(Z0), S_(0), SC_(0), GSC_(0), GBI_(0), D1, scr, R, C0, st));
-  CHECK(wgrad(f(X), D1, f(GWI), scr, R, S, 1, C0, 9, st));
-  return conv(D1, f(WI), nullptr, nullptr, f(GX), R, S, C0, 1, 9, 1, st);
+  CHECK(bn(G, 0, Z0, D1, C0));
+  const int chunks = std::min(ceil_div(R, 64), conv::kWgTargetBlocks);
+  conv0_wgrad_kernel<<<chunks, NT, 0, c.st>>>(f(X), D1, c.wg, c.valid, R, S, ceil_div(R, chunks));
+  CHECK(launched(K_WGRAD_SIMT));
+  CHECK(sum_chunks(c, f(GWI), 9 * C0, chunks));
+  conv0_dgrad_kernel<<<ceil_div(static_cast<long long>(R) * 32, NT), NT, 0, c.st>>>(
+      D1, f(WI), f(GX), c.valid, R, S);
+  return launched(K_CONV0);
 }
 
 }  // extern "C"

@@ -9,7 +9,10 @@ batch·frames. In train mode the whole embedding runs through
 plain version on CPU), and the running statistics are updated by hand the
 way flax does: momentum 0.9 on the old value, with the *biased* batch
 variance (torch's own BatchNorm would use the unbiased one). Eval mode uses
-the running statistics through plain convolutions, as the JAX package does.
+the running statistics through plain convolutions, as the JAX package does;
+on a CUDA device they run in full f32 whatever the caller has set in
+``torch.backends.cudnn.allow_tf32`` (``ops.fused_embedding.f32_convolutions``),
+so validation scores do not depend on that global.
 The linear and cnn embeddings are ROADMAP queue 1 item 4.
 """
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import (
     BN_EPS,
     BN_LAYOUT,
+    f32_convolutions,
     fused_deep_resnet_embed,
 )
 
@@ -101,8 +105,9 @@ class DeepResNetEmbedding(nn.Module):
     def forward(self, x):
         b, t, h, w = x.shape
         if not self.training:
-            y = F.relu(self.bn1(self.initial_conv(x.reshape(b * t, 1, h, w))))
-            y = self.res_block2(self.res_block1(y))
+            with f32_convolutions():
+                y = F.relu(self.bn1(self.initial_conv(x.reshape(b * t, 1, h, w))))
+                y = self.res_block2(self.res_block1(y))
             return self.fc(y.mean(dim=(2, 3)).reshape(b, t, 128))
         r1, r2 = self.res_block1, self.res_block2
         kernels = {

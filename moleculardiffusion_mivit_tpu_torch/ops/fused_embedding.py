@@ -9,10 +9,22 @@ and whose backward is K3 (``deep_resnet_embed_bwd``), both in
 ``deep_resnet_embed_reference``. The JAX kernel's row limit
 (``FUSED_MAX_ROWS``, a TPU VMEM bound) does not apply: the CUDA kernels keep
 activations in device memory and take any row count up to 2^31 / 128.
+
+Precision is the port's own, whatever the caller's global settings. K2/K3
+run their matrix products on the TF32 tensor cores as three products of
+operands split into a big and a small TF32 part (f32-grade accuracy); the
+plain version and the eval path run their convolutions in full f32
+(``f32_convolutions`` turns cuDNN's TF32 off around them).
+
+The image border is a table the kernels are given: ``tap_validity`` builds
+it here, where the CPU tests reach it (``tests/test_torch_embedding.py``
+computes a conv from it the way the kernels do, by row offsets into the
+(R, C) layout, and emulates their split products).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -50,10 +62,58 @@ PTR_ORDER = (
     "x", "initial", "rb1_conv1", "rb1_skip", "rb1_conv2", "rb2_conv1", "rb2_skip",
     "rb2_conv2", "sc", "bi", "wfc", "bfc",
     *(name for name, _ in SAVED), "pooled", "stats",
-    "emb", "scratch",
+    "emb", "scratch", "valid",
     "g_emb", "gx", *("g_" + name for name, _ in WEIGHT_SHAPES), "gsc", "gbi", "gwfc", "gbfc",
     "buf_g", "buf_d1", "buf_d2",
 )
+
+
+# Kinds of kernel launch inside K2/K3, in the order of `enum Kind`.
+STAGE_KINDS = (
+    "pack_weights", "conv_tensor_core", "conv_initial", "bn_stats", "bn_act", "pool_fc",
+    "wgrad_tensor_core", "wgrad_simt", "sum_chunks", "bn_backward",
+)
+
+
+@contextlib.contextmanager
+def f32_convolutions():
+    """Run the convolutions inside in full f32 on a CUDA device: cuDNN's TF32
+    (on by default in PyTorch, three decimal digits) is off within the block
+    and the caller's setting is restored after it. Covers the convolutions
+    called inside the block; a later autograd pass through them follows the
+    caller's setting."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def tap_validity(s: int) -> torch.Tensor:
+    """(S*S,) int32: bit ``t = 3*(dy+1) + (dx+1)`` of entry ``h*S + w`` is set
+    where pixel ``(h+dy, w+dx)`` lies inside the S x S image. In the (R, C)
+    row layout tap ``t`` of row ``r`` reads row ``r + dy*S + dx``; where the
+    bit is clear that row belongs to another image, or to the other end of
+    an image row, and counts as zero padding."""
+    h = torch.arange(s).repeat_interleave(s)
+    w = torch.arange(s).repeat(s)
+    bits = torch.zeros(s * s, dtype=torch.int32)
+    for t in range(9):
+        dy, dx = t // 3 - 1, t % 3 - 1
+        ok = (h + dy >= 0) & (h + dy < s) & (w + dx >= 0) & (w + dx < s)
+        bits |= ok.to(torch.int32) << t
+    return bits
+
+
+_validity_on_device = {}
+
+
+def _tap_validity_on(s: int, device) -> torch.Tensor:
+    key = (s, device)
+    if key not in _validity_on_device:
+        _validity_on_device[key] = tap_validity(s).to(device)
+    return _validity_on_device[key]
 
 
 def _pack_w3(k: torch.Tensor) -> torch.Tensor:
@@ -68,7 +128,8 @@ def _pack_rows(vecs) -> torch.Tensor:
 
 def deep_resnet_embed_reference(x, kernels, bn_scales, bn_biases, fc_kernel, fc_bias, relu=F.relu):
     """Plain PyTorch version of K2: the train-mode forward with ``F.conv2d``
-    and batch-statistics BN. Arguments as ``fused_deep_resnet_embed``;
+    (in full f32 on a CUDA device too, see ``f32_convolutions``) and
+    batch-statistics BN. Arguments as ``fused_deep_resnet_embed``;
     ``relu`` is called on the 5 pre-activations in forward order (a check
     may pass one that applies a given ReLU pattern).
     Returns ``(emb (B, T, E), {name: (batch_mean, biased batch_var)})``."""
@@ -76,7 +137,8 @@ def deep_resnet_embed_reference(x, kernels, bn_scales, bn_biases, fc_kernel, fc_
     stats = {}
 
     def conv(y, k, pad):
-        return F.conv2d(y, k.permute(3, 2, 0, 1), padding=pad)
+        with f32_convolutions():
+            return F.conv2d(y, k.permute(3, 2, 0, 1), padding=pad)
 
     def bn(z, name):
         mean = z.mean(dim=(0, 2, 3))
@@ -110,6 +172,8 @@ def _lib():
         lib.deep_resnet_num_ptrs.restype = i
         lib.deep_resnet_scratch_floats.argtypes = [i]
         lib.deep_resnet_scratch_floats.restype = ctypes.c_longlong
+        lib.deep_resnet_last_launches.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.deep_resnet_last_launches.restype = i
         if lib.deep_resnet_num_ptrs() != len(PTR_ORDER):
             raise RuntimeError("csrc/fused_embedding.cu and PTR_ORDER disagree")
         lib._typed = True
@@ -156,6 +220,14 @@ def _launch(fn, tensors, n, s, e, device):
         raise RuntimeError(f"{fn.__name__}: kernel launch failed (cudaError {err})")
 
 
+def last_stage_launches() -> dict:
+    """Kernel launches inside the last K2 or K3 call, by ``STAGE_KINDS``."""
+    counts = (ctypes.c_int * len(STAGE_KINDS))()
+    if _lib().deep_resnet_last_launches(counts) != len(STAGE_KINDS):
+        raise RuntimeError("csrc/fused_embedding.cu and STAGE_KINDS disagree")
+    return dict(zip(STAGE_KINDS, counts))
+
+
 def deep_resnet_embed_fwd(x, weights, sc, bi, wfc, bfc):
     """K2 on CUDA tensors: ``x (N, S, S)``, the 7 packed conv weights
     (``WEIGHT_SHAPES``), packed BN scales and biases ``(7, 128)``, fc kernel
@@ -173,7 +245,7 @@ def deep_resnet_embed_fwd(x, weights, sc, bi, wfc, bfc):
     emb = empty(n, e)
     tensors = dict(
         x=x, sc=sc, bi=bi, wfc=wfc, bfc=bfc, emb=emb,
-        scratch=empty(lib.deep_resnet_scratch_floats(r)),
+        scratch=empty(lib.deep_resnet_scratch_floats(r)), valid=_tap_validity_on(s, dev),
         **{name: w for (name, _), w in zip(WEIGHT_SHAPES, weights)}, **saved,
     )
     _launch(lib.deep_resnet_embed_fwd, tensors, n, s, e, dev)
@@ -201,7 +273,7 @@ def deep_resnet_embed_bwd(x, weights, sc, bi, wfc, bfc, saved, g_emb):
     out = dict(gx=empty(n, s, s), gsc=empty(7, C2), gbi=empty(7, C2), gwfc=empty(C2, e), gbfc=empty(e))
     tensors = dict(
         x=x, sc=sc, bi=bi, wfc=wfc, bfc=bfc, g_emb=g_emb,
-        scratch=empty(lib.deep_resnet_scratch_floats(r)),
+        scratch=empty(lib.deep_resnet_scratch_floats(r)), valid=_tap_validity_on(s, dev),
         buf_g=empty(r, C2), buf_d1=empty(r, C2), buf_d2=empty(r, C2),
         **{name: w for (name, _), w in zip(WEIGHT_SHAPES, weights)}, **saved, **grads, **out,
     )

@@ -167,7 +167,10 @@ def run_training(
 
     ``val_videos`` maps true D → frozen rendered validation videos. Returns
     ``(state, history)`` with history ``{"val_<D>": [...], "val_avg": [...],
-    "train_loss": [...]}``, one entry per cycle.
+    "train_loss": [...]}``, one entry per cycle. The validation MSEs do not
+    depend on the caller's ``torch.backends.cudnn.allow_tf32``: the
+    embedding's eval-mode convolutions run in full f32 on the card
+    (``models.embeddings``), as its training kernels do.
     """
     dev = resolve_device(device)
     num_cycles = num_cycles or train_cfg.num_cycles

@@ -14,6 +14,11 @@ kernel time over the unprofiled wall time), device time by layer (K1
 render, K2/K3 embedding, everything else), the top kernels, and the top
 host operators by self CPU time under the profiler (with their call
 counts). ``--out`` also writes the lines to a file.
+
+``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
+alone: for each shape, device time by kernel over 5 calls of K2
+(``deep_resnet_embed_fwd``) and of K3 (``deep_resnet_embed_bwd``) on random
+inputs, in ms per call, with each kernel's launches per call.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 EMBEDDING_KERNELS = ("conv_rows", "wgrad_rows", "sum_chunks", "bn_stats", "bn_act", "bn_bwd",
-                     "colsum_final", "pool_fc")
+                     "colsum_final", "pool_fc", "pack_weights", "conv0_", "fc_wgrad")
 
 
 def _layer(name: str) -> str:
@@ -105,10 +110,53 @@ def profile(torch, batch: int, val):
     }
 
 
+def profile_embedding(torch, b: int, t: int, s: int, calls: int = 5):
+    """Device ms per call, by kernel, of K2 and of K3 at one shape."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
+
+    gen = torch.Generator(device="cuda").manual_seed(b + t + s)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    weights = tuple(rand(*shape) / shape[0] ** 0.5 for _, shape in fe.WEIGHT_SHAPES)
+    sc, bi = 1.0 + 0.1 * rand(7, 128), 0.1 * rand(7, 128)
+    wfc, bfc = rand(128, 64) / 128 ** 0.5, 0.1 * rand(64)
+    x, g = 0.3 * rand(b * t, s, s) + 0.1, rand(b * t, 64)
+    _, _, saved = fe.deep_resnet_embed_fwd(x, weights, sc, bi, wfc, bfc)
+    fe.deep_resnet_embed_bwd(x, weights, sc, bi, wfc, bfc, saved, g)
+    torch.cuda.synchronize()
+    row = {"embedding_shape": [b, t, s], "rows": b * t * s * s}
+    passes = {
+        "k2": lambda: fe.deep_resnet_embed_fwd(x, weights, sc, bi, wfc, bfc),
+        "k3": lambda: fe.deep_resnet_embed_bwd(x, weights, sc, bi, wfc, bfc, saved, g),
+    }
+    for name, fn in passes.items():
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name, count, span = defaultdict(float), defaultdict(int), []
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+                continue
+            by_name[evt.name] += evt.time_range.end - evt.time_range.start
+            count[evt.name] += 1
+            span.append((evt.time_range.start, evt.time_range.end))
+        row[name] = {
+            "device_ms_per_call": sum(by_name.values()) / 1e3 / calls,
+            "busy_ms_per_call": _busy_us(span) / 1e3 / calls,
+            "kernels": [[k[:70], v / 1e3 / calls, count[k] / calls]
+                        for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])],
+        }
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 16])
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--embedding", type=int, nargs="+", default=None, metavar="B_T_S",
+                    help="profile K2/K3 alone at these (B, T, S) shapes")
     args = ap.parse_args()
     import torch
 
@@ -124,6 +172,17 @@ def main() -> None:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    if args.embedding:
+        if len(args.embedding) % 3:
+            ap.error("--embedding takes B T S triples")
+        lines = []
+        for i in range(0, len(args.embedding), 3):
+            lines.append(json.dumps({"card": card, **profile_embedding(torch, *args.embedding[i:i + 3])}))
+            print(lines[-1], flush=True)
+        if args.out:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text("\n".join(lines) + "\n")
+        return
     trajs = generate_frozen_validation(d_values=(1, 3, 5, 7), device="cuda")
     trajs.pop("valTrajsInOrder")
     rendered = render_validation_videos(trajs, TrainConfig(), BASELINE_OPTICS, device="cuda")
