@@ -7,17 +7,22 @@ line each on stdout:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
-2. k1: the render kernel against its plain version at the main-path shape
-   (7680 frames of 10 sub-positions, 9×9, u=5) and at 13×13.
+2. k1: the render kernel against its plain version at a cycle's frames
+   (7680 of 10 sub-positions, u=5) and at one main-path call (1920), 9×9
+   and 13×13, and at an even grid through its generic instantiation; beside
+   each, the card's floor for one allocation and one (empty) launch.
 3. k2_k3: the deep-ResNet embedding forward (K2) and backward (K3)
    against autograd through the plain version, TF32 off, at five shapes
    (among them both batch sizes of the main path, and every conv tile);
    two calls on the same inputs must agree bitwise; the kernel launches
    inside one forward and one backward are counted by kind.
-4. slice: the training cycle of GeneralTransformer(deep_resnet) at full
-   width and full data through ``train.loop.run_training`` for 2 cycles
-   (batch 8, then 16), after rendering the validation suite; launch
-   counters reset just before and read just after.
+4. slice: the baseline experiment's seven models (GeneralTransformer with
+   the linear, cnn and deep_resnet embeddings, relu and leaky_relu each, and
+   MultiImageResNet) at full width and full data, each through
+   ``train.loop.run_training`` for 2 cycles (batch 8, then 16), after
+   rendering the validation suite once; launch counters reset just before
+   and read just after, and per model: K1 once per D class and cycle, K2/K3
+   once a step for the two deep_resnet models and never for the other five.
 
 Then a ``kernels`` line with each kernel's launches on the main path, error,
 times (``ms`` around the wrapper, ``device_ms`` of its launches alone) and
@@ -104,36 +109,54 @@ def bound(nbytes: float, flops: float, flops_3xtf32: float = 0.0):
 
 def phase_k1(torch):
     from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS
-    from moleculardiffusion_mivit_tpu_torch.ops.render import render_frames, render_frames_reference
+    from moleculardiffusion_mivit_tpu_torch.ops.render import (
+        launch_floor,
+        render_frames,
+        render_frames_reference,
+    )
 
-    sigma, u, p, b = BASELINE_OPTICS.gaussian_sigma_hr, BASELINE_OPTICS.upsampling_factor, 10, 256 * 30
+    sigma, u = BASELINE_OPTICS.gaussian_sigma_hr, BASELINE_OPTICS.upsampling_factor
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = 4.0 * torch.randn((b, p), generator=g, device="cuda")
-    y = 4.0 * torch.randn((b, p), generator=g, device="cuda")
-    w = 458.0 + 50.0 * torch.randn((b, p), generator=g, device="cuda")
+    full = 256 * 30  # frames of one cycle; a main-path call renders one D class, 64 * 30
+    xs = 4.0 * torch.randn((full, 10), generator=g, device="cuda")
+    ys = 4.0 * torch.randn((full, 10), generator=g, device="cuda")
+    ws = 458.0 + 50.0 * torch.randn((full, 10), generator=g, device="cuda")
     rows = {}
-    for s in (9, 13):
-        got = render_frames(x, y, w, sigma, s, u)
+    # (B, P, S): a cycle's frames and one main-path call at both compiled-in
+    # patch sizes, and an even grid with P = 4 through the generic instantiation
+    for (b, p, s) in ((full, 10, 9), (full, 10, 13), (64 * 30, 10, 9), (64 * 30, 10, 13), (64 * 30, 4, 10)):
+        x, y, w = (v[:b, :p].contiguous() for v in (xs, ys, ws))
+        render = lambda: render_frames(x, y, w, sigma, s, u)  # noqa: E731
+        got = render()
         ref = render_frames_reference(x, y, w, sigma, s, u)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
-        check(bool(torch.isfinite(got).all()), f"K1 S={s}: non-finite frames")
-        check(err <= 1e-5 * scale, f"K1 S={s}: max|Δ| {err} > 1e-5·{scale}")
-        ms = time_ms(torch, lambda: render_frames(x, y, w, sigma, s, u))
-        device_ms = time_ms(torch, lambda: render_frames(x, y, w, sigma, s, u), device_only=True)
+        check(bool(torch.isfinite(got).all()), f"K1 {b,p,s}: non-finite frames")
+        check(err <= 1e-5 * scale, f"K1 {b,p,s}: max|Δ| {err} > 1e-5·{scale}")
+        check(torch.equal(got, render()), f"K1 {b,p,s}: two calls differ")
+        # 200 timings each: a call is tens of microseconds and the host's share varies
+        ms = time_ms(torch, render, iters=200)
+        device_ms = time_ms(torch, render, device_only=True)
         plain_ms = time_ms(torch, lambda: render_frames_reference(x, y, w, sigma, s, u))
+        # the card's floor for one allocation and one launch, timed the same way
+        floor = lambda: launch_floor((b, s, s), "cuda")  # noqa: E731
+        floor_ms = time_ms(torch, floor, iters=200)
+        floor_device_ms = time_ms(torch, floor, device_only=True)
         g_pts = s * u
         nbytes = 4 * (3 * b * p + b * s * s)
-        # per (frame, p, axis, grid point): sub, mul, div, exp, add; per
+        # per (frame, p, axis, grid point): sub, mul, mul, exp, add; per
         # (frame, p): the peak product, division and S row scalings; per
         # output pixel and p: one multiply-add
         flops = b * p * (2 * g_pts * 5 + 2 + s) + b * s * s * p * 2
         bound_ms, by = bound(nbytes, flops)
-        rows[s] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=by)
-        emit({"phase": "k1", "B": b, "P": p, "S": s, "u": u, "tol": 1e-5 * scale, **rows[s]})
-    return rows[9]
+        rows[(b, p, s)] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=by,
+                               launch_floor_ms=floor_ms, launch_floor_device_ms=floor_device_ms)
+        emit({"phase": "k1", "B": b, "P": p, "S": s, "u": u, "tol": 1e-5 * scale, **rows[(b, p, s)]})
+    call = rows[(64 * 30, 10, 9)]
+    return dict(rows[(full, 10, 9)], ms_per_main_path_call=call["ms"],
+                device_ms_per_main_path_call=call["device_ms"])
 
 
 def _embedding_inputs(torch, b, t, s, seed):
@@ -302,55 +325,81 @@ def phase_k2_k3(torch):
     return record["k2"], record["k3"]
 
 
+def baseline_arms():
+    """The seven models of the baseline experiment under its names, at full
+    width: GeneralTransformer with the linear, cnn and deep_resnet embeddings,
+    each with relu and leaky_relu, and MultiImageResNet."""
+    from moleculardiffusion_mivit_tpu_torch.config import ModelConfig
+    from moleculardiffusion_mivit_tpu_torch.models import MultiImageResNet, get_transformer_models
+
+    cfg = ModelConfig(use_pos_encoding=True)
+    return {**get_transformer_models(cfg.replace(activation="relu"), "_s"),
+            **get_transformer_models(cfg.replace(activation="leaky_relu"), "_leaky"),
+            "resnet": MultiImageResNet(single_prediction=True)}
+
+
 def phase_slice(torch, card):
-    from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, ModelConfig, TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, TrainConfig
     from moleculardiffusion_mivit_tpu_torch.evaluation import (
         load_validation_trajectories,
         render_validation_videos,
     )
-    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer
     from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
     from moleculardiffusion_mivit_tpu_torch.ops.render import render_frames
     from moleculardiffusion_mivit_tpu_torch.train.loop import run_training
 
     cfg = TrainConfig(initial_batch_size=8, adaptive_batch_size=1)
-    model = GeneralTransformer(ModelConfig(use_pos_encoding=True), embedding="deep_resnet")
     num_cycles = 2
     n_seq = cfg.sequences_per_d * len(cfg.training_ds)
     steps = sum(n_seq // cfg.batch_size_for_cycle(c) for c in range(num_cycles))
+    wrappers = {"render_frames": render_frames, "deep_resnet_embed_fwd": fe.deep_resnet_embed_fwd,
+                "deep_resnet_embed_bwd": fe.deep_resnet_embed_bwd}
+    counts = lambda: {k: w.launches for k, w in wrappers.items()}  # noqa: E731
 
-    for k in (render_frames, fe.deep_resnet_embed_fwd, fe.deep_resnet_embed_bwd):
-        k.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     trajs = load_validation_trajectories(length=cfg.n_frames, device="cuda")
     rendered = render_validation_videos(trajs, cfg, BASELINE_OPTICS, device="cuda")
     val = {d: rendered[f"val{d:g}"] for d in (1.0, 3.0, 5.0, 7.0)}
     torch.cuda.synchronize()
     t_val = time.perf_counter() - t0
-    marks = [time.perf_counter()]
-    state, hist = run_training(model, cfg, BASELINE_OPTICS, val, num_cycles=num_cycles,
-                               callback=lambda c, m: marks.append(time.perf_counter()), device="cuda")
-    torch.cuda.synchronize()
-    launches = {"render_frames": render_frames.launches,
-                "deep_resnet_embed_fwd": fe.deep_resnet_embed_fwd.launches,
-                "deep_resnet_embed_bwd": fe.deep_resnet_embed_bwd.launches}
-
-    finite = all(math.isfinite(v) for vals in hist.values() for v in vals)
-    check(finite, f"non-finite loss or val MSE: {hist}")
-    check(hist["train_loss"][1] < hist["train_loss"][0], f"train loss did not fall: {hist['train_loss']}")
-    n_val_renders = len(rendered)
-    check(launches["render_frames"] == num_cycles * len(cfg.training_ds) + n_val_renders,
-          f"K1 launches {launches['render_frames']}")
-    check(launches["deep_resnet_embed_fwd"] == steps, f"K2 launches {launches} != {steps} steps")
-    check(launches["deep_resnet_embed_bwd"] == steps, f"K3 launches {launches} != {steps} steps")
     for v in rendered.values():
         check(bool(torch.isfinite(v).all()) and v.shape[-2:] == (9, 9), "bad validation videos")
-    cycle_s = [b - a for a, b in zip(marks, marks[1:])]
-    emit({"phase": "slice", "card": card, "cycles": num_cycles, "steps": steps,
-          "batch_sizes": [cfg.batch_size_for_cycle(c) for c in range(num_cycles)],
-          "validation_render_s": t_val, "s_per_cycle": cycle_s,
-          "seq_per_s": [n_seq / c for c in cycle_s], "history": hist, "launches": launches})
-    return launches
+    check(counts()["render_frames"] == len(rendered), f"K1 launches in validation {counts()}")
+
+    # One model after the other, as the reference's training script loops
+    # over its model dict; every arm sees the same frozen validation videos.
+    arms = baseline_arms()
+    for name, model in arms.items():
+        before = counts()
+        marks = [time.perf_counter()]
+        state, hist = run_training(model, cfg, BASELINE_OPTICS, val, num_cycles=num_cycles,
+                                   callback=lambda c, m: marks.append(time.perf_counter()), device="cuda")
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in counts().items()}
+
+        finite = all(math.isfinite(v) for vals in hist.values() for v in vals)
+        check(finite, f"{name}: non-finite loss or val MSE: {hist}")
+        check(hist["train_loss"][1] < hist["train_loss"][0], f"{name}: train loss did not fall: {hist['train_loss']}")
+        check(launches["render_frames"] == num_cycles * len(cfg.training_ds), f"{name}: K1 launches {launches}")
+        fused = steps if name.startswith("deepcnn") else 0
+        check(launches["deep_resnet_embed_fwd"] == fused, f"{name}: K2 launches {launches} != {fused}")
+        check(launches["deep_resnet_embed_bwd"] == fused, f"{name}: K3 launches {launches} != {fused}")
+        check(next(state.model.parameters()).is_cuda, f"{name}: the model is not on the card")
+        cycle_s = [b - a for a, b in zip(marks, marks[1:])]
+        emit({"phase": "slice", "arm": name, "card": card, "cycles": num_cycles, "steps": steps,
+              "parameters": sum(p.numel() for p in model.parameters()),
+              "batch_sizes": [cfg.batch_size_for_cycle(c) for c in range(num_cycles)],
+              "validation_render_s": t_val, "s_per_cycle": cycle_s,
+              "seq_per_s": [n_seq / c for c in cycle_s], "history": hist, "launches": launches})
+
+    total = counts()
+    check(total["render_frames"] == len(arms) * num_cycles * len(cfg.training_ds) + len(rendered),
+          f"K1 launches {total['render_frames']} over the phase")
+    check(total["deep_resnet_embed_fwd"] == 2 * steps and total["deep_resnet_embed_bwd"] == 2 * steps,
+          f"K2/K3 launches {total} != {2 * steps} (two deepcnn arms)")
+    return total
 
 
 def main() -> None:

@@ -16,7 +16,7 @@ Subpackages
 - ``config``      copies of the JAX package's typed configuration
 - ``sim``         pure-Brownian trajectories, frame rendering, noise
 - ``ops``         the hand-written kernels, their wrappers and plain versions
-- ``models``      GeneralTransformer with the deep-ResNet embedding
+- ``models``      GeneralTransformer (linear, cnn, deep-ResNet embeddings), MultiImageResNet
 - ``train``       the cycle-based training loop
 - ``evaluation``  frozen validation sets
 - ``utils``       flax → torch weight conversion

@@ -1,4 +1,6 @@
-"""The MiViT model zoo on PyTorch (the deep-ResNet GeneralTransformer)."""
+"""The MiViT model zoo on PyTorch: ``GeneralTransformer`` with the linear, cnn
+and deep-ResNet embeddings, and the ``MultiImageResNet`` comparison arm (the
+seven models of the baseline experiment)."""
 
 import math
 
@@ -17,14 +19,31 @@ from moleculardiffusion_mivit_tpu_torch.models.layers import (  # noqa: F401
 from moleculardiffusion_mivit_tpu_torch.models.embeddings import (  # noqa: F401
     EMBEDDING_REGISTRY,
     BatchNorm,
+    CNNEmbedding,
     DeepResNetEmbedding,
+    LinearProjectionEmbedding,
     ResidualBlock,
+)
+from moleculardiffusion_mivit_tpu_torch.models.resnet import (  # noqa: F401
+    BasicBlock,
+    LightResNet,
+    MultiImageResNet,
 )
 from moleculardiffusion_mivit_tpu_torch.models.vit import GeneralTransformer  # noqa: F401
 
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def get_transformer_models(config, name_suffix: str = ""):
+    """The three-embedding transformer set of the baseline experiment, under
+    its names."""
+    return {
+        f"linear_2layer{name_suffix}": GeneralTransformer(config, embedding="linear"),
+        f"cnn_2layer{name_suffix}": GeneralTransformer(config, embedding="cnn"),
+        f"deepcnn_2layer{name_suffix}": GeneralTransformer(config, embedding="deep_resnet"),
+    }
 
 
 def _draw(param: torch.Tensor, fill, generator: torch.Generator) -> None:
@@ -59,6 +78,8 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Conv2d):
                 _draw(m.weight, _lecun_normal(m.weight[0].numel()), generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, (nn.LayerNorm, BatchNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)

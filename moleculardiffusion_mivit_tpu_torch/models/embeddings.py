@@ -1,7 +1,9 @@
-"""Frame embeddings: the deep-ResNet embedding.
+"""Frame embeddings: linear projection, single convolution, deep ResNet.
 
-Port of ``DeepResNetEmbedding`` and ``ResidualBlock`` from
-``moleculardiffusion_mivit_tpu/models/embeddings.py``: Conv3x3(1→32)+BN+ReLU
+Port of ``moleculardiffusion_mivit_tpu/models/embeddings.py``.
+``LinearProjectionEmbedding`` flattens each S×S frame into a Dense layer;
+``CNNEmbedding`` is one S×S VALID convolution (with bias) per frame.
+``DeepResNetEmbedding`` and ``ResidualBlock``: Conv3x3(1→32)+BN+ReLU
 → ResidualBlock(32→64) → ResidualBlock(64→128) → global average pool →
 Dense(128→E), frames folded into the batch so BatchNorm statistics span
 batch·frames. In train mode the whole embedding runs through
@@ -13,7 +15,9 @@ the running statistics through plain convolutions, as the JAX package does;
 on a CUDA device they run in full f32 whatever the caller has set in
 ``torch.backends.cudnn.allow_tf32`` (``ops.fused_embedding.f32_convolutions``),
 so validation scores do not depend on that global.
-The linear and cnn embeddings are ROADMAP queue 1 item 4.
+
+``BatchNorm`` also normalises with batch statistics in train mode, for the
+modules that do not run through K2/K3 (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -33,9 +37,13 @@ BN_MOMENTUM = 0.9  # flax convention: weight of the old running value
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm parameters and running statistics with flax's semantics.
-    ``forward`` applies the running statistics (eval mode); batch statistics
-    and the EMA belong to the fused training path (``update_running``)."""
+    """BatchNorm over the channel axis 1 with flax's semantics. Eval mode
+    applies the running statistics. Train mode normalises with the batch's
+    mean and *biased* variance over every other axis (flax's fast variance,
+    ``mean(x²) - mean(x)²`` clipped at 0) and moves the running statistics
+    towards them with ``update_running``. ``DeepResNetEmbedding``'s fused
+    training path does not come through ``forward``: K2 returns the batch
+    statistics and the embedding calls ``update_running`` itself."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -45,12 +53,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        if self.training:
-            raise RuntimeError("BatchNorm.forward applies running statistics; train mode runs "
-                               "through DeepResNetEmbedding's fused path")
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        rstd = torch.rsqrt(self.running_var + BN_EPS)
-        return (x - self.running_mean.view(shape)) * rstd.view(shape) * self.weight.view(shape) + self.bias.view(shape)
+        if self.training:
+            axes = [0] + list(range(2, x.ndim))
+            mean = x.mean(dim=axes)
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            self.update_running(mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
     @torch.no_grad()
     def update_running(self, batch_mean, batch_var):
@@ -85,6 +97,36 @@ class ResidualBlock(nn.Module):
         identity = self.skip_bn(self.skip_conv(x)) if self.has_skip else x
         y = F.relu(self.bn1(self.conv1(x)))
         return F.relu(self.bn2(self.conv2(y)) + identity)
+
+
+class LinearProjectionEmbedding(nn.Module):
+    """Each S×S frame flattened row-major → Dense(S², E)."""
+
+    def __init__(self, patch_size: int, embed_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(patch_size * patch_size, embed_dim)
+
+    def forward(self, x):
+        if x.ndim == 3:  # unbatched (T, S, S)
+            x = x[None]
+        b, t, h, w = x.shape
+        return self.proj(x.reshape(b, t, h * w))
+
+
+class CNNEmbedding(nn.Module):
+    """One Conv(1→E, kernel S×S, no padding, with bias) per frame; frames
+    folded into the batch. On a CUDA device the convolution runs in full f32
+    (``f32_convolutions``)."""
+
+    def __init__(self, patch_size: int, embed_dim: int):
+        super().__init__()
+        self.conv = nn.Conv2d(1, embed_dim, patch_size, bias=True)
+
+    def forward(self, x):
+        b, t, h, w = x.shape
+        with f32_convolutions():
+            y = self.conv(x.reshape(b * t, 1, h, w))
+        return y.reshape(b, t, self.conv.out_channels)
 
 
 class DeepResNetEmbedding(nn.Module):
@@ -129,4 +171,8 @@ class DeepResNetEmbedding(nn.Module):
         return emb
 
 
-EMBEDDING_REGISTRY = {"deep_resnet": DeepResNetEmbedding}
+EMBEDDING_REGISTRY = {
+    "linear": LinearProjectionEmbedding,
+    "cnn": CNNEmbedding,
+    "deep_resnet": DeepResNetEmbedding,
+}

@@ -35,9 +35,9 @@ class GeneralTransformer(nn.Module):
                 "(ROADMAP.md, queue 1, items 8 and 10)"
             )
         if embedding not in EMBEDDING_REGISTRY:
-            raise NotImplementedError(
-                f"GeneralTransformer: the {embedding!r} embedding is not ported yet "
-                "(ROADMAP.md, queue 1, item 4)"
+            raise ValueError(
+                f"GeneralTransformer: unknown embedding {embedding!r}; expected one of "
+                f"{sorted(EMBEDDING_REGISTRY)}"
             )
         self.config = config
         cfg = config

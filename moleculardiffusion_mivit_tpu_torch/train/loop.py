@@ -6,7 +6,12 @@ every D class on the device, trains one AdamW epoch over them in a shuffled
 order (remainder dropped), steps the staircase learning rate, and scores the
 frozen validation videos with predictions rescaled by
 ``d_max_normalization``. PyTorch runs the epoch as a Python loop of steps,
-where the JAX package compiles it into one scan.
+where the JAX package compiles it into one scan. The model is any of the
+baseline experiment's seven: BatchNorm runs through K2/K3 (the deep-ResNet
+embedding) or through torch operators (``MultiImageResNet``), and either way
+its running statistics move in the training forward and are applied in
+``evaluate``. On a CUDA device every convolution of a step, forward and
+backward, runs in full f32 (``ops.fused_embedding.f32_convolutions``).
 
 Not ported yet, and raising ``NotImplementedError``: the bf16
 ``compute_dtype``, ``mix_trajectories``, the l1 loss and features
@@ -22,6 +27,7 @@ import torch
 from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
 from moleculardiffusion_mivit_tpu_torch.models import init_model
+from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
 from moleculardiffusion_mivit_tpu_torch.sim import (
     normalize_images,
     single_state,
@@ -123,12 +129,13 @@ def make_train_impls(model: torch.nn.Module, train_cfg: TrainConfig, device=None
 
     def train_step(state: TrainState, videos, labels, idx) -> torch.Tensor:
         bv, by = videos[idx], labels[idx]
-        out = state.model(bv)
-        if by.ndim == 2 and out.ndim == 3:
-            by = by[..., None]
-        loss = torch.mean((out.float() - by) ** 2)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with f32_convolutions():  # autograd's convolutions read the setting when they run
+            out = state.model(bv)
+            if by.ndim == 2 and out.ndim == 3:
+                by = by[..., None]
+            loss = torch.mean((out.float() - by) ** 2)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         state.optimizer.step()
         return loss.detach()
 

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Where a training cycle's device time goes, on one NVIDIA GPU.
 
-Usage: ``python3 profile_cycle.py [--batch 1 16] [--out PATH]`` from the
-root of a checkout with a CUDA card. For each batch size it runs the
-baseline cycle of GeneralTransformer(deep_resnet) at full width and full
-data (generate 256 sequences, one AdamW epoch, validate on 4 × 50
-sequences), the same body as ``train.loop.run_training``: one cycle to warm
-up, one timed cycle, then one cycle under ``torch.profiler``. It prints one
-JSON line per batch size: the timed cycle's wall time and sequences/s, the
+Usage: ``python3 profile_cycle.py [--arm NAME ...] [--batch 1 16] [--out PATH]``
+from the root of a checkout with a CUDA card. For each arm of the baseline
+experiment named (``deepcnn_2layer_s`` unless told otherwise; ``all`` for
+the seven) and each batch size it runs the baseline cycle of that model at
+full width and full data (generate 256 sequences, one AdamW epoch, validate
+on 4 × 50 sequences), the same body as ``train.loop.run_training``: one
+cycle to warm up, one timed cycle, then one cycle under ``torch.profiler``.
+It prints one JSON line per arm and batch size: the timed cycle's wall time and sequences/s, the
 profiled cycle's wall time (the profiler slows the host), the device's
 busy share (union of kernel intervals over the profiled wall time, and
 kernel time over the unprofiled wall time), device time by layer (K1
 render, K2/K3 embedding, everything else), the top kernels, and the top
 host operators by self CPU time under the profiler (with their call
-counts). ``--out`` also writes the lines to a file.
+counts). ``--out`` also appends each line to a file as it is measured. A
+batch-1 cycle runs slowly under the profiler: all seven arms at batch 1 and
+16 took 24 minutes on an H100.
 
 ``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
 alone: for each shape, device time by kernel over 5 calls of K2
@@ -53,16 +56,16 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile(torch, batch: int, val):
+def profile(torch, arm: str, batch: int, val):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, ModelConfig, TrainConfig
-    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer
+    from chip_smoke import baseline_arms
+    from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, TrainConfig
     from moleculardiffusion_mivit_tpu_torch.train.loop import generate_cycle_data, make_train_impls
     from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
 
     cfg = TrainConfig(adaptive_batch_size=-1, fixed_batch_size=batch)
-    model = GeneralTransformer(ModelConfig(use_pos_encoding=True), embedding="deep_resnet")
+    model = baseline_arms()[arm]
     init_state, train_cycle, evaluate, _ = make_train_impls(model, cfg, "cuda")
     state = init_state(seeded_generator("cpu", 0, 0))
 
@@ -99,7 +102,7 @@ def profile(torch, batch: int, val):
                   key=lambda kv: -kv[1])[:12]
     n_seq = cfg.sequences_per_d * len(cfg.training_ds)
     return {
-        "batch": batch, "steps": n_seq // batch,
+        "arm": arm, "batch": batch, "steps": n_seq // batch,
         "wall_s": plain_wall_s, "seq_per_s": n_seq / plain_wall_s, "profiled_wall_s": wall_s,
         "device_kernel_ms": device_ms, "device_busy_share_profiled": busy_ms / (wall_s * 1e3) if intervals else None,
         "device_busy_share_est": device_ms / (plain_wall_s * 1e3) if intervals else None,
@@ -153,6 +156,9 @@ def profile_embedding(torch, b: int, t: int, s: int, calls: int = 5):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arm", nargs="+", default=["deepcnn_2layer_s"], metavar="NAME",
+                    help="arms of the baseline experiment to profile, by its names "
+                         "(chip_smoke.baseline_arms; 'all' for the seven)")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 16])
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--embedding", type=int, nargs="+", default=None, metavar="B_T_S",
@@ -172,29 +178,38 @@ def main() -> None:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("")
+
+    def emit(row) -> None:
+        """Print the line and append it to ``--out`` at once, so a run that
+        is cut keeps what it had measured."""
+        line = json.dumps({"card": card, **row})
+        print(line, flush=True)
+        if args.out:
+            with args.out.open("a") as fh:
+                fh.write(line + "\n")
+
     if args.embedding:
         if len(args.embedding) % 3:
             ap.error("--embedding takes B T S triples")
-        lines = []
         for i in range(0, len(args.embedding), 3):
-            lines.append(json.dumps({"card": card, **profile_embedding(torch, *args.embedding[i:i + 3])}))
-            print(lines[-1], flush=True)
-        if args.out:
-            args.out.parent.mkdir(parents=True, exist_ok=True)
-            args.out.write_text("\n".join(lines) + "\n")
+            emit(profile_embedding(torch, *args.embedding[i:i + 3]))
         return
+    from chip_smoke import baseline_arms
+
+    names = list(baseline_arms())
+    arms = names if "all" in args.arm else args.arm
+    if set(arms) - set(names):
+        ap.error(f"--arm takes {names} or 'all'")
     trajs = generate_frozen_validation(d_values=(1, 3, 5, 7), device="cuda")
     trajs.pop("valTrajsInOrder")
     rendered = render_validation_videos(trajs, TrainConfig(), BASELINE_OPTICS, device="cuda")
     val = {float(k[3:]): v for k, v in rendered.items()}
-    lines = []
-    for b in args.batch:
-        row = {"card": card, **profile(torch, b, val)}
-        lines.append(json.dumps(row))
-        print(lines[-1], flush=True)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text("\n".join(lines) + "\n")
+    for arm in arms:
+        for b in args.batch:
+            emit(profile(torch, arm, b, val))
 
 
 if __name__ == "__main__":

@@ -52,6 +52,34 @@ def test_render_kernel_matches_plain_on_card(cuda_device):
         trender_ops.render_frames(x, y, w, 5.96, 14, 5)
 
 
+@pytest.mark.parametrize(
+    "b,p,s,u",
+    [(1, 10, 9, 5), (15, 10, 9, 5), (1920, 10, 9, 5), (7680, 10, 9, 5),
+     (1, 10, 13, 5), (15, 10, 13, 5), (1920, 10, 13, 5), (7680, 10, 13, 5),
+     (100, 4, 10, 5), (33, 7, 9, 5), (9, 3, 65, 1), (50, 45, 7, 3)],
+)
+def test_render_kernel_shapes_on_card(cuda_device, b, p, s, u):
+    """K1 against its plain version where a block is partly filled (1 and 15
+    frames), at a main-path call (1920) and a whole cycle (7680), at both
+    compiled-in patch sizes, and through the generic instantiation: an even
+    grid, P other than 10, cells on more lanes than a warp has (S = 65) and
+    more segments than a block's warps hold in one pass (P = 45). Two calls
+    on the same inputs agree bitwise (no atomics, fixed summation order)."""
+    x, y, w = _render_inputs(b, p, b + s, cuda_device)
+    got = trender_ops.render_frames(x, y, w, 5.96, s, u)
+    want = trender_ops.render_frames_reference(x, y, w, 5.96, s, u)
+    assert got.shape == (b, s, s) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, trender_ops.render_frames(x, y, w, 5.96, s, u))
+
+
+def test_render_kernel_takes_no_frames_and_no_subpositions(cuda_device):
+    x = torch.zeros((0, 10), device=cuda_device)
+    assert trender_ops.render_frames(x, x, x, 5.96, 9, 5).shape == (0, 9, 9)
+    x = torch.zeros((4, 0), device=cuda_device)
+    assert torch.equal(trender_ops.render_frames(x, x, x, 5.96, 9, 5), torch.zeros((4, 9, 9), device=cuda_device))
+
+
 def _embedding_args(b, t, s, device, seed=0, e=64):
     rng = np.random.default_rng(seed)
 
@@ -187,6 +215,33 @@ def test_eval_embedding_ignores_the_callers_tf32_setting(cuda_device):
         assert torch.backends.cudnn.allow_tf32 == allow
     torch.backends.cudnn.allow_tf32 = False
     assert torch.equal(*outs)
+
+
+def test_train_step_ignores_the_callers_tf32_setting(cuda_device):
+    """One training step of MultiImageResNet (cuDNN convolutions forward and
+    backward) leaves the same gradients, to 1e-5 of each tensor's largest
+    entry, whether or not the caller allows cuDNN TF32; TF32 would move them
+    by about 1e-3."""
+    from moleculardiffusion_mivit_tpu_torch.config import TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.models import MultiImageResNet
+    from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    videos = 0.3 * torch.randn((16, 30, 9, 9), generator=gen, device=cuda_device) + 0.1
+    labels = torch.rand((16, 1), generator=gen, device=cuda_device)
+    idx = torch.arange(16, device=cuda_device)
+    moments = []
+    for allow in (False, True):
+        torch.backends.cudnn.allow_tf32 = allow
+        model = MultiImageResNet(single_prediction=True)
+        impls = tloop.make_train_impls(model, TrainConfig(), device=cuda_device)
+        state = impls.init_state(torch.Generator().manual_seed(0))
+        impls.train_step(state, videos, labels, idx)
+        assert torch.backends.cudnn.allow_tf32 == allow
+        moments.append([state.optimizer.state[p]["exp_avg"] for p in model.parameters()])
+    torch.backends.cudnn.allow_tf32 = False
+    for a, b in zip(*moments):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max()) + 1e-12
 
 
 def test_embedding_kernels_reject_what_they_do_not_take(cuda_device):

@@ -1,7 +1,9 @@
-"""The port's GeneralTransformer(deep_resnet) against the flax model: the
-same weights through ``torch_state_from_flax`` give the same forward in
-train and eval mode, the parameter counts are equal, and ``init_model``
-draws from the flax initialisers' distributions."""
+"""The port's models against the flax models: GeneralTransformer with the
+deep_resnet, linear and cnn embeddings and MultiImageResNet (the seven arms
+of the baseline experiment). The same weights through
+``torch_state_from_flax`` give the same forward in train and eval mode and
+the same BatchNorm running statistics, the parameter counts are equal, and
+``init_model`` draws from the flax initialisers' distributions."""
 
 import jax
 import jax.numpy as jnp
@@ -11,11 +13,13 @@ import torch
 
 from moleculardiffusion_mivit_tpu.config import ModelConfig as JModelConfig
 from moleculardiffusion_mivit_tpu.models import GeneralTransformer as JGeneral
+from moleculardiffusion_mivit_tpu.models import MultiImageResNet as JResNet
 from moleculardiffusion_mivit_tpu.models import activation_by_name as j_act
 from moleculardiffusion_mivit_tpu.models import init_model as j_init
 from moleculardiffusion_mivit_tpu.models import param_count as j_count
 from moleculardiffusion_mivit_tpu_torch.config import ModelConfig as TModelConfig
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer as TGeneral
+from moleculardiffusion_mivit_tpu_torch.models import MultiImageResNet as TResNet
 from moleculardiffusion_mivit_tpu_torch.models import activation_by_name as t_act
 from moleculardiffusion_mivit_tpu_torch.models import init_model as t_init
 from moleculardiffusion_mivit_tpu_torch.models import param_count as t_count
@@ -28,12 +32,45 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _pair(cfg_kw, x, seed=0):
-    jmodel = JGeneral(JModelConfig(**cfg_kw), embedding="deep_resnet")
+# The baseline experiment's arms beside deepcnn: (embedding or "resnet", model keywords)
+NEW_ARMS = {
+    "linear_relu": ("linear", dict(activation="relu")),
+    "linear_leaky": ("linear", dict(activation="leaky_relu")),
+    "cnn_relu": ("cnn", dict(activation="relu")),
+    "cnn_leaky": ("cnn", dict(activation="leaky_relu")),
+    "resnet_single": ("resnet", dict(single_prediction=True)),
+    "resnet_per_frame": ("resnet", dict(single_prediction=False)),
+}
+
+
+def _models(kind, cfg_kw):
+    """The flax model and the port's, unconverted: ``kind`` is an embedding
+    of GeneralTransformer (``cfg_kw`` its ModelConfig) or ``"resnet"``
+    (``cfg_kw`` MultiImageResNet's keywords)."""
+    if kind == "resnet":
+        return JResNet(**cfg_kw), TResNet(**cfg_kw)
+    return JGeneral(JModelConfig(**cfg_kw), embedding=kind), TGeneral(TModelConfig(**cfg_kw), embedding=kind)
+
+
+def _pair(cfg_kw, x, seed=0, kind="deep_resnet"):
+    jmodel, tmodel = _models(kind, cfg_kw)
     params, bstats = jax.jit(lambda k, xx: j_init(jmodel, k, xx))(jax.random.key(seed), jnp.asarray(x))
-    tmodel = TGeneral(TModelConfig(**cfg_kw), embedding="deep_resnet")
     tmodel.load_state_dict(torch_state_from_flax(_np(params), _np(bstats)))
     return jmodel, params, bstats, tmodel
+
+
+def _flax_train_then_eval(jmodel, params, bstats, x):
+    """Train-mode output, the batch_stats it leaves, and the eval-mode output
+    with those statistics, in full f32."""
+    variables = {"params": params, **({"batch_stats": bstats} if bstats else {})}
+    with jax.default_matmul_precision("highest"):
+        jtrain, mut = jax.jit(
+            lambda v, xx: jmodel.apply(v, xx, train=True, mutable=["batch_stats"] if bstats else [])
+        )(variables, jnp.asarray(x))
+        new_stats = mut.get("batch_stats", bstats)
+        variables = {"params": params, **({"batch_stats": new_stats} if bstats else {})}
+        jeval = jax.jit(lambda v, xx: jmodel.apply(v, xx, train=False))(variables, jnp.asarray(x))
+    return jtrain, new_stats, jeval
 
 
 @pytest.mark.parametrize("cfg_kw", [SMALL, dict(SMALL, use_regression_token=False, single_prediction=False)])
@@ -54,6 +91,47 @@ def test_forward_matches_flax_train_and_eval(cfg_kw):
     assert ttrain.shape == jtrain.shape
     np.testing.assert_allclose(ttrain.detach().numpy(), np.asarray(jtrain), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(teval.numpy(), np.asarray(jeval), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arm", sorted(NEW_ARMS))
+def test_baseline_arms_forward_and_bn_statistics_match_flax(arm):
+    """Linear and cnn embeddings (relu and leaky_relu) and MultiImageResNet
+    (both ``single_prediction`` settings), 2 layers, embed 16, 4 frames of
+    9×9: train- and eval-mode outputs at rtol/atol 1e-5, and the BatchNorm
+    running statistics after the train-mode forward equal flax's
+    ``batch_stats`` (momentum 0.9 on the old value, biased batch variance)."""
+    kind, kw = NEW_ARMS[arm]
+    cfg_kw = kw if kind == "resnet" else dict(SMALL, **kw)
+    rng = np.random.default_rng(1)
+    x = (0.3 * rng.normal(size=(2, 4, 9, 9)) + 0.1).astype(np.float32)
+    jmodel, params, bstats, tmodel = _pair(cfg_kw, x, kind=kind)
+    assert bool(bstats) == (kind == "resnet")
+    jtrain, new_stats, jeval = _flax_train_then_eval(jmodel, params, bstats, x)
+    ttrain = tmodel.train()(torch.from_numpy(x))
+    with torch.no_grad():
+        teval = tmodel.eval()(torch.from_numpy(x))
+    assert ttrain.shape == jtrain.shape == ((2, 4, 1) if arm == "resnet_per_frame" else (2, 1))
+    np.testing.assert_allclose(ttrain.detach().numpy(), np.asarray(jtrain), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(teval.numpy(), np.asarray(jeval), rtol=1e-5, atol=1e-5)
+    got = tmodel.state_dict()
+    for name, want in torch_state_from_flax({}, _np(new_stats)).items():
+        np.testing.assert_allclose(got[name].numpy(), want.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+        start = torch.zeros_like(want) if name.endswith("running_mean") else torch.ones_like(want)
+        assert not torch.equal(want, start), f"{name} was not moved by the train-mode forward"
+
+
+@pytest.mark.parametrize("kind", ["linear", "cnn", "resnet"])
+def test_full_width_new_arms_param_count_and_state_keys_match_flax(kind):
+    """At the baseline experiment's full width: equal parameter counts, and
+    the converted state dict fills every parameter and buffer (the 2-D Dense
+    kernel under ``proj``, the conv bias, the ResNet's nested names)."""
+    cfg_kw = dict(single_prediction=True) if kind == "resnet" else dict(use_pos_encoding=True)
+    _, params, bstats, tmodel = _pair(cfg_kw, np.zeros((1, 30, 9, 9), np.float32), kind=kind)
+    assert t_count(tmodel) == j_count(params)
+    state = torch_state_from_flax(_np(params), _np(bstats))
+    assert set(state) == set(tmodel.state_dict())
+    for name, v in tmodel.state_dict().items():
+        assert state[name].shape == v.shape, name
 
 
 @pytest.fixture(scope="module")
@@ -117,8 +195,54 @@ def test_activations_match_flax(name):
     )
 
 
+@pytest.mark.parametrize("kind", ["cnn", "resnet"])
+def test_init_model_new_arms_match_flax_initialisers(kind):
+    """Constant leaves (biases, the conv bias among them, BN scales and
+    running statistics) start at flax's values; drawn kernels of 1000 entries
+    or more have the flax initialiser's spread."""
+    cfg_kw = dict(single_prediction=True) if kind == "resnet" else dict(use_pos_encoding=True)
+    _, params, bstats, _ = _pair(cfg_kw, np.zeros((1, 30, 9, 9), np.float32), kind=kind)
+    ref = torch_state_from_flax(_np(params), _np(bstats))
+    tmodel = t_init(_models(kind, cfg_kw)[1], torch.Generator().manual_seed(0))
+    constant = 0
+    for name, v in tmodel.state_dict().items():
+        want = ref[name]
+        if (want == want.flatten()[0]).all():
+            assert torch.equal(v, want), name
+            constant += 1
+        elif v.numel() >= 1000:
+            np.testing.assert_allclose(float(v.std()), float(want.std()), rtol=0.1, err_msg=name)
+    assert constant > 10
+    if kind == "cnn":
+        assert torch.equal(tmodel.embedding.conv.bias, torch.zeros(64))
+
+
+def test_batchnorm_train_mode_uses_biased_batch_statistics():
+    """Train mode: normalise with the batch mean and the biased variance over
+    (N, H, W), move the running statistics by 0.1 of the way; eval mode:
+    apply the running statistics and leave them alone."""
+    from moleculardiffusion_mivit_tpu_torch.models import BatchNorm
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((2.0 * rng.normal(size=(3, 4, 5, 5)) + 1.0).astype(np.float32))
+    bn = BatchNorm(4).train()
+    y = bn(x)
+    mean = x.mean(dim=(0, 2, 3))
+    var = x.var(dim=(0, 2, 3), correction=0)
+    torch.testing.assert_close(bn.running_mean, 0.1 * mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * var, rtol=1e-5, atol=1e-6)
+    want = (x - mean.view(1, -1, 1, 1)) / torch.sqrt(var.view(1, -1, 1, 1) + 1e-5)
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    kept = bn.running_mean.clone()
+    bn.eval()(x)
+    assert torch.equal(bn.running_mean, kept)
+    assert not bn.running_mean.requires_grad and y.requires_grad
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGeneral(TModelConfig(), embedding="linear")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TGeneral(TModelConfig(), use_global_features=True)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TGeneral(TModelConfig())(torch.zeros(1, 2, 9, 9), features=torch.zeros(1, 25))
+    with pytest.raises(ValueError, match="unknown embedding"):
+        TGeneral(TModelConfig(), embedding="fourier")

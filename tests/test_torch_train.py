@@ -15,11 +15,12 @@ import torch
 from moleculardiffusion_mivit_tpu.config import ModelConfig as JModelConfig
 from moleculardiffusion_mivit_tpu.config import TrainConfig as JTrainConfig
 from moleculardiffusion_mivit_tpu.models import GeneralTransformer as JGeneral
+from moleculardiffusion_mivit_tpu.models import MultiImageResNet as JResNet
 from moleculardiffusion_mivit_tpu.models import init_model as j_init
 from moleculardiffusion_mivit_tpu.train import loop as jloop
 from moleculardiffusion_mivit_tpu_torch import evaluation as tval
 from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, ModelConfig, TrainConfig
-from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer
+from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
 from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
 from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
 
@@ -31,9 +32,21 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def test_one_train_step_matches_jax():
+def _models(kind):
+    """The flax model and the port's at the small width: ``kind`` is an
+    embedding of GeneralTransformer, or ``"resnet"`` for MultiImageResNet."""
+    if kind == "resnet":
+        return JResNet(single_prediction=True), MultiImageResNet(single_prediction=True)
+    return (JGeneral(JModelConfig(**SMALL), embedding=kind),
+            GeneralTransformer(ModelConfig(**SMALL), embedding=kind))
+
+
+@pytest.mark.parametrize("kind", ["deep_resnet", "linear", "cnn", "resnet"])
+def test_one_train_step_matches_jax(kind):
     """From the same weights, batch and LR, one step leaves the parameters,
-    the AdamW moments and the BN running statistics equal to the JAX update.
+    the AdamW moments and the BN running statistics equal to the JAX update,
+    for each kind of baseline arm (BatchNorm through the fused embedding,
+    none, none, BatchNorm through torch operators).
 
     - Parameters and running statistics: 1e-5 relative.
     - Moments (0.1·g and 0.001·g² after one step): 1e-5 relative plus 1e-4
@@ -53,7 +66,7 @@ def test_one_train_step_matches_jax():
     idx = np.array([4, 1, 2])
 
     jcfg = JTrainConfig(lr=lr)
-    jmodel = JGeneral(JModelConfig(**SMALL), embedding="deep_resnet")
+    jmodel, tmodel = _models(kind)
     params, bstats = jax.jit(lambda k, x: j_init(jmodel, k, x))(jax.random.key(0), jnp.asarray(videos[:1]))
     impls = jloop.make_train_impls(jmodel, jcfg)
     tx = jloop.make_optimizer(jcfg)
@@ -65,7 +78,6 @@ def test_one_train_step_matches_jax():
         )
     adam = next(s for s in jax.tree.leaves(new.opt_state, is_leaf=lambda v: hasattr(v, "mu")) if hasattr(s, "mu"))
 
-    tmodel = GeneralTransformer(ModelConfig(**SMALL), embedding="deep_resnet")
     tmodel.load_state_dict(torch_state_from_flax(_np(params), _np(bstats)))
     tstate = tloop.TrainState(tmodel.train(), tloop.make_optimizer(tmodel, TrainConfig(lr=lr)))
     tl = tloop.make_train_impls(tmodel, TrainConfig(lr=lr), device="cpu").train_step(
@@ -128,6 +140,30 @@ def test_run_training_one_tiny_cycle_on_cpu():
     assert set(hist) == expected and calls == [0]
     assert all(len(v) == 1 and np.isfinite(v[0]) for v in hist.values())
     assert state.model is model and next(model.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("kind", ["resnet", "linear", "cnn"])
+def test_run_training_one_tiny_cycle_on_cpu_other_arms(kind):
+    """``run_training`` takes the arms whose BatchNorm runs through torch
+    operators, or that have none, unchanged: finite history, and the
+    ResNet's running statistics moved by the training forwards and left
+    alone by the evaluation."""
+    cfg = TrainConfig(sequences_per_d=2, n_frames=4, initial_batch_size=2)
+    trajs = tval.generate_frozen_validation(d_values=(1, 3), n_particles=2, t_steps=40, device="cpu")
+    trajs.pop("valTrajsInOrder")
+    vids = tval.render_validation_videos(trajs, cfg, BASELINE_OPTICS, device="cpu")
+    val = {1.0: vids["val1"], 3.0: vids["val3"]}
+    model = _models(kind)[1]
+    state, hist = tloop.run_training(model, cfg, BASELINE_OPTICS, val, num_cycles=1, device="cpu")
+    assert set(hist) == {"val_1", "val_3", "val_avg", "train_loss"}
+    assert all(len(v) == 1 and np.isfinite(v[0]) for v in hist.values())
+    assert state.model is model and model.training
+    if kind == "resnet":
+        bn = model.resnet.trunk.bn1
+        assert not torch.equal(bn.running_mean, torch.zeros(32))
+        kept = bn.running_mean.clone()
+        tloop.make_train_impls(model, cfg, device="cpu").evaluate(state, val[1.0])
+        assert torch.equal(bn.running_mean, kept) and model.training
 
 
 def test_train_cycle_schedule_and_remainder():
