@@ -23,13 +23,24 @@ line each on stdout:
    rendering the validation suite once; launch counters reset just before
    and read just after, and per model: K1 once per D class and cycle, K2/K3
    once a step for the two deep_resnet models and never for the other five.
+5. experiment: the baseline experiment through its own entry points
+   (``experiments.baseline.build`` + ``Experiment.run``, then
+   ``run_experiment.main``), all seven arms at full width, the learned arms'
+   epochs as captured CUDA graphs (``train.capture``). At batch 16 the
+   captured and the eager cycle agree (losses, validation MSEs, every
+   parameter and buffer; bitwise is reported); at batch 1 the captured
+   cycle is timed and profiled (busy share, kernels a step, host ms of one
+   replay). Launches are what ran: wrapper calls less those recorded while
+   capturing plus replays × the calls a graph recorded; K2/K3 once a step of
+   each deepcnn arm and in no other unit's graph, K1 once per D class and
+   cycle plus the validation renders.
 
-Then a ``kernels`` line with each kernel's launches on the main path, error,
-times (``ms`` around the wrapper, ``device_ms`` of its launches alone) and
-bound, the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
-that line. Without a CUDA device, or without the package beside this file,
-it exits non-zero and prints no result.
+Then a ``kernels`` line with each kernel's launches on the main paths (by
+path beside the total), error, times (``ms`` around the wrapper,
+``device_ms`` of its launches alone) and bound, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed
+check exits non-zero before that line. Without a CUDA device, or without
+the package beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -402,6 +413,224 @@ def phase_slice(torch, card):
     return total
 
 
+def _busy_ms(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def device_kernels(torch, prof):
+    """``(name, start_ns, end_ns)`` of every kernel a ``torch.profiler``
+    run saw on the card, kernels inside replayed CUDA graphs included, read
+    from the raw trace (no per-event Python objects: a batch-1 cycle runs
+    1.6 million kernels)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()]
+
+
+def kernel_key(name: str) -> str:
+    """A kernel's function name without return type, namespace, template
+    and call arguments (``void (anonymous namespace)::pool_fc_kernel(float
+    const*, ...)`` → ``pool_fc_kernel``)."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
+def _profiled(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` (CUDA activity); returns its wall
+    seconds, the card's busy share over them (union of kernel intervals),
+    the kernels' summed device ms, their number, and the kernels counted by
+    name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(torch, prof)
+    names = {}
+    for name, _, _ in kernels:
+        key = kernel_key(name)
+        names[key] = names.get(key, 0) + 1
+    busy = _busy_ms([(a / 1e3, b / 1e3) for _, a, b in kernels]) / (wall * 1e3)
+    return wall, busy, sum(b - a for _, a, b in kernels) / 1e6, len(kernels), names
+
+
+def _replay_host_ms(torch, engine, n: int = 20) -> dict:
+    """Host ms of one ``replay()`` call of each unit's graph with the card
+    idle (median of ``n``), after a run: each replay repeats the unit's
+    first step (its counter is reset), so it trains the models further."""
+    out = {}
+    for key, unit in engine.units.items():
+        if unit.graph is None:
+            continue
+        times = []
+        for _ in range(n):
+            unit.counter.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unit.graph.replay()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        out["+".join(key)] = 1e3 * statistics.median(times)
+    return out
+
+
+def _compare_experiments(torch, a, b):
+    """Per arm, the largest relative differences between two experiments'
+    training losses and validation MSEs of every cycle so far and their
+    parameters and buffers now, and whether all of them are bitwise equal."""
+    out = {}
+    for name in a.arms:
+        d = {"loss": 0.0, "val": 0.0, "param": 0.0, "bitwise": True}
+        pairs = {"loss": list(zip([float(v) for v in a.train_loss[name]], [float(v) for v in b.train_loss[name]]))}
+        pairs["val"] = [p for key in a.history[name] for p in zip(a.history[name][key], b.history[name][key])]
+        for what, ps in pairs.items():
+            for va, vb in ps:
+                d[what] = max(d[what], abs(va - vb) / abs(vb))
+                d["bitwise"] &= va == vb
+        ref = b.states[name].model.state_dict()
+        for key, v in a.states[name].model.state_dict().items():
+            d["bitwise"] &= bool(torch.equal(v, ref[key]))
+            scale = float(ref[key].abs().max()) or 1.0
+            d["param"] = max(d["param"], float((v - ref[key]).abs().max()) / scale)
+        out[name] = d
+    return out
+
+
+def phase_experiment(torch, card):
+    """The baseline experiment through its entry points (``experiments.
+    baseline.build`` + ``Experiment.run``, then ``run_experiment.main``) at
+    full width: all seven arms, 4 D classes × 64 sequences of 30 frames, the
+    frozen validation suite. (a) Cycles at batch 16 captured and eager from
+    the same seed: over two cycles, losses, validation MSEs and every
+    parameter and buffer agree; the second is timed, a third profiled. (b) Three cycles at batch 1 captured: the first captures,
+    the second is timed, the third runs under the profiler. (c) K2/K3 run
+    inside the replayed graphs once a step of each deepcnn arm and in no
+    other unit; K1 once per D class and cycle plus the validation renders.
+    (d) Finite losses and MSEs, training loss falling at batch 1."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch import run_experiment
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+
+    n_val_renders = 6
+    deep = ("deepcnn_2layer_s", "deepcnn_2layer_leaky")
+    torch.cuda.reset_peak_memory_stats()
+    engines = []
+
+    def build(batch, fused):
+        exp = baseline.build(seed=0, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()  # every engine below starts with empty counters
+    t_phase = time.perf_counter()
+
+    # (a) batch 16, captured against eager: cycles 0 and 1 compared, cycle 1
+    # timed, cycle 2 under the profiler
+    runs = {}
+    for fused in (True, False):
+        exp = build(16, fused)
+        exp.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run(1, start_cycle=1)
+        torch.cuda.synchronize()
+        runs[fused] = [exp, time.perf_counter() - t0]
+    cap, eag = runs[True][0], runs[False][0]
+    n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
+    tol = 1e-4
+    diffs = _compare_experiments(torch, cap, eag)
+    emit({"phase": "experiment", "part": "a_agreement", "tolerance_relative": tol, "by_arm": diffs})
+    for name, d in diffs.items():
+        for what in ("loss", "val", "param"):
+            check(d[what] <= tol, f"experiment: {name}: captured and eager {what} differ by {d[what]} > {tol}")
+    for fused in (True, False):
+        runs[fused] += _profiled(torch, lambda: runs[fused][0].run(1, start_cycle=2))[:4]
+    units16 = {"+".join(u.names): u.launches_per_replay for u in cap.engine.units.values()}
+    emit({"phase": "experiment", "part": "a", "card": card, "batch": 16, "arms": len(cap.arms),
+          "tolerance_relative": tol, "bitwise_equal": all(d["bitwise"] for d in diffs.values()),
+          "s_per_cycle": {"captured": runs[True][1], "eager": runs[False][1]},
+          "seq_per_s": {"captured": n_seq / runs[True][1], "eager": n_seq / runs[False][1]},
+          "profiled_s_per_cycle": {"captured": runs[True][2], "eager": runs[False][2]},
+          "device_busy_share_profiled": {"captured": runs[True][3], "eager": runs[False][3]},
+          "device_kernel_ms": {"captured": runs[True][4], "eager": runs[False][4]},
+          "device_busy_share_est": {m: runs[f][4] / (runs[f][1] * 1e3) for m, f in (("captured", True), ("eager", False))},
+          "kernels_per_cycle_profiled": {"captured": runs[True][5], "eager": runs[False][5]},
+          "captures": cap.engine.captures, "replays": cap.engine.replays,
+          "launches_per_replay_by_unit": units16,
+          "val_avg": {n: h["val_avg"] for n, h in cap.history.items()}})
+
+    # (b) batch 1, captured: capture cycle, timed cycle, profiled cycle
+    exp = build(1, True)
+    eng = exp.engine
+    marks = [time.perf_counter()]
+    exp.run(2, callback=lambda c, m: marks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    eng.unit_seconds = {}
+    prof_wall, busy, kernel_ms, n_kernels, names = _profiled(torch, lambda: exp.run(1, start_cycle=2))
+    steps = n_seq  # at batch 1
+    per_unit = {"+".join(k): v for k, v in eng.unit_seconds.items()}
+    losses = {n: [float(v) for v in exp.train_loss[n]] for n in exp.arms}
+    for n, ls in losses.items():
+        hist = exp.history[n]
+        check(all(math.isfinite(v) for v in ls + [x for vals in hist.values() for x in vals]),
+              f"experiment: {n}: non-finite loss or val MSE")
+        check(ls[1] < ls[0] and ls[2] < ls[0], f"experiment: {n}: training loss did not fall: {ls}")
+    units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
+    for key, per in units1.items():
+        want = sum(1 for n in key.split("+") if n in deep)
+        check(per.get("deep_resnet_embed_fwd", 0) == want and per.get("deep_resnet_embed_bwd", 0) == want,
+              f"experiment: unit {key} records K2/K3 {per}, expected {want} each a replay")
+
+    # the user's entry point, one cycle (batch 1 by the schedule) with its files
+    with tempfile.TemporaryDirectory() as out:
+        cli = run_experiment.main(["baseline", "--cycles", "1", "--out", out, "--checkpoint-last", "0"])
+        engines.append(cli.engine)
+        for f in ("metrics.jsonl", "history.json", "final/meta.json", "baseline_errors.csv",
+                  "in_order_predictions.npz"):
+            check(Path(out, f).is_file(), f"run_experiment wrote no {f}")
+        cli_events = [json.loads(line)["event"] for line in Path(out, "metrics.jsonl").read_text().splitlines()]
+    torch.cuda.synchronize()
+    launches = kernel_launches(counts0, engines)
+    builds, cycles = 4, 2 * 3 + 3 + 1  # (a) two experiments of three cycles, (b) three, the runner's one
+    k1_want = n_val_renders * builds + 4 * cycles
+    k23_want = len(deep) * (2 * 3 * n_seq // 16 + 4 * n_seq)
+    check(launches["render_frames"] == k1_want, f"experiment: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"experiment: {k} launches {launches[k]} != {k23_want}")
+    # the profiler's own count of the kernels each K1, K2 and K3 call runs
+    # once, in the profiled cycle: K1 per D class, K2/K3 in the replays
+    seen = {k: names.get(k, 0) for k in ("render_frames_kernel", "pool_fc_kernel", "pool_fc_bwd_kernel")}
+    want = {"render_frames_kernel": 4, "pool_fc_kernel": len(deep) * steps, "pool_fc_bwd_kernel": len(deep) * steps}
+    check(seen == want, f"experiment: profiled cycle ran {seen}, expected {want}")
+    replay_host_ms = _replay_host_ms(torch, eng)  # after the counts: these replays are not the main path's
+    emit({"phase": "experiment", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
+          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": marks[2] - marks[1],
+          "seq_per_s": n_seq / (marks[2] - marks[1]),
+          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
+          "device_busy_share_est": kernel_ms / ((marks[2] - marks[1]) * 1e3),
+          "kernels_in_profiled_cycle": n_kernels, "kernels_per_step_incl_generation_and_validation": n_kernels / steps,
+          "profiled_kernels_once_per_k1_k2_k3_call": seen,
+          "unit_s_profiled_cycle": per_unit, "replay_host_ms_card_idle": replay_host_ms,
+          "launches_per_replay_by_unit": units1, "train_loss": losses,
+          "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
+          "run_experiment_events": cli_events,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> None:
     if not (ROOT / PKG / "__init__.py").is_file():
         fail(f"the {PKG} package is not beside this script")
@@ -428,19 +657,23 @@ def main() -> None:
 
     k1 = phase_k1(torch)
     k2, k3 = phase_k2_k3(torch)
-    launches = phase_slice(torch, card)
+    by_path = {"slice": phase_slice(torch, card), "experiment": phase_experiment(torch, card)}
+    launches = {k: sum(path[k] for path in by_path.values()) for k in by_path["slice"]}
 
     src = f"{PKG}/csrc"
     kernels = [
         dict(name="render_frames", route="cuda", source=f"{src}/render.cu",
              replaces="moleculardiffusion_mivit_tpu/ops/pallas_render.py:240",
-             launches=launches["render_frames"], library_ms=None, **k1),
+             launches=launches["render_frames"],
+             launches_by_path={p: v["render_frames"] for p, v in by_path.items()}, library_ms=None, **k1),
         dict(name="deep_resnet_embed_fwd", route="cuda", source=f"{src}/fused_embedding.cu",
              replaces="moleculardiffusion_mivit_tpu/ops/fused_embedding.py:350",
-             launches=launches["deep_resnet_embed_fwd"], library_ms=None, **k2),
+             launches=launches["deep_resnet_embed_fwd"],
+             launches_by_path={p: v["deep_resnet_embed_fwd"] for p, v in by_path.items()}, library_ms=None, **k2),
         dict(name="deep_resnet_embed_bwd", route="cuda", source=f"{src}/fused_embedding.cu",
              replaces="moleculardiffusion_mivit_tpu/ops/fused_embedding.py:373",
-             launches=launches["deep_resnet_embed_bwd"], library_ms=None, **k3),
+             launches=launches["deep_resnet_embed_bwd"],
+             launches_by_path={p: v["deep_resnet_embed_bwd"] for p, v in by_path.items()}, library_ms=None, **k3),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")

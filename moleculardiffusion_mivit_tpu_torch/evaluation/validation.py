@@ -4,7 +4,8 @@ Port of the main-path part of
 ``moleculardiffusion_mivit_tpu/evaluation/validation.py``: generate a
 validation suite from a seed (equal to the JAX one in distribution, not in
 bits: the random streams differ), load the reference's frozen assets when a
-directory holds them, and render them the way the experiments do.
+directory holds them, render them the way the experiments do, and score
+in-order sweeps as the poster notebooks do (``error_table``, numpy only).
 """
 
 from __future__ import annotations
@@ -110,3 +111,24 @@ def render_validation_videos(
         vids, _ = normalize_images(vids, bg_mean, bg_sigma, part_mean + bg_mean)
         out[name] = vids.reshape(lead + vids.shape[1:])
     return out
+
+
+def error_table(predictions: np.ndarray, d_values: np.ndarray = IN_ORDER_D_VALUES) -> Dict[str, float]:
+    """Poster-notebook scoring: ``predictions`` of shape (len(d_values), P),
+    already rescaled by D_max; errors = pred − true; mse = mean(err²),
+    std = std(err)/4, mae = mean|err|."""
+    preds = np.asarray(predictions)
+    errors = preds - np.asarray(d_values)[:, None]
+    return {
+        "mse": float(np.mean(errors**2)),
+        "std": float(np.std(errors) / 4.0),
+        "mae": float(np.mean(np.abs(errors))),
+    }
+
+
+def save_error_table_csv(rows: Dict[str, Dict[str, float]], path: str) -> None:
+    """Write the poster CSV layout: ``model,mse,std``, one row per model."""
+    with open(path, "w") as f:
+        f.write("model,mse,std\n")
+        for name, stats in rows.items():
+            f.write(f"{name},{stats['mse']:.6g},{stats['std']:.6g}\n")

@@ -1,0 +1,36 @@
+"""Experiment registry.
+
+Port of ``moleculardiffusion_mivit_tpu/experiments``. ``baseline`` (the
+reference's tests/train_tests: three embeddings × {relu, leaky_relu}
+transformers + MultiImageResNet) is ported; the six other regimes are
+listed under their names and raise ``NotImplementedError`` (ROADMAP.md,
+queue 1, item 12).
+"""
+
+from moleculardiffusion_mivit_tpu_torch.experiments import baseline
+from moleculardiffusion_mivit_tpu_torch.experiments.base import (  # noqa: F401
+    Experiment,
+    GridArm,
+    ModelEntry,
+    rotate_videos,
+)
+
+
+def _not_ported(name: str):
+    def build(**kwargs) -> Experiment:
+        raise NotImplementedError(f"experiment {name!r} is not ported yet (ROADMAP.md, queue 1, item 12)")
+
+    return build
+
+
+REGISTRY = {
+    "baseline": baseline.build,
+    **{name: _not_ported(name) for name in
+       ("psfnoise", "framerate", "embeddings", "images_features", "denoising", "modular")},
+}
+
+
+def get_experiment(name: str, **kwargs) -> Experiment:
+    if name not in REGISTRY:
+        raise KeyError(f"unknown experiment {name!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[name](**kwargs)

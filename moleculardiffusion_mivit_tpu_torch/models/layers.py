@@ -71,8 +71,15 @@ class FeedForward(nn.Module):
         self.act = activation_by_name(activation)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x):
-        return self.fc2(self.dropout(self.act(self.fc1(x))))
+    def forward(self, x, act_slope=None):
+        """``act_slope``, a float or a 0-d tensor, replaces the activation by
+        a leaky ReLU of that slope (relu is slope 0, the reference's
+        leaky_relu 0.01), as the JAX package's stacked training passes it;
+        a tensor lets a captured CUDA graph carry it. The forward equals
+        relu/leaky_relu; the gradient differs only at inputs of exactly 0."""
+        h = self.fc1(x)
+        h = self.act(h) if act_slope is None else torch.where(h >= 0, h, act_slope * h)
+        return self.fc2(self.dropout(h))
 
 
 class TransformerEncoderLayerWithSkip(nn.Module):
@@ -86,9 +93,9 @@ class TransformerEncoderLayerWithSkip(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, act_slope=None):
         x = self.norm1(x + self.dropout(self.self_attn(x, mask)))
-        return self.norm2(x + self.dropout(self.feed_forward(x)))
+        return self.norm2(x + self.dropout(self.feed_forward(x, act_slope)))
 
 
 class Transformer(nn.Module):
@@ -111,11 +118,11 @@ class Transformer(nn.Module):
             )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, act_slope=None):
         if self.pos_embedding is not None:
             x = x + self.pos_embedding[:, : x.shape[1], :]
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            x = getattr(self, f"layer_{i}")(x, act_slope=act_slope)
         return self.norm(x)
 
 

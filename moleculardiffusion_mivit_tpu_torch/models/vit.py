@@ -51,14 +51,16 @@ class GeneralTransformer(nn.Module):
         )
         self.mlp_head = MLPHead(cfg.embed_dim, head_hidden_dim)
 
-    def forward(self, x, features=None):
+    def forward(self, x, features=None, act_slope=None):
+        """``act_slope`` (float or 0-d tensor) overrides the encoder's FF
+        activation with a leaky ReLU of that slope (``models.layers.FeedForward``)."""
         if features is not None:
             raise NotImplementedError("GeneralTransformer: features are not ported yet")
         cfg = self.config
         x = self.norm(self.embedding(x))
         if cfg.use_regression_token:
             x = torch.cat([self.reg_token.expand(x.shape[0], 1, cfg.embed_dim), x], dim=1)
-        x = self.transformer(x)
+        x = self.transformer(x, act_slope=act_slope)
         if cfg.use_regression_token:
             out = x[:, 0, :]
         elif cfg.single_prediction:

@@ -13,8 +13,8 @@ activations in device memory and take any row count up to 2^31 / 128.
 Precision is the port's own, whatever the caller's global settings. K2/K3
 run their matrix products on the TF32 tensor cores as three products of
 operands split into a big and a small TF32 part (f32-grade accuracy); the
-plain version and the eval path run their convolutions in full f32
-(``f32_convolutions`` turns cuDNN's TF32 off around them).
+plain version and the eval path run their convolutions in full f32 with
+deterministic algorithms (``f32_convolutions`` sets cuDNN so around them).
 
 The image border is a table the kernels are given: ``tap_validity`` builds
 it here, where the CPU tests reach it (``tests/test_torch_embedding.py``
@@ -77,17 +77,21 @@ STAGE_KINDS = (
 
 @contextlib.contextmanager
 def f32_convolutions():
-    """Run the convolutions inside in full f32 on a CUDA device: cuDNN's TF32
-    (on by default in PyTorch, three decimal digits) is off within the block
-    and the caller's setting is restored after it. Covers the convolutions
-    called inside the block; a later autograd pass through them follows the
-    caller's setting."""
-    old = torch.backends.cudnn.allow_tf32
+    """Run the convolutions inside in full f32 and with deterministic
+    algorithms on a CUDA device: cuDNN's TF32 (on by default in PyTorch,
+    three decimal digits) is off within the block, cuDNN picks only
+    algorithms that give the same bits on every run (its default choice for
+    some weight gradients adds with atomics, so two training runs from one
+    seed drift apart), and the caller's settings are restored after it.
+    Covers the convolutions called inside the block; a later autograd pass
+    through them follows the caller's settings."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = old
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = old
 
 
 def tap_validity(s: int) -> torch.Tensor:

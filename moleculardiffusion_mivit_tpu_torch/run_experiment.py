@@ -1,0 +1,140 @@
+"""CLI experiment runner.
+
+Usage:
+    python -m moleculardiffusion_mivit_tpu_torch.run_experiment baseline \
+        --cycles 100 --out results/baseline [--seed 0] [--seqs-per-d 64] [--device cuda]
+
+Port of ``moleculardiffusion_mivit_tpu/run_experiment.py``: runs the named
+experiment on ``--device`` (CUDA by default; without a card it raises unless
+``--device cpu`` is given), streams events to ``<out>/metrics.jsonl`` and
+stderr (``start``, ``built``, ``resumed``, ``cycle``, ``trained``,
+``final_val_avg``, ``error_tables``), checkpoints the last cycles, and writes
+``history.json``, ``final/``, and, where the experiment has an in-order
+sweep, ``<experiment>_errors.csv`` and ``in_order_predictions.npz``.
+
+Not offered: ``--mesh``, ``--no-aot-cache`` and ``--unroll`` (TPU-only), and
+``--plots`` (ROADMAP.md, queue 1, item 12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import sys
+import time
+
+
+def main(argv=None):
+    """Run the command line ``argv``; returns the trained ``Experiment``."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("experiment", help="baseline (the other six regimes are not ported yet)")
+    ap.add_argument("--cycles", type=int, default=None, help="override num_cycles")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seqs-per-d", type=int, default=64)
+    ap.add_argument("--out", type=str, default=None, help="output directory")
+    ap.add_argument("--checkpoint-last", type=int, default=5)
+    ap.add_argument("--eval-every", type=int, default=1)
+    ap.add_argument("--in-order", action="store_true",
+                    help="build the in-order D sweep where the experiment makes it optional")
+    ap.add_argument("--in-order-renders", type=int, default=1,
+                    help="score the in-order sweep on K render-noise draws of the same trajectories")
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default=None,
+                    help="forward/backward precision; bfloat16 is not ported yet")
+    ap.add_argument("--resume", type=str, default=None,
+                    help="checkpoint directory (e.g. <out>/final) to restore and continue from")
+    ap.add_argument("--no-stack-pairs", action="store_true",
+                    help="step the activation-slope pairs as separate units (Experiment.stack_pairs)")
+    ap.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from moleculardiffusion_mivit_tpu_torch import resolve_device
+    from moleculardiffusion_mivit_tpu_torch.experiments import REGISTRY, get_experiment
+    from moleculardiffusion_mivit_tpu_torch.utils import MetricsLogger, restore_experiment, save_experiment
+
+    device = resolve_device(args.device)
+    if args.experiment not in REGISTRY:
+        ap.error(f"unknown experiment {args.experiment!r}; available: {sorted(REGISTRY)}")
+    out_dir = args.out or f"results/{args.experiment}"
+    os.makedirs(out_dir, exist_ok=True)
+    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"), stdout=True)
+
+    kwargs = dict(seed=args.seed, sequences_per_d=args.seqs_per_d, device=device)
+    if args.in_order and "with_in_order" in inspect.signature(REGISTRY[args.experiment]).parameters:
+        kwargs["with_in_order"] = True
+    exp = get_experiment(args.experiment, **kwargs)
+    if args.compute_dtype:
+        exp.train_cfg = exp.train_cfg.replace(compute_dtype=args.compute_dtype)
+        for arm in exp.arms.values():
+            if arm.train_cfg is not None:
+                arm.train_cfg = arm.train_cfg.replace(compute_dtype=args.compute_dtype)
+    if args.no_stack_pairs:
+        exp.stack_pairs = False
+    n_cycles = args.cycles or exp.train_cfg.num_cycles
+
+    logger.log(
+        "start",
+        experiment=args.experiment,
+        devices=[torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)],
+        num_cycles=n_cycles,
+        sequences_per_d=args.seqs_per_d,
+        training_ds=list(map(list, exp.train_cfg.training_ds)),
+        lr=exp.train_cfg.lr,
+        loss=exp.train_cfg.loss,
+        models=exp.model_names,
+    )
+
+    t0 = time.time()
+    exp.build()
+    logger.log("built", seconds=round(time.time() - t0, 1))
+
+    start_cycle = 0
+    if args.resume:
+        restore_experiment(exp, args.resume)
+        start_cycle = len(next(iter(exp.history.values()))["val_avg"])
+        n_cycles = max(n_cycles - start_cycle, 0)
+        logger.log("resumed", checkpoint=args.resume, cycles_done=start_cycle, cycles_left=n_cycles)
+
+    t0 = time.time()
+    exp.run(
+        num_cycles=n_cycles,
+        callback=logger.cycle_callback(),
+        eval_every=args.eval_every,
+        checkpoint_last=args.checkpoint_last,
+        checkpoint_dir=out_dir,
+        start_cycle=start_cycle,
+    )
+    logger.log("trained", seconds=round(time.time() - t0, 1))
+
+    save_experiment(exp, os.path.join(out_dir, "final"))
+    final = {name: h["val_avg"][-1] for name, h in exp.history.items() if h["val_avg"]}
+    logger.log("final_val_avg", values=final)
+
+    if exp.in_order_data is not None:
+        from moleculardiffusion_mivit_tpu_torch.evaluation import error_table, save_error_table_csv
+
+        d_values = exp.in_order_data["d_values"]
+        preds = exp.in_order_predictions()
+        tables = {name: error_table(p, d_values) for name, p in preds.items()}
+        if args.in_order_renders > 1:
+            tables = exp.in_order_error_tables(n_renders=args.in_order_renders)
+        csv_path = os.path.join(out_dir, f"{args.experiment}_errors.csv")
+        save_error_table_csv(tables, csv_path)
+        logger.log("error_tables", path=csv_path, tables=tables)
+        np.savez_compressed(
+            os.path.join(out_dir, "in_order_predictions.npz"), d_values=np.asarray(d_values), **preds
+        )
+
+    with open(os.path.join(out_dir, "history.json"), "w") as f:
+        json.dump(exp.history, f)
+    logger.close()
+    print(f"results in {out_dir}", file=sys.stderr)
+    return exp
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,242 @@
+"""Training epochs as CUDA graphs: the port's counterpart of the JAX
+package's one compiled program per cycle (``jax.jit(cycle,
+donate_argnums=(0,))``, ``train/multi.py``).
+
+A *unit* is a list of models that step together: one model, a stack of
+models that differ only in their FF activation slope (stepped one after the
+other), or every model of a merged cycle (``merge_scans``). For each unit
+and batch size ``EpochEngine`` keeps static buffers: each member's cycle
+data (copied in once a cycle), its epoch permutation ``(steps, B)``, its
+per-step losses, and one device step counter that the step itself advances.
+On the card the first cycle of a batch size runs ``WARMUP_STEPS`` steps
+eagerly on a side stream, which makes the optimizer's state, the kernels'
+one-time set-up (``ops.fused_embedding``'s border table, shared-memory
+grants) and the cuDNN/cuBLAS handles, then captures one step of every member
+in a ``torch.cuda.CUDAGraph`` and replays it for the rest of the epoch; later
+cycles of that batch size only replay. An epoch is then ``steps`` calls of
+``replay()`` with no other host work between them. A graph holds the
+forward, the backward, the BatchNorm running-statistic updates (in place on
+their buffers) and the AdamW step (capturable, its learning rate a device
+tensor that ``train.loop._set_lr`` fills each cycle). When the batch size
+changes, the graphs of the old one are freed and the new one is captured.
+
+Eager execution runs the same step on the same buffers: that is how CPU
+tensors run. On the card a capture that fails raises; nothing goes on
+eagerly in its place (``experiments.Experiment`` runs eagerly on the card
+only when its caller sets ``fused_cycles = False``, through each model's own
+``train_cycle``). A step
+must make no host synchronisation and draw no random number: a model with
+dropout > 0 raises before capture, since every replay would reuse one mask.
+
+The kernel wrappers' launch counters count Python calls. A call made while
+capturing records its kernels in the graph without running them, and a
+replay runs them without a call: ``EpochEngine.recorded`` counts the
+former, ``EpochEngine.replayed`` the launches replays made (replays × the
+calls recorded in that graph), so the kernels a run launched are the
+wrappers' counts − recorded + replayed (``kernel_launches``).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import Counter
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import torch
+
+from moleculardiffusion_mivit_tpu_torch.train.loop import TrainState
+
+# Eager steps before the first capture of a unit at a batch size. They are
+# real steps of the epoch: the first creates AdamW's state, the second runs
+# the path a replay will take.
+WARMUP_STEPS = 2
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launch counters of the hand-written kernels' wrappers."""
+    from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
+    from moleculardiffusion_mivit_tpu_torch.ops.render import render_frames
+
+    return {f.__name__: f.launches for f in (render_frames, fe.deep_resnet_embed_fwd, fe.deep_resnet_embed_bwd)}
+
+
+class Member(NamedTuple):
+    """One model of a unit, with what its epoch reads."""
+
+    name: str
+    state: TrainState
+    train_step: Callable  # train.loop's train_step(state, videos, labels, idx, act_slope)
+    videos: torch.Tensor
+    labels: torch.Tensor
+    perm: torch.Tensor  # (steps, batch) minibatch indices on the data's device
+    act_slope: Optional[torch.Tensor] = None
+
+
+class _Unit:
+    """Static buffers of one unit at one batch size, and its graph once
+    captured."""
+
+    def __init__(self, members: Sequence[Member]):
+        self.names = tuple(m.name for m in members)
+        self.states = [m.state for m in members]
+        self.train_steps = [m.train_step for m in members]
+        self.slopes = [m.act_slope for m in members]
+        self.videos = [torch.empty_like(m.videos) for m in members]
+        self.labels = [torch.empty_like(m.labels) for m in members]
+        self.perms = [torch.empty_like(m.perm) for m in members]
+        self.losses = [torch.empty(m.perm.shape[0], device=m.perm.device) for m in members]
+        self.counter = torch.zeros(1, dtype=torch.long, device=members[0].perm.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches_per_replay: Dict[str, int] = {}
+
+    def matches(self, members: Sequence[Member]) -> bool:
+        return all(
+            m.state is s and m.videos.shape == v.shape and m.labels.shape == y.shape
+            and m.perm.shape == p.shape
+            for m, s, v, y, p in zip(members, self.states, self.videos, self.labels, self.perms, strict=True)
+        )
+
+    def load(self, members: Sequence[Member]) -> None:
+        for m, v, y, p in zip(members, self.videos, self.labels, self.perms):
+            v.copy_(m.videos)
+            y.copy_(m.labels)
+            p.copy_(m.perm)
+        self.counter.zero_()
+
+    def step(self) -> None:
+        """One minibatch of every member, then the counter moves on."""
+        for i, state in enumerate(self.states):
+            idx = self.perms[i].index_select(0, self.counter).view(-1)
+            loss = self.train_steps[i](state, self.videos[i], self.labels[i], idx, self.slopes[i])
+            self.losses[i].index_copy_(0, self.counter, loss.view(1))
+        self.counter.add_(1)
+
+
+class EpochEngine:
+    """Runs one training epoch of each unit: captured on a CUDA device,
+    eagerly on the CPU (see the module docstring).
+
+    ``units`` maps each unit's member names to its buffers and graph at the
+    current batch size. Counters for measurement: ``captures`` and
+    ``replays`` so far,
+    ``replay_host_s`` (host seconds spent in ``replay()`` calls),
+    ``recorded`` and ``replayed`` (kernel-wrapper calls recorded at capture,
+    and the launches replays made). Setting ``unit_seconds`` to a dict makes
+    ``run`` synchronise around each unit and record its wall seconds there,
+    keyed by the unit's member names."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.capture = self.device.type == "cuda"
+        self.units: Dict[tuple, _Unit] = {}
+        self._batch_size: Optional[int] = None
+        self.captures = 0
+        self.replays = 0
+        self.replay_host_s = 0.0
+        self.recorded: Counter = Counter()
+        self.replayed: Counter = Counter()
+        self.unit_seconds: Optional[Dict[tuple, float]] = None
+
+    def release(self) -> None:
+        """Drop every graph and static buffer; the next epoch captures anew.
+        Call after a member's parameters or optimizer state were replaced
+        (``optimizer.load_state_dict`` makes new tensors a graph never saw)."""
+        for unit in self.units.values():
+            for state in unit.states:
+                state.optimizer.zero_grad(set_to_none=True)  # gradients live in the graph's pool
+        self.units.clear()
+
+    def run(self, units: Sequence[Sequence[Member]], batch_size: int) -> Dict[str, torch.Tensor]:
+        """One epoch of every unit at ``batch_size``; returns each member's
+        mean loss (a 0-d tensor on its device, NaN for an epoch of no step)."""
+        if batch_size != self._batch_size:
+            self.release()
+            self._batch_size = batch_size
+        losses: Dict[str, torch.Tensor] = {}
+        for members in units:
+            steps = members[0].perm.shape[0]
+            if steps == 0:
+                losses.update({m.name: torch.full((), float("nan"), device=m.perm.device) for m in members})
+                continue
+            key = tuple(m.name for m in members)
+            unit = self.units.get(key)
+            if unit is None or not unit.matches(members):
+                unit = self.units[key] = _Unit(members)
+            unit.load(members)
+            t0 = self._mark()
+            self._epoch(unit, steps)
+            if self.unit_seconds is not None:
+                self.unit_seconds[key] = self._mark() - t0
+            losses.update({name: buf.mean() for name, buf in zip(unit.names, unit.losses)})
+        return losses
+
+    def _mark(self) -> float:
+        if self.unit_seconds is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def _epoch(self, unit: _Unit, steps: int) -> None:
+        if not self.capture:
+            for _ in range(steps):
+                unit.step()
+            return
+        done = 0
+        if unit.graph is None:
+            done = min(WARMUP_STEPS, steps)
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                for _ in range(done):
+                    unit.step()
+            current.wait_stream(side)
+            self._capture(unit)
+        n = steps - done
+        t0 = time.perf_counter()
+        for _ in range(n):
+            unit.graph.replay()
+        self.replay_host_s += time.perf_counter() - t0
+        self.replays += n
+        self.replayed.update({k: v * n for k, v in unit.launches_per_replay.items()})
+
+    def _capture(self, unit: _Unit) -> None:
+        for state in unit.states:
+            for mod in state.model.modules():
+                if isinstance(mod, torch.nn.Dropout) and mod.p > 0:
+                    raise ValueError(
+                        "dropout > 0 cannot run in a captured step: every replay would "
+                        "apply the same mask; train it with capture off"
+                    )
+            state.optimizer.zero_grad(set_to_none=True)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            unit.step()
+        after = launch_counts()
+        unit.launches_per_replay = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        unit.graph = graph
+        self.captures += 1
+        self.recorded.update(unit.launches_per_replay)
+
+
+def kernel_launches(counts_before: Dict[str, int], engines: Sequence[EpochEngine] = ()) -> Dict[str, int]:
+    """Kernel launches since ``counts_before`` (a ``launch_counts()``
+    snapshot taken when the ``engines``' ``recorded`` and ``replayed`` were
+    cleared): wrapper calls, less those recorded at capture, plus the
+    launches replays made."""
+    now = launch_counts()
+    out = {k: now[k] - counts_before[k] for k in now}
+    for eng in engines:
+        for k in out:
+            out[k] += eng.replayed[k] - eng.recorded[k]
+    return out
+
+
+def units_by_layout(names: List[str], stacks: Sequence[Sequence[str]], merge: bool) -> List[List[str]]:
+    """The units of a cycle: every name in one unit when ``merge``; else each
+    stack (a list of names) as one unit after every name in no stack, each
+    on its own, in order."""
+    if merge:
+        return [list(names)]
+    stacked = {n for group in stacks for n in group}
+    return [[n] for n in names if n not in stacked] + [list(g) for g in stacks]

@@ -11,16 +11,25 @@ baseline experiment's seven: BatchNorm runs through K2/K3 (the deep-ResNet
 embedding) or through torch operators (``MultiImageResNet``), and either way
 its running statistics move in the training forward and are applied in
 ``evaluate``. On a CUDA device every convolution of a step, forward and
-backward, runs in full f32 (``ops.fused_embedding.f32_convolutions``).
+backward, runs in full f32 with deterministic algorithms
+(``ops.fused_embedding.f32_convolutions``), so a seed gives the same bits on
+every run.
 
-Not ported yet, and raising ``NotImplementedError``: the bf16
-``compute_dtype``, ``mix_trajectories``, the l1 loss and features
-(ROADMAP.md, queue 1, items 5 and 8).
+The losses are mse and l1; in sequence mode ``mix_trajectories`` swaps
+trajectory tails across D classes after generation
+(``mix_trajectory_tails``). Not ported yet, and raising
+``NotImplementedError``: the bf16 ``compute_dtype`` (ROADMAP.md, queue 1,
+item 5) and features (item 8).
+
+On the card a model's optimizer may be *capturable* (``make_optimizer(...,
+capturable=True)``): its learning rate is then a 0-d device tensor that
+``_set_lr`` fills in place, so a CUDA graph that holds the AdamW step
+(``train.capture``) reads each cycle's rate without being captured again.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,27 +60,114 @@ class TrainImpls(NamedTuple):
     train_step: Callable
 
 
-def make_optimizer(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.AdamW:
+def make_optimizer(model: torch.nn.Module, cfg: TrainConfig, capturable: bool = False) -> torch.optim.AdamW:
     """AdamW on every parameter, as optax's unmasked ``adamw``: b1 0.9,
-    b2 0.999, eps 1e-8 outside the square root, decoupled weight decay."""
+    b2 0.999, eps 1e-8 outside the square root, decoupled weight decay.
+
+    ``capturable`` (parameters on the card): the update runs without host
+    synchronisation, so a CUDA graph can hold it, and the learning rate is a
+    0-d tensor beside the parameters that ``_set_lr`` fills."""
+    lr = cfg.lr
+    if capturable:
+        lr = torch.tensor(cfg.lr, dtype=torch.float32, device=next(model.parameters()).device)
     return torch.optim.AdamW(
-        model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay
+        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay,
+        capturable=capturable,
     )
 
 
 def _set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every group's learning rate: in place where it is a tensor (a
+    captured graph reads that tensor), by assignment where it is a float."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def _check_supported(cfg: TrainConfig) -> None:
-    later = "is not ported yet (ROADMAP.md, queue 1, item 5)"
     if cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r} {later}")
-    if cfg.loss != "mse":
-        raise NotImplementedError(f"loss={cfg.loss!r} {later}")
-    if cfg.mix_trajectories:
-        raise NotImplementedError(f"mix_trajectories {later}")
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} is not ported yet (ROADMAP.md, queue 1, item 5)"
+        )
+    if cfg.loss not in ("mse", "l1"):
+        raise ValueError(f"unknown loss {cfg.loss!r}; expected 'mse' or 'l1'")
+
+
+def _loss(pred: torch.Tensor, y: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "l1":
+        return torch.mean(torch.abs(pred - y))
+    return torch.mean((pred - y) ** 2)
+
+
+def _swap_tails(videos, labels, ia, ib, splits) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Swap the frames at and after ``splits[k]`` of sequence ``ia[k]`` with
+    those of ``ib[k]``, in the videos ``(N, F, S, S)`` and the per-frame
+    labels ``(N, F)``. Returns new tensors."""
+    frame = torch.arange(videos.shape[1], device=videos.device)
+    tail = frame[None, :] >= splits[:, None]
+    va, vb = videos[ia], videos[ib]
+    la, lb = labels[ia], labels[ib]
+    mask_v = tail[..., None, None]
+    videos = videos.index_copy(0, ia, torch.where(mask_v, vb, va)).index_copy(0, ib, torch.where(mask_v, va, vb))
+    labels = labels.index_copy(0, ia, torch.where(tail, lb, la)).index_copy(0, ib, torch.where(tail, la, lb))
+    return videos, labels
+
+
+def _tail_splits(generator: torch.Generator, count: int, n_frames: int) -> torch.Tensor:
+    """``count`` split frames uniform in ``[n_frames/2 - 5, n_frames/2 + 5)``."""
+    return torch.randint(
+        n_frames // 2 - 5, n_frames // 2 + 5, (count,), generator=generator, device=generator.device
+    )
+
+
+# (class a, class b, first sequence within the class in quarters) of the
+# four tail swaps of ``mix_trajectory_tails``
+_TAIL_PAIRS = ((0, 3, 0), (0, 2, 1), (1, 3, 1), (1, 2, 0))
+
+
+def mix_trajectory_tails(
+    generator: torch.Generator, videos, labels, n_classes: int, n_frames: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequence-mode tail-swap augmentation, as the JAX package's: for the
+    first half of each of the first four classes (two quarter-blocks against
+    two partner classes: 0↔3 and 1↔2 on the first quarter, 0↔2 and 1↔3 on
+    the second), swap video and label tails at a split drawn per pair from
+    ``generator`` (one draw of ``quarter`` splits per pair, in this order)."""
+    n_per = videos.shape[0] // n_classes
+    quarter = n_per // 4
+    if quarter == 0 or n_classes < 4:
+        return videos, labels
+    ar = torch.arange(quarter, device=videos.device)
+    for ca, cb, start in _TAIL_PAIRS:
+        splits = _tail_splits(generator, quarter, n_frames).to(videos.device)
+        first = start * quarter + ar
+        videos, labels = _swap_tails(videos, labels, ca * n_per + first, cb * n_per + first, splits)
+    return videos, labels
+
+
+def mix_tails_uniform(
+    generator: torch.Generator, videos, labels, n_frames: int, fraction: float = 0.5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Continuous-curriculum tail swap, as the JAX package's: sequence ``i``
+    pairs with ``n-1-i`` for the first ``int(n·fraction) // 2`` of them, at
+    splits drawn from ``generator`` in the same window."""
+    n = videos.shape[0]
+    half = int(n * fraction) // 2
+    if half == 0:
+        return videos, labels
+    ia = torch.arange(half, device=videos.device)
+    splits = _tail_splits(generator, half, n_frames).to(videos.device)
+    return _swap_tails(videos, labels, ia, (n - 1) - ia, splits)
+
+
+def epoch_permutation(generator: torch.Generator, n: int, batch_size: int, device) -> torch.Tensor:
+    """One epoch's minibatch indices ``(n // batch_size, batch_size)``: a
+    permutation of ``range(n)`` from ``generator``, remainder dropped."""
+    steps = n // batch_size
+    perm = torch.randperm(n, generator=generator, device=generator.device)
+    return perm[: steps * batch_size].reshape(steps, batch_size).to(device)
 
 
 def generate_cycle_data(generator: torch.Generator, train_cfg: TrainConfig, optics: OpticsConfig):
@@ -110,9 +206,11 @@ def make_train_impls(model: torch.nn.Module, train_cfg: TrainConfig, device=None
 
     - ``init_state(generator)`` initialises the model from a CPU generator,
       moves it to the device and makes its optimizer.
-    - ``train_step(state, videos, labels, idx)`` is one minibatch
-      forward/backward/AdamW update at the optimizer's current LR; returns
-      the loss (on the device, not synchronised).
+    - ``train_step(state, videos, labels, idx, act_slope=None)`` is one
+      minibatch forward/backward/AdamW update at the optimizer's current LR
+      (``act_slope``: see ``models.layers.FeedForward``); returns the loss
+      (on the device, not synchronised). It makes no host synchronisation,
+      so ``train.capture`` captures it in a CUDA graph.
     - ``train_cycle(state, videos, labels, generator, lr, batch_size)`` runs
       one epoch in a permuted order drawn from ``generator``; returns the
       mean loss.
@@ -127,23 +225,20 @@ def make_train_impls(model: torch.nn.Module, train_cfg: TrainConfig, device=None
         model.to(dev).train()
         return TrainState(model, make_optimizer(model, train_cfg))
 
-    def train_step(state: TrainState, videos, labels, idx) -> torch.Tensor:
-        bv, by = videos[idx], labels[idx]
+    def train_step(state: TrainState, videos, labels, idx, act_slope=None) -> torch.Tensor:
+        bv, by = videos.index_select(0, idx), labels.index_select(0, idx)
         with f32_convolutions():  # autograd's convolutions read the setting when they run
-            out = state.model(bv)
+            out = state.model(bv) if act_slope is None else state.model(bv, act_slope=act_slope)
             if by.ndim == 2 and out.ndim == 3:
                 by = by[..., None]
-            loss = torch.mean((out.float() - by) ** 2)
+            loss = _loss(out.float(), by, train_cfg.loss)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         state.optimizer.step()
         return loss.detach()
 
     def train_cycle(state: TrainState, videos, labels, generator, lr: float, batch_size: int):
-        n = videos.shape[0]
-        steps = n // batch_size
-        perm = torch.randperm(n, generator=generator, device=generator.device)
-        perm = perm[: steps * batch_size].reshape(steps, batch_size).to(videos.device)
+        perm = epoch_permutation(generator, videos.shape[0], batch_size, videos.device)
         _set_lr(state.optimizer, lr)
         state.model.train()
         losses = [train_step(state, videos, labels, idx) for idx in perm]
@@ -193,6 +288,11 @@ def run_training(
         videos, labels = generate_cycle_data(
             seeded_generator(dev, train_cfg.seed, 1, cycle), train_cfg, optics
         )
+        if train_cfg.mix_trajectories:
+            videos, labels = mix_trajectory_tails(
+                seeded_generator(dev, train_cfg.seed, 3, cycle), videos, labels,
+                len(train_cfg.training_ds), train_cfg.n_frames,
+            )
         loss = train_cycle(
             state, videos, labels, seeded_generator(dev, train_cfg.seed, 2, cycle),
             train_cfg.lr_for_cycle(cycle), train_cfg.batch_size_for_cycle(cycle),

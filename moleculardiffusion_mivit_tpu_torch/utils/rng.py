@@ -12,3 +12,12 @@ def seeded_generator(device, *keys: int) -> torch.Generator:
     numpy's ``SeedSequence`` (nearby keys give unrelated streams)."""
     seed = int(np.random.SeedSequence([int(k) for k in keys]).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+def fold_in(generator: torch.Generator, *keys: int, device=None) -> torch.Generator:
+    """The generator of the stream named by ``generator``'s seed and
+    ``keys``, on ``device`` (default: the generator's): the counterpart of
+    ``jax.random.fold_in``. It reads the seed and not the state, so a
+    generator names a key here, and drawing from it does not change what
+    this returns."""
+    return seeded_generator(device or generator.device, generator.initial_seed(), *keys)

@@ -18,6 +18,12 @@ counts). ``--out`` also appends each line to a file as it is measured. A
 batch-1 cycle runs slowly under the profiler: all seven arms at batch 1 and
 16 took 24 minutes on an H100.
 
+``--experiment captured eager`` instead runs the whole baseline experiment
+(``experiments.baseline.build`` + ``Experiment.run``: all seven arms, one
+generation and validation per cycle) at each ``--batch``, its learned arms'
+epochs as captured CUDA graphs and/or eagerly: a first cycle (which captures),
+a timed one and a profiled one, with the same device breakdown.
+
 ``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
 alone: for each shape, device time by kernel over 5 calls of K2
 (``deep_resnet_embed_fwd``) and of K3 (``deep_resnet_embed_bwd``) on random
@@ -113,6 +119,56 @@ def profile(torch, arm: str, batch: int, val):
     }
 
 
+def profile_experiment(torch, batch: int, fused: bool):
+    """The baseline experiment's seven-arm cycle at full width through
+    ``Experiment.run``, at a fixed batch size, captured (``fused``) or
+    eager: one cycle to warm up (and capture), one timed, one under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from chip_smoke import device_kernels
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline
+
+    exp = baseline.build(seed=0, device="cuda")
+    exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+    exp.fused_cycles = fused
+    exp.build()
+    t0 = time.perf_counter()
+    exp.run(1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp.run(1, start_cycle=1)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exp.run(1, start_cycle=2)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    by_name, by_layer, intervals = defaultdict(float), defaultdict(float), []
+    for name, a, b in device_kernels(torch, prof):  # the raw trace: ~10^6 kernels at batch 1
+        intervals.append((a / 1e3, b / 1e3))
+        by_name[name] += (b - a) / 1e3
+        by_layer[_layer(name)] += (b - a) / 1e3
+    device_ms = sum(by_name.values()) / 1e3
+    n_seq = exp.train_cfg.sequences_per_d * len(exp.train_cfg.training_ds)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "experiment": "baseline", "arms": len(exp.arms), "batch": batch,
+        "mode": "captured" if fused else "eager", "steps_per_arm": n_seq // batch,
+        "first_cycle_s": first_s, "wall_s": wall_s, "seq_per_s": n_seq / wall_s, "profiled_wall_s": prof_s,
+        "device_kernel_ms": device_ms, "kernels": len(intervals),
+        "device_busy_share_profiled": _busy_us(intervals) / (prof_s * 1e6) if intervals else None,
+        "device_busy_share_est": device_ms / (wall_s * 1e3) if intervals else None,
+        "by_layer_ms": {k: v / 1e3 for k, v in sorted(by_layer.items())},
+        "top_kernels_ms": [[name[:90], t / 1e3] for name, t in top],
+        "captures": exp.engine.captures, "replays": exp.engine.replays,
+        "train_loss": {n: [float(v) for v in ls] for n, ls in exp.train_loss.items()},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
 def profile_embedding(torch, b: int, t: int, s: int, calls: int = 5):
     """Device ms per call, by kernel, of K2 and of K3 at one shape."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -163,6 +219,9 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--embedding", type=int, nargs="+", default=None, metavar="B_T_S",
                     help="profile K2/K3 alone at these (B, T, S) shapes")
+    ap.add_argument("--experiment", nargs="+", default=None, choices=("captured", "eager"),
+                    help="profile the baseline experiment's seven-arm cycle (Experiment.run) "
+                         "at each --batch, captured and/or eager")
     args = ap.parse_args()
     import torch
 
@@ -196,6 +255,11 @@ def main() -> None:
             ap.error("--embedding takes B T S triples")
         for i in range(0, len(args.embedding), 3):
             emit(profile_embedding(torch, *args.embedding[i:i + 3]))
+        return
+    if args.experiment:
+        for b in args.batch:
+            for mode in args.experiment:
+                emit(profile_experiment(torch, b, mode == "captured"))
         return
     from chip_smoke import baseline_arms
 

@@ -262,3 +262,215 @@ def _packed(kernels, scales, biases, wfc, bfc):
     sc = tfe._pack_rows([v.detach() for v in scales.values()])
     bi = tfe._pack_rows([v.detach() for v in biases.values()])
     return tuple(w.contiguous() for w in weights), sc, bi, wfc.detach(), bfc.detach()
+
+
+# -- the fused cycle as captured CUDA graphs (train/capture.py) -------------
+
+SMALL = dict(use_pos_encoding=True, embed_dim=16, num_heads=2, hidden_dim=32, num_layers=2)
+
+
+def _small_arms(**cfg_kw):
+    from moleculardiffusion_mivit_tpu_torch.config import ModelConfig
+    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
+
+    cfg = ModelConfig(**dict(SMALL, **cfg_kw))
+    return {
+        "lin_s": GeneralTransformer(cfg, embedding="linear"),
+        "deep_s": GeneralTransformer(cfg, embedding="deep_resnet"),
+        "lin_leaky": GeneralTransformer(cfg.replace(activation="leaky_relu"), embedding="linear"),
+        "resnet": MultiImageResNet(),
+    }
+
+
+def _captured_against_eager(device, schedule, **cfg_kw):
+    """Cycles of ``schedule`` ((batch, lr) each) through ``make_multi_cycle``
+    on the card (captured, the linear pair stacked) and, on copies of the
+    same models, through each model's eager ``train_cycle`` with the same
+    capturable optimizer and generators. Returns the engine, the models and
+    their eager copies, and per cycle each model's (captured, eager) loss."""
+    from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.models import init_model
+    from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
+    from moleculardiffusion_mivit_tpu_torch.train import multi as tmulti
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
+
+    cfg = TrainConfig(sequences_per_d=4, n_frames=6)
+    models, ref_models = _small_arms(**cfg_kw), _small_arms(**cfg_kw)
+    init_states, cycle = tmulti.make_multi_cycle(models, cfg, BASELINE_OPTICS, stack_pairs=True, device=device)
+    g = torch.Generator().manual_seed(5)
+    states = init_states(g)
+    impls, ref_states = {}, {}
+    for i, (name, m) in enumerate(ref_models.items()):
+        init_model(m, fold_in(g, i, device="cpu"))
+        m.to(device).train()
+        impls[name] = tloop.make_train_impls(m, cfg, device=device)
+        ref_states[name] = tloop.TrainState(m, tloop.make_optimizer(m, cfg, capturable=True))
+    losses = []
+    for c, (batch, lr) in enumerate(schedule):
+        gc = seeded_generator(device, 9, c)
+        states, got, _ = cycle(states, gc, lr, batch)
+        videos, labels = tloop.generate_cycle_data(fold_in(gc, 0), cfg, BASELINE_OPTICS)
+        want = {name: impls[name].train_cycle(ref_states[name], videos, labels, fold_in(fold_in(gc, 1), i), lr, batch)
+                for i, name in enumerate(ref_models)}
+        losses.append({name: (float(got[name]), float(want[name])) for name in models})
+    return cycle.engine, models, ref_models, losses
+
+
+def _assert_models_equal(models, ref_models):
+    """Every parameter and buffer (BN running statistics) of the captured
+    run within 1e-5 of the largest entry of the eager run's tensor (the two
+    run the same kernels; a difference would be an ordering change)."""
+    for name, m in models.items():
+        ref = ref_models[name].state_dict()
+        for key, v in m.state_dict().items():
+            err = float((v - ref[key]).abs().max())
+            assert err <= 1e-5 * float(ref[key].abs().max()) + 1e-7, f"{name} {key}: {err}"
+
+
+def test_captured_cycle_equals_eager_cycle_on_card(cuda_device):
+    """One cycle of 8 steps (2 eager warm-up steps, a capture, 6 replays per
+    unit) leaves the parameters, losses and BatchNorm running statistics of
+    the eager cycle; the statistics moved."""
+    engine, models, ref_models, losses = _captured_against_eager(cuda_device, [(2, 1e-3)])
+    assert engine.captures == 3 and engine.replays == 3 * (8 - 2)  # lin stack, deep_s, resnet
+    for got, want in losses[0].values():
+        assert abs(got - want) <= 1e-5 * abs(want)
+    _assert_models_equal(models, ref_models)
+    bn = models["resnet"].resnet.trunk.bn1
+    assert not torch.equal(bn.running_mean, torch.zeros_like(bn.running_mean))
+    assert not torch.equal(models["deep_s"].embedding.bn1.running_var, torch.ones(32, device=cuda_device))
+
+
+def test_learning_rate_changes_between_cycles_without_recapture(cuda_device):
+    """A new learning rate reaches the captured AdamW step through its
+    device tensor: no new capture, and the update equals the eager one at
+    that rate."""
+    engine, models, ref_models, losses = _captured_against_eager(cuda_device, [(2, 1e-3), (2, 2e-4)])
+    assert engine.captures == 3 and engine.replays == 3 * (8 - 2 + 8)
+    for cyc in losses:
+        for got, want in cyc.values():
+            assert abs(got - want) <= 1e-5 * abs(want)
+    _assert_models_equal(models, ref_models)
+
+
+def test_a_new_batch_size_captures_anew(cuda_device):
+    """Batch 2, then batch 4: the first size's graphs are dropped and each
+    unit is captured again for the second (2 warm-up steps, 2 replays)."""
+    engine, models, ref_models, losses = _captured_against_eager(cuda_device, [(2, 1e-3), (4, 1e-3)])
+    assert engine.captures == 6 and engine.replays == 3 * (6 + 2)
+    _assert_models_equal(models, ref_models)
+
+
+def test_resnet_training_is_bitwise_repeatable_on_card(cuda_device):
+    """Two training cycles of MultiImageResNet from one seed give the same
+    bits: its cuDNN convolutions run with deterministic algorithms inside
+    ``f32_convolutions`` (cuDNN's default weight-gradient choice adds with
+    atomics, and two such runs drifted apart by 1e-2 of a weight's range in
+    8 AdamW steps)."""
+    from moleculardiffusion_mivit_tpu_torch.config import TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.models import MultiImageResNet
+    from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    videos = 0.3 * torch.randn((16, 30, 9, 9), generator=gen, device=cuda_device) + 0.1
+    labels = torch.rand((16, 1), generator=gen, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        model = MultiImageResNet(single_prediction=True)
+        impls = tloop.make_train_impls(model, TrainConfig(lr=1e-3), device=cuda_device)
+        state = impls.init_state(torch.Generator().manual_seed(0))
+        impls.train_cycle(state, videos, labels, torch.Generator(device=cuda_device).manual_seed(1), 1e-3, 2)
+        runs.append(model.state_dict())
+    for key, v in runs[0].items():
+        assert torch.equal(v, runs[1][key]), key
+
+
+def test_capturable_adamw_update_equals_the_plain_one(cuda_device):
+    """Three AdamW steps with a capturable optimizer (learning rate a device
+    tensor, bias corrections computed on the card in f32) equal those of the
+    plain one (bias corrections on the host) on the same gradients: within
+    1e-5 of the summed step sizes plus two float32 roundings of the
+    parameter."""
+    from moleculardiffusion_mivit_tpu_torch.config import TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.models import init_model
+    from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
+
+    cfg = TrainConfig(lr=1e-3)
+    pair = []
+    for capturable in (False, True):
+        m = init_model(_small_arms()["lin_s"], torch.Generator().manual_seed(1)).to(cuda_device)
+        pair.append((m, tloop.make_optimizer(m, cfg, capturable=capturable)))
+    assert isinstance(pair[1][1].param_groups[0]["lr"], torch.Tensor)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for step in range(3):
+        grads = [torch.randn(p.shape, generator=gen, device=cuda_device) for p in pair[0][0].parameters()]
+        for m, opt in pair:
+            tloop._set_lr(opt, 1e-3 * (step + 1))
+            for p, gr in zip(m.parameters(), grads):
+                p.grad = gr.clone()
+            opt.step()
+    for a, b in zip(pair[0][0].parameters(), pair[1][0].parameters()):
+        tol = 1e-5 * 6e-3 + 2 * torch.finfo(torch.float32).eps * float(a.detach().abs().max())
+        assert float((a - b).detach().abs().max()) <= tol
+
+
+def test_embedding_kernels_in_a_captured_graph_equal_the_eager_call(cuda_device):
+    """K2 and K3 (``fused_deep_resnet_embed`` forward and backward) captured
+    in a CUDA graph: a replay gives bitwise the eager call's output and
+    gradients on new input, and the wrappers count the calls made while
+    capturing, not the replays."""
+    x, kernels, scales, biases, wfc, bfc = _embedding_args(2, 30, 9, cuda_device, seed=11)
+    leaves = [*kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
+    static_x = x.detach().clone()
+    g_out = torch.randn((2, 30, 64), generator=torch.Generator(device=cuda_device).manual_seed(1), device=cuda_device)
+
+    def step():
+        emb, _ = tfe.fused_deep_resnet_embed(static_x, kernels, scales, biases, wfc, bfc)
+        return (emb, *torch.autograd.grad(emb, leaves, g_out))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    f0, b0 = tfe.deep_resnet_embed_fwd.launches, tfe.deep_resnet_embed_bwd.launches
+    with torch.cuda.graph(graph):
+        captured = step()
+    static_x.copy_(0.3 * torch.randn(x.shape, generator=torch.Generator(device=cuda_device).manual_seed(2),
+                                     device=cuda_device))
+    graph.replay()
+    graph.replay()
+    assert (tfe.deep_resnet_embed_fwd.launches, tfe.deep_resnet_embed_bwd.launches) == (f0 + 1, b0 + 1)
+    eager = step()
+    for i, (a, b) in enumerate(zip(captured, eager)):
+        assert torch.equal(a, b), f"output {i}"
+
+
+def test_dropout_and_a_failed_capture_raise(cuda_device):
+    """On the card nothing goes on eagerly in a capture's place: a model with
+    dropout > 0 raises before capture (each replay would reuse one mask), and
+    a step that synchronises with the host fails its capture and raises."""
+    with pytest.raises(ValueError, match="dropout"):
+        _captured_against_eager(cuda_device, [(2, 1e-3)], dropout=0.1)
+
+    from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.train import multi as tmulti
+
+    class Syncs(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(()))
+
+        def forward(self, x):
+            if float(x.sum()) > 1e30:  # a host read: illegal while capturing
+                x = x * 0
+            return (self.w * x.mean(dim=(1, 2, 3)))[:, None]
+
+    init_states, cycle = tmulti.make_multi_cycle({"m": Syncs()}, TrainConfig(sequences_per_d=4, n_frames=6),
+                                                 BASELINE_OPTICS, device=cuda_device)
+    states = init_states(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError):
+        cycle(states, torch.Generator(device=cuda_device).manual_seed(0), 1e-3, 2)
+    assert cycle.engine.captures == 0
+    torch.cuda.synchronize()

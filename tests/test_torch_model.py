@@ -246,3 +246,28 @@ def test_unported_options_raise():
         TGeneral(TModelConfig())(torch.zeros(1, 2, 9, 9), features=torch.zeros(1, 25))
     with pytest.raises(ValueError, match="unknown embedding"):
         TGeneral(TModelConfig(), embedding="fourier")
+
+
+@pytest.mark.parametrize("slope", [0.0, 0.01, 0.2])
+@pytest.mark.parametrize("kind", ["linear", "deep_resnet"])
+def test_act_slope_matches_flax(kind, slope):
+    """``GeneralTransformer(x, act_slope=s)`` on weights converted from flax
+    equals flax's ``apply(..., act_slope=s)`` in train mode at 1e-5, given
+    the slope as a float or as a 0-d tensor. At s = 0 the relu model without
+    a slope gives the same output (a relu is a leaky ReLU of slope 0)."""
+    rng = np.random.default_rng(4)
+    x = (0.3 * rng.normal(size=(2, 4, 9, 9)) + 0.1).astype(np.float32)
+    jmodel, params, bstats, tmodel = _pair(SMALL, x, kind=kind)
+    variables = {"params": params, **({"batch_stats": bstats} if bstats else {})}
+    mutable = ["batch_stats"] if bstats else []
+    with jax.default_matmul_precision("highest"):
+        want, _ = jax.jit(lambda v, xx, s: jmodel.apply(v, xx, train=True, act_slope=s, mutable=mutable))(
+            variables, jnp.asarray(x), jnp.float32(slope)
+        )
+    tmodel.train()
+    outs = [tmodel(torch.from_numpy(x), act_slope=slope),
+            tmodel(torch.from_numpy(x), act_slope=torch.tensor(slope))]
+    if slope == 0.0:
+        outs.append(tmodel(torch.from_numpy(x)))
+    for out in outs:
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

@@ -1,7 +1,8 @@
 """The port's training loop against the JAX package: one AdamW step from
-identical weights, batch and learning rate; a tiny ``run_training`` cycle
-on the CPU; the entry points' device rule; and the import boundary (the port
-imports neither JAX nor the JAX package)."""
+identical weights, batch and learning rate (mse and l1 losses); the
+tail-swap augmentations given the JAX package's split draws; a tiny
+``run_training`` cycle on the CPU; the entry points' device rule; and the
+import boundary (the port imports neither JAX nor the JAX package)."""
 
 import ast
 from pathlib import Path
@@ -22,6 +23,7 @@ from moleculardiffusion_mivit_tpu_torch import evaluation as tval
 from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, ModelConfig, TrainConfig
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
 from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
+from moleculardiffusion_mivit_tpu_torch.train.multi import make_multi_cycle
 from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -59,13 +61,25 @@ def test_one_train_step_matches_jax(kind):
       1000 of eps (1e-8) it turns a gradient's float error into a visible
       share of lr, so parameters there are held only to the step bound 2·lr.
     """
+    _one_step_matches_jax(kind, "mse")
+
+
+@pytest.mark.parametrize("kind", ["deep_resnet", "linear"])
+def test_one_train_step_matches_jax_with_l1_loss(kind):
+    """As ``test_one_train_step_matches_jax``, with ``loss="l1"``: the
+    gradient of mean|pred - y| is sign(pred - y)/N, and the update holds to
+    the same tolerances."""
+    _one_step_matches_jax(kind, "l1")
+
+
+def _one_step_matches_jax(kind, loss):
     rng = np.random.default_rng(0)
     n, lr = 6, 1e-3
     videos = (0.3 * rng.normal(size=(n, 6, 9, 9)) + 0.1).astype(np.float32)
     labels = rng.uniform(0.1, 0.7, size=(n, 1)).astype(np.float32)
     idx = np.array([4, 1, 2])
 
-    jcfg = JTrainConfig(lr=lr)
+    jcfg = JTrainConfig(lr=lr, loss=loss)
     jmodel, tmodel = _models(kind)
     params, bstats = jax.jit(lambda k, x: j_init(jmodel, k, x))(jax.random.key(0), jnp.asarray(videos[:1]))
     impls = jloop.make_train_impls(jmodel, jcfg)
@@ -79,8 +93,9 @@ def test_one_train_step_matches_jax(kind):
     adam = next(s for s in jax.tree.leaves(new.opt_state, is_leaf=lambda v: hasattr(v, "mu")) if hasattr(s, "mu"))
 
     tmodel.load_state_dict(torch_state_from_flax(_np(params), _np(bstats)))
-    tstate = tloop.TrainState(tmodel.train(), tloop.make_optimizer(tmodel, TrainConfig(lr=lr)))
-    tl = tloop.make_train_impls(tmodel, TrainConfig(lr=lr), device="cpu").train_step(
+    tcfg = TrainConfig(lr=lr, loss=loss)
+    tstate = tloop.TrainState(tmodel.train(), tloop.make_optimizer(tmodel, tcfg))
+    tl = tloop.make_train_impls(tmodel, tcfg, device="cpu").train_step(
         tstate, torch.from_numpy(videos), torch.from_numpy(labels), torch.from_numpy(idx)
     )
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
@@ -184,12 +199,27 @@ def test_train_cycle_schedule_and_remainder():
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(compute_dtype="bfloat16"), dict(loss="l1"), dict(mix_trajectories=True)]
+    "kw",
+    [
+        ("make_train_impls", dict(compute_dtype="bfloat16")),
+        ("make_multi_cycle", dict(compute_dtype="bfloat16")),
+        ("make_multi_cycle", dict(with_features=True)),
+    ],
 )
 def test_unported_train_options_raise(kw):
+    """What is left of the training options raises, naming its ROADMAP item:
+    the bf16 compute dtype (item 5), through one model's and the fused
+    cycle's entry, and the fused cycle's features (item 8). The l1 loss and
+    ``mix_trajectories`` are ported (tests above)."""
+    entry, options = kw
     model = GeneralTransformer(ModelConfig(**SMALL), embedding="deep_resnet")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.make_train_impls(model, TrainConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item (5|8)"):
+        if entry == "make_train_impls":
+            tloop.make_train_impls(model, TrainConfig(**options), device="cpu")
+        else:
+            cfg = TrainConfig(compute_dtype=options.get("compute_dtype", "float32"))
+            make_multi_cycle({"m": model}, cfg, BASELINE_OPTICS,
+                             with_features=options.get("with_features", False), device="cpu")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -217,10 +247,104 @@ def _imports(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "profile_cycle.py"]
     assert len(files) > 10
     banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu")
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in banned, f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def _decodable(n, f):
+    """Videos whose every pixel of sequence i, frame t is 100·i + t, and
+    labels equal to the same code per frame."""
+    code = (100 * np.arange(n)[:, None] + np.arange(f)[None, :]).astype(np.float32)
+    return np.broadcast_to(code[:, :, None, None], (n, f, 3, 3)).copy(), code
+
+
+def test_mix_trajectory_tails_matches_jax_given_its_splits():
+    """The port's tail swap, handed the splits the JAX function draws
+    (``fold_in(key, pair)``, one draw per pair), gives the JAX result
+    exactly; the port's own draw from a fixed seed swaps the first half of
+    each of the four classes, once, within the split window."""
+    n_classes, n_per, f = 4, 8, 14
+    n, quarter = n_classes * n_per, n_per // 4
+    videos, labels = _decodable(n, f)
+    key = jax.random.key(7)
+    jv, jl = jloop.mix_trajectory_tails(key, jnp.asarray(videos), jnp.asarray(labels), n_classes, f)
+    tv, tl = torch.from_numpy(videos), torch.from_numpy(labels)
+    for pair_i, (ca, cb, start) in enumerate(tloop._TAIL_PAIRS):
+        splits = jax.random.randint(jax.random.fold_in(key, pair_i), (quarter,), f // 2 - 5, f // 2 + 5)
+        first = start * quarter + torch.arange(quarter)
+        tv, tl = tloop._swap_tails(tv, tl, ca * n_per + first, cb * n_per + first,
+                                   torch.from_numpy(np.array(splits)))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+    mv, ml = tloop.mix_trajectory_tails(torch.Generator().manual_seed(0), torch.from_numpy(videos),
+                                        torch.from_numpy(labels), n_classes, f)
+    origin = (ml.numpy() // 100).astype(int)
+    np.testing.assert_array_equal(mv[:, :, 0, 0].numpy(), ml.numpy())
+    partner = {}
+    for ca, cb, start in tloop._TAIL_PAIRS:
+        for k in range(quarter):
+            a, b = ca * n_per + start * quarter + k, cb * n_per + start * quarter + k
+            partner[a], partner[b] = b, a
+    assert len(partner) == n // 2  # half of every class is in one swap
+    splits = []
+    for i in range(n):
+        if i not in partner:
+            assert (origin[i] == i).all()
+            continue
+        switch = int(np.argmax(origin[i] != i))
+        assert f // 2 - 5 <= switch < f // 2 + 5
+        assert (origin[i, :switch] == i).all() and (origin[i, switch:] == partner[i]).all()
+        splits.append(switch)
+    assert len(set(splits)) > 3  # the splits are drawn, not fixed
+
+
+def test_mix_tails_uniform_matches_jax_given_its_splits():
+    """``mix_tails_uniform`` pairs sequence i with n-1-i for the first
+    ``int(n·fraction)//2``; given the JAX split draw it equals the JAX
+    result exactly, and its own draw swaps just those pairs."""
+    n, f = 20, 14
+    videos, labels = _decodable(n, f)
+    key = jax.random.key(3)
+    jv, jl = jloop.mix_tails_uniform(key, jnp.asarray(videos), jnp.asarray(labels), f)
+    half = n // 4
+    splits = jax.random.randint(key, (half,), f // 2 - 5, f // 2 + 5)
+    ia = torch.arange(half)
+    tv, tl = tloop._swap_tails(torch.from_numpy(videos), torch.from_numpy(labels), ia, (n - 1) - ia,
+                               torch.from_numpy(np.array(splits)))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+    _, ml = tloop.mix_tails_uniform(torch.Generator().manual_seed(1), torch.from_numpy(videos),
+                                    torch.from_numpy(labels), f)
+    origin = (ml.numpy() // 100).astype(int)
+    for i in range(n):
+        j = n - 1 - i
+        if min(i, j) >= half:
+            assert (origin[i] == i).all()
+        else:
+            switch = int(np.argmax(origin[i] != i))
+            assert f // 2 - 5 <= switch < f // 2 + 5 and (origin[i, switch:] == j).all()
+
+
+def test_run_training_mixes_trajectory_tails_in_sequence_mode():
+    """With ``sequence_mode`` and ``mix_trajectories`` set, ``run_training``
+    trains on mixed data (per-frame labels) and keeps a finite history."""
+    cfg = TrainConfig(sequences_per_d=4, n_frames=12, initial_batch_size=4, sequence_mode=True,
+                      mix_trajectories=True)
+    trajs = tval.generate_frozen_validation(d_values=(1, 3), n_particles=2, t_steps=120, device="cpu")
+    trajs.pop("valTrajsInOrder")
+    vids = tval.render_validation_videos(trajs, cfg, BASELINE_OPTICS, device="cpu")
+    model = GeneralTransformer(
+        ModelConfig(**dict(SMALL, use_regression_token=False, single_prediction=False)), embedding="linear"
+    )
+    _, hist = tloop.run_training(model, cfg, BASELINE_OPTICS, {1.0: vids["val1"], 3.0: vids["val3"]},
+                                 num_cycles=1, device="cpu")
+    assert all(np.isfinite(v[0]) for v in hist.values())
+
