@@ -7,10 +7,11 @@ line each on stdout:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
-2. k1: the render kernel against its plain version at a cycle's frames
-   (7680 of 10 sub-positions, u=5) and at one main-path call (1920), 9×9
-   and 13×13, and at an even grid through its generic instantiation; beside
-   each, the card's floor for one allocation and one (empty) launch.
+2. k1: the render kernel against its plain version at a baseline cycle's
+   frames (7680 of 10 sub-positions, u=5), at one main-path call (1920), 9×9
+   and 13×13, at an even grid through its generic instantiation, and at the
+   images-features in-order sweep's one call (30,000 frames); beside each,
+   the card's floor for one allocation and one (empty) launch.
 3. k2_k3: the deep-ResNet embedding forward (K2) and backward (K3)
    against autograd through the plain version, TF32 off, at five shapes
    (among them both batch sizes of the main path, and every conv tile);
@@ -34,6 +35,17 @@ line each on stdout:
    capturing plus replays × the calls a graph recorded; K2/K3 once a step of
    each deepcnn arm and in no other unit's graph, K1 once per D class and
    cycle plus the validation renders.
+6. images_features: the images-features experiment (``experiments.
+   images_features.build`` + ``Experiment.run``, then ``run_experiment.main
+   --in-order``) at full width: nine arms (three deep-ResNet transformers,
+   two with the 25 trajectory features fused early or late; ResNet with and
+   without features; the features-only MLP; three MSD estimators), 5 D
+   classes × 64 sequences of 30 frames with their features, validation at
+   D = 1..9. At batch 16 the captured and the eager cycle agree; at batch 1
+   the captured cycle is timed and profiled, generation and the features
+   timed on their own; the features of one cycle computed on the card equal
+   the CPU's at the CPU test's tolerance; K2/K3 launch 3 × ⌊320/b⌋ times a
+   cycle, K1 5 times a cycle in generation.
 
 Then a ``kernels`` line with each kernel's launches on the main paths (by
 path beside the total), error, times (``ms`` around the wrapper,
@@ -129,13 +141,16 @@ def phase_k1(torch):
     sigma, u = BASELINE_OPTICS.gaussian_sigma_hr, BASELINE_OPTICS.upsampling_factor
     g = torch.Generator(device="cuda").manual_seed(0)
     full = 256 * 30  # frames of one cycle; a main-path call renders one D class, 64 * 30
-    xs = 4.0 * torch.randn((full, 10), generator=g, device="cuda")
-    ys = 4.0 * torch.randn((full, 10), generator=g, device="cuda")
-    ws = 458.0 + 50.0 * torch.randn((full, 10), generator=g, device="cuda")
+    in_order = 1000 * 30  # the images-features in-order sweep, rendered in one call
+    xs = 4.0 * torch.randn((in_order, 10), generator=g, device="cuda")
+    ys = 4.0 * torch.randn((in_order, 10), generator=g, device="cuda")
+    ws = 458.0 + 50.0 * torch.randn((in_order, 10), generator=g, device="cuda")
     rows = {}
     # (B, P, S): a cycle's frames and one main-path call at both compiled-in
-    # patch sizes, and an even grid with P = 4 through the generic instantiation
-    for (b, p, s) in ((full, 10, 9), (full, 10, 13), (64 * 30, 10, 9), (64 * 30, 10, 13), (64 * 30, 4, 10)):
+    # patch sizes, an even grid with P = 4 through the generic instantiation,
+    # and the largest main-path call
+    for (b, p, s) in ((full, 10, 9), (full, 10, 13), (64 * 30, 10, 9), (64 * 30, 10, 13), (64 * 30, 4, 10),
+                      (in_order, 10, 9)):
         x, y, w = (v[:b, :p].contiguous() for v in (xs, ys, ws))
         render = lambda: render_frames(x, y, w, sigma, s, u)  # noqa: E731
         got = render()
@@ -484,16 +499,21 @@ def _replay_host_ms(torch, engine, n: int = 20) -> dict:
 def _compare_experiments(torch, a, b):
     """Per arm, the largest relative differences between two experiments'
     training losses and validation MSEs of every cycle so far and their
-    parameters and buffers now, and whether all of them are bitwise equal."""
+    parameters and buffers now, and whether all of them are bitwise equal
+    (a non-learned arm has only its validation MSEs)."""
     out = {}
     for name in a.arms:
         d = {"loss": 0.0, "val": 0.0, "param": 0.0, "bitwise": True}
-        pairs = {"loss": list(zip([float(v) for v in a.train_loss[name]], [float(v) for v in b.train_loss[name]]))}
+        pairs = {"loss": list(zip([float(v) for v in a.train_loss.get(name, [])],
+                                  [float(v) for v in b.train_loss.get(name, [])]))}
         pairs["val"] = [p for key in a.history[name] for p in zip(a.history[name][key], b.history[name][key])]
         for what, ps in pairs.items():
             for va, vb in ps:
                 d[what] = max(d[what], abs(va - vb) / abs(vb))
                 d["bitwise"] &= va == vb
+        if name not in a.states:
+            out[name] = d
+            continue
         ref = b.states[name].model.state_dict()
         for key, v in a.states[name].model.state_dict().items():
             d["bitwise"] &= bool(torch.equal(v, ref[key]))
@@ -631,6 +651,162 @@ def phase_experiment(torch, card):
     return launches
 
 
+def phase_images_features(torch, card):
+    """The images-features experiment through its entry points
+    (``experiments.images_features.build`` + ``Experiment.run``, then
+    ``run_experiment.main --cycles 2 --in-order``) at full width: nine arms, 5 D classes
+    × 64 sequences of 30 frames with their 25 features, validation at D = 1,
+    3, 5, 7, 9 (50 sequences each). (a) Batch 16, captured against eager from
+    one seed, two cycles: losses, validation MSEs and every parameter and
+    buffer agree to 1e-4 relative; the second cycle is timed. (b) Batch 1,
+    captured: a capture cycle, a timed cycle and a profiled one; generation
+    and the features timed on their own; host ms of one replay per unit.
+    (c) The features of one cycle's 320 frame-averaged trajectories on the
+    card against the CPU at the CPU test's ``PARITY_TOLERANCE``. (d) Launches:
+    K2/K3 3 × ⌊320/b⌋ a cycle (the three deep-ResNet arms, in the graphs),
+    K1 5 a cycle in generation, 5 a build for validation, 1 for the in-order
+    sweep."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch import run_experiment
+    from moleculardiffusion_mivit_tpu_torch.experiments import images_features
+    from moleculardiffusion_mivit_tpu_torch.features import FEATURE_NAMES, compute_features_for_multiple_trajectories
+    from moleculardiffusion_mivit_tpu_torch.features.features import PARITY_TOLERANCE
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    deep = ("im_tr", "im_ft_early_tr", "im_ft_late_tr")
+    torch.cuda.reset_peak_memory_stats()
+    engines = []
+
+    def build(batch, fused):
+        exp = images_features.build(seed=0, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    t_phase = time.perf_counter()
+
+    # (a) batch 16: captured against eager, cycles 0 and 1, cycle 1 timed
+    runs = {}
+    for fused in (True, False):
+        exp = build(16, fused)
+        exp.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run(1, start_cycle=1)
+        torch.cuda.synchronize()
+        runs[fused] = (exp, time.perf_counter() - t0)
+    cap, eag = runs[True][0], runs[False][0]
+    n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
+    tol = 1e-4
+    diffs = _compare_experiments(torch, cap, eag)
+    for name, d in diffs.items():
+        for what in ("loss", "val", "param"):
+            check(d[what] <= tol, f"images_features: {name}: captured and eager {what} differ by {d[what]} > {tol}")
+    emit({"phase": "images_features", "part": "a", "card": card, "batch": 16, "arms": list(cap.arms),
+          "tolerance_relative": tol, "bitwise_equal": all(d["bitwise"] for d in diffs.values()), "by_arm": diffs,
+          "s_per_cycle": {"captured": runs[True][1], "eager": runs[False][1]},
+          "seq_per_s": {"captured": n_seq / runs[True][1], "eager": n_seq / runs[False][1]},
+          "captures": cap.engine.captures, "replays": cap.engine.replays,
+          "launches_per_replay_by_unit": {"+".join(u.names): u.launches_per_replay
+                                          for u in cap.engine.units.values()},
+          "val_avg": {n: h["val_avg"] for n, h in cap.history.items()}})
+
+    # (b) batch 1, captured: capture cycle, timed cycle, profiled cycle
+    exp = build(1, True)
+    eng = exp.engine
+    marks = [time.perf_counter()]
+    exp.run(2, callback=lambda c, m: marks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    eng.unit_seconds = {}
+    prof_wall, busy, kernel_ms, n_kernels, names = _profiled(torch, lambda: exp.run(1, start_cycle=2))
+    losses = {n: [float(v) for v in exp.train_loss[n]] for n in exp.train_loss}
+    for n, hist in exp.history.items():
+        check(all(math.isfinite(v) for vals in hist.values() for v in vals),
+              f"images_features: {n}: non-finite val MSE")
+    for n, ls in losses.items():
+        check(all(math.isfinite(v) for v in ls), f"images_features: {n}: non-finite loss {ls}")
+        check(ls[2] < ls[0], f"images_features: {n}: training loss did not fall: {ls}")
+    units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
+    for key, per in units1.items():
+        want = sum(1 for n in key.split("+") if n in deep)
+        check(per.get("deep_resnet_embed_fwd", 0) == want and per.get("deep_resnet_embed_bwd", 0) == want,
+              f"images_features: unit {key} records K2/K3 {per}, expected {want} each a replay")
+    seen = {k: names.get(k, 0) for k in ("render_frames_kernel", "pool_fc_kernel", "pool_fc_bwd_kernel")}
+    want = {"render_frames_kernel": 5, "pool_fc_kernel": len(deep) * n_seq, "pool_fc_bwd_kernel": len(deep) * n_seq}
+    check(seen == want, f"images_features: profiled cycle ran {seen}, expected {want}")
+
+    # the user's entry point: two cycles (batch 1 by the schedule) and the in-order sweep
+    with tempfile.TemporaryDirectory() as out:
+        cli = run_experiment.main(["images_features", "--cycles", "2", "--out", out, "--checkpoint-last", "0",
+                                   "--in-order"])
+        engines.append(cli.engine)
+        for f in ("metrics.jsonl", "history.json", "final/meta.json", "images_features_errors.csv",
+                  "in_order_predictions.npz"):
+            check(Path(out, f).is_file(), f"run_experiment images_features wrote no {f}")
+        history = json.loads(Path(out, "history.json").read_text())
+        check(list(history) == list(cap.arms) and all(len(h["val_avg"]) == 2 for h in history.values()),
+              f"run_experiment images_features: histories {history}")
+        in_order_rows = Path(out, "images_features_errors.csv").read_text().splitlines()[1:]
+        n_in_order = len(cli.in_order_data["d_values"])
+    check(n_in_order == 100, f"in-order sweep of {n_in_order} D values, expected 100")
+    torch.cuda.synchronize()
+    launches = kernel_launches(counts0, engines)
+    builds, cycles = 4, 2 * 2 + 3 + 2  # (a) two experiments of two cycles, (b) three, the runner's two
+    k1_want = 5 * builds + 1 + 5 * cycles
+    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 5 * n_seq)
+    check(launches["render_frames"] == k1_want,
+          f"images_features: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"images_features: {k} launches {launches[k]} != {k23_want}")
+
+    # after the counts: replays, generation and features timed on their own
+    replay_host_ms = _replay_host_ms(torch, eng)
+    gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
+    data = gen()
+    gen_ms = time_ms(torch, gen, iters=5, warmup=1)
+    trajs_avg = data["trajs_avg"]
+    feats = lambda: compute_features_for_multiple_trajectories(trajs_avg)  # noqa: E731
+    feat_ms = time_ms(torch, feats, iters=10, warmup=2)
+    _, _, feat_kernel_ms, feat_kernels, _ = _profiled(torch, feats)
+
+    # (c) the card's features against the CPU's on the same trajectories
+    on_card = feats()
+    check(torch.equal(on_card, data["features"]), "images_features: generate_fn's features differ from a second call")
+    on_cpu = compute_features_for_multiple_trajectories(trajs_avg.cpu())
+    delta = (on_card.cpu() - on_cpu).abs()
+    per_feature = {}
+    for i, name in enumerate(FEATURE_NAMES):
+        rtol, atol = PARITY_TOLERANCE[name]
+        limit = atol + rtol * on_cpu[:, i].abs()
+        per_feature[name] = {"max_abs_delta": float(delta[:, i].max()), "rtol": rtol, "atol": atol,
+                             "worst_share_of_limit": float((delta[:, i] / limit).max())}
+        check(bool((delta[:, i] <= limit).all()), f"images_features: card feature {name} off the CPU by "
+                                                   f"{float(delta[:, i].max())} (rtol {rtol}, atol {atol})")
+    s_cycle = marks[2] - marks[1]
+    emit({"phase": "images_features", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
+          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
+          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
+          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
+          "profiled_kernels_once_per_k1_k2_k3_call": seen,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
+          "features_ms": feat_ms, "features_device_kernel_ms": feat_kernel_ms, "features_kernels": feat_kernels,
+          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
+          "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
+          "run_experiment_in_order_csv": in_order_rows,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "images_features", "part": "c_features_card_vs_cpu", "sequences": int(trajs_avg.shape[0]),
+          "frames": int(trajs_avg.shape[1]), "by_feature": per_feature})
+    emit({"phase": "images_features", "part": "d_launches", "launches": launches, "k1_expected": k1_want,
+          "k2_k3_expected": k23_want, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> None:
     if not (ROOT / PKG / "__init__.py").is_file():
         fail(f"the {PKG} package is not beside this script")
@@ -657,7 +833,8 @@ def main() -> None:
 
     k1 = phase_k1(torch)
     k2, k3 = phase_k2_k3(torch)
-    by_path = {"slice": phase_slice(torch, card), "experiment": phase_experiment(torch, card)}
+    by_path = {"slice": phase_slice(torch, card), "experiment": phase_experiment(torch, card),
+               "images_features": phase_images_features(torch, card)}
     launches = {k: sum(path[k] for path in by_path.values()) for k in by_path["slice"]}
 
     src = f"{PKG}/csrc"

@@ -4,14 +4,15 @@ Port of the main-path part of
 ``moleculardiffusion_mivit_tpu/evaluation/validation.py``: generate a
 validation suite from a seed (equal to the JAX one in distribution, not in
 bits: the random streams differ), load the reference's frozen assets when a
-directory holds them, render them the way the experiments do, and score
-in-order sweeps as the poster notebooks do (``error_table``, numpy only).
+directory holds them, render them the way the experiments do, build the
+images-features experiment's 100-value in-order sweep, and score in-order
+sweeps as the poster notebooks do (``error_table``, numpy only).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,12 +24,62 @@ from moleculardiffusion_mivit_tpu_torch.sim import (
     single_state,
     trajectories_to_video,
 )
-from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
 
 # Directory of the reference's frozen trajectory assets
 # (<dir>/<length>/val{1,3,5,7,9}.npy, <dir>/valTrajsInOrder.npy), if any.
 REFERENCE_VAL_DIR = os.environ.get("MIVIT_REFERENCE_VAL_DIR")
 IN_ORDER_D_VALUES = np.round(np.arange(0.1, 7.01, 0.1), 10)
+# The Framerate and ImagesFeatures scripts score on a 100-value grid
+# (D = 0.1..10.0); the asset they load is absent from the reference's
+# snapshot, so ``generate_in_order_imft`` makes a deterministic equivalent.
+IN_ORDER_IMFT_D_VALUES = np.round(np.arange(0.1, 10.01, 0.1), 10)
+
+
+def generate_in_order_imft(seed: int = 2026, t_steps: int = 300, n_particles: int = 10, device=None) -> np.ndarray:
+    """Trajectories ``(100, n_particles, t_steps, 2)`` over D = 0.1..10.0 in
+    steps of 0.1, fixed D per slice, in trajectory units before the
+    ``traj_div_factor`` scaling; slice ``j`` from the stream ``(seed, j)``
+    on ``device`` (CUDA unless told otherwise)."""
+    dev = resolve_device(device)
+    grid = []
+    for j, d in enumerate(IN_ORDER_IMFT_D_VALUES):
+        trajs, _ = single_state(seeded_generator(dev, seed, j), n_particles, t_steps, Ds=(float(d), 0.0))
+        grid.append(trajs.double().cpu().numpy())
+    return np.stack(grid)
+
+
+def build_in_order_data(
+    arr,
+    d_values,
+    generator: torch.Generator,
+    train_cfg: TrainConfig,
+    optics: OpticsConfig,
+    make_dataset: Callable[..., Dict[str, Any]],
+) -> Dict[str, Any]:
+    """An experiment's ``in_order_data`` from a trajectory grid ``(n_d,
+    n_particles, T, 2)`` (trajectory units): the grid flattened, divided by
+    ``traj_div_factor`` and put through the experiment's
+    ``make_dataset(generator, trajs, train_cfg, optics)`` with the stream
+    ``fold_in(generator, 777)`` (the generator's device is the data's), with
+    ``labels = None``, ``d_values`` and a ``re_render(generator)`` hook that
+    renders the same trajectories under a fresh draw (multi-render scoring,
+    ``Experiment.in_order_error_tables(n_renders=K)``)."""
+    n_d, n_particles = arr.shape[:2]
+    flat = torch.as_tensor(np.asarray(arr), dtype=torch.float32, device=generator.device)
+    flat = flat.reshape(n_d * n_particles, arr.shape[2], 2) / train_cfg.traj_div_factor
+    data = make_dataset(fold_in(generator, 777), flat, train_cfg, optics)
+    data["labels"] = None
+    data["d_values"] = np.asarray(d_values)[:n_d]
+
+    def re_render(render_generator: torch.Generator) -> Dict[str, Any]:
+        d2 = make_dataset(render_generator, flat, train_cfg, optics)
+        d2["labels"] = None
+        d2["d_values"] = data["d_values"]
+        return d2
+
+    data["re_render"] = re_render
+    return data
 
 
 def generate_frozen_validation(

@@ -1,0 +1,19 @@
+"""Trajectory features: the 25 global features and the MSD estimators.
+The per-frame features (``per_frame``) come with the modular experiment
+(ROADMAP.md, queue 1, item 8)."""
+
+from moleculardiffusion_mivit_tpu_torch.features.features import (  # noqa: F401
+    FEATURE_NAMES,
+    N_FEATURES,
+    compute_diffusion_features,
+    compute_features_for_multiple_trajectories,
+)
+from moleculardiffusion_mivit_tpu_torch.features.msd import (  # noqa: F401
+    d_from_msd_tau1,
+    estimate_d_from_msd,
+    estimate_d_from_msds,
+    estimate_d_from_msds_polyfit,
+    estimate_d_from_msds_weighted,
+    mean_square_displacement,
+    mean_square_displacements,
+)

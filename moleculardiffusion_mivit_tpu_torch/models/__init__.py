@@ -1,6 +1,6 @@
 """The MiViT model zoo on PyTorch: ``GeneralTransformer`` with the linear, cnn
-and deep-ResNet embeddings, and the ``MultiImageResNet`` comparison arm (the
-seven models of the baseline experiment)."""
+and deep-ResNet embeddings and optional global-feature fusion, and the
+``MultiImageResNet`` and ``MultiImageFeatureResNet`` comparison arms."""
 
 import math
 
@@ -27,9 +27,10 @@ from moleculardiffusion_mivit_tpu_torch.models.embeddings import (  # noqa: F401
 from moleculardiffusion_mivit_tpu_torch.models.resnet import (  # noqa: F401
     BasicBlock,
     LightResNet,
+    MultiImageFeatureResNet,
     MultiImageResNet,
 )
-from moleculardiffusion_mivit_tpu_torch.models.vit import GeneralTransformer  # noqa: F401
+from moleculardiffusion_mivit_tpu_torch.models.vit import FeatureProjector, GeneralTransformer  # noqa: F401
 
 
 def param_count(model: nn.Module) -> int:

@@ -1,9 +1,10 @@
-"""Light ResNet comparison arm of the baseline experiment.
+"""Light ResNet comparison arms.
 
-Port of ``BasicBlock``, ``_ResNetTrunk``, ``LightResNet`` and
-``MultiImageResNet`` from ``moleculardiffusion_mivit_tpu/models/resnet.py``,
-with the flax tree's child names (``resnet.trunk.layer2_block0.shortcut_conv``…)
-so ``utils.convert.torch_state_from_flax`` maps a flax checkpoint by name:
+Port of ``BasicBlock``, ``_ResNetTrunk``, ``LightResNet``,
+``MultiImageResNet`` and ``MultiImageFeatureResNet`` from
+``moleculardiffusion_mivit_tpu/models/resnet.py``, with the flax tree's child
+names (``resnet.trunk.layer2_block0.shortcut_conv``…) so
+``utils.convert.torch_state_from_flax`` maps a flax checkpoint by name:
 
 - ``BasicBlock``: two 3×3 convs + BN, a 1×1 conv + BN shortcut when the
   stride or the width changes, activation after the residual add.
@@ -15,16 +16,19 @@ so ``utils.convert.torch_state_from_flax`` maps a flax checkpoint by name:
 - ``MultiImageResNet``: frames folded into the batch (so BatchNorm
   statistics span batch·frames), one prediction per frame, mean over frames
   when ``single_prediction``.
+- ``MultiImageFeatureResNet``: the trunk's per-frame vectors averaged over
+  time, concatenated with a global feature vector, then ``mlp_fc1`` →
+  activation → ``mlp_fc2``.
 
 Tensors are NCHW. BatchNorm is ``models.embeddings.BatchNorm`` (flax
 semantics, batch statistics in train mode). On a CUDA device the
 convolutions run in full f32 whatever ``torch.backends.cudnn.allow_tf32``
-says (``ops.fused_embedding.f32_convolutions``). ``MultiImageFeatureResNet``
-waits for the features (ROADMAP.md, queue 1, item 10).
+says (``ops.fused_embedding.f32_convolutions``).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -104,3 +108,22 @@ class MultiImageResNet(nn.Module):
             y = self.resnet(x.reshape(b * t, 1, h, w))
         y = y.reshape(b, t, 1)
         return y.mean(dim=1) if self.single_prediction else y
+
+
+class MultiImageFeatureResNet(nn.Module):
+    """``(B, T, S, S)`` videos and ``(B, external_dim)`` features →
+    ``(B, 1)``."""
+
+    def __init__(self, external_dim: int, feature_size: int = 64, hidden_size: int = 128, activation: str = "relu"):
+        super().__init__()
+        self.act = activation_by_name(activation)
+        self.resnet = _ResNetTrunk(feature_size, activation)
+        self.mlp_fc1 = nn.Linear(feature_size + external_dim, hidden_size)
+        self.mlp_fc2 = nn.Linear(hidden_size, 1)
+
+    def forward(self, x, external_features):
+        b, t, h, w = x.shape
+        with f32_convolutions():
+            feats = self.resnet(x.reshape(b * t, 1, h, w))
+        combined = torch.cat([feats.reshape(b, t, -1).mean(dim=1), external_features], dim=1)
+        return self.mlp_fc2(self.act(self.mlp_fc1(combined)))

@@ -3,6 +3,8 @@
 Usage:
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment baseline \
         --cycles 100 --out results/baseline [--seed 0] [--seqs-per-d 64] [--device cuda]
+    python -m moleculardiffusion_mivit_tpu_torch.run_experiment images_features \
+        --cycles 100 --in-order [--in-order-suite imft|committed]
 
 Port of ``moleculardiffusion_mivit_tpu/run_experiment.py``: runs the named
 experiment on ``--device`` (CUDA by default; without a card it raises unless
@@ -29,7 +31,7 @@ import time
 def main(argv=None):
     """Run the command line ``argv``; returns the trained ``Experiment``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("experiment", help="baseline (the other six regimes are not ported yet)")
+    ap.add_argument("experiment", help="baseline | images_features (the other five regimes are not ported yet)")
     ap.add_argument("--cycles", type=int, default=None, help="override num_cycles")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seqs-per-d", type=int, default=64)
@@ -38,6 +40,10 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=1)
     ap.add_argument("--in-order", action="store_true",
                     help="build the in-order D sweep where the experiment makes it optional")
+    ap.add_argument("--in-order-suite", choices=("imft", "committed"), default=None,
+                    help="(images_features) the in-order sweep to score: imft, the published 100-value "
+                         "D=0.1..10.0 protocol (default), or committed, the 70-value valTrajsInOrder set; "
+                         "implies --in-order")
     ap.add_argument("--in-order-renders", type=int, default=1,
                     help="score the in-order sweep on K render-noise draws of the same trajectories")
     ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default=None,
@@ -64,8 +70,13 @@ def main(argv=None):
     logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"), stdout=True)
 
     kwargs = dict(seed=args.seed, sequences_per_d=args.seqs_per_d, device=device)
-    if args.in_order and "with_in_order" in inspect.signature(REGISTRY[args.experiment]).parameters:
-        kwargs["with_in_order"] = True
+    build_params = inspect.signature(REGISTRY[args.experiment]).parameters
+    if (args.in_order or args.in_order_suite) and "with_in_order" in build_params:
+        kwargs["with_in_order"] = True  # an explicit suite implies the sweep
+    if args.in_order_suite is not None:
+        if "in_order_suite" not in build_params:
+            ap.error(f"experiment {args.experiment!r} does not support --in-order-suite")
+        kwargs["in_order_suite"] = args.in_order_suite
     exp = get_experiment(args.experiment, **kwargs)
     if args.compute_dtype:
         exp.train_cfg = exp.train_cfg.replace(compute_dtype=args.compute_dtype)

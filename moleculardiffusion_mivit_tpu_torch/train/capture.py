@@ -6,8 +6,10 @@ A *unit* is a list of models that step together: one model, a stack of
 models that differ only in their FF activation slope (stepped one after the
 other), or every model of a merged cycle (``merge_scans``). For each unit
 and batch size ``EpochEngine`` keeps static buffers: each member's cycle
-data (copied in once a cycle), its epoch permutation ``(steps, B)``, its
-per-step losses, and one device step counter that the step itself advances.
+data (copied in once a cycle: its inputs of any shape, its labels and, for a
+model that takes them, its features), its epoch permutation ``(steps, B)``,
+its per-step losses, and one device step counter that the step itself
+advances.
 On the card the first cycle of a batch size runs ``WARMUP_STEPS`` steps
 eagerly on a side stream, which makes the optimizer's state, the kernels'
 one-time set-up (``ops.fused_embedding``'s border table, shared-memory
@@ -65,11 +67,16 @@ class Member(NamedTuple):
 
     name: str
     state: TrainState
-    train_step: Callable  # train.loop's train_step(state, videos, labels, idx, act_slope)
-    videos: torch.Tensor
+    train_step: Callable  # train.loop's train_step(state, videos, labels, idx, act_slope, features)
+    videos: torch.Tensor  # the model's first input, (N, ...)
     labels: torch.Tensor
     perm: torch.Tensor  # (steps, batch) minibatch indices on the data's device
     act_slope: Optional[torch.Tensor] = None
+    features: Optional[torch.Tensor] = None  # (N, F), for a model that takes them
+
+
+def _shape(t: Optional[torch.Tensor]):
+    return None if t is None else t.shape
 
 
 class _Unit:
@@ -83,6 +90,7 @@ class _Unit:
         self.slopes = [m.act_slope for m in members]
         self.videos = [torch.empty_like(m.videos) for m in members]
         self.labels = [torch.empty_like(m.labels) for m in members]
+        self.features = [None if m.features is None else torch.empty_like(m.features) for m in members]
         self.perms = [torch.empty_like(m.perm) for m in members]
         self.losses = [torch.empty(m.perm.shape[0], device=m.perm.device) for m in members]
         self.counter = torch.zeros(1, dtype=torch.long, device=members[0].perm.device)
@@ -92,22 +100,26 @@ class _Unit:
     def matches(self, members: Sequence[Member]) -> bool:
         return all(
             m.state is s and m.videos.shape == v.shape and m.labels.shape == y.shape
-            and m.perm.shape == p.shape
-            for m, s, v, y, p in zip(members, self.states, self.videos, self.labels, self.perms, strict=True)
+            and m.perm.shape == p.shape and _shape(m.features) == _shape(f)
+            for m, s, v, y, p, f in zip(members, self.states, self.videos, self.labels, self.perms, self.features,
+                                        strict=True)
         )
 
     def load(self, members: Sequence[Member]) -> None:
-        for m, v, y, p in zip(members, self.videos, self.labels, self.perms):
+        for m, v, y, p, f in zip(members, self.videos, self.labels, self.perms, self.features):
             v.copy_(m.videos)
             y.copy_(m.labels)
             p.copy_(m.perm)
+            if f is not None:
+                f.copy_(m.features)
         self.counter.zero_()
 
     def step(self) -> None:
         """One minibatch of every member, then the counter moves on."""
         for i, state in enumerate(self.states):
             idx = self.perms[i].index_select(0, self.counter).view(-1)
-            loss = self.train_steps[i](state, self.videos[i], self.labels[i], idx, self.slopes[i])
+            loss = self.train_steps[i](state, self.videos[i], self.labels[i], idx, self.slopes[i],
+                                       features=self.features[i])
             self.losses[i].index_copy_(0, self.counter, loss.view(1))
         self.counter.add_(1)
 

@@ -17,9 +17,11 @@ every run.
 
 The losses are mse and l1; in sequence mode ``mix_trajectories`` swaps
 trajectory tails across D classes after generation
-(``mix_trajectory_tails``). Not ported yet, and raising
+(``mix_trajectory_tails``). With ``with_features`` a model also takes the
+25 global trajectory features of each sequence (``features``), gathered
+with the same minibatch indices. Not ported yet, and raising
 ``NotImplementedError``: the bf16 ``compute_dtype`` (ROADMAP.md, queue 1,
-item 5) and features (item 8).
+item 5).
 
 On the card a model's optimizer may be *capturable* (``make_optimizer(...,
 capturable=True)``): its learning rate is then a 0-d device tensor that
@@ -35,9 +37,11 @@ import torch
 
 from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
+from moleculardiffusion_mivit_tpu_torch.features import compute_features_for_multiple_trajectories
 from moleculardiffusion_mivit_tpu_torch.models import init_model
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
 from moleculardiffusion_mivit_tpu_torch.sim import (
+    average_trajectories_frames,
     normalize_images,
     single_state,
     trajectories_to_video,
@@ -170,20 +174,24 @@ def epoch_permutation(generator: torch.Generator, n: int, batch_size: int, devic
     return perm[: steps * batch_size].reshape(steps, batch_size).to(device)
 
 
-def generate_cycle_data(generator: torch.Generator, train_cfg: TrainConfig, optics: OpticsConfig):
+def generate_cycle_data(
+    generator: torch.Generator, train_cfg: TrainConfig, optics: OpticsConfig, with_features: bool = False
+):
     """One cycle's fresh dataset on the generator's device: per D class,
     ``single_state`` trajectories divided by ``traj_div_factor``, rendered
     with per-frame centering, normalised against ``(bg_mean, bg_sigma,
     part_mean + bg_mean)``; labels divided by ``d_max_normalization``.
 
-    Returns ``(videos (N, F, S, S), labels (N, 1) or (N, F))``.
+    Returns ``(videos (N, F, S, S), labels (N, 1) or (N, F))``, and with
+    ``with_features`` also the 25 features ``(N, 25)`` of the frame-averaged
+    trajectories (``features.compute_features_for_multiple_trajectories``).
     """
     p = train_cfg.n_pos_per_frame
     t = train_cfg.n_frames * p
     bg_mean, bg_sigma = optics.background_intensity
     part_mean = optics.particle_intensity[0]
 
-    all_videos, all_labels = [], []
+    all_videos, all_labels, all_trajs = [], [], []
     for ds in train_cfg.training_ds:
         trajs, labels = single_state(generator, train_cfg.sequences_per_d, t, Ds=tuple(ds))
         trajs = trajs / train_cfg.traj_div_factor
@@ -191,6 +199,7 @@ def generate_cycle_data(generator: torch.Generator, train_cfg: TrainConfig, opti
         videos, _ = normalize_images(videos, bg_mean, bg_sigma, part_mean + bg_mean)
         all_videos.append(videos)
         all_labels.append(labels)
+        all_trajs.append(trajs)
 
     videos = torch.cat(all_videos, dim=0)
     d_per_step = torch.cat(all_labels, dim=0)[:, :, 1]
@@ -198,24 +207,34 @@ def generate_cycle_data(generator: torch.Generator, train_cfg: TrainConfig, opti
         y = d_per_step.reshape(d_per_step.shape[0], train_cfg.n_frames, p).mean(dim=2)
     else:
         y = d_per_step[:, :1]
-    return videos, y / train_cfg.d_max_normalization
+    y = y / train_cfg.d_max_normalization
+    if with_features:
+        avg = average_trajectories_frames(torch.cat(all_trajs, dim=0), p)
+        return videos, y, compute_features_for_multiple_trajectories(avg, dt=1.0)
+    return videos, y
 
 
-def make_train_impls(model: torch.nn.Module, train_cfg: TrainConfig, device=None) -> TrainImpls:
-    """``(init_state, train_cycle, evaluate, train_step)`` for one model.
+def make_train_impls(
+    model: torch.nn.Module, train_cfg: TrainConfig, device=None, with_features: bool = False
+) -> TrainImpls:
+    """``(init_state, train_cycle, evaluate, train_step)`` for one model;
+    with ``with_features`` the model is called as ``model(videos,
+    features)``.
 
     - ``init_state(generator)`` initialises the model from a CPU generator,
       moves it to the device and makes its optimizer.
-    - ``train_step(state, videos, labels, idx, act_slope=None)`` is one
-      minibatch forward/backward/AdamW update at the optimizer's current LR
-      (``act_slope``: see ``models.layers.FeedForward``); returns the loss
-      (on the device, not synchronised). It makes no host synchronisation,
-      so ``train.capture`` captures it in a CUDA graph.
-    - ``train_cycle(state, videos, labels, generator, lr, batch_size)`` runs
-      one epoch in a permuted order drawn from ``generator``; returns the
-      mean loss.
-    - ``evaluate(state, videos)`` returns eval-mode predictions ×
-      ``d_max_normalization``.
+    - ``train_step(state, videos, labels, idx, act_slope=None,
+      features=None)`` is one minibatch forward/backward/AdamW update at the
+      optimizer's current LR (``act_slope``: see
+      ``models.layers.FeedForward``; ``features`` are indexed by ``idx`` like
+      the videos); returns the loss (on the device, not synchronised). It
+      makes no host synchronisation, so ``train.capture`` captures it in a
+      CUDA graph.
+    - ``train_cycle(state, videos, labels, generator, lr, batch_size,
+      features=None)`` runs one epoch in a permuted order drawn from
+      ``generator``; returns the mean loss.
+    - ``evaluate(state, videos, features=None)`` returns eval-mode
+      predictions × ``d_max_normalization``.
     """
     _check_supported(train_cfg)
     dev = resolve_device(device)
@@ -225,10 +244,18 @@ def make_train_impls(model: torch.nn.Module, train_cfg: TrainConfig, device=None
         model.to(dev).train()
         return TrainState(model, make_optimizer(model, train_cfg))
 
-    def train_step(state: TrainState, videos, labels, idx, act_slope=None) -> torch.Tensor:
+    def inputs(videos, features):
+        if not with_features:
+            return (videos,)
+        if features is None:
+            raise ValueError("this model takes features: pass features=")
+        return videos, features
+
+    def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None) -> torch.Tensor:
         bv, by = videos.index_select(0, idx), labels.index_select(0, idx)
+        args = inputs(bv, None if features is None else features.index_select(0, idx))
         with f32_convolutions():  # autograd's convolutions read the setting when they run
-            out = state.model(bv) if act_slope is None else state.model(bv, act_slope=act_slope)
+            out = state.model(*args) if act_slope is None else state.model(*args, act_slope=act_slope)
             if by.ndim == 2 and out.ndim == 3:
                 by = by[..., None]
             loss = _loss(out.float(), by, train_cfg.loss)
@@ -237,18 +264,18 @@ def make_train_impls(model: torch.nn.Module, train_cfg: TrainConfig, device=None
         state.optimizer.step()
         return loss.detach()
 
-    def train_cycle(state: TrainState, videos, labels, generator, lr: float, batch_size: int):
+    def train_cycle(state: TrainState, videos, labels, generator, lr: float, batch_size: int, features=None):
         perm = epoch_permutation(generator, videos.shape[0], batch_size, videos.device)
         _set_lr(state.optimizer, lr)
         state.model.train()
-        losses = [train_step(state, videos, labels, idx) for idx in perm]
+        losses = [train_step(state, videos, labels, idx, features=features) for idx in perm]
         return torch.stack(losses).mean()
 
     @torch.no_grad()
-    def evaluate(state: TrainState, videos):
+    def evaluate(state: TrainState, videos, features=None):
         state.model.eval()
         try:
-            return state.model(videos) * train_cfg.d_max_normalization
+            return state.model(*inputs(videos, features)) * train_cfg.d_max_normalization
         finally:
             state.model.train()
 

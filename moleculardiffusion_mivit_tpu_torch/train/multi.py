@@ -14,8 +14,9 @@ Per-model random streams are derived from each model's index in the dict
 the update sequence. The port has no stacked leaves: a stack's members keep
 their own parameters and step one after the other inside the stack's graph,
 each called with its FF slope from ``SLOPE_BY_ACTIVATION`` as a 0-d tensor,
-as the JAX package's stacked step passes it. Features are ROADMAP.md, queue
-1, item 8, and raise.
+as the JAX package's stacked step passes it. With ``with_features`` every
+model takes the cycle's 25 global trajectory features beside the videos,
+and nothing is stacked.
 """
 
 from __future__ import annotations
@@ -48,19 +49,27 @@ SLOPE_BY_ACTIVATION = {"relu": 0.0, "leaky_relu": 0.01}
 # kept for the same branch.
 STACK_BELOW_BATCH = 32
 
-_FEATURES_LATER = "features are not ported yet (ROADMAP.md, queue 1, item 8)"
-
-
 def detect_activation_stacks(models: Dict[str, Any]):
-    """Group the GeneralTransformers that are identical up to the FF
-    activation slope (the baseline's three relu/leaky_relu pairs).
+    """Group the GeneralTransformers without global features that are
+    identical up to the FF activation slope (the baseline's three
+    relu/leaky_relu pairs).
 
     Returns ``[(member_names, base_model, slopes), ...]`` for every group of
     two or more, in insertion order."""
     groups: Dict[tuple, list] = {}
     for name, m in models.items():
-        if type(m) is GeneralTransformer and m.config.activation in SLOPE_BY_ACTIVATION:
-            sig = (type(m.embedding), m.mlp_head.fc1.out_features, m.config.replace(activation="relu"))
+        if (
+            type(m) is GeneralTransformer
+            and not m.use_global_features
+            and m.config.activation in SLOPE_BY_ACTIVATION
+        ):
+            sig = (
+                type(m.embedding),
+                m.fusion_type,
+                m.global_feature_dim,
+                m.mlp_head.fc1.out_features,
+                m.config.replace(activation="relu"),
+            )
             groups.setdefault(sig, []).append(name)
     return [
         (g, models[g[0]], tuple(SLOPE_BY_ACTIVATION[models[n].config.activation] for n in g))
@@ -90,24 +99,26 @@ def make_multi_cycle(
       ``stack_pairs`` a stack's entry is keyed ``"stack:<a>+<b>"`` and holds
       its members' states in member order.
     - ``cycle(states, generator, lr, batch_size, val_videos=None,
-      val_targets=None)`` generates the data from ``fold_in(generator, 0)``,
-      trains every model one epoch (model ``i``'s permutation from
-      ``fold_in(fold_in(generator, 1), i)``) and, given validation videos and
-      targets, scores each model: ``val_mse[name] = mean((pred -
-      val_targets)²)`` in physical D units. Returns ``(states, losses,
-      val_mse)`` keyed by model name; states update in place.
+      val_targets=None, val_features=None)`` generates the data from
+      ``fold_in(generator, 0)``, trains every model one epoch (model ``i``'s
+      permutation from ``fold_in(fold_in(generator, 1), i)``) and, given
+      validation videos and targets, scores each model: ``val_mse[name] =
+      mean((pred - val_targets)²)`` in physical D units. Returns ``(states,
+      losses, val_mse)`` keyed by model name; states update in place.
 
-    ``merge_scans``: one unit (one graph on the card) steps every model;
-    ``stack_pairs`` (ignored under ``merge_scans``): each group of
+    ``with_features``: every model is called as ``model(videos, features)``
+    with the cycle's features (``generate_cycle_data(with_features=True)``),
+    and validation with ``val_features``. ``merge_scans``: one unit (one
+    graph on the card) steps every model; ``stack_pairs`` (ignored under
+    ``merge_scans`` and ``with_features``): each group of
     ``detect_activation_stacks`` is one unit. Otherwise each model is its
     own unit.
     """
-    if with_features:
-        raise NotImplementedError(f"make_multi_cycle: {_FEATURES_LATER}")
     dev = resolve_device(device)
     names = list(models)
-    stacks = detect_activation_stacks(models) if stack_pairs and not merge_scans else []
-    impls = {name: make_train_impls(m, train_cfg, dev) for name, m in models.items()}
+    stack = stack_pairs and not with_features and not merge_scans
+    stacks = detect_activation_stacks(models) if stack else []
+    impls = {name: make_train_impls(m, train_cfg, dev, with_features) for name, m in models.items()}
     slopes = {
         n: torch.tensor(s, dtype=torch.float32, device=dev)
         for members, _, sl in stacks for n, s in zip(members, sl)
@@ -127,21 +138,25 @@ def make_multi_cycle(
             states[_stack_key(members)] = tuple(per[n] for n in members)
         return states
 
-    def cycle(states, generator, lr: float, batch_size: int, val_videos=None, val_targets=None):
+    def cycle(states, generator, lr: float, batch_size: int, val_videos=None, val_targets=None,
+              val_features=None):
         per = _per_model(states, stacks)
-        videos, labels = generate_cycle_data(fold_in(generator, 0), train_cfg, optics)
+        data = generate_cycle_data(fold_in(generator, 0), train_cfg, optics, with_features)
+        videos, labels = data[:2]
+        feats = data[2] if with_features else None
         k_train = fold_in(generator, 1)
         members = {}
         for i, name in enumerate(names):
             perm = epoch_permutation(fold_in(k_train, i), videos.shape[0], batch_size, dev)
-            members[name] = Member(name, per[name], impls[name].train_step, videos, labels, perm, slopes.get(name))
+            members[name] = Member(name, per[name], impls[name].train_step, videos, labels, perm, slopes.get(name),
+                                   feats)
         for name in names:
             _set_lr(per[name].optimizer, lr)
         losses = engine.run([[members[n] for n in unit] for unit in layout], batch_size)
         val_mse = {}
         if val_videos is not None:
             for name in names:
-                preds = impls[name].evaluate(per[name], val_videos)
+                preds = impls[name].evaluate(per[name], val_videos, val_features)
                 val_mse[name] = torch.mean((preds - val_targets) ** 2)
         return states, {n: losses[n] for n in names}, val_mse
 
@@ -159,7 +174,8 @@ def make_scanned_multi_cycle(
     device=None,
 ):
     """``make_multi_cycle`` with K cycles per call: ``cycles(states,
-    generators (K), lrs (K), batch_size, val_videos=None, val_targets=None)``
+    generators (K), lrs (K), batch_size, val_videos=None, val_targets=None,
+    val_features=None)``
     runs one cycle per (generator, lr) and returns ``(states, losses,
     val_mse)`` with a leading (K,) axis on each model's entries. (The JAX
     package scans the K cycles inside one program; here they are K calls of
@@ -168,11 +184,11 @@ def make_scanned_multi_cycle(
         models, train_cfg, optics, with_features, merge_scans, stack_pairs, device
     )
 
-    def cycles(states, generators, lrs, batch_size: int, val_videos=None, val_targets=None):
+    def cycles(states, generators, lrs, batch_size: int, val_videos=None, val_targets=None, val_features=None):
         losses: List[Dict[str, torch.Tensor]] = []
         vals: List[Dict[str, torch.Tensor]] = []
         for g, lr in zip(generators, lrs, strict=True):
-            states, loss, val = cycle(states, g, float(lr), batch_size, val_videos, val_targets)
+            states, loss, val = cycle(states, g, float(lr), batch_size, val_videos, val_targets, val_features)
             losses.append(loss)
             vals.append(val)
         stack = lambda rows: {k: torch.stack([r[k] for r in rows]) for k in (rows[0] if rows else {})}  # noqa: E731

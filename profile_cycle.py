@@ -23,6 +23,9 @@ batch-1 cycle runs slowly under the profiler: all seven arms at batch 1 and
 generation and validation per cycle) at each ``--batch``, its learned arms'
 epochs as captured CUDA graphs and/or eagerly: a first cycle (which captures),
 a timed one and a profiled one, with the same device breakdown.
+``--experiment images_features [captured] [eager]`` does the same for the
+images-features experiment (nine arms; generation computes the 25 features
+of 320 sequences); an experiment's name with no mode runs it captured.
 
 ``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
 alone: for each shape, device time by kernel over 5 calls of K2
@@ -119,17 +122,17 @@ def profile(torch, arm: str, batch: int, val):
     }
 
 
-def profile_experiment(torch, batch: int, fused: bool):
-    """The baseline experiment's seven-arm cycle at full width through
-    ``Experiment.run``, at a fixed batch size, captured (``fused``) or
-    eager: one cycle to warm up (and capture), one timed, one under the
-    profiler."""
+def profile_experiment(torch, name: str, batch: int, fused: bool):
+    """An experiment's cycle (``name``: baseline or images_features) at full
+    width through ``Experiment.run``, at a fixed batch size, captured
+    (``fused``) or eager: one cycle to warm up (and capture), one timed, one
+    under the profiler."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from chip_smoke import device_kernels
-    from moleculardiffusion_mivit_tpu_torch.experiments import baseline
+    from moleculardiffusion_mivit_tpu_torch.experiments import get_experiment
 
-    exp = baseline.build(seed=0, device="cuda")
+    exp = get_experiment(name, seed=0, device="cuda")
     exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
     exp.fused_cycles = fused
     exp.build()
@@ -147,15 +150,15 @@ def profile_experiment(torch, batch: int, fused: bool):
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
     by_name, by_layer, intervals = defaultdict(float), defaultdict(float), []
-    for name, a, b in device_kernels(torch, prof):  # the raw trace: ~10^6 kernels at batch 1
+    for kernel, a, b in device_kernels(torch, prof):  # the raw trace: ~10^6 kernels at batch 1
         intervals.append((a / 1e3, b / 1e3))
-        by_name[name] += (b - a) / 1e3
-        by_layer[_layer(name)] += (b - a) / 1e3
+        by_name[kernel] += (b - a) / 1e3
+        by_layer[_layer(kernel)] += (b - a) / 1e3
     device_ms = sum(by_name.values()) / 1e3
     n_seq = exp.train_cfg.sequences_per_d * len(exp.train_cfg.training_ds)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "experiment": "baseline", "arms": len(exp.arms), "batch": batch,
+        "experiment": name, "arms": len(exp.arms), "batch": batch,
         "mode": "captured" if fused else "eager", "steps_per_arm": n_seq // batch,
         "first_cycle_s": first_s, "wall_s": wall_s, "seq_per_s": n_seq / wall_s, "profiled_wall_s": prof_s,
         "device_kernel_ms": device_ms, "kernels": len(intervals),
@@ -219,9 +222,11 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--embedding", type=int, nargs="+", default=None, metavar="B_T_S",
                     help="profile K2/K3 alone at these (B, T, S) shapes")
-    ap.add_argument("--experiment", nargs="+", default=None, choices=("captured", "eager"),
-                    help="profile the baseline experiment's seven-arm cycle (Experiment.run) "
-                         "at each --batch, captured and/or eager")
+    ap.add_argument("--experiment", nargs="+", default=None,
+                    choices=("captured", "eager", "baseline", "images_features"),
+                    help="profile an experiment's cycle (Experiment.run) at each --batch, captured "
+                         "and/or eager: modes and experiment names (default baseline; a name alone "
+                         "runs captured)")
     args = ap.parse_args()
     import torch
 
@@ -257,9 +262,12 @@ def main() -> None:
             emit(profile_embedding(torch, *args.embedding[i:i + 3]))
         return
     if args.experiment:
-        for b in args.batch:
-            for mode in args.experiment:
-                emit(profile_experiment(torch, b, mode == "captured"))
+        names = [e for e in args.experiment if e not in ("captured", "eager")] or ["baseline"]
+        modes = [e for e in args.experiment if e in ("captured", "eager")] or ["captured"]
+        for name in names:
+            for b in args.batch:
+                for mode in modes:
+                    emit(profile_experiment(torch, name, b, mode == "captured"))
         return
     from chip_smoke import baseline_arms
 

@@ -474,3 +474,65 @@ def test_dropout_and_a_failed_capture_raise(cuda_device):
         cycle(states, torch.Generator(device=cuda_device).manual_seed(0), 1e-3, 2)
     assert cycle.engine.captures == 0
     torch.cuda.synchronize()
+
+
+def test_features_on_card_match_the_cpu(cuda_device):
+    """The 25 features (and the hull area) of 320 Brownian trajectories of
+    30 frames, made with numpy, computed on the card equal the CPU's at the
+    CPU tests' ``PARITY_TOLERANCE``; two calls on the card agree bitwise."""
+    from moleculardiffusion_mivit_tpu_torch.features import FEATURE_NAMES, compute_features_for_multiple_trajectories
+    from moleculardiffusion_mivit_tpu_torch.features.features import PARITY_TOLERANCE
+
+    rng = np.random.default_rng(11)
+    sigma = np.sqrt(2 * rng.uniform(0.01, 1.0, size=(320, 1, 1)))
+    trajs = torch.from_numpy(np.cumsum(rng.normal(size=(320, 30, 2)) * sigma, axis=1).astype(np.float32))
+    on_card = compute_features_for_multiple_trajectories(trajs.to(cuda_device))
+    assert torch.equal(on_card, compute_features_for_multiple_trajectories(trajs.to(cuda_device)))
+    on_cpu = compute_features_for_multiple_trajectories(trajs)
+    for i, name in enumerate(FEATURE_NAMES):
+        rtol, atol = PARITY_TOLERANCE[name]
+        torch.testing.assert_close(on_card[:, i].cpu(), on_cpu[:, i], rtol=rtol, atol=atol, msg=name)
+
+
+def test_captured_cycle_with_features_equals_eager_on_card(cuda_device):
+    """``make_multi_cycle(with_features=True)`` on the card (early- and
+    late-fusion transformers with the deep-ResNet embedding, so K2/K3 run in
+    the graphs, and MultiImageFeatureResNet): one cycle of 4 steps (2 eager
+    warm-up steps, a capture, 2 replays per unit) leaves the losses and every
+    parameter and buffer of eager per-model ``train_cycle`` calls with the
+    same features."""
+    from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, ModelConfig, TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageFeatureResNet, init_model
+    from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
+    from moleculardiffusion_mivit_tpu_torch.train.multi import make_multi_cycle
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
+
+    small = ModelConfig(use_pos_encoding=False, embed_dim=16, num_heads=2, hidden_dim=32, num_layers=2)
+    fusion = dict(embedding="deep_resnet", use_global_features=True, global_feature_dim=25)
+
+    def zoo():
+        return {"early": GeneralTransformer(small, fusion_type="early", **fusion),
+                "late": GeneralTransformer(small, fusion_type="late", **fusion),
+                "resnet": MultiImageFeatureResNet(25, feature_size=16, hidden_size=32)}
+
+    cfg = TrainConfig(sequences_per_d=2, n_frames=4)
+    models, ref_models = zoo(), zoo()
+    init_states, cycle = make_multi_cycle(models, cfg, BASELINE_OPTICS, with_features=True, device=cuda_device)
+    g = torch.Generator().manual_seed(3)
+    states = init_states(g)
+    impls, ref_states = {}, {}
+    for i, (name, m) in enumerate(ref_models.items()):
+        init_model(m, fold_in(g, i, device="cpu"))
+        m.to(cuda_device).train()
+        impls[name] = tloop.make_train_impls(m, cfg, device=cuda_device, with_features=True)
+        ref_states[name] = tloop.TrainState(m, tloop.make_optimizer(m, cfg, capturable=True))
+    gc = seeded_generator(cuda_device, 9, 0)
+    _, got, _ = cycle(states, gc, 1e-3, 2)
+    videos, labels, feats = tloop.generate_cycle_data(fold_in(gc, 0), cfg, BASELINE_OPTICS, with_features=True)
+    assert feats.is_cuda and feats.shape == (8, 25)
+    for i, name in enumerate(ref_models):
+        want = impls[name].train_cycle(ref_states[name], videos, labels, fold_in(fold_in(gc, 1), i), 1e-3, 2,
+                                       features=feats)
+        assert abs(float(got[name]) - float(want)) <= 1e-5 * abs(float(want)), name
+    assert cycle.engine.captures == 3 and cycle.engine.replays == 3 * 2
+    _assert_models_equal(models, ref_models)

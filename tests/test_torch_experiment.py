@@ -1,10 +1,10 @@
-"""The port's baseline experiment through its own entry points on the CPU,
-at tiny sizes (4 frames, 2 sequences per D class, a 3-particle validation
-suite): ``Experiment`` with fused cycles equals per-arm cycles; a checkpoint
-round trip resumes to the history of an uninterrupted run; and
-``run_experiment`` writes the files and the events of the JAX package's
-runner. On the card the fused cycle runs as captured CUDA graphs
-(``chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
+"""The port's baseline and images-features experiments through their own
+entry points on the CPU, at tiny sizes (4 or 6 frames, 2 to 8 sequences per
+D class, a 3-particle validation suite): ``Experiment`` with fused cycles
+equals per-arm cycles; a checkpoint round trip resumes to the history of an
+uninterrupted run; and ``run_experiment`` writes the files and the events
+of the JAX package's runner. On the card the fused cycle runs as captured
+CUDA graphs (``chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
 
 import functools
 import json
@@ -17,7 +17,7 @@ import torch
 
 from moleculardiffusion_mivit_tpu_torch import evaluation as tval
 from moleculardiffusion_mivit_tpu_torch import run_experiment
-from moleculardiffusion_mivit_tpu_torch.experiments import REGISTRY, GridArm, baseline, get_experiment
+from moleculardiffusion_mivit_tpu_torch.experiments import REGISTRY, GridArm, baseline, get_experiment, images_features
 from moleculardiffusion_mivit_tpu_torch.utils import restore_experiment, save_experiment
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -137,18 +137,19 @@ def test_run_experiment_writes_the_files_and_events_of_the_jax_runner(small_vali
 
 
 def test_entry_points_raise_without_a_card_and_name_what_is_not_ported(monkeypatch, tmp_path):
-    """With no card, the runner given no ``--device`` and
-    ``baseline.build`` raise rather than run on the CPU; the unported
-    regimes and parts raise ``NotImplementedError`` naming their ROADMAP
-    item."""
+    """With no card, the runner given no ``--device``, ``baseline.build``
+    and ``images_features.build`` raise rather than run on the CPU; the
+    unported parts raise ``NotImplementedError`` naming their ROADMAP item
+    (the unported regimes: ``test_unported_regimes_raise``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_experiment.main(["baseline", "--out", str(tmp_path)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_experiment.main(["images_features", "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         baseline.build()
-    for name in ("psfnoise", "framerate", "embeddings", "images_features", "denoising", "modular"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            get_experiment(name)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        images_features.build()
     with pytest.raises(NotImplementedError, match="item 11"):
         GridArm()
     exp = baseline.Experiment("x", None, None, {}, None, {}, device="cpu")
@@ -173,3 +174,98 @@ def test_sequence_mode_and_continuous_curriculum_generate_mixed_data(small_valid
         else:
             assert labels.shape == (16, 1)
             assert 0.05 <= float(labels.min()) and float(labels.max()) <= 0.75
+
+
+@pytest.mark.parametrize("name", ["psfnoise", "framerate", "embeddings", "denoising", "modular"])
+def test_unported_regimes_raise(name):
+    """The five regimes not ported yet are listed and raise
+    ``NotImplementedError`` naming ROADMAP item 12."""
+    assert name in REGISTRY
+    with pytest.raises(NotImplementedError, match="item 12"):
+        get_experiment(name)
+
+
+@pytest.fixture
+def small_imft(monkeypatch):
+    """Images-features validation of 3 particles per D (D = 1 and 5), and an
+    in-order suite of one particle per D value."""
+    def load(length, device):
+        return tval.generate_frozen_validation(
+            d_values=(1, 5), n_particles=3, t_steps=10 * length, in_order_particles=1, device=device
+        )
+
+    imft = images_features.generate_in_order_imft
+    monkeypatch.setattr(images_features, "load_validation_trajectories", load)
+    monkeypatch.setattr(images_features, "generate_in_order_imft",
+                        lambda t_steps, device: imft(t_steps=t_steps, n_particles=1, device=device))
+
+
+IMFT_ARMS = ["im_tr", "im_ft_early_tr", "im_ft_late_tr", "im_resnet", "im_ft_resnet", "ft_mlp",
+             "MSD_Perfect", "MSD_Frame", "MSD_Localized"]
+
+
+def test_images_features_fused_cycles_equal_per_arm_cycles(small_imft):
+    """The images-features experiment at 8 sequences per D class (5
+    classes), 6 frames, validation at D = 1 and 5: its nine arms in the
+    JAX package's order, each cycle's data with 25 features per sequence;
+    two cycles (batch 4, then 8) through the fused cycle equal each arm's
+    eager epoch in history, losses and parameters at 1e-6; the MSD arms
+    score every cycle, without training, the same."""
+    def make():
+        exp = images_features.build(sequences_per_d=8, val_length=6, val_d_values=(1.0, 5.0), device="cpu")
+        exp.train_cfg = exp.train_cfg.replace(initial_batch_size=4, adaptive_batch_size=1)
+        return exp
+
+    fused, per_arm = make(), make()
+    per_arm.fused_cycles = False
+    assert list(fused.arms) == IMFT_ARMS
+    data = fused.generate_fn(torch.Generator().manual_seed(0))
+    assert data["videos"].shape == (40, 6, 9, 9) and data["features"].shape == (40, 25)
+    assert data["trajs_raw"].shape == (40, 60, 2) and data["trajs_avg_err"].shape == (40, 6, 2)
+    assert torch.isfinite(data["features"]).all() and data["labels"].shape == (40, 1)
+    fused.run(2)
+    per_arm.run(2)
+    assert fused._stack_groups == []  # no activation pairs here, and fusion models never stack
+    assert list(fused.history) == IMFT_ARMS and set(fused.train_loss) == set(IMFT_ARMS[:6])
+    for name in IMFT_ARMS:
+        np.testing.assert_allclose(fused.history[name]["val_avg"], per_arm.history[name]["val_avg"], rtol=1e-6)
+        assert len(fused.history[name]["val_1"]) == 2 and all(np.isfinite(fused.history[name]["val_avg"]))
+    for name in IMFT_ARMS[:6]:
+        np.testing.assert_allclose([float(v) for v in fused.train_loss[name]],
+                                   [float(v) for v in per_arm.train_loss[name]], rtol=1e-6)
+    for name in IMFT_ARMS[6:]:
+        assert fused.history[name]["val_avg"][0] == fused.history[name]["val_avg"][1]
+    a, b = _params(fused), _params(per_arm)
+    for name in a:
+        for key in a[name]:
+            torch.testing.assert_close(a[name][key], b[name][key], rtol=1e-6, atol=1e-6, msg=f"{name} {key}")
+    preds = fused.predict("MSD_Frame", fused.val_data[1.0])
+    assert preds.shape == (3,)
+    tables = images_features.tta_error_tables(fused, fused.val_data[5.0], np.array([5.0]))
+    assert set(tables) == {"im_tr_rot", "im_res_rot", "im_ft_res_rot", "im_ft_tr_rot"}
+    assert all(np.isfinite(t["mse"]) for t in tables.values())
+
+
+@pytest.mark.parametrize("suite,n_d", [("imft", 100), ("committed", 70)])
+def test_run_experiment_images_features_in_order(small_imft, monkeypatch, tmp_path, suite, n_d):
+    """``run_experiment images_features --in-order-suite {imft,committed}``
+    (which implies ``--in-order``) on the CPU writes the nine arms'
+    histories, and their in-order predictions on the 100-value D =
+    0.1..10.0 sweep or the 70-value committed one, and the error-table CSV;
+    ``--in-order-suite`` on an experiment without the option is an error."""
+    monkeypatch.setitem(REGISTRY, "images_features",
+                        functools.partial(images_features.build, val_length=6, val_d_values=(1.0, 5.0)))
+    out = tmp_path / "run"
+    run_experiment.main(["images_features", "--cycles", "1", "--seqs-per-d", "2", "--out", str(out),
+                         "--device", "cpu", "--checkpoint-last", "0", "--in-order-suite", suite])
+    history = json.loads((out / "history.json").read_text())
+    assert list(history) == IMFT_ARMS
+    assert all(len(h["val_avg"]) == 1 and np.isfinite(h["val_avg"][0]) for h in history.values())
+    preds = np.load(out / "in_order_predictions.npz")
+    assert preds["d_values"].shape == (n_d,) and float(preds["d_values"][-1]) == (10.0 if n_d == 100 else 7.0)
+    for name in IMFT_ARMS:
+        assert preds[name].shape == (n_d, 1) and np.isfinite(preds[name]).all(), name
+    rows = (out / "images_features_errors.csv").read_text().splitlines()
+    assert rows[0] == "model,mse,std" and len(rows) == 1 + len(IMFT_ARMS)
+    with pytest.raises(SystemExit):
+        run_experiment.main(["baseline", "--device", "cpu", "--out", str(tmp_path / "b"), "--in-order-suite", "imft"])

@@ -1,6 +1,8 @@
 """The port's models against the flax models: GeneralTransformer with the
 deep_resnet, linear and cnn embeddings and MultiImageResNet (the seven arms
-of the baseline experiment). The same weights through
+of the baseline experiment), and the feature models of the images-features
+experiment (GeneralTransformer with early and late fusion,
+MultiImageFeatureResNet, FeatureMLP). The same weights through
 ``torch_state_from_flax`` give the same forward in train and eval mode and
 the same BatchNorm running statistics, the parameter counts are equal, and
 ``init_model`` draws from the flax initialisers' distributions."""
@@ -12,12 +14,16 @@ import pytest
 import torch
 
 from moleculardiffusion_mivit_tpu.config import ModelConfig as JModelConfig
+from moleculardiffusion_mivit_tpu.experiments.images_features import FeatureMLP as JFeatureMLP
+from moleculardiffusion_mivit_tpu.models import MultiImageFeatureResNet as JFeatureResNet
 from moleculardiffusion_mivit_tpu.models import GeneralTransformer as JGeneral
 from moleculardiffusion_mivit_tpu.models import MultiImageResNet as JResNet
 from moleculardiffusion_mivit_tpu.models import activation_by_name as j_act
 from moleculardiffusion_mivit_tpu.models import init_model as j_init
 from moleculardiffusion_mivit_tpu.models import param_count as j_count
 from moleculardiffusion_mivit_tpu_torch.config import ModelConfig as TModelConfig
+from moleculardiffusion_mivit_tpu_torch.experiments.images_features import FeatureMLP as TFeatureMLP
+from moleculardiffusion_mivit_tpu_torch.models import MultiImageFeatureResNet as TFeatureResNet
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer as TGeneral
 from moleculardiffusion_mivit_tpu_torch.models import MultiImageResNet as TResNet
 from moleculardiffusion_mivit_tpu_torch.models import activation_by_name as t_act
@@ -240,12 +246,24 @@ def test_batchnorm_train_mode_uses_biased_batch_statistics():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Global-feature fusion is ported: what raises now is a fusion model
+    called without its features (``ValueError``, as in flax), one built
+    without the features' width or with an unknown fusion, and an unknown
+    embedding; a model without fusion ignores features it is given, as
+    flax's does."""
+    model = TGeneral(TModelConfig(**SMALL), use_global_features=True, global_feature_dim=25)
+    with pytest.raises(ValueError, match="Global features required"):
+        model(torch.zeros(1, 2, 9, 9))
+    with pytest.raises(ValueError, match="global_feature_dim"):
         TGeneral(TModelConfig(), use_global_features=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TGeneral(TModelConfig())(torch.zeros(1, 2, 9, 9), features=torch.zeros(1, 25))
+    with pytest.raises(ValueError, match="fusion_type"):
+        TGeneral(TModelConfig(), use_global_features=True, fusion_type="middle", global_feature_dim=25)
     with pytest.raises(ValueError, match="unknown embedding"):
         TGeneral(TModelConfig(), embedding="fourier")
+    plain = TGeneral(TModelConfig(**SMALL)).eval()
+    x = torch.zeros(1, 2, 9, 9)
+    with torch.no_grad():
+        assert torch.equal(plain(x), plain(x, features=torch.ones(1, 25)))
 
 
 @pytest.mark.parametrize("slope", [0.0, 0.01, 0.2])
@@ -271,3 +289,88 @@ def test_act_slope_matches_flax(kind, slope):
         outs.append(tmodel(torch.from_numpy(x)))
     for out in outs:
         np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# The images-features experiment's feature models: (kind, keywords)
+FEATURE_MODELS = {
+    "early_fusion": ("general", dict(fusion_type="early")),
+    "late_fusion": ("general", dict(fusion_type="late")),
+    "feature_resnet": ("feature_resnet", {}),
+    "feature_mlp": ("feature_mlp", {}),
+}
+
+
+def _feature_pair(kind, kw, cfg_kw, x, f, seed=0):
+    """The flax feature model initialised from ``seed`` and the port's with
+    the converted weights."""
+    if kind == "general":
+        common = dict(embedding="deep_resnet", use_global_features=True, global_feature_dim=f.shape[1], **kw)
+        jm, tm = JGeneral(JModelConfig(**cfg_kw), **common), TGeneral(TModelConfig(**cfg_kw), **common)
+        args = (x, f)
+    elif kind == "feature_resnet":
+        width = dict(feature_size=cfg_kw["embed_dim"], hidden_size=cfg_kw["hidden_dim"])
+        jm, tm = JFeatureResNet(external_dim=f.shape[1], **width), TFeatureResNet(f.shape[1], **width)
+        args = (x, f)
+    else:
+        jm, tm = JFeatureMLP(), TFeatureMLP(f.shape[1])
+        args = (f,)
+    params, bstats = jax.jit(lambda k, *a: j_init(jm, k, *a))(jax.random.key(seed), *map(jnp.asarray, args))
+    tm.load_state_dict(torch_state_from_flax(_np(params), _np(bstats)))
+    return jm, tm, params, bstats, args
+
+
+@pytest.mark.parametrize("name", sorted(FEATURE_MODELS))
+def test_feature_models_forward_match_flax(name):
+    """GeneralTransformer with early and late fusion of 25 features
+    (deep_resnet embedding, 2 layers, embed 16), MultiImageFeatureResNet and
+    FeatureMLP, on flax's weights through ``torch_state_from_flax``: train-
+    and eval-mode outputs at rtol/atol 1e-5, the BatchNorm running
+    statistics after the train-mode forward equal flax's, equal parameter
+    counts and every parameter filled by the converter."""
+    kind, kw = FEATURE_MODELS[name]
+    rng = np.random.default_rng(5)
+    x = (0.3 * rng.normal(size=(3, 4, 9, 9)) + 0.1).astype(np.float32)
+    f = rng.normal(size=(3, 25)).astype(np.float32)
+    jm, tm, params, bstats, args = _feature_pair(kind, kw, SMALL, x, f)
+    variables = {"params": params, **({"batch_stats": bstats} if bstats else {})}
+    mutable = ["batch_stats"] if bstats else []
+    with jax.default_matmul_precision("highest"):
+        jtrain, mut = jax.jit(lambda v, *a: jm.apply(v, *a, train=True, mutable=mutable))(
+            variables, *map(jnp.asarray, args))
+        new_stats = mut.get("batch_stats", bstats)
+        jeval = jax.jit(lambda v, *a: jm.apply(v, *a, train=False))(
+            {"params": params, **({"batch_stats": new_stats} if bstats else {})}, *map(jnp.asarray, args))
+    targs = [torch.from_numpy(a) for a in args]
+    ttrain = tm.train()(*targs)
+    with torch.no_grad():
+        teval = tm.eval()(*targs)
+    assert ttrain.shape == jtrain.shape == (3, 1)
+    np.testing.assert_allclose(ttrain.detach().numpy(), np.asarray(jtrain), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(teval.numpy(), np.asarray(jeval), rtol=1e-5, atol=1e-5)
+    got = tm.state_dict()
+    for key, want in torch_state_from_flax({}, _np(new_stats)).items():
+        np.testing.assert_allclose(got[key].numpy(), want.numpy(), rtol=1e-5, atol=1e-6, err_msg=key)
+    assert t_count(tm) == j_count(params)
+    assert set(torch_state_from_flax(_np(params), _np(bstats))) == set(got)
+    if kind == "general":
+        assert tm.mlp_head.fc1.in_features == (32 if kw["fusion_type"] == "late" else 16)
+
+
+@pytest.mark.parametrize("name", sorted(FEATURE_MODELS))
+def test_full_width_feature_models_param_count_and_state_keys_match_flax(name):
+    """At the images-features experiment's full width (embed 64, 4 heads,
+    FFN 128, 6 layers, no positional encoding; the ResNet's trunk width 64
+    and hidden 128): equal parameter counts, and the converted state dict
+    fills every parameter and buffer (``feature_projector.fc1/fc2``,
+    ``mlp_fc1/mlp_fc2``, ``head.fc1/fc2``) with the right shapes."""
+    kind, kw = FEATURE_MODELS[name]
+    cfg_kw = dict(use_pos_encoding=False, embed_dim=64, hidden_dim=128)
+    x, f = np.zeros((1, 30, 9, 9), np.float32), np.zeros((1, 25), np.float32)
+    if kind == "general":
+        cfg_kw = dict(use_pos_encoding=False)
+    _, tm, params, bstats, _ = _feature_pair(kind, kw, cfg_kw, x, f)
+    assert t_count(tm) == j_count(params)
+    state = torch_state_from_flax(_np(params), _np(bstats))
+    assert set(state) == set(tm.state_dict())
+    for key, v in tm.state_dict().items():
+        assert state[key].shape == v.shape, key

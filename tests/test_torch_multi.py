@@ -14,7 +14,12 @@ from moleculardiffusion_mivit_tpu.models import GeneralTransformer as JGeneral
 from moleculardiffusion_mivit_tpu.models import MultiImageResNet as JResNet
 from moleculardiffusion_mivit_tpu.train import detect_activation_stacks as j_detect
 from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, ModelConfig, TrainConfig
-from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet, init_model
+from moleculardiffusion_mivit_tpu_torch.models import (
+    GeneralTransformer,
+    MultiImageFeatureResNet,
+    MultiImageResNet,
+    init_model,
+)
 from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
 from moleculardiffusion_mivit_tpu_torch.train import multi as tmulti
 from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
@@ -64,6 +69,80 @@ def test_detect_activation_stacks():
     baseline["resnet"] = MultiImageResNet()
     groups = [(names, slopes) for names, _, slopes in tmulti.detect_activation_stacks(baseline)]
     assert groups == [([k + "_s", k + "_leaky"], (0.0, 0.01)) for k in ("linear_2layer", "cnn_2layer", "deepcnn_2layer")]
+
+
+def _fusion_zoo(general, config, with_leaky):
+    """``im_tr`` with its early- and late-fusion twins (same embedding,
+    activation, config and head) and, optionally, a leaky_relu twin."""
+    cfg = config(**SMALL)
+    fusion = dict(use_global_features=True, global_feature_dim=25)
+    zoo = {
+        "im_tr": general(cfg, embedding="deep_resnet"),
+        "im_ft_early_tr": general(cfg, embedding="deep_resnet", fusion_type="early", **fusion),
+        "im_ft_late_tr": general(cfg, embedding="deep_resnet", fusion_type="late", **fusion),
+    }
+    if with_leaky:
+        zoo["im_tr_leaky"] = general(cfg.replace(activation="leaky_relu"), embedding="deep_resnet")
+    return zoo
+
+
+@pytest.mark.parametrize("with_leaky", [False, True])
+def test_detect_activation_stacks_leaves_out_feature_models(with_leaky):
+    """A transformer with global features never stacks with its image-only
+    twin (the JAX package's rule, ``train/multi.py:68-80`` there): alone
+    with its early and late twins ``im_tr`` forms no group, and beside a
+    leaky_relu twin it pairs with that one only; the same groups as the JAX
+    function."""
+    got = [(names, slopes) for names, _, slopes in
+           tmulti.detect_activation_stacks(_fusion_zoo(GeneralTransformer, ModelConfig, with_leaky))]
+    want = [(names, slopes) for names, _, slopes in j_detect(_fusion_zoo(JGeneral, JModelConfig, with_leaky))]
+    assert got == want == ([(["im_tr", "im_tr_leaky"], (0.0, 0.01))] if with_leaky else [])
+
+
+def test_multi_cycle_with_features_matches_per_model_train_cycles():
+    """``make_multi_cycle(with_features=True)``: every model takes the
+    cycle's features (a transformer without fusion ignores them); two cycles
+    (batch 2, then 4) equal per-model ``train_cycle`` calls with the features
+    of ``generate_cycle_data(with_features=True)`` on the same generators,
+    and the validation MSEs with ``val_features``, at 1e-6. ``stack_pairs``
+    is ignored with features, as in JAX."""
+    cfg = TrainConfig(sequences_per_d=2, n_frames=4)
+
+    def zoo():
+        z = _fusion_zoo(GeneralTransformer, ModelConfig, with_leaky=True)
+        z["im_ft_resnet"] = MultiImageFeatureResNet(25, feature_size=16, hidden_size=32)
+        return z
+
+    models, ref_models = zoo(), zoo()
+    init_states, cycle = tmulti.make_multi_cycle(models, cfg, BASELINE_OPTICS, with_features=True,
+                                                 stack_pairs=True, device="cpu")
+    g = torch.Generator().manual_seed(6)
+    states = init_states(g)
+    assert set(states) == set(models)
+    impls, ref_states = {}, {}
+    for i, (name, m) in enumerate(ref_models.items()):
+        init_model(m, fold_in(g, i, device="cpu"))
+        impls[name] = tloop.make_train_impls(m, cfg, device="cpu", with_features=True)
+        ref_states[name] = tloop.TrainState(m.train(), tloop.make_optimizer(m, cfg))
+    rng = np.random.default_rng(1)
+    val = torch.from_numpy((0.3 * rng.normal(size=(3, 4, 9, 9)) + 0.1).astype(np.float32))
+    val_feats = torch.from_numpy(rng.normal(size=(3, 25)).astype(np.float32))
+    target = torch.tensor(3.0)
+    for c, batch in enumerate((2, 4)):
+        gc = seeded_generator("cpu", 11, c)
+        lr = cfg.lr_for_cycle(5 * c)
+        states, losses, val_mse = cycle(states, gc, lr, batch, val, target, val_feats)
+        videos, labels, feats = tloop.generate_cycle_data(fold_in(gc, 0), cfg, BASELINE_OPTICS, with_features=True)
+        for i, name in enumerate(ref_models):
+            loss = impls[name].train_cycle(ref_states[name], videos, labels, fold_in(fold_in(gc, 1), i), lr, batch,
+                                           features=feats)
+            mse = torch.mean((impls[name].evaluate(ref_states[name], val, val_feats) - target) ** 2)
+            torch.testing.assert_close(losses[name], loss, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(val_mse[name], mse, rtol=1e-6, atol=1e-6)
+    for name, m in models.items():
+        ref = ref_models[name].state_dict()
+        for key, value in m.state_dict().items():
+            torch.testing.assert_close(value, ref[key], rtol=1e-6, atol=1e-6, msg=f"{name} {key}")
 
 
 def _arms():

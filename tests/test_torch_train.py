@@ -16,12 +16,13 @@ import torch
 from moleculardiffusion_mivit_tpu.config import ModelConfig as JModelConfig
 from moleculardiffusion_mivit_tpu.config import TrainConfig as JTrainConfig
 from moleculardiffusion_mivit_tpu.models import GeneralTransformer as JGeneral
+from moleculardiffusion_mivit_tpu.models import MultiImageFeatureResNet as JFeatureResNet
 from moleculardiffusion_mivit_tpu.models import MultiImageResNet as JResNet
 from moleculardiffusion_mivit_tpu.models import init_model as j_init
 from moleculardiffusion_mivit_tpu.train import loop as jloop
 from moleculardiffusion_mivit_tpu_torch import evaluation as tval
 from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, ModelConfig, TrainConfig
-from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
+from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageFeatureResNet, MultiImageResNet
 from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
 from moleculardiffusion_mivit_tpu_torch.train.multi import make_multi_cycle
 from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
@@ -73,30 +74,57 @@ def test_one_train_step_matches_jax_with_l1_loss(kind):
 
 
 def _one_step_matches_jax(kind, loss):
+    _step_matches_jax(*_models(kind), loss)
+
+
+# The images-features experiment's models that take features beside videos
+FEATURE_MODELS = ("early_fusion", "late_fusion", "feature_resnet")
+
+
+@pytest.mark.parametrize("kind", FEATURE_MODELS)
+def test_one_train_step_with_features_matches_jax(kind):
+    """As ``test_one_train_step_matches_jax`` (same tolerances) for the
+    models that take the 25 features: GeneralTransformer with early and
+    late fusion (deep_resnet embedding) and MultiImageFeatureResNet, the
+    features gathered with the same minibatch indices as the videos."""
+    if kind == "feature_resnet":
+        models = JFeatureResNet(external_dim=25, feature_size=16, hidden_size=32), MultiImageFeatureResNet(
+            25, feature_size=16, hidden_size=32)
+    else:
+        fusion = dict(embedding="deep_resnet", use_global_features=True, global_feature_dim=25,
+                      fusion_type=kind.split("_")[0])
+        models = JGeneral(JModelConfig(**SMALL), **fusion), GeneralTransformer(ModelConfig(**SMALL), **fusion)
+    _step_matches_jax(*models, "mse", with_features=True)
+
+
+def _step_matches_jax(jmodel, tmodel, loss, with_features=False):
     rng = np.random.default_rng(0)
     n, lr = 6, 1e-3
     videos = (0.3 * rng.normal(size=(n, 6, 9, 9)) + 0.1).astype(np.float32)
     labels = rng.uniform(0.1, 0.7, size=(n, 1)).astype(np.float32)
+    feats = rng.normal(size=(n, 25)).astype(np.float32) if with_features else None
     idx = np.array([4, 1, 2])
 
     jcfg = JTrainConfig(lr=lr, loss=loss)
-    jmodel, tmodel = _models(kind)
-    params, bstats = jax.jit(lambda k, x: j_init(jmodel, k, x))(jax.random.key(0), jnp.asarray(videos[:1]))
-    impls = jloop.make_train_impls(jmodel, jcfg)
+    example = (jnp.asarray(videos[:1]),) + ((jnp.asarray(feats[:1]),) if with_features else ())
+    params, bstats = jax.jit(lambda k, *x: j_init(jmodel, k, *x))(jax.random.key(0), *example)
+    impls = jloop.make_train_impls(jmodel, jcfg, with_features)
     tx = jloop.make_optimizer(jcfg)
     state = jloop.TrainState(params, bstats, tx.init(params))
     state = state.replace(opt_state=jloop._set_lr(state.opt_state, jnp.float32(lr)))
     with jax.default_matmul_precision("highest"):
         new, jl = jax.jit(impls.train_step)(
-            state, jnp.asarray(videos), jnp.asarray(labels), None, jnp.asarray(idx), jax.random.key(1)
+            state, jnp.asarray(videos), jnp.asarray(labels), None if feats is None else jnp.asarray(feats),
+            jnp.asarray(idx), jax.random.key(1)
         )
     adam = next(s for s in jax.tree.leaves(new.opt_state, is_leaf=lambda v: hasattr(v, "mu")) if hasattr(s, "mu"))
 
     tmodel.load_state_dict(torch_state_from_flax(_np(params), _np(bstats)))
     tcfg = TrainConfig(lr=lr, loss=loss)
     tstate = tloop.TrainState(tmodel.train(), tloop.make_optimizer(tmodel, tcfg))
-    tl = tloop.make_train_impls(tmodel, tcfg, device="cpu").train_step(
-        tstate, torch.from_numpy(videos), torch.from_numpy(labels), torch.from_numpy(idx)
+    tl = tloop.make_train_impls(tmodel, tcfg, device="cpu", with_features=with_features).train_step(
+        tstate, torch.from_numpy(videos), torch.from_numpy(labels), torch.from_numpy(idx),
+        features=None if feats is None else torch.from_numpy(feats),
     )
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
 
@@ -203,14 +231,15 @@ def test_train_cycle_schedule_and_remainder():
     [
         ("make_train_impls", dict(compute_dtype="bfloat16")),
         ("make_multi_cycle", dict(compute_dtype="bfloat16")),
-        ("make_multi_cycle", dict(with_features=True)),
+        ("make_multi_cycle", dict(compute_dtype="bfloat16", with_features=True)),
     ],
 )
 def test_unported_train_options_raise(kw):
     """What is left of the training options raises, naming its ROADMAP item:
     the bf16 compute dtype (item 5), through one model's and the fused
-    cycle's entry, and the fused cycle's features (item 8). The l1 loss and
-    ``mix_trajectories`` are ported (tests above)."""
+    cycle's entry, with and without features. The l1 loss,
+    ``mix_trajectories`` and features are ported (tests above and in
+    ``test_torch_multi.py``)."""
     entry, options = kw
     model = GeneralTransformer(ModelConfig(**SMALL), embedding="deep_resnet")
     with pytest.raises(NotImplementedError, match="ROADMAP.*item (5|8)"):
@@ -249,7 +278,9 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_cycle.py"]
-    assert len(files) > 10
+    scanned = {path.relative_to(ROOT).as_posix() for path in files}
+    assert {f"moleculardiffusion_mivit_tpu_torch/{m}.py" for m in (
+        "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features")} <= scanned
     banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu")
     for path in files:
         for mod in _imports(path):
