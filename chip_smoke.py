@@ -14,7 +14,8 @@ line each on stdout:
    the card's floor for one allocation and one (empty) launch.
 3. k2_k3: the deep-ResNet embedding forward (K2) and backward (K3)
    against autograd through the plain version, TF32 off, at five shapes
-   (among them both batch sizes of the main path, and every conv tile);
+   (among them both batch sizes of the main path, and every conv tile) with
+   embed dim 64, and at batch 1 and 16 with the modular experiment's 58;
    two calls on the same inputs must agree bitwise; the kernel launches
    inside one forward and one backward are counted by kind.
 4. slice: the baseline experiment's seven models (GeneralTransformer with
@@ -45,7 +46,18 @@ line each on stdout:
    the captured cycle is timed and profiled, generation and the features
    timed on their own; the features of one cycle computed on the card equal
    the CPU's at the CPU test's tolerance; K2/K3 launch 3 × ⌊320/b⌋ times a
-   cycle, K1 5 times a cycle in generation.
+   cycle, K1 5 times a cycle in generation; the runner's in-order MSD rows
+   equal the JAX record's.
+7. modular: the modular experiment with its hybrid arms and the in-order
+   suite (``experiments.modular.build`` + ``Experiment.run``, then
+   ``run_experiment.main modular --with-hybrid --in-order``) at full width:
+   eight arms, seven of them deep-ResNet transformers (one embedding into
+   58 dims), 5 D classes × 64 sequences of 30 frames with their per-frame
+   tokens and 25 features. As phase 6: captured against eager at batch 16,
+   batch 1 timed and profiled, the card's per-frame tokens against the
+   CPU's; K2/K3 launch 7 × ⌊320/b⌋ times a cycle and never in
+   ``mod_features``' graph; the published in-order suite's MSD rows on the
+   card equal the JAX record's.
 
 Then a ``kernels`` line with each kernel's launches on the main paths (by
 path beside the total), error, times (``ms`` around the wrapper,
@@ -70,6 +82,11 @@ PKG = "moleculardiffusion_mivit_tpu_torch"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
+# The JAX package's in-order MSD rows on the published 100-value suite
+# (results/images_features_reconciled/metrics.jsonl, event error_tables),
+# held at 1e-5 relative: the card's f32 sums differ from the CPU's.
+MSD_ROWS = {"MSD_Perfect": 0.10239888891559892, "MSD_Frame": 1.284755779813329}
+MSD_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -185,10 +202,10 @@ def phase_k1(torch):
                 device_ms_per_main_path_call=call["device_ms"])
 
 
-def _embedding_inputs(torch, b, t, s, seed):
+def _embedding_inputs(torch, b, t, s, seed, e=64):
     from moleculardiffusion_mivit_tpu_torch.models import DeepResNetEmbedding, init_model
 
-    mod = init_model(DeepResNetEmbedding(s, 64), torch.Generator().manual_seed(seed)).cuda()
+    mod = init_model(DeepResNetEmbedding(s, e), torch.Generator().manual_seed(seed)).cuda()
     r1, r2 = mod.res_block1, mod.res_block2
     hwio = lambda c: c.weight.detach().permute(2, 3, 1, 0).contiguous().requires_grad_()  # noqa: E731
     kernels = {
@@ -203,7 +220,7 @@ def _embedding_inputs(torch, b, t, s, seed):
     biases = {k: (0.1 * torch.randn(m.bias.shape, generator=gen, device="cuda")).requires_grad_()
               for k, m in bns.items()}
     wfc = mod.fc.weight.detach().t().contiguous().requires_grad_()
-    bfc = (0.1 * torch.randn(64, generator=gen, device="cuda")).requires_grad_()
+    bfc = (0.1 * torch.randn(e, generator=gen, device="cuda")).requires_grad_()
     x = (0.3 * torch.randn((b, t, s, s), generator=gen, device="cuda") + 0.1).requires_grad_()
     return x, kernels, scales, biases, wfc, bfc
 
@@ -231,23 +248,26 @@ def _defined(fe, outs):
 def phase_k2_k3(torch):
     from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
 
-    record = None
+    records = {}
     # Batch 1, 16 and 13x13 are the timed shapes; batch 8 (19,440 rows, what
     # cycle 0 of the main path below runs) and batch 4 (9,720 rows) are here
     # because the conv picks its tile from (rows, channels): between them the
     # five shapes launch every tile the launcher can choose (conv_rows.cuh).
-    for (b, t, s) in ((1, 30, 9), (16, 30, 9), (1, 10, 13), (8, 30, 9), (4, 30, 9)):
-        x, kernels, scales, biases, wfc, bfc = _embedding_inputs(torch, b, t, s, seed=b + t + s)
+    # The modular experiment's concat_features arm embeds into E = 58, which
+    # leaves the fc stages' 16-wide tiles of E a partial one: batch 1 and 16.
+    for (b, t, s, e) in ((1, 30, 9, 64), (16, 30, 9, 64), (1, 10, 13, 64), (8, 30, 9, 64), (4, 30, 9, 64),
+                         (1, 30, 9, 58), (16, 30, 9, 58)):
+        x, kernels, scales, biases, wfc, bfc = _embedding_inputs(torch, b, t, s, seed=b + t + s, e=e)
         leaves = [x, *kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
         emb_k, st_k = fe.fused_deep_resnet_embed(x, kernels, scales, biases, wfc, bfc)
         emb_r, st_r = fe.deep_resnet_embed_reference(x, kernels, scales, biases, wfc, bfc)
         err_fwd = float((emb_k - emb_r).detach().abs().max())
-        check(torch.allclose(emb_k, emb_r, rtol=1e-4, atol=1e-4), f"K2 {b,t,s}: emb max|Δ| {err_fwd}")
+        check(torch.allclose(emb_k, emb_r, rtol=1e-4, atol=1e-4), f"K2 {b,t,s,e}: emb max|Δ| {err_fwd}")
         for name, _ in fe.BN_LAYOUT:
             for i, what in enumerate(("mean", "var")):
                 check(torch.allclose(st_k[name][i], st_r[name][i], rtol=1e-4, atol=1e-4),
-                      f"K2 {b,t,s}: {name} {what} differs")
-        n, r, e = b * t, b * t * s * s, 64
+                      f"K2 {b,t,s,e}: {name} {what} differs")
+        n, r = b * t, b * t * s * s
         weights = [
             kernels["initial"].detach().reshape(9, 32), fe._pack_w3(kernels["rb1_conv1"].detach()),
             kernels["rb1_skip"].detach().reshape(32, 64), fe._pack_w3(kernels["rb1_conv2"].detach()),
@@ -295,9 +315,9 @@ def phase_k2_k3(torch):
         for i, (gk, gr, gd) in enumerate(zip(grads_k, grads_r, grads_d)):
             scale = float(gd.abs().max())
             ek = float((gk.double() - gd).abs().max())
-            check(ek <= 1e-3 * scale, f"K3 {b,t,s}: gradient {i} max|Δ| {ek} > 1e-3·{scale}")
+            check(ek <= 1e-3 * scale, f"K3 {b,t,s,e}: gradient {i} max|Δ| {ek} > 1e-3·{scale}")
             l2 = float((gk.double() - gr.double()).norm() / gr.double().norm())
-            check(l2 <= 1e-2, f"K3 {b,t,s}: gradient {i} relative L2 {l2} to the plain f32 version")
+            check(l2 <= 1e-2, f"K3 {b,t,s,e}: gradient {i} relative L2 {l2} to the plain f32 version")
             err_bwd, worst, worst_l2 = max(err_bwd, ek), max(worst, ek / scale), max(worst_l2, l2)
 
         # Determinism: a second call of each kernel on the same inputs gives
@@ -307,13 +327,13 @@ def phase_k2_k3(torch):
         first = [emb_1, stats_1, *(saved[k] for k, _ in fe.SAVED), saved["pooled"]]
         second = [emb_2, stats_2, *(saved_2[k] for k, _ in fe.SAVED), saved_2["pooled"]]
         for i, (u, v) in enumerate(zip(_defined(fe, first), _defined(fe, second))):
-            check(torch.equal(u, v), f"K2 {b,t,s}: output {i} differs between two calls")
+            check(torch.equal(u, v), f"K2 {b,t,s,e}: output {i} differs between two calls")
         bwd_1 = fe.deep_resnet_embed_bwd(xs, weights, sc, bi, wf, bf, saved, g2)
         stages_bwd = fe.last_stage_launches()
         bwd_2 = fe.deep_resnet_embed_bwd(xs, weights, sc, bi, wf, bf, saved, g2)
         flat = lambda r: _defined(fe, [r[0], *r[1], *r[2:]])  # noqa: E731
         for i, (u, v) in enumerate(zip(flat(bwd_1), flat(bwd_2))):
-            check(torch.equal(u, v), f"K3 {b,t,s}: gradient {i} differs between two calls")
+            check(torch.equal(u, v), f"K3 {b,t,s,e}: gradient {i} differs between two calls")
         check(stages_fwd["conv_tensor_core"] == 6 and stages_bwd["conv_tensor_core"] == 6
               and stages_bwd["wgrad_tensor_core"] == 6, f"tensor-core stages {stages_fwd} {stages_bwd}")
 
@@ -333,7 +353,7 @@ def phase_k2_k3(torch):
         # backward: a data-gradient and a weight-gradient product per conv
         b3, by3 = bound(4 * n * e + 4 * r + param_bytes + 4 * r + param_bytes, 2 * simt, 2 * tensor)
         f32_bound = lambda k: bound(0, k * (simt + tensor))[0]  # noqa: E731
-        row = {"phase": "k2_k3", "B": b, "T": t, "S": s, "rows": r,
+        row = {"phase": "k2_k3", "B": b, "T": t, "S": s, "E": e, "rows": r,
                "deterministic": True,
                "stage_launches": {"k2": stages_fwd, "k3": stages_bwd,
                                   "k2_total": sum(stages_fwd.values()),
@@ -346,9 +366,10 @@ def phase_k2_k3(torch):
                "k3": dict(max_abs_err=err_bwd, ms=bwd_ms, device_ms=bwd_dev_ms, plain_ms=plain_bwd_ms,
                           bound_ms=b3, bound_by=by3)}
         emit(row)
-        if (b, t, s) == (16, 30, 9):
-            record = row
-    return record["k2"], record["k3"]
+        records[(b, t, s, e)] = row
+    # the kernels line carries batch 16 at E = 64, with E = 58 beside it
+    at_58 = {k: {f"batch_{b}": records[(b, 30, 9, 58)][k] for b in (1, 16)} for k in ("k2", "k3")}
+    return [dict(records[(16, 30, 9, 64)][k], at_embed_dim_58=at_58[k]) for k in ("k2", "k3")]
 
 
 def baseline_arms():
@@ -651,6 +672,72 @@ def phase_experiment(torch, card):
     return launches
 
 
+def _captured_against_eager(torch, build, phase, card, tol=1e-4):
+    """Part (a) of an experiment phase: at batch 16, two cycles captured and
+    two eager from one seed; losses, validation MSEs and every parameter and
+    buffer must agree to ``tol`` relative; the second cycle is timed.
+    Returns the captured experiment."""
+    runs = {}
+    for fused in (True, False):
+        exp = build(16, fused)
+        exp.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run(1, start_cycle=1)
+        torch.cuda.synchronize()
+        runs[fused] = (exp, time.perf_counter() - t0)
+    cap, eag = runs[True][0], runs[False][0]
+    n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
+    diffs = _compare_experiments(torch, cap, eag)
+    for name, d in diffs.items():
+        for what in ("loss", "val", "param"):
+            check(d[what] <= tol, f"{phase}: {name}: captured and eager {what} differ by {d[what]} > {tol}")
+    emit({"phase": phase, "part": "a", "card": card, "batch": 16, "arms": list(cap.arms),
+          "tolerance_relative": tol, "bitwise_equal": all(d["bitwise"] for d in diffs.values()), "by_arm": diffs,
+          "s_per_cycle": {"captured": runs[True][1], "eager": runs[False][1]},
+          "seq_per_s": {"captured": n_seq / runs[True][1], "eager": n_seq / runs[False][1]},
+          "captures": cap.engine.captures, "replays": cap.engine.replays,
+          "launches_per_replay_by_unit": {"+".join(u.names): u.launches_per_replay
+                                          for u in cap.engine.units.values()},
+          "val_avg": {n: h["val_avg"] for n, h in cap.history.items()}})
+    return cap
+
+
+def _batch_one_profiled(torch, build, phase, deep, renders):
+    """Part (b) of an experiment phase: at batch 1, captured, a capture
+    cycle, a timed cycle and a profiled one. Checks finite losses and MSEs,
+    training loss falling, K2/K3 recorded once a replay in exactly the
+    ``deep`` arms' graphs, and the profiler's own count of K1 (``renders`` a
+    cycle) and K2/K3 (once a step of each deep arm). Returns the experiment,
+    the cycle marks, ``_profiled``'s results, launches per replay by unit,
+    the losses and the profiler's counts."""
+    exp = build(1, True)
+    eng = exp.engine
+    marks = [time.perf_counter()]
+    exp.run(2, callback=lambda c, m: marks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    eng.unit_seconds = {}
+    profiled = _profiled(torch, lambda: exp.run(1, start_cycle=2))
+    names = profiled[4]
+    losses = {n: [float(v) for v in exp.train_loss[n]] for n in exp.train_loss}
+    for n, hist in exp.history.items():
+        check(all(math.isfinite(v) for vals in hist.values() for v in vals), f"{phase}: {n}: non-finite val MSE")
+    for n, ls in losses.items():
+        check(all(math.isfinite(v) for v in ls), f"{phase}: {n}: non-finite loss {ls}")
+        check(ls[2] < ls[0], f"{phase}: {n}: training loss did not fall: {ls}")
+    units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
+    for key, per in units1.items():
+        want = sum(1 for n in key.split("+") if n in deep)
+        check(per.get("deep_resnet_embed_fwd", 0) == want and per.get("deep_resnet_embed_bwd", 0) == want,
+              f"{phase}: unit {key} records K2/K3 {per}, expected {want} each a replay")
+    n_seq = exp.train_cfg.sequences_per_d * len(exp.train_cfg.training_ds)
+    seen = {k: names.get(k, 0) for k in ("render_frames_kernel", "pool_fc_kernel", "pool_fc_bwd_kernel")}
+    want = {"render_frames_kernel": renders, "pool_fc_kernel": len(deep) * n_seq,
+            "pool_fc_bwd_kernel": len(deep) * n_seq}
+    check(seen == want, f"{phase}: profiled cycle ran {seen}, expected {want}")
+    return exp, marks, profiled, units1, losses, seen
+
+
 def phase_images_features(torch, card):
     """The images-features experiment through its entry points
     (``experiments.images_features.build`` + ``Experiment.run``, then
@@ -690,55 +777,11 @@ def phase_images_features(torch, card):
     counts0 = launch_counts()
     t_phase = time.perf_counter()
 
-    # (a) batch 16: captured against eager, cycles 0 and 1, cycle 1 timed
-    runs = {}
-    for fused in (True, False):
-        exp = build(16, fused)
-        exp.run(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        exp.run(1, start_cycle=1)
-        torch.cuda.synchronize()
-        runs[fused] = (exp, time.perf_counter() - t0)
-    cap, eag = runs[True][0], runs[False][0]
+    cap = _captured_against_eager(torch, build, "images_features", card)
     n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
-    tol = 1e-4
-    diffs = _compare_experiments(torch, cap, eag)
-    for name, d in diffs.items():
-        for what in ("loss", "val", "param"):
-            check(d[what] <= tol, f"images_features: {name}: captured and eager {what} differ by {d[what]} > {tol}")
-    emit({"phase": "images_features", "part": "a", "card": card, "batch": 16, "arms": list(cap.arms),
-          "tolerance_relative": tol, "bitwise_equal": all(d["bitwise"] for d in diffs.values()), "by_arm": diffs,
-          "s_per_cycle": {"captured": runs[True][1], "eager": runs[False][1]},
-          "seq_per_s": {"captured": n_seq / runs[True][1], "eager": n_seq / runs[False][1]},
-          "captures": cap.engine.captures, "replays": cap.engine.replays,
-          "launches_per_replay_by_unit": {"+".join(u.names): u.launches_per_replay
-                                          for u in cap.engine.units.values()},
-          "val_avg": {n: h["val_avg"] for n, h in cap.history.items()}})
-
-    # (b) batch 1, captured: capture cycle, timed cycle, profiled cycle
-    exp = build(1, True)
+    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+        torch, build, "images_features", deep, renders=5)
     eng = exp.engine
-    marks = [time.perf_counter()]
-    exp.run(2, callback=lambda c, m: marks.append(time.perf_counter()))
-    torch.cuda.synchronize()
-    eng.unit_seconds = {}
-    prof_wall, busy, kernel_ms, n_kernels, names = _profiled(torch, lambda: exp.run(1, start_cycle=2))
-    losses = {n: [float(v) for v in exp.train_loss[n]] for n in exp.train_loss}
-    for n, hist in exp.history.items():
-        check(all(math.isfinite(v) for vals in hist.values() for v in vals),
-              f"images_features: {n}: non-finite val MSE")
-    for n, ls in losses.items():
-        check(all(math.isfinite(v) for v in ls), f"images_features: {n}: non-finite loss {ls}")
-        check(ls[2] < ls[0], f"images_features: {n}: training loss did not fall: {ls}")
-    units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
-    for key, per in units1.items():
-        want = sum(1 for n in key.split("+") if n in deep)
-        check(per.get("deep_resnet_embed_fwd", 0) == want and per.get("deep_resnet_embed_bwd", 0) == want,
-              f"images_features: unit {key} records K2/K3 {per}, expected {want} each a replay")
-    seen = {k: names.get(k, 0) for k in ("render_frames_kernel", "pool_fc_kernel", "pool_fc_bwd_kernel")}
-    want = {"render_frames_kernel": 5, "pool_fc_kernel": len(deep) * n_seq, "pool_fc_bwd_kernel": len(deep) * n_seq}
-    check(seen == want, f"images_features: profiled cycle ran {seen}, expected {want}")
 
     # the user's entry point: two cycles (batch 1 by the schedule) and the in-order sweep
     with tempfile.TemporaryDirectory() as out:
@@ -753,7 +796,13 @@ def phase_images_features(torch, card):
               f"run_experiment images_features: histories {history}")
         in_order_rows = Path(out, "images_features_errors.csv").read_text().splitlines()[1:]
         n_in_order = len(cli.in_order_data["d_values"])
+        events = [json.loads(line) for line in Path(out, "metrics.jsonl").read_text().splitlines()]
     check(n_in_order == 100, f"in-order sweep of {n_in_order} D values, expected 100")
+    tables = next(e["tables"] for e in events if e["event"] == "error_tables")
+    msd_rows = {name: tables[name]["mse"] for name in MSD_ROWS}
+    for name, want in MSD_ROWS.items():
+        check(abs(msd_rows[name] / want - 1) <= MSD_RTOL,
+              f"images_features: in-order {name} {msd_rows[name]} is not the JAX record's {want}")
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
     builds, cycles = 4, 2 * 2 + 3 + 2  # (a) two experiments of two cycles, (b) three, the runner's two
@@ -798,12 +847,143 @@ def phase_images_features(torch, card):
           "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
           "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
           "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
-          "run_experiment_in_order_csv": in_order_rows,
+          "run_experiment_in_order_csv": in_order_rows, "in_order_msd_rows": msd_rows,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
     emit({"phase": "images_features", "part": "c_features_card_vs_cpu", "sequences": int(trajs_avg.shape[0]),
           "frames": int(trajs_avg.shape[1]), "by_feature": per_feature})
     emit({"phase": "images_features", "part": "d_launches", "launches": launches, "k1_expected": k1_want,
           "k2_k3_expected": k23_want, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_modular(torch, card):
+    """The modular experiment with ``--with-hybrid`` and the in-order sweep
+    through its entry points (``experiments.modular.build`` +
+    ``Experiment.run``, then ``run_experiment.main``) at full width: eight
+    arms (ModularTransformer images only, features only, and both fused by
+    add, concat + projection and concat_features, whose image embedding is
+    58 wide; the early-fusion GeneralTransformer; HybridFusionTransformer by
+    concat + projection and by add), 5 D classes × 64 sequences of 30 frames
+    with their per-frame tokens and 25 global features, validation at D = 1,
+    3, 5, 7. (a) Batch 16, captured against eager from one seed, two cycles:
+    losses, validation MSEs and every parameter and buffer agree to 1e-4
+    relative; the second cycle is timed. (b) Batch 1, captured: a capture
+    cycle, a timed cycle and a profiled one; generation timed on its own.
+    (c) One cycle's per-frame tokens on the card against the CPU's at the
+    CPU test's tolerance. (d) Launches: K2/K3 7 × ⌊320/b⌋ a cycle (every arm
+    but ``mod_features``, whose graph launches neither), K1 5 a cycle in
+    generation, 4 + 1 a build for validation and the in-order sweep. (e) The
+    in-order MSD rows of the published suite, computed on the card, equal
+    the JAX record's."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch import run_experiment
+    from moleculardiffusion_mivit_tpu_torch.evaluation import IN_ORDER_IMFT_D_VALUES, error_table, generate_in_order_imft
+    from moleculardiffusion_mivit_tpu_torch.experiments import modular
+    from moleculardiffusion_mivit_tpu_torch.experiments.images_features import MSD_MULT_FACTOR, MSD_MULT_FACTOR_AVG
+    from moleculardiffusion_mivit_tpu_torch.features import compute_per_frame_features, d_from_msd_tau1
+    from moleculardiffusion_mivit_tpu_torch.sim import average_trajectories_frames, single_state
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
+
+    arms = ["mod_images", "mod_features", "mod_both_add", "mod_both_concat", "mod_both_concat_feat",
+            "glob_early_tr", "hybrid_concat", "hybrid_add"]
+    deep = [a for a in arms if a != "mod_features"]
+    torch.cuda.reset_peak_memory_stats()
+    engines = []
+
+    def build(batch, fused):
+        exp = modular.build(seed=0, with_hybrid=True, with_in_order=True, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    t_phase = time.perf_counter()
+
+    cap = _captured_against_eager(torch, build, "modular", card)
+    check(list(cap.arms) == arms, f"modular: arms {list(cap.arms)}")
+    n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
+    check(n_seq == 320, f"modular: {n_seq} sequences a cycle, expected 5 classes × 64")
+    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+        torch, build, "modular", deep, renders=5)
+    eng = exp.engine
+    check(set(units1) == set(arms), f"modular: units {sorted(units1)}: no arm may stack")
+
+    # the user's entry point: one cycle (batch 1 by the schedule) and the in-order sweep
+    with tempfile.TemporaryDirectory() as out:
+        cli = run_experiment.main(["modular", "--with-hybrid", "--in-order", "--cycles", "1", "--out", out,
+                                   "--checkpoint-last", "0"])
+        engines.append(cli.engine)
+        for f in ("metrics.jsonl", "history.json", "final/meta.json", "modular_errors.csv",
+                  "in_order_predictions.npz"):
+            check(Path(out, f).is_file(), f"run_experiment modular wrote no {f}")
+        history = json.loads(Path(out, "history.json").read_text())
+        check(list(history) == arms and all(len(h["val_avg"]) == 1 for h in history.values()),
+              f"run_experiment modular: histories {history}")
+        in_order_rows = Path(out, "modular_errors.csv").read_text().splitlines()[1:]
+        n_in_order = len(cli.in_order_data["d_values"])
+    check(n_in_order == 100, f"modular: in-order sweep of {n_in_order} D values, expected 100")
+    torch.cuda.synchronize()
+    launches = kernel_launches(counts0, engines)
+    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) two experiments of two cycles, (b) three, the runner's one
+    k1_want = (4 + 1) * builds + 5 * cycles
+    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    check(launches["render_frames"] == k1_want, f"modular: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"modular: {k} launches {launches[k]} != {k23_want}")
+
+    # after the counts: replays and generation timed on their own
+    replay_host_ms = _replay_host_ms(torch, eng)
+    g = seeded_generator("cuda", 7, 0)
+    gen = lambda: exp.generate_fn(g)  # noqa: E731
+    data = gen()
+    gen_ms = time_ms(torch, gen, iters=5, warmup=1)
+
+    # (c) the cycle's per-frame tokens, made again from generate_fn's
+    # trajectories, on the card and on the CPU
+    cfg = exp.train_cfg
+    avg = torch.cat([
+        average_trajectories_frames(single_state(fold_in(g, i, 0), cfg.sequences_per_d, 300, Ds=tuple(ds))[0]
+                                    / cfg.traj_div_factor, cfg.n_pos_per_frame)
+        for i, ds in enumerate(cfg.training_ds)])
+    on_card = compute_per_frame_features(avg)
+    check(torch.equal(on_card, data["pf_features"]), "modular: generate_fn's per-frame tokens are not its trajectories'")
+    on_cpu = compute_per_frame_features(avg.cpu())
+    delta = (on_card.cpu() - on_cpu).abs()
+    limit = 1e-6 + 1e-6 * on_cpu.abs()
+    check(bool((delta <= limit).all()), f"modular: card per-frame tokens off the CPU by {float(delta.max())}")
+
+    # (e) the published suite's MSD rows, scored on the card
+    raw = torch.as_tensor(generate_in_order_imft(), dtype=torch.float32, device="cuda").reshape(1000, 300, 2) / 100.0
+    d_max = cfg.d_max_normalization
+    preds = {"MSD_Perfect": d_from_msd_tau1(raw) * MSD_MULT_FACTOR * d_max,
+             "MSD_Frame": d_from_msd_tau1(average_trajectories_frames(raw, 10)) * MSD_MULT_FACTOR_AVG * d_max}
+    msd_rows = {n: error_table(p.reshape(100, 10).cpu().numpy(), IN_ORDER_IMFT_D_VALUES)["mse"] for n, p in preds.items()}
+    for name, want in MSD_ROWS.items():
+        check(abs(msd_rows[name] / want - 1) <= MSD_RTOL, f"modular: in-order {name} {msd_rows[name]} != {want}")
+
+    s_cycle = marks[2] - marks[1]
+    emit({"phase": "modular", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
+          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
+          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
+          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
+          "profiled_kernels_once_per_k1_k2_k3_call": seen,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
+          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
+          "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
+          "run_experiment_in_order_csv": in_order_rows,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "modular", "part": "c_per_frame_card_vs_cpu", "sequences": int(avg.shape[0]),
+          "max_abs_delta": float(delta.max()), "worst_share_of_limit": float((delta / limit).max()),
+          "rtol": 1e-6, "atol": 1e-6})
+    emit({"phase": "modular", "part": "d_launches", "launches": launches, "k1_expected": k1_want,
+          "k2_k3_expected": k23_want})
+    emit({"phase": "modular", "part": "e_in_order_msd_rows", "on_card": msd_rows, "jax_record": MSD_ROWS,
+          "rtol": MSD_RTOL, "phase_s": time.perf_counter() - t_phase})
     return launches
 
 
@@ -834,7 +1014,7 @@ def main() -> None:
     k1 = phase_k1(torch)
     k2, k3 = phase_k2_k3(torch)
     by_path = {"slice": phase_slice(torch, card), "experiment": phase_experiment(torch, card),
-               "images_features": phase_images_features(torch, card)}
+               "images_features": phase_images_features(torch, card), "modular": phase_modular(torch, card)}
     launches = {k: sum(path[k] for path in by_path.values()) for k in by_path["slice"]}
 
     src = f"{PKG}/csrc"

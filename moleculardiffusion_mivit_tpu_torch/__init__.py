@@ -16,10 +16,13 @@ Subpackages
 - ``config``      copies of the JAX package's typed configuration
 - ``sim``         pure-Brownian trajectories, frame rendering, noise
 - ``ops``         the hand-written kernels, their wrappers and plain versions
-- ``models``      GeneralTransformer (linear, cnn, deep-ResNet embeddings), MultiImageResNet
-- ``train``       the cycle-based training loop
-- ``evaluation``  frozen validation sets
-- ``utils``       flax → torch weight conversion
+- ``models``      GeneralTransformer (linear, cnn, deep-ResNet embeddings), ModularTransformer,
+                  HybridFusionTransformer, MultiImageResNet, MultiImageFeatureResNet
+- ``features``    the 25 trajectory features, the per-frame tokens, MSD estimators
+- ``train``       the cycle-based training loop, the fused cycle as CUDA graphs
+- ``experiments`` the baseline, images-features and modular experiments
+- ``evaluation``  frozen validation sets, the published in-order suite (``data/``)
+- ``utils``       flax → torch weight conversion, metrics, checkpoints, streams
 """
 
 __version__ = "0.1.0"

@@ -4,14 +4,16 @@ Port of the main-path part of
 ``moleculardiffusion_mivit_tpu/evaluation/validation.py``: generate a
 validation suite from a seed (equal to the JAX one in distribution, not in
 bits: the random streams differ), load the reference's frozen assets when a
-directory holds them, render them the way the experiments do, build the
-images-features experiment's 100-value in-order sweep, and score in-order
-sweeps as the poster notebooks do (``error_table``, numpy only).
+directory holds them, render them the way the experiments do, return the
+published 100-value in-order suite (the JAX package's own array, shipped in
+``data/``), build in-order sweeps, and score them as the poster notebooks do
+(``error_table``, numpy only).
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -20,9 +22,8 @@ import torch
 from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
 from moleculardiffusion_mivit_tpu_torch.sim import (
-    normalize_images,
+    render_videos,
     single_state,
-    trajectories_to_video,
 )
 from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
 
@@ -32,21 +33,27 @@ REFERENCE_VAL_DIR = os.environ.get("MIVIT_REFERENCE_VAL_DIR")
 IN_ORDER_D_VALUES = np.round(np.arange(0.1, 7.01, 0.1), 10)
 # The Framerate and ImagesFeatures scripts score on a 100-value grid
 # (D = 0.1..10.0); the asset they load is absent from the reference's
-# snapshot, so ``generate_in_order_imft`` makes a deterministic equivalent.
+# snapshot, so the JAX package generates a deterministic equivalent from
+# seed 2026, the suite its published scores were taken on.
 IN_ORDER_IMFT_D_VALUES = np.round(np.arange(0.1, 10.01, 0.1), 10)
+# That suite exactly: the JAX package's ``generate_in_order_imft()`` at its
+# defaults, stored as float32 (lossless: every value is an f32 cast).
+IN_ORDER_IMFT_PATH = Path(__file__).resolve().parents[1] / "data" / "in_order_imft_seed2026.npy"
 
 
-def generate_in_order_imft(seed: int = 2026, t_steps: int = 300, n_particles: int = 10, device=None) -> np.ndarray:
-    """Trajectories ``(100, n_particles, t_steps, 2)`` over D = 0.1..10.0 in
-    steps of 0.1, fixed D per slice, in trajectory units before the
-    ``traj_div_factor`` scaling; slice ``j`` from the stream ``(seed, j)``
-    on ``device`` (CUDA unless told otherwise)."""
-    dev = resolve_device(device)
-    grid = []
-    for j, d in enumerate(IN_ORDER_IMFT_D_VALUES):
-        trajs, _ = single_state(seeded_generator(dev, seed, j), n_particles, t_steps, Ds=(float(d), 0.0))
-        grid.append(trajs.double().cpu().numpy())
-    return np.stack(grid)
+def generate_in_order_imft(seed: int = 2026, t_steps: int = 300, n_particles: int = 10) -> np.ndarray:
+    """The published in-order suite: trajectories ``(100, 10, 300, 2)`` in
+    float64 over D = 0.1..10.0 in steps of 0.1, fixed D per slice, in
+    trajectory units before the ``traj_div_factor`` scaling. These are the
+    JAX package's values bit for bit (``IN_ORDER_IMFT_PATH``); a torch draw
+    would put the scores off the published protocol. Only that suite is
+    shipped, so any other ``seed``, ``t_steps`` or ``n_particles`` raises."""
+    if (seed, t_steps, n_particles) != (2026, 300, 10):
+        raise ValueError(
+            f"only the published in-order suite (seed 2026, t_steps 300, n_particles 10) is shipped; "
+            f"got seed {seed}, t_steps {t_steps}, n_particles {n_particles}"
+        )
+    return np.load(IN_ORDER_IMFT_PATH).astype(np.float64)
 
 
 def build_in_order_data(
@@ -150,16 +157,13 @@ def render_validation_videos(
     ``(bg_mean, bg_sigma, part_mean + bg_mean)``. The in-order grid's
     (D, P) axes are flattened for rendering and restored after."""
     dev = resolve_device(device)
-    bg_mean, bg_sigma = optics.background_intensity
-    part_mean = optics.particle_intensity[0]
     out: Dict[str, torch.Tensor] = {}
     for i, (name, trajs) in enumerate(sorted(trajectories.items())):
         g = seeded_generator(dev, seed, i)
         trajs = torch.as_tensor(np.asarray(trajs), dtype=torch.float32, device=dev) / train_cfg.traj_div_factor
         lead = trajs.shape[:-2]
         flat = trajs.reshape((-1,) + trajs.shape[-2:])
-        vids = trajectories_to_video(g, flat, train_cfg.n_pos_per_frame, train_cfg.center, optics)
-        vids, _ = normalize_images(vids, bg_mean, bg_sigma, part_mean + bg_mean)
+        vids = render_videos(g, flat, train_cfg, optics)
         out[name] = vids.reshape(lead + vids.shape[1:])
     return out
 

@@ -2,13 +2,15 @@
 
 Port of ``moleculardiffusion_mivit_tpu/experiments``. Ported: ``baseline``
 (the reference's tests/train_tests: three embeddings × {relu, leaky_relu}
-transformers + MultiImageResNet) and ``images_features`` (MiViT with the 25
-trajectory features against image-only, features-only and MSD arms). The
-five other regimes are listed under their names and raise
+transformers + MultiImageResNet), ``images_features`` (MiViT with the 25
+trajectory features against image-only, features-only and MSD arms) and
+``modular`` (ModularTransformer with per-frame feature tokens; with
+``with_hybrid`` also HybridFusionTransformer and its early-fusion parent).
+The four other regimes are listed under their names and raise
 ``NotImplementedError`` (ROADMAP.md, queue 1, item 12).
 """
 
-from moleculardiffusion_mivit_tpu_torch.experiments import baseline, images_features
+from moleculardiffusion_mivit_tpu_torch.experiments import baseline, images_features, modular
 from moleculardiffusion_mivit_tpu_torch.experiments.base import (  # noqa: F401
     Experiment,
     GridArm,
@@ -27,7 +29,8 @@ def _not_ported(name: str):
 REGISTRY = {
     "baseline": baseline.build,
     "images_features": images_features.build,
-    **{name: _not_ported(name) for name in ("psfnoise", "framerate", "embeddings", "denoising", "modular")},
+    "modular": modular.build,
+    **{name: _not_ported(name) for name in ("psfnoise", "framerate", "embeddings", "denoising")},
 }
 
 

@@ -21,7 +21,7 @@ from moleculardiffusion_mivit_tpu_torch.evaluation import (
 )
 from moleculardiffusion_mivit_tpu_torch.experiments.base import Experiment, ModelEntry
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
-from moleculardiffusion_mivit_tpu_torch.sim import brownian_motion, normalize_images, trajectories_to_video
+from moleculardiffusion_mivit_tpu_torch.sim import brownian_motion, render_videos
 from moleculardiffusion_mivit_tpu_torch.train.loop import (
     generate_cycle_data,
     mix_tails_uniform,
@@ -80,16 +80,13 @@ def build(
         d_lo, d_hi = continuous_d
         n_total = sequences_per_d * len(train_cfg.training_ds)
         p = train_cfg.n_pos_per_frame
-        bg_mean, bg_sigma = optics.background_intensity
-        part_mean = optics.particle_intensity[0]
 
         def generate_fn(generator):
             g = fold_in(generator, 0)
             gd = fold_in(generator, 2)
             d = d_lo + (d_hi - d_lo) * torch.rand(n_total, generator=gd, device=gd.device)
             trajs = brownian_motion(g, n_total, train_cfg.n_frames, p, d, float(p)) / train_cfg.traj_div_factor
-            videos = trajectories_to_video(g, trajs, p, train_cfg.center, optics)
-            videos, _ = normalize_images(videos, bg_mean, bg_sigma, part_mean + bg_mean)
+            videos = render_videos(g, trajs, train_cfg, optics)
             dn = d / train_cfg.d_max_normalization
             if train_cfg.sequence_mode:
                 labels = dn[:, None].expand(n_total, train_cfg.n_frames).contiguous()

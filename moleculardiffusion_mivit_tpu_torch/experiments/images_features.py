@@ -25,8 +25,8 @@ layout:
   localisation noise from ``fold_in(g, 1)``;
 - validation at D: ``make_dataset`` from ``(seed + 99, int(D))``;
 - the in-order sweep: ``make_dataset`` from ``fold_in((seed + 99), 777)``
-  (``evaluation.build_in_order_data``); the ``"imft"`` trajectories from
-  ``(2026, j)`` for D value ``j`` (``evaluation.generate_in_order_imft``).
+  (``evaluation.build_in_order_data``); the ``"imft"`` trajectories are
+  the JAX package's own array (``evaluation.generate_in_order_imft``).
 """
 
 from __future__ import annotations
@@ -60,9 +60,8 @@ from moleculardiffusion_mivit_tpu_torch.models import (
 )
 from moleculardiffusion_mivit_tpu_torch.sim import (
     average_trajectories_frames,
-    normalize_images,
+    render_videos,
     single_state,
-    trajectories_to_video,
 )
 from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
 
@@ -84,12 +83,8 @@ class FeatureMLP(nn.Module):
 
 def _render_dataset(generator: torch.Generator, trajs, train_cfg: TrainConfig, optics) -> Dict[str, Any]:
     """``make_dataset`` without the features."""
-    p = train_cfg.n_pos_per_frame
-    bg_mean, bg_sigma = optics.background_intensity
-    part_mean = optics.particle_intensity[0]
-    videos = trajectories_to_video(fold_in(generator, 0), trajs, p, train_cfg.center, optics)
-    videos, _ = normalize_images(videos, bg_mean, bg_sigma, part_mean + bg_mean)
-    trajs_avg = average_trajectories_frames(trajs, p)
+    videos = render_videos(fold_in(generator, 0), trajs, train_cfg, optics)
+    trajs_avg = average_trajectories_frames(trajs, train_cfg.n_pos_per_frame)
     err_mean, err_sigma = LOCALIZATION_UNCERTAINTY
     g_err = fold_in(generator, 1)
     noise = err_mean + err_sigma * torch.randn(trajs_avg.shape, generator=g_err, device=g_err.device)
@@ -190,7 +185,7 @@ def build(
     in_order = None
     if with_in_order:
         if in_order_suite == "imft":
-            arr = generate_in_order_imft(t_steps=t, device=dev)
+            arr = generate_in_order_imft(t_steps=t)
             d_values = IN_ORDER_IMFT_D_VALUES
         elif in_order_suite == "committed":
             arr = frozen.get("valTrajsInOrder")

@@ -1,6 +1,8 @@
 """The MiViT model zoo on PyTorch: ``GeneralTransformer`` with the linear, cnn
-and deep-ResNet embeddings and optional global-feature fusion, and the
-``MultiImageResNet`` and ``MultiImageFeatureResNet`` comparison arms."""
+and deep-ResNet embeddings and optional global-feature fusion,
+``ModularTransformer`` and ``HybridFusionTransformer`` with per-frame
+feature tokens, and the ``MultiImageResNet`` and ``MultiImageFeatureResNet``
+comparison arms."""
 
 import math
 
@@ -30,7 +32,12 @@ from moleculardiffusion_mivit_tpu_torch.models.resnet import (  # noqa: F401
     MultiImageFeatureResNet,
     MultiImageResNet,
 )
-from moleculardiffusion_mivit_tpu_torch.models.vit import FeatureProjector, GeneralTransformer  # noqa: F401
+from moleculardiffusion_mivit_tpu_torch.models.vit import (  # noqa: F401
+    FeatureProjector,
+    GeneralTransformer,
+    HybridFusionTransformer,
+    ModularTransformer,
+)
 
 
 def param_count(model: nn.Module) -> int:

@@ -5,6 +5,8 @@ Usage:
         --cycles 100 --out results/baseline [--seed 0] [--seqs-per-d 64] [--device cuda]
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment images_features \
         --cycles 100 --in-order [--in-order-suite imft|committed]
+    python -m moleculardiffusion_mivit_tpu_torch.run_experiment modular \
+        --cycles 100 --in-order [--with-hybrid]
 
 Port of ``moleculardiffusion_mivit_tpu/run_experiment.py``: runs the named
 experiment on ``--device`` (CUDA by default; without a card it raises unless
@@ -31,7 +33,8 @@ import time
 def main(argv=None):
     """Run the command line ``argv``; returns the trained ``Experiment``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("experiment", help="baseline | images_features (the other five regimes are not ported yet)")
+    ap.add_argument("experiment",
+                    help="baseline | images_features | modular (the other four regimes are not ported yet)")
     ap.add_argument("--cycles", type=int, default=None, help="override num_cycles")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seqs-per-d", type=int, default=64)
@@ -41,11 +44,15 @@ def main(argv=None):
     ap.add_argument("--in-order", action="store_true",
                     help="build the in-order D sweep where the experiment makes it optional")
     ap.add_argument("--in-order-suite", choices=("imft", "committed"), default=None,
-                    help="(images_features) the in-order sweep to score: imft, the published 100-value "
+                    help="(images_features, modular) the in-order sweep to score: imft, the published 100-value "
                          "D=0.1..10.0 protocol (default), or committed, the 70-value valTrajsInOrder set; "
                          "implies --in-order")
     ap.add_argument("--in-order-renders", type=int, default=1,
                     help="score the in-order sweep on K render-noise draws of the same trajectories")
+    ap.add_argument("--with-hybrid", action="store_true",
+                    help="(modular) add HybridFusionTransformer (per-frame feature tokens and the global "
+                         "features in one model, fused by concat_proj and by add) and its early-fusion "
+                         "GeneralTransformer parent, trained on the same data as the five modular arms")
     ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default=None,
                     help="forward/backward precision; bfloat16 is not ported yet")
     ap.add_argument("--resume", type=str, default=None,
@@ -77,6 +84,10 @@ def main(argv=None):
         if "in_order_suite" not in build_params:
             ap.error(f"experiment {args.experiment!r} does not support --in-order-suite")
         kwargs["in_order_suite"] = args.in_order_suite
+    if args.with_hybrid:
+        if "with_hybrid" not in build_params:
+            ap.error(f"experiment {args.experiment!r} does not support --with-hybrid")
+        kwargs["with_hybrid"] = True
     exp = get_experiment(args.experiment, **kwargs)
     if args.compute_dtype:
         exp.train_cfg = exp.train_cfg.replace(compute_dtype=args.compute_dtype)

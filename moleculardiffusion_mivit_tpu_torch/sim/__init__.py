@@ -6,5 +6,6 @@ from moleculardiffusion_mivit_tpu_torch.sim.trajectory import (  # noqa: F401
 from moleculardiffusion_mivit_tpu_torch.sim.render import (  # noqa: F401
     normalize_images,
     render_frames_core,
+    render_videos,
     trajectories_to_video,
 )

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig
+from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
 
 
 def hr_grid_coords(output_size: int, upsampling_factor: int, device=None) -> torch.Tensor:
@@ -160,3 +160,17 @@ def normalize_images(
     if clip_image:
         normalized = torch.clamp(normalized, 0.0, 1.5)
     return normalized, (background_mean, background_sigma, theoretical_max)
+
+
+def render_videos(
+    generator: torch.Generator, trajectories: torch.Tensor, train_cfg: TrainConfig, optics: OpticsConfig
+) -> torch.Tensor:
+    """Trajectories ``(N, T, 2)`` (already divided by ``traj_div_factor``) →
+    the videos every experiment trains and validates on:
+    ``trajectories_to_video`` with ``train_cfg``'s sub-positions per frame
+    and centering, normalised against ``(bg_mean, bg_sigma, part_mean +
+    bg_mean)``."""
+    bg_mean, bg_sigma = optics.background_intensity
+    part_mean = optics.particle_intensity[0]
+    videos = trajectories_to_video(generator, trajectories, train_cfg.n_pos_per_frame, train_cfg.center, optics)
+    return normalize_images(videos, bg_mean, bg_sigma, part_mean + bg_mean)[0]

@@ -42,9 +42,8 @@ from moleculardiffusion_mivit_tpu_torch.models import init_model
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
 from moleculardiffusion_mivit_tpu_torch.sim import (
     average_trajectories_frames,
-    normalize_images,
+    render_videos,
     single_state,
-    trajectories_to_video,
 )
 from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
 
@@ -188,15 +187,12 @@ def generate_cycle_data(
     """
     p = train_cfg.n_pos_per_frame
     t = train_cfg.n_frames * p
-    bg_mean, bg_sigma = optics.background_intensity
-    part_mean = optics.particle_intensity[0]
 
     all_videos, all_labels, all_trajs = [], [], []
     for ds in train_cfg.training_ds:
         trajs, labels = single_state(generator, train_cfg.sequences_per_d, t, Ds=tuple(ds))
         trajs = trajs / train_cfg.traj_div_factor
-        videos = trajectories_to_video(generator, trajs, p, train_cfg.center, optics)
-        videos, _ = normalize_images(videos, bg_mean, bg_sigma, part_mean + bg_mean)
+        videos = render_videos(generator, trajs, train_cfg, optics)
         all_videos.append(videos)
         all_labels.append(labels)
         all_trajs.append(trajs)

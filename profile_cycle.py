@@ -25,7 +25,11 @@ epochs as captured CUDA graphs and/or eagerly: a first cycle (which captures),
 a timed one and a profiled one, with the same device breakdown.
 ``--experiment images_features [captured] [eager]`` does the same for the
 images-features experiment (nine arms; generation computes the 25 features
-of 320 sequences); an experiment's name with no mode runs it captured.
+of 320 sequences), ``--experiment modular`` for the modular experiment as
+``run_experiment modular --with-hybrid --in-order`` builds it (eight arms,
+seven of them deep-ResNet transformers; generation computes the per-frame
+tokens and the 25 features of 320 sequences); an experiment's name with no
+mode runs it captured.
 
 ``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
 alone: for each shape, device time by kernel over 5 calls of K2
@@ -123,16 +127,18 @@ def profile(torch, arm: str, batch: int, val):
 
 
 def profile_experiment(torch, name: str, batch: int, fused: bool):
-    """An experiment's cycle (``name``: baseline or images_features) at full
-    width through ``Experiment.run``, at a fixed batch size, captured
-    (``fused``) or eager: one cycle to warm up (and capture), one timed, one
-    under the profiler."""
+    """An experiment's cycle (``name``: baseline, images_features or
+    modular, the last with its hybrid arms and the in-order suite's
+    training classes) at full width through ``Experiment.run``, at a fixed
+    batch size, captured (``fused``) or eager: one cycle to warm up (and
+    capture), one timed, one under the profiler."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from chip_smoke import device_kernels
     from moleculardiffusion_mivit_tpu_torch.experiments import get_experiment
 
-    exp = get_experiment(name, seed=0, device="cuda")
+    options = dict(with_hybrid=True, with_in_order=True) if name == "modular" else {}
+    exp = get_experiment(name, seed=0, device="cuda", **options)
     exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
     exp.fused_cycles = fused
     exp.build()
@@ -223,7 +229,7 @@ def main() -> None:
     ap.add_argument("--embedding", type=int, nargs="+", default=None, metavar="B_T_S",
                     help="profile K2/K3 alone at these (B, T, S) shapes")
     ap.add_argument("--experiment", nargs="+", default=None,
-                    choices=("captured", "eager", "baseline", "images_features"),
+                    choices=("captured", "eager", "baseline", "images_features", "modular"),
                     help="profile an experiment's cycle (Experiment.run) at each --batch, captured "
                          "and/or eager: modes and experiment names (default baseline; a name alone "
                          "runs captured)")

@@ -176,9 +176,9 @@ def test_sequence_mode_and_continuous_curriculum_generate_mixed_data(small_valid
             assert 0.05 <= float(labels.min()) and float(labels.max()) <= 0.75
 
 
-@pytest.mark.parametrize("name", ["psfnoise", "framerate", "embeddings", "denoising", "modular"])
+@pytest.mark.parametrize("name", ["psfnoise", "framerate", "embeddings", "denoising"])
 def test_unported_regimes_raise(name):
-    """The five regimes not ported yet are listed and raise
+    """The four regimes not ported yet are listed and raise
     ``NotImplementedError`` naming ROADMAP item 12."""
     assert name in REGISTRY
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -187,17 +187,17 @@ def test_unported_regimes_raise(name):
 
 @pytest.fixture
 def small_imft(monkeypatch):
-    """Images-features validation of 3 particles per D (D = 1 and 5), and an
-    in-order suite of one particle per D value."""
+    """Images-features validation of 3 particles per D (D = 1 and 5), and the
+    shipped in-order suite cut to one particle per D value and to the run's
+    length."""
     def load(length, device):
         return tval.generate_frozen_validation(
             d_values=(1, 5), n_particles=3, t_steps=10 * length, in_order_particles=1, device=device
         )
 
-    imft = images_features.generate_in_order_imft
+    imft = tval.generate_in_order_imft()[:, :1]
     monkeypatch.setattr(images_features, "load_validation_trajectories", load)
-    monkeypatch.setattr(images_features, "generate_in_order_imft",
-                        lambda t_steps, device: imft(t_steps=t_steps, n_particles=1, device=device))
+    monkeypatch.setattr(images_features, "generate_in_order_imft", lambda t_steps: imft[:, :, :t_steps])
 
 
 IMFT_ARMS = ["im_tr", "im_ft_early_tr", "im_ft_late_tr", "im_resnet", "im_ft_resnet", "ft_mlp",

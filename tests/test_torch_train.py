@@ -97,12 +97,15 @@ def test_one_train_step_with_features_matches_jax(kind):
     _step_matches_jax(*models, "mse", with_features=True)
 
 
-def _step_matches_jax(jmodel, tmodel, loss, with_features=False):
+def _step_matches_jax(jmodel, tmodel, loss, with_features=False, feature_shape=(25,)):
+    """One step of each side from the same weights on 6 sequences of 6
+    frames, ``feature_shape`` features per sequence with ``with_features``,
+    held as ``test_one_train_step_matches_jax`` says."""
     rng = np.random.default_rng(0)
     n, lr = 6, 1e-3
     videos = (0.3 * rng.normal(size=(n, 6, 9, 9)) + 0.1).astype(np.float32)
     labels = rng.uniform(0.1, 0.7, size=(n, 1)).astype(np.float32)
-    feats = rng.normal(size=(n, 25)).astype(np.float32) if with_features else None
+    feats = rng.normal(size=(n, *feature_shape)).astype(np.float32) if with_features else None
     idx = np.array([4, 1, 2])
 
     jcfg = JTrainConfig(lr=lr, loss=loss)
@@ -277,10 +280,11 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "profile_cycle.py"]
+        ROOT / "chip_smoke.py", ROOT / "profile_cycle.py", ROOT / "feature_outliers.py"]
     scanned = {path.relative_to(ROOT).as_posix() for path in files}
     assert {f"moleculardiffusion_mivit_tpu_torch/{m}.py" for m in (
-        "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features")} <= scanned
+        "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features",
+        "features/per_frame", "experiments/modular")} <= scanned
     banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu")
     for path in files:
         for mod in _imports(path):
