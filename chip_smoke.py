@@ -3,21 +3,25 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
-line each on stdout:
+line each on stdout; phases 4-6, 7, 8 and 9 in four processes of their own:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
 2. k1: the render kernel against its plain version at a baseline cycle's
    frames (7680 of 10 sub-positions, u=5), at one main-path call (1920), 9×9
    and 13×13, at an even grid through its generic instantiation, and at the
-   images-features in-order sweep's one call (30,000 frames); beside each,
-   the card's floor for one allocation and one (empty) launch.
+   images-features in-order sweep's one call (30,000 frames), and at 13×13
+   with the framerate experiment's P = 5 … 50 sub-positions (one class's
+   64 × 300 / P frames); beside each, the card's floor for one allocation
+   and one (empty) launch.
 3. k2_k3: the deep-ResNet embedding forward (K2) and backward (K3)
    against autograd through the plain version, TF32 off, at five shapes
    (among them both batch sizes of the main path, and every conv tile) with
-   embed dim 64, and at batch 1 and 16 with the modular experiment's 58;
-   two calls on the same inputs must agree bitwise; the kernel launches
-   inside one forward and one backward are counted by kind.
+   embed dim 64, at batch 1 and 16 with the modular experiment's 58 and the
+   embeddings experiment's 32 and 128, and on the framerate experiment's
+   13×13 frames at 60 and 6 a sequence (10,140 to 162,240 and 1,014 to
+   16,224 rows); two calls on the same inputs must agree bitwise; the
+   kernel launches inside one forward and one backward are counted by kind.
 4. slice: the baseline experiment's seven models (GeneralTransformer with
    the linear, cnn and deep_resnet embeddings, relu and leaky_relu each, and
    MultiImageResNet) at full width and full data, each through
@@ -58,11 +62,23 @@ line each on stdout:
    CPU's; K2/K3 launch 7 × ⌊320/b⌋ times a cycle and never in
    ``mod_features``' graph; the published in-order suite's MSD rows on the
    card equal the JAX record's.
+8. embeddings: the embeddings experiment (``experiments.embeddings.build``
+   + ``Experiment.run``, then ``run_experiment.main embeddings``) at full
+   width: ten arms, the three embeddings' transformers at embed 64, 32 and
+   128 and MultiImageResNet, 4 D classes × 64 sequences of 30 frames. As
+   phase 7: captured against eager at batch 16, batch 1 timed and profiled;
+   K2/K3 launch 3 × ⌊256/b⌋ times a cycle, only in the deepcnn arms' graphs.
+9. framerate: the framerate experiment (``experiments.framerate.build`` +
+   ``Experiment.run``, then ``run_experiment.main framerate`` and the
+   in-order rescore of its checkpoint) at full width: twelve arms, a
+   deep-ResNet transformer and a ResNet per exposure, 352 sequences of 300
+   steps rendered at six rates on 13×13 frames. As phase 7; K2/K3 launch 6 ×
+   ⌊352/b⌋ times a cycle and never in a ResNet's graph, K1 36 times a cycle.
 
-Then a ``kernels`` line with each kernel's launches on the main paths (by
-path beside the total), error, times (``ms`` around the wrapper,
-``device_ms`` of its launches alone) and bound, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed
+Then the smoke's total seconds, a ``kernels`` line with each kernel's
+launches on the main paths (by path beside the total), error, times
+(``ms`` around the wrapper, ``device_ms`` of its launches alone) and bound,
+the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before that line. Without a CUDA device, or without
 the package beside this file, it exits non-zero and prints no result.
 """
@@ -87,6 +103,8 @@ PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 # held at 1e-5 relative: the card's f32 sums differ from the CPU's.
 MSD_ROWS = {"MSD_Perfect": 0.10239888891559892, "MSD_Frame": 1.284755779813329}
 MSD_RTOL = 1e-5
+# sub-positions a frame of the framerate experiment's six exposures
+FRAMERATE_RATES = (5, 10, 15, 20, 30, 50)
 
 
 def fail(msg: str) -> None:
@@ -159,15 +177,18 @@ def phase_k1(torch):
     g = torch.Generator(device="cuda").manual_seed(0)
     full = 256 * 30  # frames of one cycle; a main-path call renders one D class, 64 * 30
     in_order = 1000 * 30  # the images-features in-order sweep, rendered in one call
-    xs = 4.0 * torch.randn((in_order, 10), generator=g, device="cuda")
-    ys = 4.0 * torch.randn((in_order, 10), generator=g, device="cuda")
-    ws = 458.0 + 50.0 * torch.randn((in_order, 10), generator=g, device="cuda")
+    xs = 4.0 * torch.randn((in_order, 50), generator=g, device="cuda")
+    ys = 4.0 * torch.randn((in_order, 50), generator=g, device="cuda")
+    ws = 458.0 + 50.0 * torch.randn((in_order, 50), generator=g, device="cuda")
     rows = {}
     # (B, P, S): a cycle's frames and one main-path call at both compiled-in
     # patch sizes, an even grid with P = 4 through the generic instantiation,
-    # and the largest main-path call
+    # the largest main-path call, and the framerate experiment's calls at
+    # 13×13: one class of 64 sequences × 300 steps at each rate's P (P = 10
+    # is the main-path call above)
+    framerate = tuple((64 * 300 // p, p, 13) for p in FRAMERATE_RATES if p != 10)
     for (b, p, s) in ((full, 10, 9), (full, 10, 13), (64 * 30, 10, 9), (64 * 30, 10, 13), (64 * 30, 4, 10),
-                      (in_order, 10, 9)):
+                      (in_order, 10, 9)) + framerate:
         x, y, w = (v[:b, :p].contiguous() for v in (xs, ys, ws))
         render = lambda: render_frames(x, y, w, sigma, s, u)  # noqa: E731
         got = render()
@@ -198,8 +219,9 @@ def phase_k1(torch):
                                launch_floor_ms=floor_ms, launch_floor_device_ms=floor_device_ms)
         emit({"phase": "k1", "B": b, "P": p, "S": s, "u": u, "tol": 1e-5 * scale, **rows[(b, p, s)]})
     call = rows[(64 * 30, 10, 9)]
+    at_s13 = {f"P_{p}": rows[(64 * 300 // p, p, 13)] for p in FRAMERATE_RATES}
     return dict(rows[(full, 10, 9)], ms_per_main_path_call=call["ms"],
-                device_ms_per_main_path_call=call["device_ms"])
+                device_ms_per_main_path_call=call["device_ms"], framerate_calls_at_s13=at_s13)
 
 
 def _embedding_inputs(torch, b, t, s, seed, e=64):
@@ -255,8 +277,13 @@ def phase_k2_k3(torch):
     # five shapes launch every tile the launcher can choose (conv_rows.cuh).
     # The modular experiment's concat_features arm embeds into E = 58, which
     # leaves the fc stages' 16-wide tiles of E a partial one: batch 1 and 16.
+    # The embeddings experiment's small and big deep arms embed into E = 32
+    # and 128 (two and eight fc tiles): batch 1 and 16. The framerate arms
+    # embed 13×13 frames, 60 (tr_0) to 6 (tr_5) of them a sequence: batch 1
+    # and 16 of each.
     for (b, t, s, e) in ((1, 30, 9, 64), (16, 30, 9, 64), (1, 10, 13, 64), (8, 30, 9, 64), (4, 30, 9, 64),
-                         (1, 30, 9, 58), (16, 30, 9, 58)):
+                         (1, 30, 9, 58), (16, 30, 9, 58), (1, 30, 9, 32), (16, 30, 9, 32), (1, 30, 9, 128),
+                         (16, 30, 9, 128), (1, 60, 13, 64), (16, 60, 13, 64), (1, 6, 13, 64), (16, 6, 13, 64)):
         x, kernels, scales, biases, wfc, bfc = _embedding_inputs(torch, b, t, s, seed=b + t + s, e=e)
         leaves = [x, *kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
         emb_k, st_k = fe.fused_deep_resnet_embed(x, kernels, scales, biases, wfc, bfc)
@@ -367,9 +394,16 @@ def phase_k2_k3(torch):
                           bound_ms=b3, bound_by=by3)}
         emit(row)
         records[(b, t, s, e)] = row
-    # the kernels line carries batch 16 at E = 64, with E = 58 beside it
-    at_58 = {k: {f"batch_{b}": records[(b, 30, 9, 58)][k] for b in (1, 16)} for k in ("k2", "k3")}
-    return [dict(records[(16, 30, 9, 64)][k], at_embed_dim_58=at_58[k]) for k in ("k2", "k3")]
+    # the kernels line carries batch 16 at E = 64, with the other embed dims
+    # and the framerate shapes beside it
+    out = []
+    for k in ("k2", "k3"):
+        row = dict(records[(16, 30, 9, 64)][k])
+        for e in (58, 32, 128):
+            row[f"at_embed_dim_{e}"] = {f"batch_{b}": records[(b, 30, 9, e)][k] for b in (1, 16)}
+        row["at_s13"] = {f"T_{t}_batch_{b}": records[(b, t, 13, 64)][k] for t in (60, 6) for b in (1, 16)}
+        out.append(row)
+    return out
 
 
 def baseline_arms():
@@ -550,7 +584,7 @@ def phase_experiment(torch, card):
     full width: all seven arms, 4 D classes × 64 sequences of 30 frames, the
     frozen validation suite. (a) Cycles at batch 16 captured and eager from
     the same seed: over two cycles, losses, validation MSEs and every
-    parameter and buffer agree; the second is timed, a third profiled. (b) Three cycles at batch 1 captured: the first captures,
+    parameter and buffer agree; the second is timed. (b) Three cycles at batch 1 captured: the first captures,
     the second is timed, the third runs under the profiler. (c) K2/K3 run
     inside the replayed graphs once a step of each deepcnn arm and in no
     other unit; K1 once per D class and cycle plus the validation renders.
@@ -578,7 +612,7 @@ def phase_experiment(torch, card):
     t_phase = time.perf_counter()
 
     # (a) batch 16, captured against eager: cycles 0 and 1 compared, cycle 1
-    # timed, cycle 2 under the profiler
+    # timed
     runs = {}
     for fused in (True, False):
         exp = build(16, fused)
@@ -596,18 +630,11 @@ def phase_experiment(torch, card):
     for name, d in diffs.items():
         for what in ("loss", "val", "param"):
             check(d[what] <= tol, f"experiment: {name}: captured and eager {what} differ by {d[what]} > {tol}")
-    for fused in (True, False):
-        runs[fused] += _profiled(torch, lambda: runs[fused][0].run(1, start_cycle=2))[:4]
     units16 = {"+".join(u.names): u.launches_per_replay for u in cap.engine.units.values()}
     emit({"phase": "experiment", "part": "a", "card": card, "batch": 16, "arms": len(cap.arms),
           "tolerance_relative": tol, "bitwise_equal": all(d["bitwise"] for d in diffs.values()),
           "s_per_cycle": {"captured": runs[True][1], "eager": runs[False][1]},
           "seq_per_s": {"captured": n_seq / runs[True][1], "eager": n_seq / runs[False][1]},
-          "profiled_s_per_cycle": {"captured": runs[True][2], "eager": runs[False][2]},
-          "device_busy_share_profiled": {"captured": runs[True][3], "eager": runs[False][3]},
-          "device_kernel_ms": {"captured": runs[True][4], "eager": runs[False][4]},
-          "device_busy_share_est": {m: runs[f][4] / (runs[f][1] * 1e3) for m, f in (("captured", True), ("eager", False))},
-          "kernels_per_cycle_profiled": {"captured": runs[True][5], "eager": runs[False][5]},
           "captures": cap.engine.captures, "replays": cap.engine.replays,
           "launches_per_replay_by_unit": units16,
           "val_avg": {n: h["val_avg"] for n, h in cap.history.items()}})
@@ -644,9 +671,9 @@ def phase_experiment(torch, card):
         cli_events = [json.loads(line)["event"] for line in Path(out, "metrics.jsonl").read_text().splitlines()]
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 4, 2 * 3 + 3 + 1  # (a) two experiments of three cycles, (b) three, the runner's one
+    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) two experiments of two cycles, (b) three, the runner's one
     k1_want = n_val_renders * builds + 4 * cycles
-    k23_want = len(deep) * (2 * 3 * n_seq // 16 + 4 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
     check(launches["render_frames"] == k1_want, f"experiment: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
         check(launches[k] == k23_want, f"experiment: {k} launches {launches[k]} != {k23_want}")
@@ -672,6 +699,14 @@ def phase_experiment(torch, card):
     return launches
 
 
+def _sequences(exp) -> int:
+    """Sequences an experiment generates a cycle (a 10.2 tail class at half
+    count)."""
+    from moleculardiffusion_mivit_tpu_torch.experiments.base import class_sequence_counts
+
+    return sum(class_sequence_counts(exp.train_cfg.training_ds, exp.train_cfg.sequences_per_d))
+
+
 def _captured_against_eager(torch, build, phase, card, tol=1e-4):
     """Part (a) of an experiment phase: at batch 16, two cycles captured and
     two eager from one seed; losses, validation MSEs and every parameter and
@@ -687,7 +722,7 @@ def _captured_against_eager(torch, build, phase, card, tol=1e-4):
         torch.cuda.synchronize()
         runs[fused] = (exp, time.perf_counter() - t0)
     cap, eag = runs[True][0], runs[False][0]
-    n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
+    n_seq = _sequences(cap)
     diffs = _compare_experiments(torch, cap, eag)
     for name, d in diffs.items():
         for what in ("loss", "val", "param"):
@@ -730,7 +765,7 @@ def _batch_one_profiled(torch, build, phase, deep, renders):
         want = sum(1 for n in key.split("+") if n in deep)
         check(per.get("deep_resnet_embed_fwd", 0) == want and per.get("deep_resnet_embed_bwd", 0) == want,
               f"{phase}: unit {key} records K2/K3 {per}, expected {want} each a replay")
-    n_seq = exp.train_cfg.sequences_per_d * len(exp.train_cfg.training_ds)
+    n_seq = _sequences(exp)
     seen = {k: names.get(k, 0) for k in ("render_frames_kernel", "pool_fc_kernel", "pool_fc_bwd_kernel")}
     want = {"render_frames_kernel": renders, "pool_fc_kernel": len(deep) * n_seq,
             "pool_fc_bwd_kernel": len(deep) * n_seq}
@@ -741,7 +776,7 @@ def _batch_one_profiled(torch, build, phase, deep, renders):
 def phase_images_features(torch, card):
     """The images-features experiment through its entry points
     (``experiments.images_features.build`` + ``Experiment.run``, then
-    ``run_experiment.main --cycles 2 --in-order``) at full width: nine arms, 5 D classes
+    ``run_experiment.main --cycles 1 --in-order``) at full width: nine arms, 5 D classes
     × 64 sequences of 30 frames with their 25 features, validation at D = 1,
     3, 5, 7, 9 (50 sequences each). (a) Batch 16, captured against eager from
     one seed, two cycles: losses, validation MSEs and every parameter and
@@ -783,16 +818,16 @@ def phase_images_features(torch, card):
         torch, build, "images_features", deep, renders=5)
     eng = exp.engine
 
-    # the user's entry point: two cycles (batch 1 by the schedule) and the in-order sweep
+    # the user's entry point: one cycle (batch 1 by the schedule) and the in-order sweep
     with tempfile.TemporaryDirectory() as out:
-        cli = run_experiment.main(["images_features", "--cycles", "2", "--out", out, "--checkpoint-last", "0",
+        cli = run_experiment.main(["images_features", "--cycles", "1", "--out", out, "--checkpoint-last", "0",
                                    "--in-order"])
         engines.append(cli.engine)
         for f in ("metrics.jsonl", "history.json", "final/meta.json", "images_features_errors.csv",
                   "in_order_predictions.npz"):
             check(Path(out, f).is_file(), f"run_experiment images_features wrote no {f}")
         history = json.loads(Path(out, "history.json").read_text())
-        check(list(history) == list(cap.arms) and all(len(h["val_avg"]) == 2 for h in history.values()),
+        check(list(history) == list(cap.arms) and all(len(h["val_avg"]) == 1 for h in history.values()),
               f"run_experiment images_features: histories {history}")
         in_order_rows = Path(out, "images_features_errors.csv").read_text().splitlines()[1:]
         n_in_order = len(cli.in_order_data["d_values"])
@@ -805,9 +840,9 @@ def phase_images_features(torch, card):
               f"images_features: in-order {name} {msd_rows[name]} is not the JAX record's {want}")
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 4, 2 * 2 + 3 + 2  # (a) two experiments of two cycles, (b) three, the runner's two
+    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) two experiments of two cycles, (b) three, the runner's one
     k1_want = 5 * builds + 1 + 5 * cycles
-    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 5 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
     check(launches["render_frames"] == k1_want,
           f"images_features: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
@@ -987,9 +1022,219 @@ def phase_modular(torch, card):
     return launches
 
 
+def phase_embeddings(torch, card):
+    """The embeddings experiment through its entry points
+    (``experiments.embeddings.build`` + ``Experiment.run``, then
+    ``run_experiment.main embeddings``) at full width and full data: ten
+    arms, the linear, cnn and deep_resnet transformers at embed 64, 32 and
+    128 (6, 3 and 12 layers) and MultiImageResNet, 4 D classes × 64
+    sequences of 30 frames, validation at D = 1, 3, 5, 7. (a) Batch 16,
+    captured against eager from one seed, two cycles: losses, validation
+    MSEs and every parameter and buffer agree to 1e-4 relative; the second
+    cycle is timed. (b) Batch 1, captured: a capture cycle, a timed cycle and
+    a profiled one; generation timed on its own. (c) Launches: K2/K3 3 ×
+    ⌊256/b⌋ a cycle, once a step of each ``deepcnn_2layer_*`` arm (E = 64,
+    32, 128) and in no other unit's graph; K1 4 a cycle in generation and 4
+    a build for validation."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch import run_experiment
+    from moleculardiffusion_mivit_tpu_torch.experiments import embeddings
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    deep = ("deepcnn_2layer_n", "deepcnn_2layer_s", "deepcnn_2layer_b")
+    torch.cuda.reset_peak_memory_stats()
+    engines = []
+
+    def build(batch, fused):
+        exp = embeddings.build(seed=0, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    t_phase = time.perf_counter()
+
+    cap = _captured_against_eager(torch, build, "embeddings", card)
+    n_seq = _sequences(cap)
+    check(n_seq == 256 and len(cap.arms) == 10, f"embeddings: {n_seq} sequences, {len(cap.arms)} arms")
+    widths = {n: cap.arms[n].model.embedding.fc.out_features for n in deep}
+    check(widths == {"deepcnn_2layer_n": 64, "deepcnn_2layer_s": 32, "deepcnn_2layer_b": 128},
+          f"embeddings: deep-ResNet embed dims {widths}")
+    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+        torch, build, "embeddings", deep, renders=4)
+    eng = exp.engine
+    check(set(units1) == set(exp.arms), f"embeddings: units {sorted(units1)}: no arm may stack")
+
+    # the user's entry point: one cycle (batch 1 by the schedule)
+    with tempfile.TemporaryDirectory() as out:
+        cli = run_experiment.main(["embeddings", "--cycles", "1", "--out", out, "--checkpoint-last", "0"])
+        engines.append(cli.engine)
+        for f in ("metrics.jsonl", "history.json", "final/meta.json", "final/states/deepcnn_2layer_b.pt"):
+            check(Path(out, f).is_file(), f"run_experiment embeddings wrote no {f}")
+        history = json.loads(Path(out, "history.json").read_text())
+        check(list(history) == list(cap.arms) and all(len(h["val_avg"]) == 1 for h in history.values()),
+              f"run_experiment embeddings: histories {history}")
+    torch.cuda.synchronize()
+    launches = kernel_launches(counts0, engines)
+    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) two experiments of two cycles, (b) three, the runner's one
+    k1_want = 4 * builds + 4 * cycles
+    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    check(launches["render_frames"] == k1_want, f"embeddings: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"embeddings: {k} launches {launches[k]} != {k23_want}")
+
+    # after the counts: replays and generation timed on their own
+    replay_host_ms = _replay_host_ms(torch, eng)
+    gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
+    gen_ms = time_ms(torch, gen, iters=5, warmup=1)
+    s_cycle = marks[2] - marks[1]
+    emit({"phase": "embeddings", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
+          "parameters": embeddings.param_counts(exp),
+          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
+          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
+          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
+          "kernels_per_step": n_kernels / n_seq, "profiled_kernels_once_per_k1_k2_k3_call": seen,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
+          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
+          "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "embeddings", "part": "c_launches", "launches": launches, "k1_expected": k1_want,
+          "k2_k3_expected": k23_want, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_framerate(torch, card):
+    """The framerate experiment through its entry points
+    (``experiments.framerate.build`` + ``Experiment.run``, then
+    ``run_experiment.main framerate`` and the in-order rescore of its
+    checkpoint) at full width and full data: twelve arms, a deep-ResNet
+    transformer (``tr_i``) and MultiImageResNet (``res_i``) per exposure of
+    5 … 50 sub-positions a frame, on 13×13 frames, 60 to 6 of them a
+    sequence; 5 D classes × 64 sequences and the 10.2 class × 32 of 300
+    steps, rendered at each rate; validation at D = 1, 3, 5, 7, 9. (a) Batch
+    16, captured against eager from one seed, two cycles (1e-4 relative);
+    the second cycle is timed. (b) Batch 1, captured: a capture cycle, a
+    timed cycle and a profiled one; generation timed on its own. (c)
+    Launches: K2/K3 6 × ⌊352/b⌋ a cycle, never in a ``res_i`` graph; K1 36 a
+    cycle (6 classes × 6 rates), 30 a build for validation, 60 for the
+    rescore (10 chunks × 6 rates). (d) The rescore writes the JAX example's
+    CSV with finite scores for every arm."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch import run_experiment
+    from moleculardiffusion_mivit_tpu_torch.experiments import framerate
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    deep = tuple(f"tr_{i}" for i in range(6))
+    torch.cuda.reset_peak_memory_stats()
+    engines = []
+
+    def build(batch, fused):
+        exp = framerate.build(seed=0, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    t_phase = time.perf_counter()
+
+    cap = _captured_against_eager(torch, build, "framerate", card)
+    n_seq = _sequences(cap)
+    check(n_seq == 352 and list(cap.arms) == [f"{k}_{i}" for i in range(6) for k in ("tr", "res")],
+          f"framerate: {n_seq} sequences, arms {list(cap.arms)}")
+    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+        torch, build, "framerate", deep, renders=36)
+    eng = exp.engine
+    check(set(units1) == set(exp.arms), f"framerate: units {sorted(units1)}: no arm may stack")
+
+    # the user's entry points: one cycle (batch 1 by the schedule), then the
+    # in-order rescore of the checkpoint it wrote
+    with tempfile.TemporaryDirectory() as out:
+        cli = run_experiment.main(["framerate", "--cycles", "1", "--out", out, "--checkpoint-last", "0"])
+        engines.append(cli.engine)
+        for f in ("metrics.jsonl", "history.json", "final/meta.json", "final/states/tr_5.pt"):
+            check(Path(out, f).is_file(), f"run_experiment framerate wrote no {f}")
+        history = json.loads(Path(out, "history.json").read_text())
+        check(list(history) == list(cap.arms) and all(len(h["val_avg"]) == 1 for h in history.values()),
+              f"run_experiment framerate: histories {history}")
+        t0 = time.perf_counter()
+        rows = framerate.main(["--ckpt", str(Path(out, "final"))])
+        torch.cuda.synchronize()
+        rescore_s = time.perf_counter() - t0
+        csv = Path(out, framerate.RESCORE_CSV).read_text().splitlines()
+    check(csv[0] == "model,exposure_ms,mse,std,mse_d_le_7,published_mse" and len(csv) == 13,
+          f"framerate: rescore CSV {csv[:2]}")
+    check(all(math.isfinite(r["mse"]) for r in rows.values()), f"framerate: rescore {rows}")
+    torch.cuda.synchronize()
+    launches = kernel_launches(counts0, engines)
+    builds, cycles = 5, 2 * 2 + 3 + 1  # the rescore builds too; (a) 2 × 2 cycles, (b) 3, the runner's 1
+    k1_want = 30 * builds + 36 * cycles + 60  # the rescore: 10 chunks × 6 rates
+    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    check(launches["render_frames"] == k1_want, f"framerate: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"framerate: {k} launches {launches[k]} != {k23_want}")
+
+    # after the counts: replays and generation timed on their own
+    replay_host_ms = _replay_host_ms(torch, eng)
+    gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
+    gen_ms = time_ms(torch, gen, iters=5, warmup=1)
+    s_cycle = marks[2] - marks[1]
+    emit({"phase": "framerate", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
+          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
+          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
+          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
+          "kernels_per_step": n_kernels / n_seq, "profiled_kernels_once_per_k1_k2_k3_call": seen,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
+          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
+          "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "framerate", "part": "c_launches", "launches": launches, "k1_expected": k1_want,
+          "k2_k3_expected": k23_want})
+    emit({"phase": "framerate", "part": "d_rescore", "seconds": rescore_s, "csv": csv,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# The main paths, each driven by its phase, in groups that each run in a
+# process of their own: in one long process torch.profiler came to lose
+# single K1 records (one of 36 in a framerate cycle, one of 5 in a modular
+# generation call) once several phases had profiled before it, never in a
+# fresh process. The first group ran in one process in every earlier smoke.
+PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features": phase_images_features,
+         "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate}
+PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",))
+GROUP_TIMEOUT_S = 600
+
+
+def run_paths_alone(names) -> dict:
+    """Run the phases of the paths ``names`` in a fresh process of this
+    script (the kernels are built already); pass its lines on and return
+    each path's launches and seconds."""
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--paths", *names],
+                              stdout=subprocess.PIPE, text=True, timeout=GROUP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"paths {names} ran past {GROUP_TIMEOUT_S} s")
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    check(proc.returncode == 0 and bool(lines), f"paths {names} failed (exit code {proc.returncode})")
+    return json.loads(lines[-1])["paths"]
+
+
 def main() -> None:
     if not (ROOT / PKG / "__init__.py").is_file():
         fail(f"the {PKG} package is not beside this script")
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -999,6 +1244,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from moleculardiffusion_mivit_tpu_torch.ops._build import build_all, load_library
+
+    if sys.argv[1:2] == ["--paths"]:  # a group of paths, in the process run_paths_alone started
+        card, out = card_line(), {}
+        for name in sys.argv[2:]:
+            t = time.perf_counter()
+            out[name] = {"launches": PATHS[name](torch, card), "seconds": time.perf_counter() - t}
+        emit({"paths": out})
+        return
 
     card = card_line()
     t0 = time.perf_counter()
@@ -1011,10 +1264,23 @@ def main() -> None:
     emit({"phase": "device", "card": card, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s})
 
-    k1 = phase_k1(torch)
-    k2, k3 = phase_k2_k3(torch)
-    by_path = {"slice": phase_slice(torch, card), "experiment": phase_experiment(torch, card),
-               "images_features": phase_images_features(torch, card), "modular": phase_modular(torch, card)}
+    phase_s = {"build": build_s}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    k1 = timed("k1", phase_k1, torch)
+    k2, k3 = timed("k2_k3", phase_k2_k3, torch)
+    by_path = {}
+    for group in PATH_GROUPS:
+        t = time.perf_counter()
+        for name, got in run_paths_alone(group).items():
+            by_path[name] = got["launches"]
+            phase_s[name] = got["seconds"]
+        phase_s["+".join(group) + " process"] = time.perf_counter() - t
     launches = {k: sum(path[k] for path in by_path.values()) for k in by_path["slice"]}
 
     src = f"{PKG}/csrc"
@@ -1039,6 +1305,7 @@ def main() -> None:
         k["bound_by"] = what
         if detail:
             k["bound_operations"] = detail.strip("()")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase_s": phase_s})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Typed configuration for simulation, models and training.
 
 A copy of the dataclasses of ``moleculardiffusion_mivit_tpu/config.py``
-(``OpticsConfig``, ``ModelConfig``, ``TrainConfig``, ``BASELINE_OPTICS``),
+(``OpticsConfig``, ``ModelConfig``, ``TrainConfig``, ``BASELINE_OPTICS``,
+``FRAMERATE_OPTICS``),
 kept here so the port imports nothing of the JAX package. Field names,
 defaults and derived properties are the same.
 """
@@ -59,6 +60,16 @@ BASELINE_OPTICS = OpticsConfig(
     particle_intensity=(6000.0 - 1420.0, 500.0),
     psf_division_factor=1.3,
     output_size=9,
+    background_intensity=(1420.0, 290.0),
+    poisson_noise=100.0,
+    trajectory_unit=1200.0,
+)
+
+# The optics of the framerate experiment: the baseline's on 13×13 frames.
+FRAMERATE_OPTICS = OpticsConfig(
+    particle_intensity=(6000.0 - 1420.0, 500.0),
+    psf_division_factor=1.3,
+    output_size=13,
     background_intensity=(1420.0, 290.0),
     poisson_noise=100.0,
     trajectory_unit=1200.0,

@@ -5,12 +5,14 @@ Port of ``moleculardiffusion_mivit_tpu/experiments``. Ported: ``baseline``
 transformers + MultiImageResNet), ``images_features`` (MiViT with the 25
 trajectory features against image-only, features-only and MSD arms) and
 ``modular`` (ModularTransformer with per-frame feature tokens; with
-``with_hybrid`` also HybridFusionTransformer and its early-fusion parent).
-The four other regimes are listed under their names and raise
+``with_hybrid`` also HybridFusionTransformer and its early-fusion parent),
+``embeddings`` (three embeddings at three sizes and MultiImageResNet) and
+``framerate`` (a transformer and a ResNet per exposure setting, on 13×13
+frames). The two other regimes are listed under their names and raise
 ``NotImplementedError`` (ROADMAP.md, queue 1, item 12).
 """
 
-from moleculardiffusion_mivit_tpu_torch.experiments import baseline, images_features, modular
+from moleculardiffusion_mivit_tpu_torch.experiments import baseline, embeddings, framerate, images_features, modular
 from moleculardiffusion_mivit_tpu_torch.experiments.base import (  # noqa: F401
     Experiment,
     GridArm,
@@ -30,7 +32,9 @@ REGISTRY = {
     "baseline": baseline.build,
     "images_features": images_features.build,
     "modular": modular.build,
-    **{name: _not_ported(name) for name in ("psfnoise", "framerate", "embeddings", "denoising")},
+    "embeddings": embeddings.build,
+    "framerate": framerate.build,
+    **{name: _not_ported(name) for name in ("psfnoise", "denoising")},
 }
 
 

@@ -7,6 +7,7 @@ Usage:
         --cycles 100 --in-order [--in-order-suite imft|committed]
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment modular \
         --cycles 100 --in-order [--with-hybrid]
+    python -m moleculardiffusion_mivit_tpu_torch.run_experiment embeddings|framerate --cycles 100
 
 Port of ``moleculardiffusion_mivit_tpu/run_experiment.py``: runs the named
 experiment on ``--device`` (CUDA by default; without a card it raises unless
@@ -15,6 +16,10 @@ stderr (``start``, ``built``, ``resumed``, ``cycle``, ``trained``,
 ``final_val_avg``, ``error_tables``), checkpoints the last cycles, and writes
 ``history.json``, ``final/``, and, where the experiment has an in-order
 sweep, ``<experiment>_errors.csv`` and ``in_order_predictions.npz``.
+``--in-order`` applies to the experiments that offer the option; framerate
+is rescored on the in-order suite from its checkpoint, by
+``python -m moleculardiffusion_mivit_tpu_torch.experiments.framerate --ckpt
+<out>/final``.
 
 Not offered: ``--mesh``, ``--no-aot-cache`` and ``--unroll`` (TPU-only), and
 ``--plots`` (ROADMAP.md, queue 1, item 12).
@@ -34,7 +39,8 @@ def main(argv=None):
     """Run the command line ``argv``; returns the trained ``Experiment``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("experiment",
-                    help="baseline | images_features | modular (the other four regimes are not ported yet)")
+                    help="baseline | images_features | modular | embeddings | framerate "
+                         "(psfnoise and denoising are not ported yet)")
     ap.add_argument("--cycles", type=int, default=None, help="override num_cycles")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seqs-per-d", type=int, default=64)

@@ -56,15 +56,18 @@ def test_render_kernel_matches_plain_on_card(cuda_device):
     "b,p,s,u",
     [(1, 10, 9, 5), (15, 10, 9, 5), (1920, 10, 9, 5), (7680, 10, 9, 5),
      (1, 10, 13, 5), (15, 10, 13, 5), (1920, 10, 13, 5), (7680, 10, 13, 5),
-     (100, 4, 10, 5), (33, 7, 9, 5), (9, 3, 65, 1), (50, 45, 7, 3)],
+     (100, 4, 10, 5), (33, 7, 9, 5), (9, 3, 65, 1), (50, 45, 7, 3),
+     (3840, 5, 13, 5), (1280, 15, 13, 5), (960, 20, 13, 5), (640, 30, 13, 5), (384, 50, 13, 5)],
 )
 def test_render_kernel_shapes_on_card(cuda_device, b, p, s, u):
     """K1 against its plain version where a block is partly filled (1 and 15
     frames), at a main-path call (1920) and a whole cycle (7680), at both
     compiled-in patch sizes, and through the generic instantiation: an even
     grid, P other than 10, cells on more lanes than a warp has (S = 65) and
-    more segments than a block's warps hold in one pass (P = 45). Two calls
-    on the same inputs agree bitwise (no atomics, fixed summation order)."""
+    more segments than a block's warps hold in one pass (P = 45), and the
+    framerate experiment's calls (one class of 64 × 300 steps at P = 5 … 50
+    on 13×13). Two calls on the same inputs agree bitwise (no atomics, fixed
+    summation order)."""
     x, y, w = _render_inputs(b, p, b + s, cuda_device)
     got = trender_ops.render_frames(x, y, w, 5.96, s, u)
     want = trender_ops.render_frames_reference(x, y, w, 5.96, s, u)
@@ -122,13 +125,14 @@ def test_embedding_kernels_match_plain_on_card(cuda_device):
 @pytest.mark.parametrize(
     "b,t,s,e",
     [(1, 7, 9, 64), (2, 5, 13, 64), (1, 30, 9, 32), (3, 30, 9, 64), (1, 2, 9, 64), (1, 3, 7, 100),
-     (4, 30, 9, 64)],
+     (4, 30, 9, 64), (1, 6, 13, 64)],
 )
 def test_embedding_kernels_match_plain_at_ragged_shapes(cuda_device, b, t, s, e):
     """Row counts that fill no tile (567, 1,690 and 7,290 rows; 162 and 147
     rows, less than a tile and a half), S = 13 and 7, embed dims other than
-    64, and 9,720 rows, where the 128-channel convs take a larger tile (the
-    tile is picked from the rows and channels, ``csrc/conv_rows.cuh``): K2
+    64, 9,720 rows, where the 128-channel convs take a larger tile (the tile
+    is picked from the rows and channels, ``csrc/conv_rows.cuh``), and the
+    framerate experiment's shortest batch-1 step (1,014 rows of 13×13): K2
     and K3 still equal the plain version."""
     args = _embedding_args(b, t, s, cuda_device, seed=b + t + s + e, e=e)
     out_k, st_k = tfe.fused_deep_resnet_embed(*args)
@@ -152,7 +156,23 @@ def test_embedding_gradients_match_float64_autograd_at_every_larger_tile(cuda_de
     element moves the input gradient at its pixels by percents, so K3 is held
     against float64 autograd through the plain version given K2's ReLU
     pattern (read from K2's saved activations), at the same 1e-3·max|g|."""
-    args = _embedding_args(b, t, s, cuda_device, seed=b + t + s)
+    _gradients_match_float64(b, t, s, 64, cuda_device)
+
+
+@pytest.mark.parametrize("b,t,s,e", [(1, 30, 9, 32), (1, 30, 9, 128), (16, 30, 9, 128), (1, 60, 13, 64),
+                                     (16, 60, 13, 64), (16, 6, 13, 64)])
+def test_embedding_gradients_match_float64_autograd_at_new_widths_and_frames(cuda_device, b, t, s, e):
+    """The embeddings experiment's E = 32 and 128 and the framerate
+    experiment's 13×13 steps (10,140 to 162,240 rows), held as
+    ``test_embedding_gradients_match_float64_autograd_at_every_larger_tile``
+    holds the larger tiles: against plain f32 with its own ReLU pattern
+    one flipped ReLU input already moves a gradient past 1e-3·max|g| (seen
+    at 2,430 rows with E = 128 and at 10,140 of 13×13)."""
+    _gradients_match_float64(b, t, s, e, cuda_device)
+
+
+def _gradients_match_float64(b, t, s, e, cuda_device):
+    args = _embedding_args(b, t, s, cuda_device, seed=b + t + s, e=e)
     x, kernels, scales, biases, wfc, bfc = args
     leaves = [x, *kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
     out_k, st_k = tfe.fused_deep_resnet_embed(*args)

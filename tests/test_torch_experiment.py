@@ -176,9 +176,9 @@ def test_sequence_mode_and_continuous_curriculum_generate_mixed_data(small_valid
             assert 0.05 <= float(labels.min()) and float(labels.max()) <= 0.75
 
 
-@pytest.mark.parametrize("name", ["psfnoise", "framerate", "embeddings", "denoising"])
+@pytest.mark.parametrize("name", ["psfnoise", "denoising"])
 def test_unported_regimes_raise(name):
-    """The four regimes not ported yet are listed and raise
+    """The two regimes not ported yet are listed and raise
     ``NotImplementedError`` naming ROADMAP item 12."""
     assert name in REGISTRY
     with pytest.raises(NotImplementedError, match="item 12"):

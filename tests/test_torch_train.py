@@ -97,13 +97,13 @@ def test_one_train_step_with_features_matches_jax(kind):
     _step_matches_jax(*models, "mse", with_features=True)
 
 
-def _step_matches_jax(jmodel, tmodel, loss, with_features=False, feature_shape=(25,)):
+def _step_matches_jax(jmodel, tmodel, loss, with_features=False, feature_shape=(25,), frame_size=9):
     """One step of each side from the same weights on 6 sequences of 6
-    frames, ``feature_shape`` features per sequence with ``with_features``,
-    held as ``test_one_train_step_matches_jax`` says."""
+    frames of ``frame_size``², ``feature_shape`` features per sequence with
+    ``with_features``, held as ``test_one_train_step_matches_jax`` says."""
     rng = np.random.default_rng(0)
     n, lr = 6, 1e-3
-    videos = (0.3 * rng.normal(size=(n, 6, 9, 9)) + 0.1).astype(np.float32)
+    videos = (0.3 * rng.normal(size=(n, 6, frame_size, frame_size)) + 0.1).astype(np.float32)
     labels = rng.uniform(0.1, 0.7, size=(n, 1)).astype(np.float32)
     feats = rng.normal(size=(n, *feature_shape)).astype(np.float32) if with_features else None
     idx = np.array([4, 1, 2])
