@@ -3,7 +3,8 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
-line each on stdout; phases 4-6, 7, 8 and 9 in four processes of their own:
+line each on stdout; phases 4-6, 7, 8, 9 and 10 in five processes of their
+own:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
@@ -13,7 +14,10 @@ line each on stdout; phases 4-6, 7, 8 and 9 in four processes of their own:
    images-features in-order sweep's one call (30,000 frames), and at 13×13
    with the framerate experiment's P = 5 … 50 sub-positions (one class's
    64 × 300 / P frames); beside each, the card's floor for one allocation
-   and one (empty) launch.
+   and one (empty) launch. Then with a sigma per PSF setting (the psfnoise
+   grid: five settings of one class, 9,600 frames, and of the in-order
+   suite, 150,000, in one launch) against five one-sigma launches (bitwise)
+   and the plain version.
 3. k2_k3: the deep-ResNet embedding forward (K2) and backward (K3)
    against autograd through the plain version, TF32 off, at five shapes
    (among them both batch sizes of the main path, and every conv tile) with
@@ -22,6 +26,9 @@ line each on stdout; phases 4-6, 7, 8 and 9 in four processes of their own:
    13×13 frames at 60 and 6 a sequence (10,140 to 162,240 and 1,014 to
    16,224 rows); two calls on the same inputs must agree bitwise; the
    kernel launches inside one forward and one backward are counted by kind.
+   Then over 30 members in one launch each (the psfnoise grid at batch 1
+   and 16: 72,900 and 1,166,400 rows): bitwise equal to 30 one-member
+   launches and repeatable, against the plain version under ``torch.vmap``.
 4. slice: the baseline experiment's seven models (GeneralTransformer with
    the linear, cnn and deep_resnet embeddings, relu and leaky_relu each, and
    MultiImageResNet) at full width and full data, each through
@@ -74,6 +81,14 @@ line each on stdout; phases 4-6, 7, 8 and 9 in four processes of their own:
    deep-ResNet transformer and a ResNet per exposure, 352 sequences of 300
    steps rendered at six rates on 13×13 frames. As phase 7; K2/K3 launch 6 ×
    ⌊352/b⌋ times a cycle and never in a ResNet's graph, K1 36 times a cycle.
+10. psfnoise: the PSF × noise experiment (``experiments.psfnoise.build`` +
+   ``Experiment.run``, then ``run_experiment.main psfnoise --in-order``) at
+   full width: 60 models in two grid arms of 30 (``train/grid.py``), 352
+   sequences rendered into 5 PSF × 6 noise cells. As phase 7: captured
+   against eager at batch 16 for every member, batch 1 timed and profiled;
+   K2/K3 launch once a grid step for all 30 transformers (⌊352/b⌋ a cycle),
+   K1 once a class for all five PSF settings; the runner's error table has
+   the JAX record's 60 rows.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's
 launches on the main paths (by path beside the total), error, times
@@ -221,7 +236,59 @@ def phase_k1(torch):
     call = rows[(64 * 30, 10, 9)]
     at_s13 = {f"P_{p}": rows[(64 * 300 // p, p, 13)] for p in FRAMERATE_RATES}
     return dict(rows[(full, 10, 9)], ms_per_main_path_call=call["ms"],
-                device_ms_per_main_path_call=call["device_ms"], framerate_calls_at_s13=at_s13)
+                device_ms_per_main_path_call=call["device_ms"], framerate_calls_at_s13=at_s13,
+                psf_settings=_k1_psf_settings(torch, g))
+
+
+def _k1_psf_settings(torch, g):
+    """K1 with one sigma per PSF setting (the psfnoise grid renderer): the
+    five settings of one class (64 sequences × 30 frames each, 9,600
+    frames) and of the in-order suite (1,000 × 30 each, 150,000) in one
+    launch, against the plain version with the sigmas broadcast (1e-5 of the
+    largest pixel) and bitwise against five one-sigma launches, which are
+    timed beside it."""
+    from moleculardiffusion_mivit_tpu_torch.config import PSFNOISE_OPTICS
+    from moleculardiffusion_mivit_tpu_torch.experiments.psfnoise import PSF_SETTINGS
+    from moleculardiffusion_mivit_tpu_torch.ops.render import render_frames, render_frames_reference
+
+    base = PSFNOISE_OPTICS.replace(psf_division_factor=1.0).gaussian_sigma_hr
+    sigmas = tuple(base / ps for ps in PSF_SETTINGS)
+    k, p, s, u = len(sigmas), 10, 9, PSFNOISE_OPTICS.upsampling_factor
+    out = {}
+    for per in (64 * 30, 1000 * 30):
+        b = k * per
+        x, y = (4.0 * torch.randn((b, p), generator=g, device="cuda") for _ in range(2))
+        w = 500.0 + 50.0 * torch.randn((b, p), generator=g, device="cuda")
+        render = lambda: render_frames(x, y, w, sigmas, s, u)  # noqa: E731
+
+        def scalar_launches():
+            return torch.cat([render_frames(x[i * per:(i + 1) * per], y[i * per:(i + 1) * per],
+                                            w[i * per:(i + 1) * per], sig, s, u) for i, sig in enumerate(sigmas)])
+
+        def plain():
+            runs = (v.reshape(k, per, p) for v in (x, y, w))
+            sig = torch.tensor(sigmas, dtype=torch.float32, device="cuda").view(k, 1, 1)
+            return render_frames_reference(*runs, sig, s, u).reshape(b, s, s)
+
+        got, ref = render(), plain()
+        torch.cuda.synchronize()
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        check(bool(torch.isfinite(got).all()), f"K1 settings {b}: non-finite frames")
+        check(err <= 1e-5 * scale, f"K1 settings {b}: max|Δ| {err} > 1e-5·{scale}")
+        check(torch.equal(got, scalar_launches()), f"K1 settings {b}: differs from {k} one-sigma launches")
+        check(torch.equal(got, render()), f"K1 settings {b}: two calls differ")
+        nbytes = 4 * (3 * b * p + b * s * s)
+        flops = b * p * (2 * s * u * 5 + 2 + s) + b * s * s * p * 2
+        bound_ms, by = bound(nbytes, flops)
+        row = dict(max_abs_err=err, ms=time_ms(torch, render, iters=100),
+                   device_ms=time_ms(torch, render, device_only=True),
+                   scalar_launches_ms=time_ms(torch, scalar_launches, iters=100),
+                   scalar_launches_device_ms=time_ms(torch, scalar_launches, device_only=True),
+                   plain_ms=time_ms(torch, plain), bound_ms=bound_ms, bound_by=by)
+        emit({"phase": "k1", "B": b, "P": p, "S": s, "u": u, "psf_settings": k, "tol": 1e-5 * scale,
+              "bitwise_equal_to_scalar_launches": True, **row})
+        out[f"B_{b}"] = row
+    return out
 
 
 def _embedding_inputs(torch, b, t, s, seed, e=64):
@@ -394,16 +461,127 @@ def phase_k2_k3(torch):
                           bound_ms=b3, bound_by=by3)}
         emit(row)
         records[(b, t, s, e)] = row
-    # the kernels line carries batch 16 at E = 64, with the other embed dims
-    # and the framerate shapes beside it
+    members = {b: _k2_k3_members(torch, fe, 30, b) for b in (1, 16)}
+    # the kernels line carries batch 16 at E = 64, with the other embed dims,
+    # the framerate shapes and the grid's 30 members beside it
     out = []
     for k in ("k2", "k3"):
         row = dict(records[(16, 30, 9, 64)][k])
         for e in (58, 32, 128):
             row[f"at_embed_dim_{e}"] = {f"batch_{b}": records[(b, 30, 9, e)][k] for b in (1, 16)}
         row["at_s13"] = {f"T_{t}_batch_{b}": records[(b, t, 13, 64)][k] for t in (60, 6) for b in (1, 16)}
+        row["members_30"] = {f"batch_{b}": members[b][k] for b in (1, 16)}
         out.append(row)
     return out
+
+
+def _k2_k3_members(torch, fe, m, b, t=30, s=9, e=64):
+    """K2 and K3 over ``m`` members in one launch each (the psfnoise grid's
+    30 transformers at batch ``b``: 30 × 2,430 rows at batch 1, 30 × 38,880
+    at 16): every output bitwise equal to ``m`` one-member launches and to a
+    second member launch; against the plain version per member, K2 at the
+    rtol/atol 1e-4 of the rows above and K3 at their relative L2 of 1e-2 to
+    plain f32 (the one-member launches are held to float64 in the rows
+    above at the same shapes). Timed against the one-member launches in a
+    loop and the plain version under ``torch.vmap``."""
+    n, r = b * t, b * t * s * s
+    inputs = [_embedding_inputs(torch, b, t, s, seed=100 + i, e=e) for i in range(m)]
+    stack = lambda get: torch.stack([get(a).detach() for a in inputs]).contiguous()  # noqa: E731
+    xs = stack(lambda a: a[0].reshape(n, s, s))
+    weights = (
+        stack(lambda a: a[1]["initial"].reshape(9, 32)), stack(lambda a: fe._pack_w3(a[1]["rb1_conv1"])),
+        stack(lambda a: a[1]["rb1_skip"].reshape(32, 64)), stack(lambda a: fe._pack_w3(a[1]["rb1_conv2"])),
+        stack(lambda a: fe._pack_w3(a[1]["rb2_conv1"])), stack(lambda a: a[1]["rb2_skip"].reshape(64, 128)),
+        stack(lambda a: fe._pack_w3(a[1]["rb2_conv2"])),
+    )
+    sc = stack(lambda a: fe._pack_rows(list(a[2].values())))
+    bi = stack(lambda a: fe._pack_rows(list(a[3].values())))
+    wf, bf = stack(lambda a: a[4]), stack(lambda a: a[5])
+    args = (xs, weights, sc, bi, wf, bf)
+    one = lambda i: (xs[i], tuple(w[i] for w in weights), sc[i], bi[i], wf[i], bf[i])  # noqa: E731
+    g = torch.randn((m, n, e), generator=torch.Generator(device="cuda").manual_seed(b), device="cuda")
+
+    f0, b0 = fe.deep_resnet_embed_fwd.launches, fe.deep_resnet_embed_bwd.launches
+    emb, stats, saved = fe.deep_resnet_embed_fwd(*args)
+    grads = fe.deep_resnet_embed_bwd(*args, saved, g)
+    check((fe.deep_resnet_embed_fwd.launches - f0, fe.deep_resnet_embed_bwd.launches - b0) == (1, 1),
+          "K2/K3 members: more than one launch each")
+    def flat_fwd(out, i=None):  # one member's K2 outputs, without the undefined BN-row tails
+        emb_, stats_, saved_ = out if i is None else (out[0][i], out[1][i], {k: v[i] for k, v in out[2].items()})
+        return _defined(fe, [emb_, stats_, *(saved_[k] for k, _ in fe.SAVED), saved_["pooled"]])
+
+    def flat_bwd(out, i=None):  # one member's K3 gradients, likewise
+        if i is not None:
+            out = (out[0][i], tuple(w[i] for w in out[1]), *(x[i] for x in out[2:]))
+        return _defined(fe, [out[0], *out[1], *out[2:]])
+
+    again = fe.deep_resnet_embed_fwd(*args), fe.deep_resnet_embed_bwd(*args, saved, g)
+    for i in range(m):
+        fwd1 = fe.deep_resnet_embed_fwd(*one(i))
+        bwd1 = fe.deep_resnet_embed_bwd(*one(i), fwd1[2], g[i])
+        for j, (u, v, w) in enumerate(zip(flat_fwd(fwd1), flat_fwd((emb, stats, saved), i), flat_fwd(again[0], i))):
+            check(torch.equal(u, v), f"K2 members batch {b}: member {i} output {j} differs from its own launch")
+            check(torch.equal(v, w), f"K2 members batch {b}: member {i} output {j} differs between two calls")
+        for j, (u, v, w) in enumerate(zip(flat_bwd(bwd1), flat_bwd(grads, i), flat_bwd(again[1], i))):
+            check(torch.equal(u, v), f"K3 members batch {b}: member {i} gradient {j} differs from its own launch")
+            check(torch.equal(v, w), f"K3 members batch {b}: member {i} gradient {j} differs between two calls")
+    del again
+
+    # the plain version of the same function: every member at once under vmap
+    leaves = [torch.stack([a[0].detach() for a in inputs]).requires_grad_()]
+    dicts = [{k: torch.stack([a[j][k].detach() for a in inputs]).requires_grad_() for k in inputs[0][j]}
+             for j in (1, 2, 3)]
+    fc = [torch.stack([a[j].detach() for a in inputs]).requires_grad_() for j in (4, 5)]
+    leaves += [v for d in dicts for v in d.values()] + fc
+    plain = lambda: torch.vmap(fe.deep_resnet_embed_reference)(leaves[0], *dicts, *fc)  # noqa: E731
+    emb_r, st_r = plain()
+    err_fwd = float((emb.reshape(emb_r.shape) - emb_r).detach().abs().max())
+    check(torch.allclose(emb.reshape(emb_r.shape), emb_r, rtol=1e-4, atol=1e-4),
+          f"K2 members batch {b}: emb max|Δ| {err_fwd} to the plain version")
+    for i, (name, c) in enumerate(fe.BN_LAYOUT):
+        for q in (0, 1):
+            check(torch.allclose(stats[:, i, q, :c], st_r[name][q], rtol=1e-4, atol=1e-4),
+                  f"K2 members batch {b}: {name} statistics differ from the plain version")
+    grads_r = torch.autograd.grad(emb_r, leaves, g.reshape(emb_r.shape), retain_graph=True)
+    # the kernel's gradients in the plain leaves' layout, through the same autograd path
+    emb_k, _ = torch.vmap(fe.fused_deep_resnet_embed)(leaves[0], *dicts, *fc)
+    grads_k = torch.autograd.grad(emb_k, leaves, g.reshape(emb_r.shape))
+    worst_l2, err_bwd = 0.0, 0.0
+    for j, (gk, gr) in enumerate(zip(grads_k, grads_r)):
+        for i in range(m):
+            l2 = float((gk[i] - gr[i]).norm() / gr[i].norm())
+            check(l2 <= 1e-2, f"K3 members batch {b}: member {i} gradient {j} relative L2 {l2} to plain f32")
+            worst_l2 = max(worst_l2, l2)
+        err_bwd = max(err_bwd, float((gk - gr).abs().max()))
+
+    fwd = lambda: fe.deep_resnet_embed_fwd(*args)  # noqa: E731
+    bwd = lambda: fe.deep_resnet_embed_bwd(*args, saved, g)  # noqa: E731
+    fwd_singles = lambda: [fe.deep_resnet_embed_fwd(*one(i)) for i in range(m)]  # noqa: E731
+    saved1 = [fe.deep_resnet_embed_fwd(*one(i))[2] for i in range(m)]
+    bwd_singles = lambda: [fe.deep_resnet_embed_bwd(*one(i), saved1[i], g[i]) for i in range(m)]  # noqa: E731
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(torch, plain, iters=5, warmup=1)
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(emb_r, leaves, g.reshape(emb_r.shape),
+                                                              retain_graph=True), iters=5, warmup=1)
+    simt, tensor = _embedding_flops(r, n, e)
+    param_bytes = 4 * sum(w[0].numel() for w in weights) + 4 * (2 * 7 * 128 + 128 * e + e)
+    b2, by2 = bound(m * (4 * r + param_bytes + 4 * n * e + 4 * 7 * 2 * 128), m * simt, m * tensor)
+    b3, by3 = bound(m * (4 * n * e + 4 * r + param_bytes + 4 * r + param_bytes), 2 * m * simt, 2 * m * tensor)
+    row = {"phase": "k2_k3", "members": m, "B": b, "T": t, "S": s, "E": e, "rows_per_member": r,
+           "rows": m * r, "bitwise_equal_to_single_launches": True, "deterministic": True,
+           "k3_worst_rel_l2_to_plain_f32": worst_l2,
+           "k2": dict(max_abs_err=err_fwd, ms=time_ms(torch, fwd, iters=10),
+                      device_ms=time_ms(torch, fwd, iters=10, device_only=True),
+                      single_launches_ms=time_ms(torch, fwd_singles, iters=5),
+                      single_launches_device_ms=time_ms(torch, fwd_singles, iters=5, device_only=True),
+                      plain_ms=plain_fwd_ms, bound_ms=b2, bound_by=by2),
+           "k3": dict(max_abs_err=err_bwd, ms=time_ms(torch, bwd, iters=10),
+                      device_ms=time_ms(torch, bwd, iters=10, device_only=True),
+                      single_launches_ms=time_ms(torch, bwd_singles, iters=5),
+                      single_launches_device_ms=time_ms(torch, bwd_singles, iters=5, device_only=True),
+                      plain_ms=plain_bwd_ms, bound_ms=b3, bound_by=by3)}
+    emit(row)
+    return row
 
 
 def baseline_arms():
@@ -551,29 +729,50 @@ def _replay_host_ms(torch, engine, n: int = 20) -> dict:
     return out
 
 
+def _models(exp):
+    """``(model name, arm name, member index or None)`` of every model of an
+    experiment: an arm of one model, or each member of a grid arm."""
+    from moleculardiffusion_mivit_tpu_torch.experiments.base import GridArm
+
+    return [(n, arm_name, i) if isinstance(arm, GridArm) else (arm_name, arm_name, None)
+            for arm_name, arm in exp.arms.items()
+            for i, n in enumerate(arm.names if isinstance(arm, GridArm) else [arm_name])]
+
+
+def _member_losses(exp) -> dict:
+    """Each learned model's training loss of every cycle so far (a grid arm
+    keeps its members' as one tensor a cycle)."""
+    return {name: [float(v if i is None else v[i]) for v in exp.train_loss[arm]]
+            for name, arm, i in _models(exp) if arm in exp.train_loss}
+
+
 def _compare_experiments(torch, a, b):
-    """Per arm, the largest relative differences between two experiments'
+    """Per model, the largest relative differences between two experiments'
     training losses and validation MSEs of every cycle so far and their
     parameters and buffers now, and whether all of them are bitwise equal
-    (a non-learned arm has only its validation MSEs)."""
+    (a non-learned arm has only its validation MSEs; a grid's members are
+    compared one by one)."""
     out = {}
-    for name in a.arms:
+    losses_a, losses_b = _member_losses(a), _member_losses(b)
+    for name, arm, member in _models(a):
         d = {"loss": 0.0, "val": 0.0, "param": 0.0, "bitwise": True}
-        pairs = {"loss": list(zip([float(v) for v in a.train_loss.get(name, [])],
-                                  [float(v) for v in b.train_loss.get(name, [])]))}
+        pairs = {"loss": list(zip(losses_a.get(name, []), losses_b.get(name, [])))}
         pairs["val"] = [p for key in a.history[name] for p in zip(a.history[name][key], b.history[name][key])]
         for what, ps in pairs.items():
             for va, vb in ps:
                 d[what] = max(d[what], abs(va - vb) / abs(vb))
                 d["bitwise"] &= va == vb
-        if name not in a.states:
+        if arm not in a.states:
             out[name] = d
             continue
-        ref = b.states[name].model.state_dict()
-        for key, v in a.states[name].model.state_dict().items():
-            d["bitwise"] &= bool(torch.equal(v, ref[key]))
-            scale = float(ref[key].abs().max()) or 1.0
-            d["param"] = max(d["param"], float((v - ref[key]).abs().max()) / scale)
+        ref = b.states[arm].model.state_dict()
+        for key, v in a.states[arm].model.state_dict().items():
+            w = ref[key]
+            if member is not None:
+                v, w = v[member], w[member]
+            d["bitwise"] &= bool(torch.equal(v, w))
+            scale = float(w.abs().max()) or 1.0
+            d["param"] = max(d["param"], float((v - w).abs().max()) / scale)
         out[name] = d
     return out
 
@@ -738,28 +937,48 @@ def _captured_against_eager(torch, build, phase, card, tol=1e-4):
     return cap
 
 
-def _batch_one_profiled(torch, build, phase, deep, renders):
+def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None):
     """Part (b) of an experiment phase: at batch 1, captured, a capture
     cycle, a timed cycle and a profiled one. Checks finite losses and MSEs,
-    training loss falling, K2/K3 recorded once a replay in exactly the
-    ``deep`` arms' graphs, and the profiler's own count of K1 (``renders`` a
-    cycle) and K2/K3 (once a step of each deep arm). Returns the experiment,
-    the cycle marks, ``_profiled``'s results, launches per replay by unit,
-    the losses and the profiler's counts."""
+    training loss falling for every model (each member of a grid), K2/K3
+    recorded once a replay in exactly the ``deep`` arms' graphs (a grid arm
+    once for all its members), and the profiler's own count of K1
+    (``renders`` a cycle) and K2/K3 (once a step of each deep arm). The loss
+    falls if the third cycle's mean is below the first's; with
+    ``early_steps``, below the mean of cycle 0's first ``early_steps`` steps
+    (the loss from initialisation: a model on the predict-the-mean plateau
+    has fallen to it in cycle 0 and may stay there for cycles). Returns the
+    experiment, the cycle marks, ``_profiled``'s results, launches per replay
+    by unit, the losses and the profiler's counts."""
     exp = build(1, True)
     eng = exp.engine
     marks = [time.perf_counter()]
-    exp.run(2, callback=lambda c, m: marks.append(time.perf_counter()))
+    early = {}
+
+    def after_cycle(c, m):
+        marks.append(time.perf_counter())
+        if c == 0 and early_steps:  # the engine's buffers hold cycle 0's per-step losses
+            for key, unit in eng.units.items():
+                for arm, buf in zip(key, unit.losses):
+                    names = getattr(exp.arms[arm], "names", [arm])
+                    first = buf[:early_steps].mean(dim=0).reshape(-1).tolist()
+                    early.update(zip(names, first))
+
+    exp.run(2, callback=after_cycle)
     torch.cuda.synchronize()
     eng.unit_seconds = {}
     profiled = _profiled(torch, lambda: exp.run(1, start_cycle=2))
     names = profiled[4]
-    losses = {n: [float(v) for v in exp.train_loss[n]] for n in exp.train_loss}
+    losses = _member_losses(exp)
     for n, hist in exp.history.items():
         check(all(math.isfinite(v) for vals in hist.values() for v in vals), f"{phase}: {n}: non-finite val MSE")
     for n, ls in losses.items():
         check(all(math.isfinite(v) for v in ls), f"{phase}: {n}: non-finite loss {ls}")
-        check(ls[2] < ls[0], f"{phase}: {n}: training loss did not fall: {ls}")
+        start = early[n] if early_steps else ls[0]
+        check(ls[2] < start, f"{phase}: {n}: training loss did not fall: {ls} from {start}")
+    if early_steps:
+        emit({"phase": phase, "part": "b_loss", "early_steps": early_steps, "early_loss": early,
+              "cycle_loss": losses, "not_below_cycle_0": sorted(n for n, ls in losses.items() if ls[2] >= ls[0])})
     units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
     for key, per in units1.items():
         want = sum(1 for n in key.split("+") if n in deep)
@@ -1204,14 +1423,121 @@ def phase_framerate(torch, card):
     return launches
 
 
+def phase_psfnoise(torch, card):
+    """The PSF × noise experiment through its entry points
+    (``experiments.psfnoise.build`` + ``Experiment.run``, then
+    ``run_experiment.main psfnoise --in-order``) at full width and full
+    data: 60 models in two grid arms, ``tr_grid`` (30 deep-ResNet
+    transformers, no positional encoding) and ``res_grid`` (30
+    MultiImageResNets), member ``6 i + j`` on cell (PSF ``i``, noise ``j``)
+    of one ``(352, 5, 6, 30, 9, 9)`` tensor a cycle (5 D classes × 64 and the
+    10.2 class × 32 sequences of 300 steps); validation at D = 1, 3, 5, 7, 9.
+    (a) Batch 16, captured against eager from one seed, two cycles: every
+    member's losses, validation MSEs, parameters and buffers agree to 1e-4
+    relative; the second cycle is timed. (b) Batch 1, captured: a capture
+    cycle, a timed cycle and a profiled one; every member's training loss
+    falls from initialisation (the third cycle's mean below the mean of
+    cycle 0's first 35 steps: the noisiest cells sit on the predict-the-mean
+    plateau for their first cycles, in the JAX record too, so the cycle
+    means of 0 and 2 are reported, not held); generation timed on its own. (c) Launches: K2/K3 once a grid step
+    for all 30 members (⌊352/b⌋ a cycle, in ``tr_grid``'s graph, never in
+    ``res_grid``'s); K1 once per D class a cycle (6), once per validation D
+    a build (5) and once for the in-order suite, each for all five PSF
+    settings. (d) The runner writes ``psfnoise_errors.csv`` with the JAX
+    record's 60 model names and finite scores."""
+    import csv as csv_lib
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch import run_experiment
+    from moleculardiffusion_mivit_tpu_torch.experiments import psfnoise
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    deep = ("tr_grid",)
+    torch.cuda.reset_peak_memory_stats()
+    engines = []
+
+    def build(batch, fused):
+        exp = psfnoise.build(seed=0, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    t_phase = time.perf_counter()
+
+    cap = _captured_against_eager(torch, build, "psfnoise", card)
+    n_seq = _sequences(cap)
+    names = [f"{k}_{i}_{j}" for k in ("tr", "res") for i in range(5) for j in range(6)]
+    check(n_seq == 352 and cap.model_names == names, f"psfnoise: {n_seq} sequences, models {cap.model_names}")
+    del cap
+    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+        torch, build, "psfnoise", deep, renders=6, early_steps=n_seq // 10)
+    eng = exp.engine
+    check(set(units1) == set(exp.arms), f"psfnoise: units {sorted(units1)}")
+    check(len(losses) == 60, f"psfnoise: losses of {len(losses)} models")
+
+    # the user's entry point: one cycle (batch 1 by the schedule) and the
+    # in-order suite's error table
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        cli = run_experiment.main(["psfnoise", "--cycles", "1", "--out", out, "--checkpoint-last", "0",
+                                   "--in-order"])
+        torch.cuda.synchronize()
+        runner_s = time.perf_counter() - t0
+        engines.append(cli.engine)
+        for f in ("metrics.jsonl", "history.json", "final/meta.json", "final/states/tr_grid.pt",
+                  "in_order_predictions.npz"):
+            check(Path(out, f).is_file(), f"run_experiment psfnoise wrote no {f}")
+        with open(Path(out, "psfnoise_errors.csv")) as fh:
+            table = {row["model"]: float(row["mse"]) for row in csv_lib.DictReader(fh)}
+    with open(ROOT / "results" / "psfnoise_reconciled" / "psfnoise_errors.csv") as fh:
+        record = [row["model"] for row in csv_lib.DictReader(fh)]
+    check(list(table) == record == names, f"psfnoise: error table rows {list(table)[:3]}…")
+    check(all(math.isfinite(v) for v in table.values()), f"psfnoise: error table {table}")
+    del cli
+    torch.cuda.synchronize()
+    launches = kernel_launches(counts0, engines)
+    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) 2 × 2 cycles, (b) 3, the runner's 1
+    k1_want = 5 * builds + 6 * cycles + 1  # the runner's in-order suite
+    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    check(launches["render_frames"] == k1_want, f"psfnoise: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"psfnoise: {k} launches {launches[k]} != {k23_want}")
+
+    # after the counts: replays and generation timed on their own
+    replay_host_ms = _replay_host_ms(torch, eng)
+    gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
+    gen_ms = time_ms(torch, gen, iters=5, warmup=1)
+    s_cycle = marks[2] - marks[1]
+    emit({"phase": "psfnoise", "part": "b", "card": card, "batch": 1, "models": len(losses),
+          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
+          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
+          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
+          "kernels_per_step": n_kernels / n_seq, "profiled_kernels_once_per_k1_k2_k3_call": seen,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
+          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "psfnoise", "part": "c_launches", "launches": launches, "k1_expected": k1_want,
+          "k2_k3_expected": k23_want})
+    emit({"phase": "psfnoise", "part": "d_runner", "seconds": runner_s, "in_order_mse": table,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 # The main paths, each driven by its phase, in groups that each run in a
 # process of their own: in one long process torch.profiler came to lose
 # single K1 records (one of 36 in a framerate cycle, one of 5 in a modular
 # generation call) once several phases had profiled before it, never in a
 # fresh process. The first group ran in one process in every earlier smoke.
 PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features": phase_images_features,
-         "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate}
-PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",))
+         "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
+         "psfnoise": phase_psfnoise}
+PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
+               ("psfnoise",))
 GROUP_TIMEOUT_S = 600
 
 

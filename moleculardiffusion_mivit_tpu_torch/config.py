@@ -2,7 +2,7 @@
 
 A copy of the dataclasses of ``moleculardiffusion_mivit_tpu/config.py``
 (``OpticsConfig``, ``ModelConfig``, ``TrainConfig``, ``BASELINE_OPTICS``,
-``FRAMERATE_OPTICS``),
+``PSFNOISE_OPTICS``, ``FRAMERATE_OPTICS``),
 kept here so the port imports nothing of the JAX package. Field names,
 defaults and derived properties are the same.
 """
@@ -61,6 +61,18 @@ BASELINE_OPTICS = OpticsConfig(
     psf_division_factor=1.3,
     output_size=9,
     background_intensity=(1420.0, 290.0),
+    poisson_noise=100.0,
+    trajectory_unit=1200.0,
+)
+
+# The optics of the PSF x noise experiment (the reference's
+# Experiments/PSFNoise/trainSettingsPSFNoise.py:64-85): a brighter spot on a
+# flat background; the grid renderer adds each noise level's background.
+PSFNOISE_OPTICS = OpticsConfig(
+    particle_intensity=(5000.0, 500.0),
+    psf_division_factor=1.3,
+    output_size=9,
+    background_intensity=(5000.0, 0.0),
     poisson_noise=100.0,
     trajectory_unit=1200.0,
 )

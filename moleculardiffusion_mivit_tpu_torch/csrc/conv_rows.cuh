@@ -12,6 +12,12 @@
 // image row, is by construction an out-of-image tap of the output pixel: a
 // per-pixel table of 9 validity bits (built by the caller, S*S entries)
 // zeroes it when the fragment is read. No index arithmetic per element.
+//
+// Members. Both kernels take a stack of M independent problems of the same
+// shape (the member axis of a model grid): member m reads and writes its
+// own arrays at m times the array's member stride (in elements, 64-bit) and
+// runs exactly the blocks, tiles and fixed-order sums a call for that
+// member alone would run, so its result is bitwise the one-member result.
 #pragma once
 
 #include <algorithm>
@@ -23,6 +29,14 @@ namespace conv {
 constexpr int kSMs = 132;
 
 inline int ceil_div(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
+
+// Member m's part of a stacked array; a null array stays null.
+template <typename T>
+__device__ __forceinline__ T* member_ptr(T* p, long long stride, int m) {
+  return p ? p + m * stride : p;
+}
+
+constexpr int kMaxGridYZ = 65535;
 
 // Dynamic shared memory above 48 KB has to be allowed per kernel and device.
 // A launcher keeps one SmemGrant per kernel: the device it last asked for and
@@ -70,7 +84,8 @@ template <int MT, int NT, int WM, int WN, bool WG>
 __global__ void __launch_bounds__(WM * WN * 32, 2) conv_rows_tc_kernel(
     const float* __restrict__ x, const float* __restrict__ wp, const float* add,
     const float* __restrict__ mask, float* y, double* __restrict__ stat_partial,
-    const int* __restrict__ valid, int R, int S, int Ci, int Co, int taps) {
+    const int* __restrict__ valid, int R, int S, int Ci, int Co, int taps, long long x_ms,
+    long long wp_ms, long long add_ms, long long mask_ms, long long y_ms, long long stat_ms) {
   static_assert(!WG || (MT == 1 && WN == 1 && WM % 4 == 0), "a warpgroup owns 64 rows");
   constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
   constexpr int kThreads = WM * WN * 32;
@@ -85,6 +100,13 @@ __global__ void __launch_bounds__(WM * WN * 32, 2) conv_rows_tc_kernel(
   float* w_s = smem;                     // [kStages][KC / 8][2][BN / 8][64]
   float* a_s = smem + kStages * W_TILE;  // [n_slabs][slab_rows][A_STRIDE]
 
+  const int member = blockIdx.z;
+  x = member_ptr(x, x_ms, member);
+  wp = member_ptr(wp, wp_ms, member);
+  add = member_ptr(add, add_ms, member);
+  mask = member_ptr(mask, mask_ms, member);
+  y = member_ptr(y, y_ms, member);
+  stat_partial = member_ptr(stat_partial, stat_ms, member);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm = warp / WN, wn = warp % WN;
@@ -343,10 +365,15 @@ __global__ void __launch_bounds__(WM * WN * 32, 2) conv_rows_tc_kernel(
   }
 }
 
+// Member strides of a conv's arrays, in elements (unused with one member).
+struct ConvStrides {
+  long long x, wp, add, mask, y, stat;
+};
+
 template <int MT, int NT, int WM, int WN, bool WG>
 int launch_conv_tile(const float* x, const float* wp, const float* add, const float* mask,
                      float* y, double* stat_partial, const int* valid, int R, int S, int Ci,
-                     int Co, int taps, cudaStream_t st) {
+                     int Co, int taps, int M, const ConvStrides& ms, cudaStream_t st) {
   constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
   constexpr int kThreads = WM * WN * 32;
   static_assert(BN <= kThreads, "the statistics epilogue gives one column to a thread");
@@ -357,9 +384,9 @@ int launch_conv_tile(const float* x, const float* wp, const float* add, const fl
   static SmemGrant granted;
   const cudaError_t e = grant_smem(kernel, bytes, granted);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(ceil_div(R, BM), Co / BN);
+  dim3 grid(ceil_div(R, BM), Co / BN, M);
   kernel<<<grid, kThreads, bytes, st>>>(x, wp, add, mask, y, stat_partial, valid, R, S, Ci, Co,
-                                        taps);
+                                        taps, ms.x, ms.wp, ms.add, ms.mask, ms.y, ms.stat);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -369,10 +396,12 @@ int launch_conv_tile(const float* x, const float* wp, const float* add, const fl
 // warpgroup), else 32 rows with mma.sync, and then 32 columns instead of 64
 // if that is what it takes to give every SM two blocks.
 // Returns the rows per tile through `bm` (the BatchNorm merge needs it).
+// With M members the tile is the one a member alone gets (R is a member's
+// rows), and the grid repeats it M times.
 inline int launch_conv(const float* x, const float* wp, const float* add, const float* mask,
                        float* y, double* stat_partial, const int* valid, int R, int S, int Ci,
-                       int Co, int taps, int* bm, cudaStream_t st) {
-  if (Ci % KC != 0 || Co % 32 != 0 || (taps != 1 && taps != 9))
+                       int Co, int taps, int M, const ConvStrides& ms, int* bm, cudaStream_t st) {
+  if (Ci % KC != 0 || Co % 32 != 0 || (taps != 1 && taps != 9) || M < 1 || M > kMaxGridYZ)
     return static_cast<int>(cudaErrorInvalidValue);
   int bn = Co % 64 == 0 ? 64 : 32;
   const int nb = Co / bn;
@@ -385,7 +414,7 @@ inline int launch_conv(const float* x, const float* wp, const float* add, const 
     if (ceil_div(R, 32) * nb < 2 * kSMs) bn = 32;
   }
 #define CONV_TILE(MT, NT, WM, WN, WG) \
-  return launch_conv_tile<MT, NT, WM, WN, WG>(x, wp, add, mask, y, stat_partial, valid, R, S, Ci, Co, taps, st)
+  return launch_conv_tile<MT, NT, WM, WN, WG>(x, wp, add, mask, y, stat_partial, valid, R, S, Ci, Co, taps, M, ms, st)
   if (bn == 64) {
     if (*bm == 128) CONV_TILE(1, 8, 8, 1, true);
     if (*bm == 64) CONV_TILE(1, 8, 4, 1, true);
@@ -419,15 +448,20 @@ inline int wgrad_stage_floats(int S, int taps) {
 template <int TAPS>
 __global__ void __launch_bounds__(kWgThreads) wgrad_rows_tc_kernel(
     const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ partial,
-    const int* __restrict__ valid, int R, int S, int Ci, int Co, int rows_per_chunk) {
+    const int* __restrict__ valid, int R, int S, int Ci, int Co, int rows_per_chunk, int chunks,
+    long long x_ms, long long g_ms, long long partial_ms) {
   extern __shared__ __align__(16) float smem[];
+  const int member = blockIdx.z / chunks;
+  x = member_ptr(x, x_ms, member);
+  g = member_ptr(g, g_ms, member);
+  partial = member_ptr(partial, partial_ms, member);
   const int halo = TAPS == 9 ? S + 1 : 0;
   const int slab_rows = RB + 2 * halo;
   const int stage_floats = slab_rows * X_STRIDE + RB * G_STRIDE + RB;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int wco = warp >> 2, wci = warp & 3;
-  const int ci0 = blockIdx.x * CIB, co0 = blockIdx.y * COB, chunk = blockIdx.z;
+  const int ci0 = blockIdx.x * CIB, co0 = blockIdx.y * COB, chunk = blockIdx.z % chunks;
   const int r_begin = chunk * rows_per_chunk;
   const int r_end = min(R, r_begin + rows_per_chunk);
   const int steps = (r_end - r_begin + RB - 1) / RB;
@@ -555,19 +589,24 @@ inline void wgrad_chunks(int R, int Ci, int Co, int* chunks, int* rows_per_chunk
   *chunks = ceil_div(R, *rows_per_chunk);
 }
 
+// With M members (R a member's rows) each member gets the chunks a member
+// alone gets; the grid's z runs over (member, chunk).
 template <int TAPS>
 int launch_wgrad(const float* x, const float* g, float* partial, const int* valid, int R, int S,
-                 int Ci, int Co, int* chunks, cudaStream_t st) {
-  if (Ci % CIB != 0 || Co % COB != 0) return static_cast<int>(cudaErrorInvalidValue);
+                 int Ci, int Co, int M, long long x_ms, long long g_ms, long long partial_ms,
+                 int* chunks, cudaStream_t st) {
+  if (Ci % CIB != 0 || Co % COB != 0 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
   int rows_per_chunk;
   wgrad_chunks(R, Ci, Co, chunks, &rows_per_chunk);
+  if (static_cast<long long>(*chunks) * M > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = 4 * kWgStages * wgrad_stage_floats(S, TAPS);
   auto kernel = wgrad_rows_tc_kernel<TAPS>;
   static SmemGrant granted;
   const cudaError_t e = grant_smem(kernel, bytes, granted);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(Ci / CIB, Co / COB, *chunks);
-  kernel<<<grid, kWgThreads, bytes, st>>>(x, g, partial, valid, R, S, Ci, Co, rows_per_chunk);
+  dim3 grid(Ci / CIB, Co / COB, *chunks * M);
+  kernel<<<grid, kWgThreads, bytes, st>>>(x, g, partial, valid, R, S, Ci, Co, rows_per_chunk,
+                                          *chunks, x_ms, g_ms, partial_ms);
   return static_cast<int>(cudaGetLastError());
 }
 

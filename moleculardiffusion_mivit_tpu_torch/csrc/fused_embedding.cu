@@ -85,6 +85,17 @@
 // and here that index is the row, shifted by an odd offset per tap); BN +
 // ReLU are not applied while the next conv loads its slab, because the
 // backward needs the post-ReLU activations in memory anyway.
+//
+// Members. Both entries take M independent members at once (a grid of
+// models: each member its own input rows, weights, BN statistics and
+// gradients). Every launch above carries the member index in its grid
+// (blockIdx.y or .z; the weight gradient folds it into z with the row
+// chunk), and every array is offset by m times its member stride, which the
+// caller passes beside each pointer (64-bit: 30 members at batch 16 hold
+// 1.2 M rows, 4.8 GB of saved activations). Tiles, row chunks and the
+// fixed-order sums are chosen from a member's rows, so member m's result is
+// bitwise the result of a call for m alone, and BN statistics never mix
+// members. With M = 1 every launch is the one-member launch.
 
 #include <cuda_runtime.h>
 
@@ -95,6 +106,7 @@
 namespace {
 
 using conv::ceil_div;
+using conv::member_ptr;
 
 constexpr int C0 = 32, C1 = 64, C2 = 128, CMAX = 128;
 constexpr float kEps = 1e-5f;
@@ -137,6 +149,7 @@ struct PackItem {
   const float* src;
   float* dst;
   int taps, K, N;
+  long long src_ms, dst_ms;  // member strides
 };
 struct PackList {
   PackItem item[kNumPacked];
@@ -150,7 +163,9 @@ struct PackList {
 // Forward: K = ci, N = co, B = w. With flip (the data gradient): K = co,
 // N = ci, B[tap][k][n] = w[taps - 1 - tap][n][k].
 __global__ void pack_weights_kernel(PackList list, int flip) {
-  const PackItem it = list.item[blockIdx.y];
+  PackItem it = list.item[blockIdx.y];
+  it.src = member_ptr(it.src, it.src_ms, blockIdx.z);
+  it.dst = member_ptr(it.dst, it.dst_ms, blockIdx.z);
   const int nb = it.N / 8, kb = it.K / 8;
   const int n = it.taps * kb * nb * 16;  // one thread per core-matrix row: (tap, kb, nb, h, r)
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
@@ -182,7 +197,10 @@ __device__ __forceinline__ int tap_offset(int t, int S) { return (t / 3 - 1) * S
 // Initial conv, 1 -> 32 channels: z[r, c] = sum_t x[r + off(t)] * w[t, c].
 __global__ void __launch_bounds__(NT) conv0_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ z,
-    const int* __restrict__ valid, int R, int S) {
+    const int* __restrict__ valid, int R, int S, long long x_ms, long long w_ms, long long z_ms) {
+  x = member_ptr(x, x_ms, blockIdx.y);
+  w = member_ptr(w, w_ms, blockIdx.y);
+  z = member_ptr(z, z_ms, blockIdx.y);
   const int i = blockIdx.x * NT + threadIdx.x;
   if (i >= R * C0) return;
   const int r = i / C0, c = i % C0;
@@ -198,7 +216,10 @@ __global__ void __launch_bounds__(NT) conv0_fwd_kernel(
 // gx[r] = sum_{t, c} d[r + off(t), c] * w[8 - t, c].
 __global__ void __launch_bounds__(NT) conv0_dgrad_kernel(
     const float* __restrict__ d, const float* __restrict__ w, float* __restrict__ gx,
-    const int* __restrict__ valid, int R, int S) {
+    const int* __restrict__ valid, int R, int S, long long d_ms, long long w_ms, long long gx_ms) {
+  d = member_ptr(d, d_ms, blockIdx.y);
+  w = member_ptr(w, w_ms, blockIdx.y);
+  gx = member_ptr(gx, gx_ms, blockIdx.y);
   const int r = (blockIdx.x * NT + threadIdx.x) / 32, lane = threadIdx.x % 32;
   if (r >= R) return;
   const int vm = valid[r % (S * S)];
@@ -216,8 +237,12 @@ __global__ void __launch_bounds__(NT) conv0_dgrad_kernel(
 // x[r + off(t)] * d[r, c].
 __global__ void __launch_bounds__(NT) conv0_wgrad_kernel(
     const float* __restrict__ x, const float* __restrict__ d, float* __restrict__ partial,
-    const int* __restrict__ valid, int R, int S, int rows_per_chunk) {
+    const int* __restrict__ valid, int R, int S, int rows_per_chunk, long long x_ms, long long d_ms,
+    long long partial_ms) {
   __shared__ float red[NT / C0][9][C0];
+  x = member_ptr(x, x_ms, blockIdx.y);
+  d = member_ptr(d, d_ms, blockIdx.y);
+  partial = member_ptr(partial, partial_ms, blockIdx.y);
   const int c = threadIdx.x % C0, lane = threadIdx.x / C0;
   const int r_begin = blockIdx.x * rows_per_chunk, r_end = min(R, r_begin + rows_per_chunk);
   const int SS = S * S;
@@ -244,8 +269,11 @@ __global__ void __launch_bounds__(NT) conv0_wgrad_kernel(
 // a batch of 32, double across batches.
 __global__ void __launch_bounds__(NT) fc_wgrad_kernel(
     const float* __restrict__ pooled, const float* __restrict__ g, float* __restrict__ out,
-    int N, int E) {
+    int N, int E, long long pooled_ms, long long g_ms, long long out_ms) {
   __shared__ float p_s[32][16 + 1];
+  pooled = member_ptr(pooled, pooled_ms, blockIdx.z);
+  g = member_ptr(g, g_ms, blockIdx.z);
+  out = member_ptr(out, out_ms, blockIdx.z);
   __shared__ float g_s[32][16 + 1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int c0 = blockIdx.x * 16, e0 = blockIdx.y * 16;
@@ -267,7 +295,10 @@ __global__ void __launch_bounds__(NT) fc_wgrad_kernel(
 }
 
 __global__ void sum_chunks_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, int n, int chunks) {
+                                  float* __restrict__ out, int n, int chunks,
+                                  long long partial_ms, long long out_ms) {
+  partial = member_ptr(partial, partial_ms, blockIdx.y);
+  out = member_ptr(out, out_ms, blockIdx.y);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   double s = 0.0;
@@ -280,9 +311,12 @@ __global__ void sum_chunks_kernel(const float* __restrict__ partial,
 // initial conv's output; the tensor-core convs write the same partials per
 // tile from their epilogue.
 __global__ void __launch_bounds__(NT) bn_stats_partial_kernel(
-    const float* __restrict__ z, double* __restrict__ partial, int R, int C) {
+    const float* __restrict__ z, double* __restrict__ partial, int R, int C, long long z_ms,
+    long long partial_ms) {
   __shared__ double red[NT];
   __shared__ double mean_s[NT];
+  z = member_ptr(z, z_ms, blockIdx.y);
+  partial = member_ptr(partial, partial_ms, blockIdx.y);
   const int c = threadIdx.x % C, lane = threadIdx.x / C, lanes = NT / C;
   const bool on = lane < lanes;
   const int r0 = blockIdx.x * kStatRows, r1 = min(R, r0 + kStatRows);
@@ -349,8 +383,10 @@ __device__ __forceinline__ double sum_over_lanes(double v, double* buf) {
 // st[0:C] = mean, st[CMAX:CMAX+C] = biased var, st[2*CMAX:2*CMAX+C] = rstd
 __global__ void __launch_bounds__(kFinalThreads) bn_stats_final_kernel(
     const double* __restrict__ partial, float* __restrict__ st, int nblk, int block_rows, int R,
-    int C) {
+    int C, long long partial_ms, long long st_ms) {
   __shared__ double buf[kFinalThreads];
+  partial = member_ptr(partial, partial_ms, blockIdx.y);
+  st = member_ptr(st, st_ms, blockIdx.y);
   const int c = blockIdx.x * kFinalCols + threadIdx.x % kFinalCols;
   const int lane = threadIdx.x / kFinalCols;
   const int per = (nblk + kFinalLanes - 1) / kFinalLanes;
@@ -376,11 +412,27 @@ __global__ void __launch_bounds__(kFinalThreads) bn_stats_final_kernel(
   st[2 * CMAX + c] = rsqrtf(var + kEps);
 }
 
+// Member strides of bn_act's arrays: z (za, zb), statistics, scales and
+// biases, output.
+struct ActStrides {
+  long long za, zb, st, bn, out;
+};
+
 __global__ void bn_act_kernel(const float* __restrict__ za, const float* __restrict__ sta,
                               const float* __restrict__ sca, const float* __restrict__ bia,
                               const float* __restrict__ zb, const float* __restrict__ stb,
                               const float* __restrict__ scb, const float* __restrict__ bib,
-                              float* __restrict__ out, int R, int C) {
+                              float* __restrict__ out, int R, int C, ActStrides ms) {
+  const int m = blockIdx.y;
+  za = member_ptr(za, ms.za, m);
+  zb = member_ptr(zb, ms.zb, m);
+  sta = member_ptr(sta, ms.st, m);
+  stb = member_ptr(stb, ms.st, m);
+  sca = member_ptr(sca, ms.bn, m);
+  scb = member_ptr(scb, ms.bn, m);
+  bia = member_ptr(bia, ms.bn, m);
+  bib = member_ptr(bib, ms.bn, m);
+  out = member_ptr(out, ms.out, m);
   const size_t n = static_cast<size_t>(R) * C;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
@@ -397,9 +449,14 @@ __global__ void bn_act_kernel(const float* __restrict__ za, const float* __restr
 // everything beyond that accumulates in double. Needs C <= NT.
 __global__ void __launch_bounds__(NT) bn_bwd_partial_kernel(
     const float* __restrict__ g, const float* __restrict__ z,
-    const float* __restrict__ st, double* __restrict__ partial, int R, int C) {
+    const float* __restrict__ st, double* __restrict__ partial, int R, int C, long long g_ms,
+    long long z_ms, long long st_ms, long long partial_ms) {
   __shared__ double red0[NT];
   __shared__ double red1[NT];
+  g = member_ptr(g, g_ms, blockIdx.y);
+  z = member_ptr(z, z_ms, blockIdx.y);
+  st = member_ptr(st, st_ms, blockIdx.y);
+  partial = member_ptr(partial, partial_ms, blockIdx.y);
   const int c = threadIdx.x % C, lane = threadIdx.x / C, lanes = NT / C;
   const int r0 = blockIdx.x * kStatRows, r1 = min(R, r0 + kStatRows);
   float a0[4] = {}, a1[4] = {};
@@ -436,8 +493,11 @@ __global__ void __launch_bounds__(NT) bn_bwd_partial_kernel(
 // ceil(C / kFinalCols).
 __global__ void __launch_bounds__(kFinalThreads) colsum_final_kernel(
     const double* __restrict__ partial, float* __restrict__ out0, float* __restrict__ out1,
-    int nblk, int C) {
+    int nblk, int C, long long partial_ms, long long out_ms) {
   __shared__ double buf[kFinalThreads];
+  partial = member_ptr(partial, partial_ms, blockIdx.y);
+  out0 = member_ptr(out0, out_ms, blockIdx.y);
+  out1 = member_ptr(out1, out_ms, blockIdx.y);
   const int c = blockIdx.x * kFinalCols + threadIdx.x % kFinalCols;
   const int lane = threadIdx.x / kFinalCols;
   const int per = (nblk + kFinalLanes - 1) / kFinalLanes;
@@ -460,7 +520,17 @@ __global__ void bn_bwd_apply_kernel(const float* __restrict__ g, const float* __
                                     const float* __restrict__ st, const float* __restrict__ sc,
                                     const float* __restrict__ dbias,
                                     const float* __restrict__ dscale,
-                                    float* __restrict__ out, int R, int C) {
+                                    float* __restrict__ out, int R, int C, long long g_ms,
+                                    long long z_ms, long long st_ms, long long bn_ms,
+                                    long long out_ms) {
+  const int m = blockIdx.y;
+  g = member_ptr(g, g_ms, m);
+  z = member_ptr(z, z_ms, m);
+  st = member_ptr(st, st_ms, m);
+  sc = member_ptr(sc, bn_ms, m);
+  dbias = member_ptr(dbias, bn_ms, m);
+  dscale = member_ptr(dscale, bn_ms, m);
+  out = member_ptr(out, out_ms, m);
   const size_t n = static_cast<size_t>(R) * C;
   const float inv_r = 1.f / static_cast<float>(R);
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
@@ -476,8 +546,15 @@ __global__ void bn_bwd_apply_kernel(const float* __restrict__ g, const float* __
 // emb[n] = pooled[n] @ wfc + bfc.
 __global__ void pool_fc_kernel(const float* __restrict__ y2, const float* __restrict__ wfc,
                                const float* __restrict__ bfc, float* __restrict__ pooled,
-                               float* __restrict__ emb, int SS, int E) {
+                               float* __restrict__ emb, int SS, int E, long long y2_ms,
+                               long long wfc_ms, long long bfc_ms, long long pooled_ms,
+                               long long emb_ms) {
   __shared__ float p_s[C2];
+  y2 = member_ptr(y2, y2_ms, blockIdx.y);
+  wfc = member_ptr(wfc, wfc_ms, blockIdx.y);
+  bfc = member_ptr(bfc, bfc_ms, blockIdx.y);
+  pooled = member_ptr(pooled, pooled_ms, blockIdx.y);
+  emb = member_ptr(emb, emb_ms, blockIdx.y);
   const int n = blockIdx.x;
   for (int c = threadIdx.x; c < C2; c += blockDim.x) {
     float s = 0.f;
@@ -496,8 +573,13 @@ __global__ void pool_fc_kernel(const float* __restrict__ y2, const float* __rest
 // One block per image: gpre[r, c] = (y2[r, c] > 0) * (g[n] @ wfc^T)[c] / SS
 __global__ void pool_fc_bwd_kernel(const float* __restrict__ g, const float* __restrict__ wfc,
                                    const float* __restrict__ y2, float* __restrict__ gpre,
-                                   int SS, int E) {
+                                   int SS, int E, long long g_ms, long long wfc_ms,
+                                   long long y2_ms, long long gpre_ms) {
   __shared__ float gp[C2];
+  g = member_ptr(g, g_ms, blockIdx.y);
+  wfc = member_ptr(wfc, wfc_ms, blockIdx.y);
+  y2 = member_ptr(y2, y2_ms, blockIdx.y);
+  gpre = member_ptr(gpre, gpre_ms, blockIdx.y);
   const int n = blockIdx.x;
   for (int c = threadIdx.x; c < C2; c += blockDim.x) {
     float s = 0.f;
@@ -531,95 +613,114 @@ inline long long stat_floats(int R) {
   return 2 * std::max(tiles, blocks);
 }
 
-// What every launcher needs of one entry call. The scratch holds, in order,
-// the BN partials (doubles), the packed weights and the weight-gradient
-// partials.
+// A stacked array: its base and its member stride in elements.
+template <typename T>
+struct Arr {
+  T* p;
+  long long s;
+  Arr at(long long off) const { return {p ? p + off : p, s}; }
+};
+using FArr = Arr<float>;
+const FArr kNone{nullptr, 0};
+
+// What every launcher needs of one entry call. The scratch holds, per
+// member (at m times `scratch_ms`), the BN partials (doubles), the packed
+// weights and the weight-gradient partials.
 struct Call {
-  int R, S;
+  int M, R, S;
   cudaStream_t st;
   const int* valid;
-  double* stat;
-  float* packed;
-  float* wg;
-  const float* w[kNumPacked];  // packed GEMM operands, in kPackedShapes order
+  long long scratch_ms;
+  Arr<double> stat;
+  FArr packed;
+  FArr wg;
+  FArr w[kNumPacked];  // packed GEMM operands, in kPackedShapes order
 
-  Call(void* const* p, int n, int s, void* stream, int scratch_index, int valid_index)
-      : R(n * s * s), S(s), st(static_cast<cudaStream_t>(stream)),
+  Call(void* const* p, int m, int n, int s, void* stream, int scratch_index, int valid_index)
+      : M(m), R(n * s * s), S(s), st(static_cast<cudaStream_t>(stream)),
         valid(static_cast<const int*>(p[valid_index])) {
     float* scratch = static_cast<float*>(p[scratch_index]);
-    stat = reinterpret_cast<double*>(scratch);
-    packed = scratch + stat_floats(R);
-    wg = packed + kPackedFloats;
-    for (int i = 0; i < kNumPacked; ++i) w[i] = packed + packed_floats_before(i);
+    scratch_ms = stat_floats(R) + kPackedFloats + kWgradFloats;
+    stat = {reinterpret_cast<double*>(scratch), scratch_ms / 2};
+    packed = {scratch + stat_floats(R), scratch_ms};
+    wg = packed.at(kPackedFloats);
+    for (int i = 0; i < kNumPacked; ++i) w[i] = packed.at(packed_floats_before(i));
   }
 };
 
-int pack_weights(const Call& c, void* const* p, int first_weight, int flip) {
+int pack_weights(const Call& c, void* const* p, const long long* ms, int first_weight, int flip) {
   PackList list;
   int largest = 0;
   for (int i = 0; i < kNumPacked; ++i) {
     const WeightShape s = kPackedShapes[i];
     list.item[i] = {static_cast<const float*>(p[first_weight + i]),
-                    c.packed + packed_floats_before(i), s.taps, flip ? s.co : s.ci,
-                    flip ? s.ci : s.co};
+                    c.packed.p + packed_floats_before(i), s.taps, flip ? s.co : s.ci,
+                    flip ? s.ci : s.co, ms[first_weight + i], c.packed.s};
     largest = std::max(largest, s.taps * s.ci * s.co);
   }
-  pack_weights_kernel<<<dim3(ceil_div(largest, 4 * NT), kNumPacked), NT, 0, c.st>>>(list, flip);
+  pack_weights_kernel<<<dim3(ceil_div(largest, 4 * NT), kNumPacked, c.M), NT, 0, c.st>>>(list, flip);
   return launched(K_PACK);
 }
 
 // Tensor-core conv; with `stats` also the BN statistics of its output.
-int conv_tc(const Call& c, const float* x, const float* wp, const float* add, const float* mask,
-            float* y, float* stats, int Ci, int Co, int taps) {
+int conv_tc(const Call& c, FArr x, FArr wp, FArr add, FArr mask, FArr y, FArr stats, int Ci,
+            int Co, int taps) {
   int bm = 0;
-  CHECK(conv::launch_conv(x, wp, add, mask, y, stats ? c.stat : nullptr, c.valid, c.R, c.S, Ci,
-                          Co, taps, &bm, c.st));
+  const conv::ConvStrides ms{x.s, wp.s, add.s, mask.s, y.s, c.stat.s};
+  CHECK(conv::launch_conv(x.p, wp.p, add.p, mask.p, y.p, stats.p ? c.stat.p : nullptr, c.valid,
+                          c.R, c.S, Ci, Co, taps, c.M, ms, &bm, c.st));
   ++g_launches[K_CONV_TC];
-  if (!stats) return 0;
-  bn_stats_final_kernel<<<Co / kFinalCols, kFinalThreads, 0, c.st>>>(c.stat, stats, ceil_div(c.R, bm), bm, c.R, Co);
+  if (!stats.p) return 0;
+  bn_stats_final_kernel<<<dim3(Co / kFinalCols, c.M), kFinalThreads, 0, c.st>>>(
+      c.stat.p, stats.p, ceil_div(c.R, bm), bm, c.R, Co, c.stat.s, stats.s);
   return launched(K_BN_STATS);
 }
 
-int sum_chunks(const Call& c, float* out, int n, int chunks) {
-  sum_chunks_kernel<<<ceil_div(n, NT), NT, 0, c.st>>>(c.wg, out, n, chunks);
+int sum_chunks(const Call& c, FArr out, int n, int chunks) {
+  sum_chunks_kernel<<<dim3(ceil_div(n, NT), c.M), NT, 0, c.st>>>(c.wg.p, out.p, n, chunks, c.wg.s,
+                                                                 out.s);
   return launched(K_SUM_CHUNKS);
 }
 
-int wgrad_tc(const Call& c, const float* x, const float* g, float* out, int Ci, int Co,
-             int taps) {
+int wgrad_tc(const Call& c, FArr x, FArr g, FArr out, int Ci, int Co, int taps) {
   int chunks = 0;
   if (taps == 9) {
-    CHECK(conv::launch_wgrad<9>(x, g, c.wg, c.valid, c.R, c.S, Ci, Co, &chunks, c.st));
+    CHECK(conv::launch_wgrad<9>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s, c.wg.s,
+                                &chunks, c.st));
   } else {
-    CHECK(conv::launch_wgrad<1>(x, g, c.wg, c.valid, c.R, c.S, Ci, Co, &chunks, c.st));
+    CHECK(conv::launch_wgrad<1>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s, c.wg.s,
+                                &chunks, c.st));
   }
   ++g_launches[K_WGRAD_TC];
   return sum_chunks(c, out, taps * Ci * Co, chunks);
 }
 
-int bn_act(const Call& c, const float* za, const float* sta, const float* sca, const float* bia,
-           const float* zb, const float* stb, const float* scb, const float* bib, float* out,
-           int C) {
-  bn_act_kernel<<<elementwise_blocks(c.R, C), NT, 0, c.st>>>(za, sta, sca, bia, zb, stb, scb,
-                                                             bib, out, c.R, C);
+// BN apply (+ a second BN branch) + ReLU. `st` is the stats array, `bn` the
+// packed BN scales (biases share its stride).
+int bn_act(const Call& c, FArr za, FArr sta, FArr sca, FArr bia, FArr zb, FArr stb, FArr scb,
+           FArr bib, FArr out, int C) {
+  const ActStrides ms{za.s, zb.s, sta.s, sca.s, out.s};
+  bn_act_kernel<<<dim3(elementwise_blocks(c.R, C), c.M), NT, 0, c.st>>>(
+      za.p, sta.p, sca.p, bia.p, zb.p, stb.p, scb.p, bib.p, out.p, c.R, C, ms);
   return launched(K_BN_ACT);
 }
 
 // Column sums of g and of g * xhat into out0 (d bias) and out1 (d scale).
-int colsum(const Call& c, const float* g, const float* z, const float* stats, float* out0,
-           float* out1, int rows, int C) {
+int colsum(const Call& c, FArr g, FArr z, FArr stats, FArr out0, FArr out1, int rows, int C) {
   const int nblk = ceil_div(rows, kStatRows);
-  bn_bwd_partial_kernel<<<nblk, NT, 0, c.st>>>(g, z, stats, c.stat, rows, C);
+  bn_bwd_partial_kernel<<<dim3(nblk, c.M), NT, 0, c.st>>>(g.p, z.p, stats.p, c.stat.p, rows, C,
+                                                          g.s, z.s, stats.s, c.stat.s);
   CHECK(launched(K_BN_BWD));
-  colsum_final_kernel<<<ceil_div(C, kFinalCols), kFinalThreads, 0, c.st>>>(c.stat, out0, out1, nblk, C);
+  colsum_final_kernel<<<dim3(ceil_div(C, kFinalCols), c.M), kFinalThreads, 0, c.st>>>(
+      c.stat.p, out0.p, out1.p, nblk, C, c.stat.s, out0.s);
   return launched(K_BN_BWD);
 }
 
-int bn_bwd(const Call& c, const float* g, const float* z, const float* stats, const float* sc,
-           float* dsc, float* dbi, float* out, int C) {
+int bn_bwd(const Call& c, FArr g, FArr z, FArr stats, FArr sc, FArr dsc, FArr dbi, FArr out,
+           int C) {
   CHECK(colsum(c, g, z, stats, dbi, dsc, c.R, C));
-  bn_bwd_apply_kernel<<<elementwise_blocks(c.R, C), NT, 0, c.st>>>(g, z, stats, sc, dbi, dsc,
-                                                                   out, c.R, C);
+  bn_bwd_apply_kernel<<<dim3(elementwise_blocks(c.R, C), c.M), NT, 0, c.st>>>(
+      g.p, z.p, stats.p, sc.p, dbi.p, dsc.p, out.p, c.R, C, g.s, z.s, stats.s, sc.s, out.s);
   return launched(K_BN_BWD);
 }
 
@@ -632,7 +733,9 @@ extern "C" {
 // tap-major (9 * cin, cout), 1x1 kernels (cin, cout), fc (128, E); BN scales
 // and biases packed (7, 128) in BN_LAYOUT order; stats (7, 3, 128) =
 // mean, biased var, rstd per BN; VALID the S*S tap-validity words (bit t set
-// where tap t of that pixel reads inside the image).
+// where tap t of that pixel reads inside the image). Each array is a stack
+// of M members; the second array holds each pointer's member stride in
+// elements (any value for VALID, which all members share).
 enum Ptr {
   X, WI, W1C1, W1SK, W1C2, W2C1, W2SK, W2C2, SC, BI, WFC, BFC,
   Z0, A, Z1P, Z1, Z2P, IP1, Y1, Z1BP, Z1B, Z2BP, IP2, Y2, POOLED, STATS,
@@ -644,7 +747,7 @@ enum Ptr {
 
 int deep_resnet_num_ptrs() { return NPTR; }
 
-// Floats of scratch either entry needs for R activation rows.
+// Floats of scratch either entry needs for each member of R activation rows.
 long long deep_resnet_scratch_floats(int R) {
   return stat_floats(R) + kPackedFloats + kWgradFloats;
 }
@@ -656,27 +759,29 @@ int deep_resnet_last_launches(int* out) {
   return NKIND;
 }
 
-int deep_resnet_embed_fwd(void* const* p, int N, int S, int E, void* stream) {
-  auto f = [p](int i) { return static_cast<float*>(p[i]); };
-  const Call c(p, N, S, stream, SCRATCH, VALID);
+// M members of N images of S x S each; E the embedding width.
+int deep_resnet_embed_fwd(void* const* p, const long long* ms, int M, int N, int S, int E,
+                          void* stream) {
+  auto f = [p, ms](int i) { return FArr{static_cast<float*>(p[i]), ms[i]}; };
+  const Call c(p, M, N, S, stream, SCRATCH, VALID);
   std::fill(g_launches, g_launches + NKIND, 0);
   const int R = c.R;
-  float* sc = f(SC);
-  float* bi = f(BI);
-  float* stats = f(STATS);
-  auto S_ = [&](int i) { return stats + i * 3 * CMAX; };
-  auto SC_ = [&](int i) { return sc + i * CMAX; };
-  auto BI_ = [&](int i) { return bi + i * CMAX; };
-  const float* none = nullptr;
+  const FArr sc = f(SC), bi = f(BI), stats = f(STATS);
+  auto S_ = [&](int i) { return stats.at(i * 3 * CMAX); };
+  auto SC_ = [&](int i) { return sc.at(i * CMAX); };
+  auto BI_ = [&](int i) { return bi.at(i * CMAX); };
+  const FArr none = kNone;
 
-  CHECK(pack_weights(c, p, W1C1, 0));
+  CHECK(pack_weights(c, p, ms, W1C1, 0));
 
-  conv0_fwd_kernel<<<ceil_div(static_cast<long long>(R) * C0, NT), NT, 0, c.st>>>(
-      f(X), f(WI), f(Z0), c.valid, R, S);
+  conv0_fwd_kernel<<<dim3(ceil_div(static_cast<long long>(R) * C0, NT), M), NT, 0, c.st>>>(
+      f(X).p, f(WI).p, f(Z0).p, c.valid, R, S, f(X).s, f(WI).s, f(Z0).s);
   CHECK(launched(K_CONV0));
-  bn_stats_partial_kernel<<<ceil_div(R, kStatRows), NT, 0, c.st>>>(f(Z0), c.stat, R, C0);
+  bn_stats_partial_kernel<<<dim3(ceil_div(R, kStatRows), M), NT, 0, c.st>>>(f(Z0).p, c.stat.p, R, C0,
+                                                                            f(Z0).s, c.stat.s);
   CHECK(launched(K_BN_STATS));
-  bn_stats_final_kernel<<<C0 / kFinalCols, kFinalThreads, 0, c.st>>>(c.stat, S_(0), ceil_div(R, kStatRows), kStatRows, R, C0);
+  bn_stats_final_kernel<<<dim3(C0 / kFinalCols, M), kFinalThreads, 0, c.st>>>(
+      c.stat.p, S_(0).p, ceil_div(R, kStatRows), kStatRows, R, C0, c.stat.s, stats.s);
   CHECK(launched(K_BN_STATS));
   CHECK(bn_act(c, f(Z0), S_(0), SC_(0), BI_(0), none, none, none, none, f(A), C0));
 
@@ -692,66 +797,70 @@ int deep_resnet_embed_fwd(void* const* p, int N, int S, int E, void* stream) {
   CHECK(conv_tc(c, f(Y1), c.w[4], none, none, f(IP2), S_(6), C1, C2, 1));
   CHECK(bn_act(c, f(Z2BP), S_(5), SC_(5), BI_(5), f(IP2), S_(6), SC_(6), BI_(6), f(Y2), C2));
 
-  pool_fc_kernel<<<N, C2, 0, c.st>>>(f(Y2), f(WFC), f(BFC), f(POOLED), f(EMB), S * S, E);
+  pool_fc_kernel<<<dim3(N, M), C2, 0, c.st>>>(f(Y2).p, f(WFC).p, f(BFC).p, f(POOLED).p, f(EMB).p,
+                                              S * S, E, f(Y2).s, f(WFC).s, f(BFC).s, f(POOLED).s,
+                                              f(EMB).s);
   return launched(K_POOL_FC);
 }
 
-int deep_resnet_embed_bwd(void* const* p, int N, int S, int E, void* stream) {
-  auto f = [p](int i) { return static_cast<float*>(p[i]); };
-  const Call c(p, N, S, stream, SCRATCH, VALID);
+int deep_resnet_embed_bwd(void* const* p, const long long* ms, int M, int N, int S, int E,
+                          void* stream) {
+  auto f = [p, ms](int i) { return FArr{static_cast<float*>(p[i]), ms[i]}; };
+  const Call c(p, M, N, S, stream, SCRATCH, VALID);
   std::fill(g_launches, g_launches + NKIND, 0);
   const int R = c.R;
-  float* stats = f(STATS);
-  float* G = f(BUF_G);
-  float* D1 = f(BUF_D1);
-  float* D2 = f(BUF_D2);
+  const FArr stats = f(STATS);
+  const FArr G = f(BUF_G), D1 = f(BUF_D1), D2 = f(BUF_D2);
   // BN i of BN_LAYOUT with pre-BN input z: its parameter gradients, and dz to `out`
-  auto bn = [&](const float* g, int i, int z, float* out, int C) {
-    return bn_bwd(c, g, f(z), stats + i * 3 * CMAX, f(SC) + i * CMAX, f(GSC) + i * CMAX,
-                  f(GBI) + i * CMAX, out, C);
+  auto bn = [&](FArr g, int i, int z, FArr out, int C) {
+    return bn_bwd(c, g, f(z), stats.at(i * 3 * CMAX), f(SC).at(i * CMAX), f(GSC).at(i * CMAX),
+                  f(GBI).at(i * CMAX), out, C);
   };
-  const float* none = nullptr;
+  const FArr none = kNone;
 
   // the data gradients read the weights tap-flipped and transposed
-  CHECK(pack_weights(c, p, W1C1, 1));
+  CHECK(pack_weights(c, p, ms, W1C1, 1));
 
   // fc and mean pool; G = d(pre-ReLU output of block 2)
-  pool_fc_bwd_kernel<<<N, 4 * C2, 0, c.st>>>(f(GEMB), f(WFC), f(Y2), G, S * S, E);
+  pool_fc_bwd_kernel<<<dim3(N, M), 4 * C2, 0, c.st>>>(f(GEMB).p, f(WFC).p, f(Y2).p, G.p, S * S, E,
+                                                      f(GEMB).s, f(WFC).s, f(Y2).s, G.s);
   CHECK(launched(K_POOL_FC));
-  fc_wgrad_kernel<<<dim3(C2 / 16, ceil_div(E, 16)), NT, 0, c.st>>>(f(POOLED), f(GEMB), f(GWFC), N, E);
+  fc_wgrad_kernel<<<dim3(C2 / 16, ceil_div(E, 16), M), NT, 0, c.st>>>(
+      f(POOLED).p, f(GEMB).p, f(GWFC).p, N, E, f(POOLED).s, f(GEMB).s, f(GWFC).s);
   CHECK(launched(K_WGRAD_SIMT));
-  CHECK(colsum(c, f(GEMB), none, none, f(GBFC), nullptr, N, E));
+  CHECK(colsum(c, f(GEMB), none, none, f(GBFC), none, N, E));
 
   // residual block 2: bn2 and skip bn both receive G
   CHECK(bn(G, 5, Z2BP, D1, C2));
   CHECK(bn(G, 6, IP2, D2, C2));
   CHECK(wgrad_tc(c, f(Z1B), D1, f(GW2C2), C2, C2, 9));
-  CHECK(conv_tc(c, D1, c.w[5], none, f(Z1B), G, nullptr, C2, C2, 9));
+  CHECK(conv_tc(c, D1, c.w[5], none, f(Z1B), G, none, C2, C2, 9));
   CHECK(bn(G, 4, Z1BP, D1, C2));
   CHECK(wgrad_tc(c, f(Y1), D1, f(GW2C1), C1, C2, 9));
   CHECK(wgrad_tc(c, f(Y1), D2, f(GW2SK), C1, C2, 1));
-  CHECK(conv_tc(c, D2, c.w[4], none, none, G, nullptr, C2, C1, 1));
-  CHECK(conv_tc(c, D1, c.w[3], G, f(Y1), G, nullptr, C2, C1, 9));
+  CHECK(conv_tc(c, D2, c.w[4], none, none, G, none, C2, C1, 1));
+  CHECK(conv_tc(c, D1, c.w[3], G, f(Y1), G, none, C2, C1, 9));
 
   // residual block 1
   CHECK(bn(G, 2, Z2P, D1, C1));
   CHECK(bn(G, 3, IP1, D2, C1));
   CHECK(wgrad_tc(c, f(Z1), D1, f(GW1C2), C1, C1, 9));
-  CHECK(conv_tc(c, D1, c.w[2], none, f(Z1), G, nullptr, C1, C1, 9));
+  CHECK(conv_tc(c, D1, c.w[2], none, f(Z1), G, none, C1, C1, 9));
   CHECK(bn(G, 1, Z1P, D1, C1));
   CHECK(wgrad_tc(c, f(A), D1, f(GW1C1), C0, C1, 9));
   CHECK(wgrad_tc(c, f(A), D2, f(GW1SK), C0, C1, 1));
-  CHECK(conv_tc(c, D2, c.w[1], none, none, G, nullptr, C1, C0, 1));
-  CHECK(conv_tc(c, D1, c.w[0], G, f(A), G, nullptr, C1, C0, 9));
+  CHECK(conv_tc(c, D2, c.w[1], none, none, G, none, C1, C0, 1));
+  CHECK(conv_tc(c, D1, c.w[0], G, f(A), G, none, C1, C0, 9));
 
   // initial conv
   CHECK(bn(G, 0, Z0, D1, C0));
   const int chunks = std::min(ceil_div(R, 64), conv::kWgTargetBlocks);
-  conv0_wgrad_kernel<<<chunks, NT, 0, c.st>>>(f(X), D1, c.wg, c.valid, R, S, ceil_div(R, chunks));
+  conv0_wgrad_kernel<<<dim3(chunks, M), NT, 0, c.st>>>(f(X).p, D1.p, c.wg.p, c.valid, R, S,
+                                                       ceil_div(R, chunks), f(X).s, D1.s, c.wg.s);
   CHECK(launched(K_WGRAD_SIMT));
   CHECK(sum_chunks(c, f(GWI), 9 * C0, chunks));
-  conv0_dgrad_kernel<<<ceil_div(static_cast<long long>(R) * 32, NT), NT, 0, c.st>>>(
-      D1, f(WI), f(GX), c.valid, R, S);
+  conv0_dgrad_kernel<<<dim3(ceil_div(static_cast<long long>(R) * 32, NT), M), NT, 0, c.st>>>(
+      D1.p, f(WI).p, f(GX).p, c.valid, R, S, D1.s, f(WI).s, f(GX).s);
   return launched(K_CONV0);
 }
 

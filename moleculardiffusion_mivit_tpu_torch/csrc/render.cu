@@ -55,6 +55,13 @@
 // assembly matrices and its closed-form peak exist for the TPU's matrix unit
 // and VMEM, and are dropped.
 //
+// Settings. One launch may render several PSF settings (the PSF x noise
+// grid: 5 sigmas over one stack of frames): the frames are K runs of
+// frames_per_setting, run k rendered with factor k of a small table passed
+// by value. A segment looks up its own frame's factor, so a block may
+// straddle two runs. The one-sigma launch is a separate instantiation with
+// the factor as a scalar, instruction for instruction the kernel above.
+//
 // The layout arithmetic (lanes per segment, segments per warp, frames per
 // block, shared memory, grid step) is computed by the wrapper
 // (ops/render.py: block_layout, shared_memory_bytes, grid_step);
@@ -71,6 +78,13 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBlocksPerSM = 5;  // 40 registers a thread: B = 1920 at S = 9 is one wave
 constexpr int kRowsPerThread = 3;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxSettings = 8;
+
+// -log2(e) / (2 sigma_k^2) of each setting k, and the frames of a setting.
+struct Settings {
+  float factor[kMaxSettings];
+  int frames_per_setting;
+};
 
 // Coordinate k of linspace(-L, L, G), L = (G - 1) / 2, step = 2L / (G - 1),
 // as PyTorch's CUDA linspace computes it: from the start in the first half,
@@ -91,12 +105,14 @@ __device__ __forceinline__ float exp2_approx(float x) {
 }
 
 // kS, kU, kP > 0: compiled-in S, u, P. All 0: the run-time values.
-template <int kS, int kU, int kP>
+// kTable: the factor of each frame comes from `settings`, else it is
+// neg_log2e_inv_two_s2.
+template <int kS, int kU, int kP, bool kTable>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) render_frames_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ w, float* __restrict__ out, int B, int P_rt,
     int S_rt, int U_rt, int frames_per_block, float neg_log2e_inv_two_s2,
-    float step) {
+    float step, Settings settings) {
   const int S = kS ? kS : S_rt;
   const int U = kU ? kU : U_rt;
   const int P = kP ? kP : P_rt;
@@ -125,11 +141,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) render_frames_kernel(
     const int seg = base + sub;  // local frame * P + p
     const bool active = sub < segs_per_warp && seg < nseg;
     float cx = 0.f, cy = 0.f, wv = 0.f;
+    float factor = neg_log2e_inv_two_s2;
     if (active) {
       const size_t gi = static_cast<size_t>(f0) * P + seg;
       cx = x[gi];
       cy = y[gi];
       wv = w[gi];
+      if constexpr (kTable) factor = settings.factor[(f0 + seg / P) / settings.frames_per_setting];
     }
     float mx = 0.f, my = 0.f;
     float pooled_y[kCellsPerLane];
@@ -144,8 +162,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) render_frames_kernel(
           const float c = grid_coord(s * U + u, G, L, step);
           const float dx = c - cx;
           const float dy = c - cy;
-          const float gx = exp2_approx((dx * dx) * neg_log2e_inv_two_s2);
-          const float gy = exp2_approx((dy * dy) * neg_log2e_inv_two_s2);
+          const float gx = exp2_approx((dx * dx) * factor);
+          const float gy = exp2_approx((dy * dy) * factor);
           ax += gx;
           ay += gy;
           mx = fmaxf(mx, gx);
@@ -213,15 +231,29 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) render_frames_kernel(
 
 __global__ void noop_kernel() {}
 
-template <int kS, int kU, int kP>
+template <int kS, int kU, int kP, bool kTable>
 int launch(const float* x, const float* y, const float* w, float* out, int B,
            int P, int S, int U, int frames_per_block, float neg_log2e_inv_two_s2,
-           float step, cudaStream_t stream) {
+           float step, const Settings& settings, cudaStream_t stream) {
   const int blocks = (B + frames_per_block - 1) / frames_per_block;
   const size_t smem = sizeof(float) * 2 * frames_per_block * P * S;
-  render_frames_kernel<kS, kU, kP><<<blocks, kThreads, smem, stream>>>(
-      x, y, w, out, B, P, S, U, frames_per_block, neg_log2e_inv_two_s2, step);
+  render_frames_kernel<kS, kU, kP, kTable><<<blocks, kThreads, smem, stream>>>(
+      x, y, w, out, B, P, S, U, frames_per_block, neg_log2e_inv_two_s2, step, settings);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTable>
+int dispatch(const float* x, const float* y, const float* w, float* out, int B, int P, int S,
+             int U, int frames_per_block, float neg_log2e_inv_two_s2, float step,
+             const Settings& settings, cudaStream_t st) {
+  if (U == 5 && P == 10 && S == 9)
+    return launch<9, 5, 10, kTable>(x, y, w, out, B, P, S, U, frames_per_block,
+                                    neg_log2e_inv_two_s2, step, settings, st);
+  if (U == 5 && P == 10 && S == 13)
+    return launch<13, 5, 10, kTable>(x, y, w, out, B, P, S, U, frames_per_block,
+                                     neg_log2e_inv_two_s2, step, settings, st);
+  return launch<0, 0, 0, kTable>(x, y, w, out, B, P, S, U, frames_per_block,
+                                 neg_log2e_inv_two_s2, step, settings, st);
 }
 
 }  // namespace
@@ -236,12 +268,24 @@ extern "C" {
 int render_frames(const float* x, const float* y, const float* w, float* out,
                   int B, int P, int S, int U, int frames_per_block,
                   float neg_log2e_inv_two_s2, float step, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (U == 5 && P == 10 && S == 9)
-    return launch<9, 5, 10>(x, y, w, out, B, P, S, U, frames_per_block, neg_log2e_inv_two_s2, step, st);
-  if (U == 5 && P == 10 && S == 13)
-    return launch<13, 5, 10>(x, y, w, out, B, P, S, U, frames_per_block, neg_log2e_inv_two_s2, step, st);
-  return launch<0, 0, 0>(x, y, w, out, B, P, S, U, frames_per_block, neg_log2e_inv_two_s2, step, st);
+  return dispatch<false>(x, y, w, out, B, P, S, U, frames_per_block, neg_log2e_inv_two_s2, step,
+                         Settings{}, static_cast<cudaStream_t>(stream));
+}
+
+// The same with K PSF settings (1 <= K <= 8): frames [k F, (k + 1) F),
+// F = frames_per_setting = B / K, use factors[k] (a host array of K floats).
+int render_frames_settings(const float* x, const float* y, const float* w, float* out,
+                           int B, int P, int S, int U, int frames_per_block,
+                           const float* factors, int K, int frames_per_setting, float step,
+                           void* stream) {
+  if (K < 1 || K > kMaxSettings || frames_per_setting < 1 ||
+      static_cast<long long>(K) * frames_per_setting != B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Settings settings{};
+  for (int k = 0; k < K; ++k) settings.factor[k] = factors[k];
+  settings.frames_per_setting = frames_per_setting;
+  return dispatch<true>(x, y, w, out, B, P, S, U, frames_per_block, 0.f, step, settings,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // One launch of an empty kernel on the stream: the card's floor for any

@@ -6,13 +6,21 @@ transformers + MultiImageResNet), ``images_features`` (MiViT with the 25
 trajectory features against image-only, features-only and MSD arms) and
 ``modular`` (ModularTransformer with per-frame feature tokens; with
 ``with_hybrid`` also HybridFusionTransformer and its early-fusion parent),
-``embeddings`` (three embeddings at three sizes and MultiImageResNet) and
+``embeddings`` (three embeddings at three sizes and MultiImageResNet),
 ``framerate`` (a transformer and a ResNet per exposure setting, on 13×13
-frames). The two other regimes are listed under their names and raise
+frames) and ``psfnoise`` (the 5 PSF × 6 noise grid: two 30-model
+``GridArm``s). ``denoising`` is listed under its name and raises
 ``NotImplementedError`` (ROADMAP.md, queue 1, item 12).
 """
 
-from moleculardiffusion_mivit_tpu_torch.experiments import baseline, embeddings, framerate, images_features, modular
+from moleculardiffusion_mivit_tpu_torch.experiments import (
+    baseline,
+    embeddings,
+    framerate,
+    images_features,
+    modular,
+    psfnoise,
+)
 from moleculardiffusion_mivit_tpu_torch.experiments.base import (  # noqa: F401
     Experiment,
     GridArm,
@@ -34,7 +42,8 @@ REGISTRY = {
     "modular": modular.build,
     "embeddings": embeddings.build,
     "framerate": framerate.build,
-    **{name: _not_ported(name) for name in ("psfnoise", "denoising")},
+    "psfnoise": psfnoise.build,
+    "denoising": _not_ported("denoising"),
 }
 
 

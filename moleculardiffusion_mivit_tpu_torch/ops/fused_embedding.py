@@ -8,7 +8,18 @@ and whose backward is K3 (``deep_resnet_embed_bwd``), both in
 ``csrc/fused_embedding.cu``; on CPU tensors it runs the plain version
 ``deep_resnet_embed_reference``. The JAX kernel's row limit
 (``FUSED_MAX_ROWS``, a TPU VMEM bound) does not apply: the CUDA kernels keep
-activations in device memory and take any row count up to 2^31 / 128.
+activations in device memory and take any row count up to 2^31 / 128 a
+member.
+
+Members. K2 and K3 also take a stack of M independent members (a leading
+axis on every argument: each member its own rows, weights, BN statistics
+and gradients) in one launch sequence, each member's result bitwise the
+result of a call for that member alone. Under ``torch.vmap`` (a model grid,
+``train/grid.py``) the embedding's ``torch.autograd.Function`` has a vmap
+rule that moves the vmapped axis of every argument to the front and applies
+the same function once with it as the member axis: one K2 and one K3 launch
+a grid step, never one per member. JAX gets the same from ``pallas_call``'s
+batching rule, which adds a grid axis over the members.
 
 Precision is the port's own, whatever the caller's global settings. K2/K3
 run their matrix products on the TF32 tensor cores as three products of
@@ -171,7 +182,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.deep_resnet_embed_fwd, lib.deep_resnet_embed_bwd):
-            fn.argtypes = [p, i, i, i, p]
+            fn.argtypes = [p, p, i, i, i, i, p]
             fn.restype = i
         lib.deep_resnet_num_ptrs.restype = i
         lib.deep_resnet_scratch_floats.argtypes = [i]
@@ -196,30 +207,42 @@ def _check(name, t, device, shape):
 
 
 def _check_inputs(x, weights, sc, bi, wfc, bfc):
-    if x.ndim != 3 or x.shape[1] != x.shape[2]:
-        raise ValueError(f"x must be (N, S, S) images, got {tuple(x.shape)}")
-    n, s = x.shape[0], x.shape[1]
+    """``(lead, m, n, s, e)``: ``lead`` is ``()`` for one member (``x (N, S,
+    S)``) and ``(M,)`` for a stack (``x (M, N, S, S)``, every other argument
+    with the same leading axis)."""
+    if x.ndim not in (3, 4) or x.shape[-1] != x.shape[-2]:
+        raise ValueError(f"x must be (N, S, S) images or (M, N, S, S) members, got {tuple(x.shape)}")
+    lead = tuple(x.shape[:-3])
+    m = lead[0] if lead else 1
+    n, s = x.shape[-3], x.shape[-1]
     e = wfc.shape[-1]
     dev = x.device
-    _check("x", x, dev, (n, s, s))
+    _check("x", x, dev, lead + (n, s, s))
     for (name, shape), w in zip(WEIGHT_SHAPES, weights, strict=True):
-        _check(name, w, dev, shape)
-    _check("bn scales", sc, dev, (7, C2))
-    _check("bn biases", bi, dev, (7, C2))
-    _check("fc kernel", wfc, dev, (C2, e))
-    _check("fc bias", bfc, dev, (e,))
+        _check(name, w, dev, lead + shape)
+    _check("bn scales", sc, dev, lead + (7, C2))
+    _check("bn biases", bi, dev, lead + (7, C2))
+    _check("fc kernel", wfc, dev, lead + (C2, e))
+    _check("fc bias", bfc, dev, lead + (e,))
     if not 1 <= e <= 256:
         raise ValueError(f"embed dim {e} outside the kernels' 1..256")
     if n < 1 or n * s * s * C2 >= 2**31:
         raise ValueError(f"{n * s * s} activation rows outside the kernels' range")
-    return n, s, e
+    if not 1 <= m <= 65535:
+        raise ValueError(f"{m} members outside the kernels' 1..65535")
+    return lead, m, n, s, e
 
 
-def _launch(fn, tensors, n, s, e, device):
+def _launch(fn, tensors, m, n, s, e, device):
+    """Call an entry with the pointer of every array in ``PTR_ORDER`` and,
+    beside it, its member stride (elements a member holds; the tap-validity
+    table is shared)."""
     ptrs = [tensors[name].data_ptr() if name in tensors else 0 for name in PTR_ORDER]
+    strides = [tensors[name].numel() // m if name in tensors and name != "valid" else 0 for name in PTR_ORDER]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    ms = (ctypes.c_longlong * len(strides))(*strides)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(ctypes.cast(arr, ctypes.c_void_p), n, s, e, stream)
+    err = fn(ctypes.cast(arr, ctypes.c_void_p), ctypes.cast(ms, ctypes.c_void_p), m, n, s, e, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: kernel launch failed (cudaError {err})")
 
@@ -237,12 +260,13 @@ def deep_resnet_embed_fwd(x, weights, sc, bi, wfc, bfc):
     (``WEIGHT_SHAPES``), packed BN scales and biases ``(7, 128)``, fc kernel
     ``(128, E)`` and bias ``(E,)``. Returns ``(emb (N, E), stats (7, 3, 128),
     saved)``: stats hold per BN the batch mean, biased variance and rstd;
-    ``saved`` the activations K3 reads. Adds one to
-    ``deep_resnet_embed_fwd.launches``."""
-    n, s, e = _check_inputs(x, weights, sc, bi, wfc, bfc)
+    ``saved`` the activations K3 reads. With a leading member axis ``M`` on
+    every argument, every result has it too, and each member's statistics
+    are over its own rows. Adds one to ``deep_resnet_embed_fwd.launches``."""
+    lead, m, n, s, e = _check_inputs(x, weights, sc, bi, wfc, bfc)
     lib = _lib()
     r, dev = n * s * s, x.device
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    empty = lambda *shape: torch.empty(lead + shape, dtype=torch.float32, device=dev)  # noqa: E731
     saved = {name: empty(r, c) for name, c in SAVED}
     saved["pooled"] = empty(n, C2)
     saved["stats"] = empty(7, 3, C2)
@@ -252,7 +276,7 @@ def deep_resnet_embed_fwd(x, weights, sc, bi, wfc, bfc):
         scratch=empty(lib.deep_resnet_scratch_floats(r)), valid=_tap_validity_on(s, dev),
         **{name: w for (name, _), w in zip(WEIGHT_SHAPES, weights)}, **saved,
     )
-    _launch(lib.deep_resnet_embed_fwd, tensors, n, s, e, dev)
+    _launch(lib.deep_resnet_embed_fwd, tensors, m, n, s, e, dev)
     deep_resnet_embed_fwd.launches += 1
     return emb, saved["stats"], saved
 
@@ -262,17 +286,18 @@ def deep_resnet_embed_bwd(x, weights, sc, bi, wfc, bfc, saved, g_emb):
     parameter, given K2's inputs, its ``saved`` activations and ``g_emb
     (N, E)``. Returns ``(gx, g_weights (7), gsc, gbi, gwfc, gbfc)`` in the
     packed layouts (the unused tail of each ``(7, 128)`` BN row is
-    undefined). Adds one to ``deep_resnet_embed_bwd.launches``."""
-    n, s, e = _check_inputs(x, weights, sc, bi, wfc, bfc)
-    _check("g_emb", g_emb, x.device, (n, e))
+    undefined); with a member axis on the arguments, on every result too.
+    Adds one to ``deep_resnet_embed_bwd.launches``."""
+    lead, m, n, s, e = _check_inputs(x, weights, sc, bi, wfc, bfc)
+    _check("g_emb", g_emb, x.device, lead + (n, e))
     r = n * s * s
     for name, c in SAVED:
-        _check(name, saved[name], x.device, (r, c))
-    _check("pooled", saved["pooled"], x.device, (n, C2))
-    _check("stats", saved["stats"], x.device, (7, 3, C2))
+        _check(name, saved[name], x.device, lead + (r, c))
+    _check("pooled", saved["pooled"], x.device, lead + (n, C2))
+    _check("stats", saved["stats"], x.device, lead + (7, 3, C2))
     lib = _lib()
     dev = x.device
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    empty = lambda *shape: torch.empty(lead + shape, dtype=torch.float32, device=dev)  # noqa: E731
     grads = {"g_" + name: empty(*shape) for name, shape in WEIGHT_SHAPES}
     out = dict(gx=empty(n, s, s), gsc=empty(7, C2), gbi=empty(7, C2), gwfc=empty(C2, e), gbfc=empty(e))
     tensors = dict(
@@ -281,7 +306,7 @@ def deep_resnet_embed_bwd(x, weights, sc, bi, wfc, bfc, saved, g_emb):
         buf_g=empty(r, C2), buf_d1=empty(r, C2), buf_d2=empty(r, C2),
         **{name: w for (name, _), w in zip(WEIGHT_SHAPES, weights)}, **saved, **grads, **out,
     )
-    _launch(lib.deep_resnet_embed_bwd, tensors, n, s, e, dev)
+    _launch(lib.deep_resnet_embed_bwd, tensors, m, n, s, e, dev)
     deep_resnet_embed_bwd.launches += 1
     g_weights = tuple(grads["g_" + name] for name, _ in WEIGHT_SHAPES)
     return out["gx"], g_weights, out["gsc"], out["gbi"], out["gwfc"], out["gbfc"]
@@ -292,27 +317,46 @@ deep_resnet_embed_bwd.launches = 0
 
 
 class _DeepResNetCore(torch.autograd.Function):
-    """K2 forward, K3 backward. The BN statistics are a non-differentiable
-    output, as in the JAX ``custom_vjp``."""
+    """K2 forward, K3 backward, on one member (``x (N, S, S)``) or a stack
+    (``x (M, N, S, S)``, a member axis on every argument). Outputs: the
+    embedding, the BN statistics and K2's saved activations; all but the
+    embedding are non-differentiable (the statistics as in the JAX
+    ``custom_vjp``). Under ``torch.vmap`` the rule ``vmap`` applies this
+    function once with the vmapped axis as the member axis."""
 
     @staticmethod
-    def forward(ctx, x, w0, w1, w2, w3, w4, w5, w6, sc, bi, wfc, bfc):
+    def forward(x, w0, w1, w2, w3, w4, w5, w6, sc, bi, wfc, bfc):
         args = [t.contiguous() for t in (x, w0, w1, w2, w3, w4, w5, w6, sc, bi, wfc, bfc)]
         emb, stats, saved = deep_resnet_embed_fwd(args[0], tuple(args[1:8]), *args[8:])
-        ctx.save_for_backward(*args, *(saved[name] for name, _ in SAVED), saved["pooled"], stats)
-        ctx.mark_non_differentiable(stats)
-        return emb, stats
+        return (emb, stats, *(saved[name] for name, _ in SAVED), saved["pooled"])
 
     @staticmethod
-    def backward(ctx, g_emb, _g_stats):
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, *output[1:])
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, g_emb, *_):
         t = ctx.saved_tensors
-        args, rest = t[:12], t[12:]
+        args, stats, rest = [a.contiguous() for a in t[:12]], t[12], t[13:]
         saved = {name: v for (name, _), v in zip(SAVED, rest)}
-        saved["pooled"], saved["stats"] = rest[-2], rest[-1]
+        saved["pooled"], saved["stats"] = rest[-1], stats
+        if g_emb is None:  # the embedding does not reach the loss
+            return (None,) * len(args)
         gx, gw, gsc, gbi, gwfc, gbfc = deep_resnet_embed_bwd(
             args[0], tuple(args[1:8]), *args[8:], saved, g_emb.contiguous()
         )
         return (gx, *gw, gsc, gbi, gwfc, gbfc)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        members = [
+            a.movedim(d, 0) if d is not None else a.expand(info.batch_size, *a.shape)
+            for a, d in zip(args, in_dims)
+        ]
+        out = _DeepResNetCore.apply(*members)
+        return out, (0,) * len(out)
 
 
 def fused_deep_resnet_embed(x, kernels, bn_scales, bn_biases, fc_kernel, fc_bias):
@@ -328,6 +372,12 @@ def fused_deep_resnet_embed(x, kernels, bn_scales, bn_biases, fc_kernel, fc_bias
     """
     if not x.is_cuda:
         return deep_resnet_embed_reference(x, kernels, bn_scales, bn_biases, fc_kernel, fc_bias)
+    return _kernel_embed(x, kernels, bn_scales, bn_biases, fc_kernel, fc_bias)
+
+
+def _kernel_embed(x, kernels, bn_scales, bn_biases, fc_kernel, fc_bias):
+    """``fused_deep_resnet_embed`` through ``_DeepResNetCore`` (K2/K3): the
+    weights packed as the kernels take them, the output unpacked."""
     b, t, h, w = x.shape
     if h != w:
         raise ValueError("square patches only")
@@ -341,7 +391,7 @@ def fused_deep_resnet_embed(x, kernels, bn_scales, bn_biases, fc_kernel, fc_bias
         kernels["rb2_skip"].reshape(C1, C2),
         _pack_w3(kernels["rb2_conv2"]),
     ]
-    emb, stats = _DeepResNetCore.apply(
+    emb, stats, *_ = _DeepResNetCore.apply(
         x.reshape(b * t, h, w),
         *weights,
         _pack_rows([bn_scales[k] for k, _ in BN_LAYOUT]),

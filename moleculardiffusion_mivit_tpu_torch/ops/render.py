@@ -9,6 +9,11 @@ The kernel's layout arithmetic is computed here, in Python, and passed to
 the launch (``block_layout``, ``shared_memory_bytes``, ``grid_step``), so
 the CPU tests reach it: ``tests/test_torch_render.py`` holds it against a
 Python copy of the kernel's index arithmetic.
+
+One launch also renders several PSF settings (the PSF x noise grid,
+``sim.render.trajectories_to_video_psf_noise_grid``): with a sigma per
+setting, the ``(B, P)`` frames are K equal runs, run k rendered with
+``sigma[k]``; the kernel reads each frame's factor from a table of K.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from moleculardiffusion_mivit_tpu_torch.sim.render import _pooled_gaussian_1d
 
 MAX_GRID = 13 * 5  # largest S*u the kernel takes (the Framerate patch)
 WARPS_PER_BLOCK = 10  # kWarps in csrc/render.cu
+MAX_SETTINGS = 8  # kMaxSettings in csrc/render.cu
 _SMEM_LIMIT = 48 * 1024
 
 
@@ -61,19 +67,29 @@ def grid_step(grid: int) -> np.float32:
     return np.float32(2 * limit) / np.float32(grid - 1) if grid > 1 else np.float32(0.0)
 
 
+def _exp2_factor(sigma: float) -> float:
+    sig = np.float32(sigma)
+    two_s2 = np.float32(np.float32(2.0) * sig) * sig  # the plain version's 2·σ·σ in f32
+    return float(np.float32(-np.log2(np.e) / np.float64(two_s2)))
+
+
 @functools.lru_cache(maxsize=64)
-def _launch_constants(sigma: float, p: int, s: int, u: int):
+def _launch_constants(sigma, p: int, s: int, u: int):
     """``(frames_per_block, -log2(e)/(2 sigma^2), grid step)`` for a launch,
     after the checks that depend on the shape alone. The kernel takes a
-    Gaussian as ``2 ** (d*d * factor)``."""
+    Gaussian as ``2 ** (d*d * factor)``. ``sigma`` is a float, or a tuple of
+    one per PSF setting, and then the factor is the tuple of theirs."""
     if s * u > MAX_GRID or s < 1 or u < 1:
         raise ValueError(f"render_frames: S*u={s * u} outside the kernel's 1..{MAX_GRID}")
     if shared_memory_bytes(p, s) > _SMEM_LIMIT:
         raise ValueError(f"render_frames: P={p}, S={s}, u={u} needs more than 48 KB of shared memory")
-    sig = np.float32(sigma)
-    two_s2 = np.float32(np.float32(2.0) * sig) * sig  # the plain version's 2·σ·σ in f32
-    factor = np.float32(-np.log2(np.e) / np.float64(two_s2))
-    return block_layout(p, s)[2], float(factor), float(grid_step(s * u))
+    if isinstance(sigma, tuple):
+        if not 1 <= len(sigma) <= MAX_SETTINGS:
+            raise ValueError(f"render_frames: {len(sigma)} PSF settings outside the kernel's 1..{MAX_SETTINGS}")
+        factor = tuple(_exp2_factor(v) for v in sigma)
+    else:
+        factor = _exp2_factor(sigma)
+    return block_layout(p, s)[2], factor, float(grid_step(s * u))
 
 
 def _lib():
@@ -84,18 +100,30 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.render_frames.argtypes = [p, p, p, p, i, i, i, i, i, f, f, p]
         lib.render_frames.restype = i
+        lib.render_frames_settings.argtypes = [p, p, p, p, i, i, i, i, i, p, i, i, f, p]
+        lib.render_frames_settings.restype = i
         lib.launch_noop.argtypes = [p]
         lib.launch_noop.restype = i
         lib._typed = True
     return lib
 
 
-def _scalar_sigma(sigma_hr) -> float:
-    if isinstance(sigma_hr, torch.Tensor) and sigma_hr.ndim != 0:
-        raise ValueError(
-            "render_frames: the CUDA kernel takes a scalar sigma; a "
-            "per-element sigma (the PSF-grid renderer) is not ported yet"
-        )
+def _kernel_sigma(sigma_hr, b: int):
+    """A float for one sigma, or a tuple for one per PSF setting (a tuple or
+    list of K floats, K dividing the ``b`` frames). A sigma tensor with
+    axes (a per-frame or per-sub-position sigma) raises."""
+    if isinstance(sigma_hr, torch.Tensor):
+        if sigma_hr.ndim != 0:
+            raise ValueError(
+                "render_frames: the CUDA kernel takes a scalar sigma or a tuple of one sigma per "
+                f"PSF setting, got a tensor of shape {tuple(sigma_hr.shape)}"
+            )
+        return float(sigma_hr)
+    if isinstance(sigma_hr, (tuple, list)):
+        k = len(sigma_hr)
+        if k == 0 or b % k != 0:
+            raise ValueError(f"render_frames: {k} PSF settings do not divide B={b} frames into equal runs")
+        return tuple(float(v) for v in sigma_hr)
     return float(sigma_hr)
 
 
@@ -113,12 +141,23 @@ def _check_input(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
 def render_frames(x_hr, y_hr, intensities, sigma_hr, output_size: int, upsampling_factor: int):
     """Render ``(B, P)`` sub-positions into ``(B, S, S)`` noise-free frames.
 
-    On CUDA tensors this launches K1 (``csrc/render.cu``) on the current
-    stream and adds one to ``render_frames.launches``; on CPU tensors it
-    returns ``render_frames_reference``. A call allocates the frames and
-    launches one kernel: the grid coordinates are computed in the kernel.
+    ``sigma_hr`` is one sigma, or a tuple of K sigmas (one per PSF setting,
+    K dividing B), and then frame ``b`` is rendered with
+    ``sigma_hr[b // (B // K)]``. On CUDA tensors this launches K1
+    (``csrc/render.cu``) once on the current stream, for all settings, and
+    adds one to ``render_frames.launches``; on CPU tensors it returns
+    ``render_frames_reference``. A call allocates the frames and launches
+    one kernel: the grid coordinates are computed in the kernel.
     """
     if not x_hr.is_cuda:
+        if isinstance(sigma_hr, (tuple, list)):
+            sig = _kernel_sigma(sigma_hr, x_hr.shape[0])
+            k, p = len(sig), x_hr.shape[1]
+            runs = [t.reshape(k, -1, p) for t in (x_hr, y_hr, intensities)]
+            sig = torch.tensor(sig, dtype=torch.float32).view(k, 1, 1)
+            return render_frames_reference(*runs, sig, output_size, upsampling_factor).reshape(
+                -1, output_size, output_size
+            )
         return render_frames_reference(
             x_hr, y_hr, intensities, sigma_hr, output_size, upsampling_factor
         )
@@ -129,16 +168,23 @@ def render_frames(x_hr, y_hr, intensities, sigma_hr, output_size: int, upsamplin
     b, p = x_hr.shape
     if b * max(p, s * s) >= 2 ** 31:
         raise ValueError(f"render_frames: B={b} frames are more than the kernel's 32-bit indices take")
-    sigma = _scalar_sigma(sigma_hr)
+    sigma = _kernel_sigma(sigma_hr, b)
     if b == 0 or p == 0:
         return torch.zeros((b, s, s), dtype=torch.float32, device=x_hr.device)
     frames, exp2_factor, step = _launch_constants(sigma, p, s, u)
     out = torch.empty((b, s, s), dtype=torch.float32, device=x_hr.device)
-    err = _lib().render_frames(
-        x_hr.data_ptr(), y_hr.data_ptr(), intensities.data_ptr(), out.data_ptr(),
-        b, p, s, u, frames, exp2_factor, step,
-        torch.cuda.current_stream(x_hr.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x_hr.device).cuda_stream
+    if isinstance(sigma, tuple):
+        table = (ctypes.c_float * len(exp2_factor))(*exp2_factor)
+        err = _lib().render_frames_settings(
+            x_hr.data_ptr(), y_hr.data_ptr(), intensities.data_ptr(), out.data_ptr(),
+            b, p, s, u, frames, ctypes.cast(table, ctypes.c_void_p), len(sigma), b // len(sigma), step, stream,
+        )
+    else:
+        err = _lib().render_frames(
+            x_hr.data_ptr(), y_hr.data_ptr(), intensities.data_ptr(), out.data_ptr(),
+            b, p, s, u, frames, exp2_factor, step, stream,
+        )
     if err != 0:
         raise RuntimeError(f"render_frames: kernel launch failed (cudaError {err})")
     render_frames.launches += 1

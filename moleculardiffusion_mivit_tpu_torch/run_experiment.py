@@ -8,6 +8,7 @@ Usage:
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment modular \
         --cycles 100 --in-order [--with-hybrid]
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment embeddings|framerate --cycles 100
+    python -m moleculardiffusion_mivit_tpu_torch.run_experiment psfnoise --cycles 100 --in-order
 
 Port of ``moleculardiffusion_mivit_tpu/run_experiment.py``: runs the named
 experiment on ``--device`` (CUDA by default; without a card it raises unless
@@ -39,8 +40,8 @@ def main(argv=None):
     """Run the command line ``argv``; returns the trained ``Experiment``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("experiment",
-                    help="baseline | images_features | modular | embeddings | framerate "
-                         "(psfnoise and denoising are not ported yet)")
+                    help="baseline | images_features | modular | embeddings | framerate | psfnoise "
+                         "(denoising is not ported yet)")
     ap.add_argument("--cycles", type=int, default=None, help="override num_cycles")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seqs-per-d", type=int, default=64)
@@ -50,7 +51,7 @@ def main(argv=None):
     ap.add_argument("--in-order", action="store_true",
                     help="build the in-order D sweep where the experiment makes it optional")
     ap.add_argument("--in-order-suite", choices=("imft", "committed"), default=None,
-                    help="(images_features, modular) the in-order sweep to score: imft, the published 100-value "
+                    help="(images_features, modular, psfnoise) the in-order sweep to score: imft, the published 100-value "
                          "D=0.1..10.0 protocol (default), or committed, the 70-value valTrajsInOrder set; "
                          "implies --in-order")
     ap.add_argument("--in-order-renders", type=int, default=1,
@@ -98,7 +99,7 @@ def main(argv=None):
     if args.compute_dtype:
         exp.train_cfg = exp.train_cfg.replace(compute_dtype=args.compute_dtype)
         for arm in exp.arms.values():
-            if arm.train_cfg is not None:
+            if getattr(arm, "train_cfg", None) is not None:
                 arm.train_cfg = arm.train_cfg.replace(compute_dtype=args.compute_dtype)
     if args.no_stack_pairs:
         exp.stack_pairs = False

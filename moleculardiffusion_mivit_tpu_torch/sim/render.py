@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
@@ -136,6 +137,86 @@ def trajectories_to_video(
         lam = torch.full(frames.shape, k, dtype=torch.float32, device=dev)
         frames = frames * (_poisson(generator, lam) / k)
     return frames
+
+
+def psf_sigmas(optics: OpticsConfig, psf_settings: Tuple[float, ...]) -> Tuple[float, ...]:
+    """The PSF grid's sigma per setting (HR pixels, rounded to f32):
+    ``optics``' sigma with ``psf_division_factor = 1``, divided by each
+    setting (the reference recomputes the PSF width without the factor and
+    divides per grid cell)."""
+    base = optics.replace(psf_division_factor=1.0).gaussian_sigma_hr
+    return tuple(float(np.float32(base / ps)) for ps in psf_settings)
+
+
+def render_psf_stack(x_hr, y_hr, intensities, sigmas: Tuple[float, ...], output_size: int,
+                     upsampling_factor: int) -> torch.Tensor:
+    """Noise-free frames of every PSF setting, ``(K, ..., S, S)`` from
+    ``(..., P)`` sub-positions and intensities shared by the settings and K
+    ``sigmas``: one K1 launch for all settings on the card (a sigma per
+    setting), the plain version on the CPU."""
+    from moleculardiffusion_mivit_tpu_torch.ops.render import render_frames
+
+    k, lead, p = len(sigmas), x_hr.shape[:-1], x_hr.shape[-1]
+    flat = [v.reshape(1, -1, p).expand(k, -1, -1).reshape(-1, p).contiguous() for v in (x_hr, y_hr, intensities)]
+    frames = render_frames(*flat, tuple(sigmas), output_size, upsampling_factor)
+    return frames.reshape((k,) + tuple(lead) + (output_size, output_size))
+
+
+def trajectories_to_video_psf_noise_grid(
+    generator: torch.Generator,
+    trajectories: torch.Tensor,
+    n_pos_per_frame: int,
+    center: bool = False,
+    optics: OpticsConfig = OpticsConfig(),
+    psf_settings: Tuple[float, ...] = (2.0, 1.75, 1.5, 1.25, 1.0),
+    noise_settings: Tuple[float, ...] = (0.0, 1 / 50, 1 / 25, 1 / 20, 1 / 10, 1 / 5),
+) -> torch.Tensor:
+    """The PSF-size × noise-level grid (the published PSFNoise sweep), as
+    the JAX package's: trajectories ``(N, T, 2)`` → ``(N, N_PSF, N_NOISE, F,
+    S, S)`` float32, not normalised.
+
+    - PSF setting ``i`` renders with ``psf_sigmas(optics, psf_settings)[i]``,
+      all settings in one K1 launch on the card (``render_psf_stack``), from
+      one per-frame intensity draw ``N(μ, σ)`` shared by the whole grid
+      (``μ/P`` a sub-position).
+    - Noise cascade, reproduced from the reference: arm 0 is
+      ``Pois((clean + bg_mean)·k)/k``; arm ``j > 0`` adds a clipped
+      background of std ``μ · noise_settings[j]`` to the *noised arm 0*,
+      then draws shot noise ``Pois(·k)/k`` again.
+
+    Streams, in the JAX key layout: intensities ``fold_in(g, 0)``;
+    arm ``j``'s background ``fold_in(g, 1, j)``; arm 0's shot noise
+    ``fold_in(g, 2)``, arm ``j``'s ``fold_in(g, 3, j)``. ``generator`` lies
+    on the trajectories' device."""
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in
+
+    n, t, _ = trajectories.shape
+    p = n_pos_per_frame
+    n_frames = t // p
+    s, u = optics.output_size, optics.upsampling_factor
+    part_mean, part_std = optics.particle_intensity
+    bg_mean = optics.background_intensity[0]
+    n_psf = len(psf_settings)
+    dev = trajectories.device
+
+    x_hr, y_hr = _prepare_subpositions(trajectories, p, center, optics)
+    if part_mean > 1e-4 and part_std > 1e-4:
+        g_int = fold_in(generator, 0)
+        frame_intensity = part_mean + part_std * torch.randn((n, n_frames), generator=g_int, device=dev)
+        intensities = (frame_intensity / p)[..., None].expand(n, n_frames, p)
+        clean = render_psf_stack(x_hr, y_hr, intensities, psf_sigmas(optics, psf_settings), s, u)
+    else:
+        clean = torch.zeros((n_psf, n, n_frames, s, s), dtype=torch.float32, device=dev)
+
+    k = torch.tensor(float(optics.poisson_noise), dtype=torch.float32)
+    arm0 = _poisson(fold_in(generator, 2), torch.clamp(clean + torch.tensor(bg_mean, dtype=torch.float32), min=0.0)
+                    * k) / k
+    arms = [arm0]
+    for j in range(1, len(noise_settings)):
+        noised = arm0 + _clipped_background(fold_in(generator, 1, j), arm0.shape, bg_mean,
+                                            part_mean * noise_settings[j])
+        arms.append(_poisson(fold_in(generator, 3, j), torch.clamp(noised, min=0.0) * k) / k)
+    return torch.stack(arms, dim=1).permute(2, 0, 1, 3, 4, 5)
 
 
 def normalize_images(

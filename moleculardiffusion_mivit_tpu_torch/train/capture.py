@@ -4,12 +4,15 @@ donate_argnums=(0,))``, ``train/multi.py``).
 
 A *unit* is a list of models that step together: one model, a stack of
 models that differ only in their FF activation slope (stepped one after the
-other), or every model of a merged cycle (``merge_scans``). For each unit
-and batch size ``EpochEngine`` keeps static buffers: each member's cycle
+other), or every model of a merged cycle (``merge_scans``). A member of a
+unit may also be a whole model grid (``train.grid``: ``M`` models in one
+step), whose data carry the member axis first, whose permutation is
+``(steps, M, B)`` and whose step returns ``M`` losses. For each unit and
+batch size ``EpochEngine`` keeps static buffers: each member's cycle
 data (copied in once a cycle: its inputs of any shape, its labels and, for a
-model that takes them, its features), its epoch permutation ``(steps, B)``,
-its per-step losses, and one device step counter that the step itself
-advances.
+model that takes them, its features), its epoch permutation ``(steps, B)``
+or ``(steps, M, B)``, its per-step losses ``(steps,)`` or ``(steps, M)``,
+and one device step counter that the step itself advances.
 On the card the first cycle of a batch size runs ``WARMUP_STEPS`` steps
 eagerly on a side stream, which makes the optimizer's state, the kernels'
 one-time set-up (``ops.fused_embedding``'s border table, shared-memory
@@ -68,9 +71,9 @@ class Member(NamedTuple):
     name: str
     state: TrainState
     train_step: Callable  # train.loop's train_step(state, videos, labels, idx, act_slope, features)
-    videos: torch.Tensor  # the model's first input, (N, ...)
+    videos: torch.Tensor  # the model's first input, (N, ...); a grid's (M, N, ...)
     labels: torch.Tensor
-    perm: torch.Tensor  # (steps, batch) minibatch indices on the data's device
+    perm: torch.Tensor  # (steps, batch) minibatch indices on the data's device; a grid's (steps, M, batch)
     act_slope: Optional[torch.Tensor] = None
     features: Optional[torch.Tensor] = None  # (N, F), for a model that takes them
 
@@ -92,7 +95,7 @@ class _Unit:
         self.labels = [torch.empty_like(m.labels) for m in members]
         self.features = [None if m.features is None else torch.empty_like(m.features) for m in members]
         self.perms = [torch.empty_like(m.perm) for m in members]
-        self.losses = [torch.empty(m.perm.shape[0], device=m.perm.device) for m in members]
+        self.losses = [torch.empty(m.perm.shape[:-1], device=m.perm.device) for m in members]
         self.counter = torch.zeros(1, dtype=torch.long, device=members[0].perm.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches_per_replay: Dict[str, int] = {}
@@ -117,10 +120,10 @@ class _Unit:
     def step(self) -> None:
         """One minibatch of every member, then the counter moves on."""
         for i, state in enumerate(self.states):
-            idx = self.perms[i].index_select(0, self.counter).view(-1)
+            idx = self.perms[i].index_select(0, self.counter)[0]
             loss = self.train_steps[i](state, self.videos[i], self.labels[i], idx, self.slopes[i],
                                        features=self.features[i])
-            self.losses[i].index_copy_(0, self.counter, loss.view(1))
+            self.losses[i].index_copy_(0, self.counter, loss.unsqueeze(0))
         self.counter.add_(1)
 
 
@@ -160,7 +163,8 @@ class EpochEngine:
 
     def run(self, units: Sequence[Sequence[Member]], batch_size: int) -> Dict[str, torch.Tensor]:
         """One epoch of every unit at ``batch_size``; returns each member's
-        mean loss (a 0-d tensor on its device, NaN for an epoch of no step)."""
+        mean loss (a 0-d tensor on its device, a grid's ``(M,)``; NaN for an
+        epoch of no step)."""
         if batch_size != self._batch_size:
             self.release()
             self._batch_size = batch_size
@@ -168,7 +172,8 @@ class EpochEngine:
         for members in units:
             steps = members[0].perm.shape[0]
             if steps == 0:
-                losses.update({m.name: torch.full((), float("nan"), device=m.perm.device) for m in members})
+                losses.update({m.name: torch.full(m.perm.shape[1:-1], float("nan"), device=m.perm.device)
+                               for m in members})
                 continue
             key = tuple(m.name for m in members)
             unit = self.units.get(key)
@@ -179,7 +184,8 @@ class EpochEngine:
             self._epoch(unit, steps)
             if self.unit_seconds is not None:
                 self.unit_seconds[key] = self._mark() - t0
-            losses.update({name: buf.mean() for name, buf in zip(unit.names, unit.losses)})
+            losses.update({name: buf.mean() if buf.ndim == 1 else buf.mean(dim=0)
+                           for name, buf in zip(unit.names, unit.losses)})
         return losses
 
     def _mark(self) -> float:

@@ -1,0 +1,189 @@
+"""Model grids: many small models of one architecture trained as one program.
+
+Port of ``moleculardiffusion_mivit_tpu/train/grid.py``. The reference trains
+its experiment grids one model after the other (60 models for PSFNoise: 5
+PSF × 6 noise × {transformer, ResNet}); here a grid of ``M`` models is one
+``GridModule`` whose parameters and buffers carry a leading member axis
+(``torch.func.stack_module_state``), and a step runs every member at once:
+``torch.vmap`` over ``torch.func.functional_call`` of one template module.
+
+- Forward: each member's minibatch is gathered from its own data slice
+  (``videos (M, N, ...)``, ``idx (M, B)``); the deep-ResNet embedding's
+  kernels K2/K3 see the member axis through their vmap rule
+  (``ops.fused_embedding``) and launch once a step for all members; the
+  other layers run as batched PyTorch operators (a convolution with
+  stacked weights becomes a grouped one, f32 and deterministic under
+  ``f32_convolutions``).
+- Backward: one ``backward`` of the *sum* of the per-member losses, which
+  gives each member exactly the gradient of its own loss (a mean over
+  members would scale it by 1/M).
+- BatchNorm: each member's running statistics move by its own batch
+  statistics, in place on the stacked buffers.
+- Optimizer: one AdamW over the stacked leaves; AdamW is elementwise, so
+  each member's update is its own.
+
+Nothing here loops over members, and ``train_step`` makes no host
+synchronisation and draws no random number, so ``train.capture`` captures
+it in a CUDA graph like a single model's step. A model with dropout > 0
+raises under ``torch.vmap`` (one mask cannot serve every member).
+
+Random streams: member ``m``'s initial weights come from the ``m``-th CPU
+generator given to ``init_grid``; its epoch permutation from
+``fold_in(generator, m)`` (``make_perms``).
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+from torch.func import functional_call, stack_module_state
+
+from moleculardiffusion_mivit_tpu_torch import resolve_device
+from moleculardiffusion_mivit_tpu_torch.config import TrainConfig
+from moleculardiffusion_mivit_tpu_torch.models import init_model
+from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
+from moleculardiffusion_mivit_tpu_torch.train.loop import (
+    TrainState,
+    _check_supported,
+    _loss,
+    _set_lr,
+    epoch_permutation,
+    make_optimizer,
+)
+from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in
+
+
+def _key(name: str) -> str:
+    return name.replace(".", "__")
+
+
+class GridModule(nn.Module):
+    """``M`` copies of ``template``'s architecture as stacked parameters and
+    buffers, registered under the template's names with ``.`` → ``__`` (so
+    ``state_dict`` and an optimizer see ``M``-stacked leaves). The template
+    is not a submodule: only its structure is used, by ``functional_call``.
+    ``members`` are initialised modules of the template's architecture."""
+
+    def __init__(self, template: nn.Module, members: Sequence[nn.Module]):
+        super().__init__()
+        params, buffers = stack_module_state(list(members))
+        self.__dict__["template"] = template
+        self.param_names = list(params)
+        self.buffer_names = list(buffers)
+        for name, p in params.items():
+            self.register_parameter(_key(name), nn.Parameter(p.detach().clone()))
+        for name, b in buffers.items():
+            self.register_buffer(_key(name), b.detach().clone())
+
+    def stacked(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """The template's parameters and buffers by name, each ``(M, ...)``."""
+        return ({n: getattr(self, _key(n)) for n in self.param_names},
+                {n: getattr(self, _key(n)) for n in self.buffer_names})
+
+    def vmapped(self, fn: Callable, *args) -> torch.Tensor:
+        """``torch.vmap`` over the members of ``fn(model, *member_args)``,
+        ``model(*inputs)`` running the template on one member's parameters
+        and buffers, in this module's train or eval mode; every ``args``
+        tensor has the member axis first."""
+        self.template.train(self.training)
+        params, buffers = self.stacked()
+        template = self.template
+
+        def one(p, b, *a):
+            return fn(lambda *inputs: functional_call(template, (p, b), inputs), *a)
+
+        return torch.vmap(one)(params, buffers, *args)
+
+    def _apply(self, fn, recurse=True):
+        self.template._apply(fn, recurse)
+        return super()._apply(fn, recurse)
+
+
+class GridImpls(NamedTuple):
+    """The grid's closures (see ``make_grid_impls``)."""
+
+    init_grid: Callable
+    train_cycle: Callable
+    evaluate: Callable
+    train_step: Callable
+    make_perms: Callable
+
+
+def make_perms(generator: torch.Generator, m: int, n: int, batch_size: int, device) -> torch.Tensor:
+    """Each member's epoch permutation, ``(M, n // batch_size, batch_size)``:
+    member ``i`` draws ``epoch_permutation`` from ``fold_in(generator, i)``."""
+    return torch.stack([epoch_permutation(fold_in(generator, i), n, batch_size, device) for i in range(m)])
+
+
+def make_grid_impls(
+    model: nn.Module, train_cfg: TrainConfig, device=None, with_features: bool = False
+) -> GridImpls:
+    """``(init_grid, train_cycle, evaluate, train_step, make_perms)`` for a
+    grid of ``model``'s architecture. Data are member-major: ``videos (M,
+    N, ...)``, ``labels (M, N, k)`` (shared labels tiled over ``M``), with
+    ``with_features`` also ``features (M, N, F)``; member ``m`` trains on
+    its own slice, as the reference feeds grid cell (psf, noise) to model
+    ``tr_{psf}_{noise}``.
+
+    - ``init_grid(generators, capturable=False)``: a ``TrainState`` of a
+      ``GridModule`` with one member per CPU generator (``init_model``
+      from each), on the device, and its AdamW.
+    - ``train_step(state, videos, labels, idx, act_slope=None,
+      features=None)``: one minibatch of every member, ``idx (M, B)``;
+      returns the per-member losses ``(M,)`` (not synchronised).
+    - ``train_cycle(state, videos, labels, generator, lr, batch_size,
+      features=None)``: one epoch in ``make_perms`` order; returns the
+      per-member mean losses ``(M,)``.
+    - ``evaluate(state, videos, features=None)``: eval-mode predictions
+      ``(M, N, ...)`` × ``d_max_normalization``.
+    """
+    _check_supported(train_cfg)
+    dev = resolve_device(device)
+
+    def init_grid(generators: Sequence[torch.Generator], capturable: bool = False) -> TrainState:
+        members = [init_model(copy.deepcopy(model), g) for g in generators]
+        grid = GridModule(model, members).to(dev).train()
+        return TrainState(grid, make_optimizer(grid, train_cfg, capturable))
+
+    def member_loss(run, bv, by, *bf):
+        out = run(bv, *bf).float()
+        if by.ndim == 2 and out.ndim == 3:
+            by = by[..., None]
+        return _loss(out, by, train_cfg.loss)
+
+    def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None) -> torch.Tensor:
+        if act_slope is not None:
+            raise ValueError("a grid has no activation-slope stacks")
+        if with_features and features is None:
+            raise ValueError("this grid's models take features: pass features=")
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        batch = (videos[rows, idx], labels[rows, idx]) + ((features[rows, idx],) if with_features else ())
+        grid = state.model
+        with f32_convolutions():  # autograd's convolutions read the setting when they run
+            losses = grid.vmapped(member_loss, *batch)
+            state.optimizer.zero_grad(set_to_none=True)
+            losses.sum().backward()
+        state.optimizer.step()
+        return losses.detach()
+
+    def train_cycle(state: TrainState, videos, labels, generator, lr: float, batch_size: int, features=None):
+        perms = make_perms(generator, videos.shape[0], videos.shape[1], batch_size, videos.device)
+        _set_lr(state.optimizer, lr)
+        state.model.train()
+        losses = [train_step(state, videos, labels, perms[:, s], features=features) for s in range(perms.shape[1])]
+        return torch.stack(losses).mean(dim=0)
+
+    @torch.no_grad()
+    def evaluate(state: TrainState, videos, features: Optional[torch.Tensor] = None):
+        grid = state.model
+        grid.eval()
+        try:
+            args = (videos, features) if with_features else (videos,)
+            return grid.vmapped(lambda run, *a: run(*a), *args) * train_cfg.d_max_normalization
+        finally:
+            grid.train()
+
+    return GridImpls(init_grid, train_cycle, evaluate, train_step, make_perms)

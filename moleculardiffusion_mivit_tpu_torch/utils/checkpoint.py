@@ -3,7 +3,8 @@
 Port of ``moleculardiffusion_mivit_tpu/utils/checkpoint.py`` with its
 directory layout: ``<path>/states/`` (here one ``<arm>.pt`` per learned arm,
 ``torch.save`` of the model's and the optimizer's ``state_dict``: parameters,
-BatchNorm running statistics, AdamW moments, step counts and learning rate),
+BatchNorm running statistics, AdamW moments, step counts and learning rate;
+a grid arm's model is its ``train.grid.GridModule``, every member stacked),
 ``<path>/history.json`` and ``<path>/meta.json``. A restored experiment
 continues exactly where the saved one stopped.
 """

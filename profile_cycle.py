@@ -28,8 +28,10 @@ images-features experiment (nine arms; generation computes the 25 features
 of 320 sequences), ``--experiment modular`` for the modular experiment as
 ``run_experiment modular --with-hybrid --in-order`` builds it (eight arms,
 seven of them deep-ResNet transformers; generation computes the per-frame
-tokens and the 25 features of 320 sequences); an experiment's name with no
-mode runs it captured.
+tokens and the 25 features of 320 sequences), ``--experiment psfnoise`` for
+the PSF × noise grid (two grid arms of 30 models each, stepped as one
+program; generation renders 352 sequences at 5 PSF × 6 noise settings);
+an experiment's name with no mode runs it captured.
 
 ``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
 alone: for each shape, device time by kernel over 5 calls of K2
@@ -127,15 +129,17 @@ def profile(torch, arm: str, batch: int, val):
 
 
 def profile_experiment(torch, name: str, batch: int, fused: bool):
-    """An experiment's cycle (``name``: baseline, images_features or
+    """An experiment's cycle (``name``: baseline, images_features,
     modular, the last with its hybrid arms and the in-order suite's
-    training classes) at full width through ``Experiment.run``, at a fixed
-    batch size, captured (``fused``) or eager: one cycle to warm up (and
-    capture), one timed, one under the profiler."""
+    training classes, or psfnoise) at full width through ``Experiment.run``,
+    at a fixed batch size, captured (``fused``) or eager: one cycle to warm
+    up (and capture), one timed, one under the profiler. A grid arm's
+    training losses are its members' (a list a cycle)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from chip_smoke import device_kernels
     from moleculardiffusion_mivit_tpu_torch.experiments import get_experiment
+    from moleculardiffusion_mivit_tpu_torch.experiments.base import class_sequence_counts
 
     options = dict(with_hybrid=True, with_in_order=True) if name == "modular" else {}
     exp = get_experiment(name, seed=0, device="cuda", **options)
@@ -161,7 +165,7 @@ def profile_experiment(torch, name: str, batch: int, fused: bool):
         by_name[kernel] += (b - a) / 1e3
         by_layer[_layer(kernel)] += (b - a) / 1e3
     device_ms = sum(by_name.values()) / 1e3
-    n_seq = exp.train_cfg.sequences_per_d * len(exp.train_cfg.training_ds)
+    n_seq = sum(class_sequence_counts(exp.train_cfg.training_ds, exp.train_cfg.sequences_per_d))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "experiment": name, "arms": len(exp.arms), "batch": batch,
@@ -173,7 +177,7 @@ def profile_experiment(torch, name: str, batch: int, fused: bool):
         "by_layer_ms": {k: v / 1e3 for k, v in sorted(by_layer.items())},
         "top_kernels_ms": [[name[:90], t / 1e3] for name, t in top],
         "captures": exp.engine.captures, "replays": exp.engine.replays,
-        "train_loss": {n: [float(v) for v in ls] for n, ls in exp.train_loss.items()},
+        "train_loss": {n: [v.tolist() for v in ls] for n, ls in exp.train_loss.items()},
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
 
@@ -229,7 +233,7 @@ def main() -> None:
     ap.add_argument("--embedding", type=int, nargs="+", default=None, metavar="B_T_S",
                     help="profile K2/K3 alone at these (B, T, S) shapes")
     ap.add_argument("--experiment", nargs="+", default=None,
-                    choices=("captured", "eager", "baseline", "images_features", "modular"),
+                    choices=("captured", "eager", "baseline", "images_features", "modular", "psfnoise"),
                     help="profile an experiment's cycle (Experiment.run) at each --batch, captured "
                          "and/or eager: modes and experiment names (default baseline; a name alone "
                          "runs captured)")

@@ -46,6 +46,10 @@ def test_render_kernel_matches_plain_on_card(cuda_device):
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     with pytest.raises(ValueError, match="scalar sigma"):
         trender_ops.render_frames(x, y, w, torch.full((2,), 5.0), 9, 5)
+    with pytest.raises(ValueError, match="do not divide"):
+        trender_ops.render_frames(x, y, w, (5.0, 4.0, 3.0, 2.0, 1.0, 0.5, 0.25), 9, 5)
+    with pytest.raises(ValueError, match="PSF settings outside"):
+        trender_ops.render_frames(x, y, w, (5.0,) * 10, 9, 5)
     with pytest.raises(ValueError, match="float32"):
         trender_ops.render_frames(x.double(), y, w, 5.96, 9, 5)
     with pytest.raises(ValueError, match="S\\*u"):
@@ -74,6 +78,27 @@ def test_render_kernel_shapes_on_card(cuda_device, b, p, s, u):
     assert got.shape == (b, s, s) and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert torch.equal(got, trender_ops.render_frames(x, y, w, 5.96, s, u))
+
+
+@pytest.mark.parametrize("per,k,s", [(1920, 5, 9), (7, 5, 9), (4, 3, 13), (30000, 5, 9)])
+def test_render_kernel_with_a_sigma_per_setting_on_card(cuda_device, per, k, s):
+    """One launch renders K PSF settings (the PSF x noise grid: 5 settings
+    of one class, 9,600 frames, and of the in-order suite, 150,000; 7
+    frames a setting, so blocks of 3 frames straddle settings; 13×13):
+    bitwise the K one-sigma launches on the runs, and within 1e-5·max of
+    the plain version with the sigmas broadcast."""
+    sigmas = tuple(4.6 / v for v in (2.0, 1.75, 1.5, 1.25, 1.0)[:k])
+    x, y, w = _render_inputs(per * k, 10, per + k, cuda_device)
+    before = trender_ops.render_frames.launches
+    got = trender_ops.render_frames(x, y, w, sigmas, s, 5)
+    assert trender_ops.render_frames.launches == before + 1
+    runs = torch.cat([trender_ops.render_frames(x[i * per:(i + 1) * per], y[i * per:(i + 1) * per],
+                                                w[i * per:(i + 1) * per], sig, s, 5) for i, sig in enumerate(sigmas)])
+    assert torch.equal(got, runs)
+    want = trender_ops.render_frames_reference(
+        *(v.reshape(k, per, 10) for v in (x, y, w)), torch.tensor(sigmas, device=cuda_device).view(k, 1, 1), s, 5
+    ).reshape(-1, s, s)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_render_kernel_takes_no_frames_and_no_subpositions(cuda_device):
@@ -262,6 +287,75 @@ def test_train_step_ignores_the_callers_tf32_setting(cuda_device):
     torch.backends.cudnn.allow_tf32 = False
     for a, b in zip(*moments):
         assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max()) + 1e-12
+
+
+def _stack_members(packed_list):
+    """Single-member packed arguments stacked along a new member axis."""
+    weights = tuple(torch.stack([p[0][i] for p in packed_list]) for i in range(7))
+    return (weights, *(torch.stack([p[j] for p in packed_list]) for j in range(1, 5)))
+
+
+@pytest.mark.parametrize("m,b,t,s,e", [(3, 1, 30, 9, 64), (2, 8, 30, 9, 64), (2, 1, 6, 13, 32)])
+def test_embedding_members_equal_single_member_launches_on_card(cuda_device, m, b, t, s, e):
+    """K2 and K3 over M members in one launch each: every output of member
+    i (embedding, BN statistics, saved activations, every gradient) bitwise
+    equal to a launch for member i alone, at a batch-1 step (2,430 rows a
+    member, the 32-row tiles), at 19,440 rows (the 128-row tiles) and on
+    13×13 frames at E = 32; each member's statistics over its own rows."""
+    singles, xs, gs = [], [], []
+    for i in range(m):
+        x, kernels, scales, biases, wfc, bfc = _embedding_args(b, t, s, cuda_device, seed=10 + i, e=e)
+        singles.append(_packed(kernels, scales, biases, wfc, bfc))
+        xs.append(x.detach().reshape(b * t, s, s).contiguous())
+        gs.append(torch.randn((b * t, e), generator=torch.Generator(device=cuda_device).manual_seed(i),
+                              device=cuda_device))
+    stacked = _stack_members(singles)
+    f0, b0 = tfe.deep_resnet_embed_fwd.launches, tfe.deep_resnet_embed_bwd.launches
+    emb, stats, saved = tfe.deep_resnet_embed_fwd(torch.stack(xs), *stacked)
+    grads = tfe.deep_resnet_embed_bwd(torch.stack(xs), *stacked, saved, torch.stack(gs))
+    assert (tfe.deep_resnet_embed_fwd.launches, tfe.deep_resnet_embed_bwd.launches) == (f0 + 1, b0 + 1)
+    for i in range(m):
+        emb1, stats1, saved1 = tfe.deep_resnet_embed_fwd(xs[i], *singles[i])
+        gx1, gw1, gsc1, gbi1, gwfc1, gbfc1 = tfe.deep_resnet_embed_bwd(xs[i], *singles[i], saved1, gs[i])
+        assert torch.equal(emb[i], emb1), f"member {i} embedding"
+        for j, (_, c) in enumerate(tfe.BN_LAYOUT):
+            assert torch.equal(stats[i, j, :, :c], stats1[j, :, :c]), f"member {i} statistics {j}"
+            assert torch.equal(grads[2][i, j, :c], gsc1[j, :c]) and torch.equal(grads[3][i, j, :c], gbi1[j, :c])
+        for name, _ in tfe.SAVED:
+            assert torch.equal(saved[name][i], saved1[name]), f"member {i} {name}"
+        assert torch.equal(grads[0][i], gx1)
+        for g_all, g1 in zip(grads[1], gw1):
+            assert torch.equal(g_all[i], g1)
+        assert torch.equal(grads[4][i], gwfc1) and torch.equal(grads[5][i], gbfc1)
+
+
+def test_embedding_members_under_vmap_launch_once_and_match_plain(cuda_device):
+    """The embedding under ``torch.vmap`` (a model grid's step): one K2 and
+    one K3 launch for all members, and each member's embedding, statistics
+    and gradients equal the plain version on its own inputs."""
+    m, b, t, s = 3, 1, 30, 9
+    args = [_embedding_args(b, t, s, cuda_device, seed=20 + i) for i in range(m)]
+    x = torch.stack([a[0].detach() for a in args]).requires_grad_()
+    kernels = {k: torch.stack([a[1][k].detach() for a in args]).requires_grad_() for k in args[0][1]}
+    scales = {k: torch.stack([a[2][k].detach() for a in args]).requires_grad_() for k in args[0][2]}
+    biases = {k: torch.stack([a[3][k].detach() for a in args]).requires_grad_() for k in args[0][3]}
+    wfc = torch.stack([a[4].detach() for a in args]).requires_grad_()
+    bfc = torch.stack([a[5].detach() for a in args]).requires_grad_()
+    f0, b0 = tfe.deep_resnet_embed_fwd.launches, tfe.deep_resnet_embed_bwd.launches
+    out, stats = torch.vmap(tfe.fused_deep_resnet_embed)(x, kernels, scales, biases, wfc, bfc)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda_device).manual_seed(4), device=cuda_device)
+    leaves = [x, *kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
+    grads = torch.autograd.grad(out, leaves, g)
+    assert (tfe.deep_resnet_embed_fwd.launches, tfe.deep_resnet_embed_bwd.launches) == (f0 + 1, b0 + 1)
+    for i in range(m):
+        out_r, st_r = tfe.deep_resnet_embed_reference(*args[i])
+        torch.testing.assert_close(out[i], out_r, rtol=1e-4, atol=1e-4)
+        for name, _ in tfe.BN_LAYOUT:
+            torch.testing.assert_close(stats[name][0][i], st_r[name][0], rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(stats[name][1][i], st_r[name][1], rtol=1e-4, atol=1e-4)
+        leaves_i = [args[i][0], *args[i][1].values(), *args[i][2].values(), *args[i][3].values(), args[i][4], args[i][5]]
+        for a, r in zip(grads, torch.autograd.grad(out_r, leaves_i, g[i])):
+            assert float((a[i] - r).abs().max()) <= 1e-3 * float(r.abs().max())
 
 
 def test_embedding_kernels_reject_what_they_do_not_take(cuda_device):
@@ -556,3 +650,47 @@ def test_captured_cycle_with_features_equals_eager_on_card(cuda_device):
         assert abs(float(got[name]) - float(want)) <= 1e-5 * abs(float(want)), name
     assert cycle.engine.captures == 3 and cycle.engine.replays == 3 * 2
     _assert_models_equal(models, ref_models)
+
+
+@pytest.mark.parametrize("kind", ["deep_resnet", "resnet"])
+def test_grid_captured_epochs_equal_eager_epochs_on_card(cuda_device, kind):
+    """A model grid (``train.grid``: three members stepped as one program)
+    through the capture engine against the same grid's eager epochs, at two
+    batch sizes: per-member losses, parameters and BN running statistics
+    agree within 1e-5 of the eager tensor's largest entry, and the
+    deep-ResNet grid launches K2/K3 once a step for all members."""
+    from moleculardiffusion_mivit_tpu_torch.config import ModelConfig, TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
+    from moleculardiffusion_mivit_tpu_torch.train.capture import EpochEngine, Member, kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.train.grid import make_grid_impls, make_perms
+    from moleculardiffusion_mivit_tpu_torch.train.loop import _set_lr
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    model = GeneralTransformer(ModelConfig(**SMALL), embedding="deep_resnet") if kind == "deep_resnet" \
+        else MultiImageResNet()
+    cfg = TrainConfig(sequences_per_d=2, n_frames=6)
+    impls = make_grid_impls(model, cfg, cuda_device)
+    states = [impls.init_grid([torch.Generator().manual_seed(i) for i in range(3)], capturable=True)
+              for _ in range(2)]
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    videos = torch.rand((3, 8, 6, 9, 9), generator=g, device=cuda_device)
+    labels = torch.rand((3, 8, 1), generator=g, device=cuda_device)
+    engine = EpochEngine(cuda_device)
+    before = launch_counts()
+    for c, (batch, lr) in enumerate(((1, 1e-3), (2, 5e-4), (2, 5e-4))):
+        gen = seeded_generator(cuda_device, 3, c)
+        _set_lr(states[0].optimizer, lr)
+        perm = make_perms(gen, 3, 8, batch, cuda_device).transpose(0, 1).contiguous()
+        got = engine.run([[Member("grid", states[0], impls.train_step, videos, labels, perm)]], batch)["grid"]
+        want = impls.train_cycle(states[1], videos, labels, gen, lr, batch)
+        assert got.shape == want.shape == (3,)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    ref = states[1].model.state_dict()
+    for key, v in states[0].model.state_dict().items():
+        assert float((v - ref[key]).abs().max()) <= 1e-5 * float(ref[key].abs().max()) + 1e-7, key
+    assert engine.captures == 2
+    if kind == "deep_resnet":
+        launched = kernel_launches(before, [engine])
+        assert launched["deep_resnet_embed_fwd"] - launched["deep_resnet_embed_bwd"] == 0
+        # 8 + 4 + 4 captured steps, and the eager run's as many again
+        assert launched["deep_resnet_embed_fwd"] == 2 * (8 + 4 + 4)

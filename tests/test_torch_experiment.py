@@ -17,7 +17,7 @@ import torch
 
 from moleculardiffusion_mivit_tpu_torch import evaluation as tval
 from moleculardiffusion_mivit_tpu_torch import run_experiment
-from moleculardiffusion_mivit_tpu_torch.experiments import REGISTRY, GridArm, baseline, get_experiment, images_features
+from moleculardiffusion_mivit_tpu_torch.experiments import REGISTRY, baseline, get_experiment, images_features, psfnoise
 from moleculardiffusion_mivit_tpu_torch.utils import restore_experiment, save_experiment
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -137,10 +137,11 @@ def test_run_experiment_writes_the_files_and_events_of_the_jax_runner(small_vali
 
 
 def test_entry_points_raise_without_a_card_and_name_what_is_not_ported(monkeypatch, tmp_path):
-    """With no card, the runner given no ``--device``, ``baseline.build``
-    and ``images_features.build`` raise rather than run on the CPU; the
-    unported parts raise ``NotImplementedError`` naming their ROADMAP item
-    (the unported regimes: ``test_unported_regimes_raise``)."""
+    """With no card, the runner given no ``--device``, ``baseline.build``,
+    ``images_features.build`` and ``psfnoise.build`` (the experiment of
+    ``GridArm``s) raise rather than run on the CPU; the unported part
+    (``use_mesh``) raises ``NotImplementedError`` naming its ROADMAP item
+    (the unported regime: ``test_unported_regimes_raise``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_experiment.main(["baseline", "--out", str(tmp_path)])
@@ -150,8 +151,8 @@ def test_entry_points_raise_without_a_card_and_name_what_is_not_ported(monkeypat
         baseline.build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         images_features.build()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GridArm()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        psfnoise.build(val_d_values=())
     exp = baseline.Experiment("x", None, None, {}, None, {}, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         exp.use_mesh(None)
@@ -176,9 +177,9 @@ def test_sequence_mode_and_continuous_curriculum_generate_mixed_data(small_valid
             assert 0.05 <= float(labels.min()) and float(labels.max()) <= 0.75
 
 
-@pytest.mark.parametrize("name", ["psfnoise", "denoising"])
+@pytest.mark.parametrize("name", ["denoising"])
 def test_unported_regimes_raise(name):
-    """The two regimes not ported yet are listed and raise
+    """The regime not ported yet is listed and raises
     ``NotImplementedError`` naming ROADMAP item 12."""
     assert name in REGISTRY
     with pytest.raises(NotImplementedError, match="item 12"):
