@@ -3,8 +3,8 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
-line each on stdout; phases 4-6, 7, 8, 9 and 10 in five processes of their
-own:
+line each on stdout; phases 4-6, 7, 8, 9, 10 and 11 in six processes of
+their own:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
@@ -26,9 +26,10 @@ own:
    13×13 frames at 60 and 6 a sequence (10,140 to 162,240 and 1,014 to
    16,224 rows); two calls on the same inputs must agree bitwise; the
    kernel launches inside one forward and one backward are counted by kind.
-   Then over 30 members in one launch each (the psfnoise grid at batch 1
-   and 16: 72,900 and 1,166,400 rows): bitwise equal to 30 one-member
-   launches and repeatable, against the plain version under ``torch.vmap``.
+   Then over 30 and 7 members in one launch each (the psfnoise and the
+   denoising grid at batch 1 and 16: 72,900 and 1,166,400 rows, 17,010 and
+   272,160): bitwise equal to as many one-member launches and repeatable,
+   against the plain version under ``torch.vmap``.
 4. slice: the baseline experiment's seven models (GeneralTransformer with
    the linear, cnn and deep_resnet embeddings, relu and leaky_relu each, and
    MultiImageResNet) at full width and full data, each through
@@ -89,6 +90,15 @@ own:
    K2/K3 launch once a grid step for all 30 transformers (⌊352/b⌋ a cycle),
    K1 once a class for all five PSF settings; the runner's error table has
    the JAX record's 60 rows.
+11. denoising: the denoising experiment (``experiments.denoising.build`` +
+   ``Experiment.run``, then ``run_experiment.main denoising``) at full
+   width: 14 models in two grid arms of 7 trained with L1 loss, 256
+   sequences rendered into four noise variants and three RL-TV snapshots.
+   As phase 10: captured against eager at batch 16 for every member, batch
+   1 timed and profiled; K2/K3 launch once a grid step for all 7
+   transformers (⌊256/b⌋ a cycle), K1 once a class; then the renderer's
+   deterministic part, the filter, RL-TV and ``torch.poisson`` on the card
+   against the CPU, and each timed.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's
 launches on the main paths (by path beside the total), error, times
@@ -461,16 +471,17 @@ def phase_k2_k3(torch):
                           bound_ms=b3, bound_by=by3)}
         emit(row)
         records[(b, t, s, e)] = row
-    members = {b: _k2_k3_members(torch, fe, 30, b) for b in (1, 16)}
+    members = {(m, b): _k2_k3_members(torch, fe, m, b) for m in (30, 7) for b in (1, 16)}
     # the kernels line carries batch 16 at E = 64, with the other embed dims,
-    # the framerate shapes and the grid's 30 members beside it
+    # the framerate shapes and the grids' 30 and 7 members beside it
     out = []
     for k in ("k2", "k3"):
         row = dict(records[(16, 30, 9, 64)][k])
         for e in (58, 32, 128):
             row[f"at_embed_dim_{e}"] = {f"batch_{b}": records[(b, 30, 9, e)][k] for b in (1, 16)}
         row["at_s13"] = {f"T_{t}_batch_{b}": records[(b, t, 13, 64)][k] for t in (60, 6) for b in (1, 16)}
-        row["members_30"] = {f"batch_{b}": members[b][k] for b in (1, 16)}
+        for m in (30, 7):
+            row[f"members_{m}"] = {f"batch_{b}": members[(m, b)][k] for b in (1, 16)}
         out.append(row)
     return out
 
@@ -478,7 +489,7 @@ def phase_k2_k3(torch):
 def _k2_k3_members(torch, fe, m, b, t=30, s=9, e=64):
     """K2 and K3 over ``m`` members in one launch each (the psfnoise grid's
     30 transformers at batch ``b``: 30 × 2,430 rows at batch 1, 30 × 38,880
-    at 16): every output bitwise equal to ``m`` one-member launches and to a
+    at 16; the denoising grid's 7): every output bitwise equal to ``m`` one-member launches and to a
     second member launch; against the plain version per member, K2 at the
     rtol/atol 1e-4 of the rows above and K3 at their relative L2 of 1e-2 to
     plain f32 (the one-member launches are held to float64 in the rows
@@ -1528,6 +1539,223 @@ def phase_psfnoise(torch, card):
     return launches
 
 
+def phase_denoising(torch, card):
+    """The denoising experiment through its entry points
+    (``experiments.denoising.build`` + ``Experiment.run``, then
+    ``run_experiment.main denoising``) at full width and full data: 14
+    models in two grid arms of 7, ``trans_grid`` (deep-ResNet transformers
+    with a learned positional embedding) and ``resnet_grid``
+    (MultiImageResNets), trained with L1 loss; member ``m`` reads setting
+    ``m`` of one ``(256, 7, 30, 9, 9)`` stack a cycle (4 D classes × 64
+    sequences of 300 steps rendered into four noise variants, the Poisson
+    one RL-TV-deconvolved after 3, 6 and 11 steps); validation at D = 1, 3,
+    5, 7. (a) Batch 16, captured against eager from one seed, two cycles:
+    every member's losses, validation MSEs, parameters and buffers agree to
+    1e-4 relative. (b) Batch 1, captured: a capture cycle, a timed cycle and
+    a profiled one; every member's training loss falls (the third cycle's
+    mean below the first's; the transformers on noisy settings sit near the
+    L1 plateau of ≈ 0.21-0.24 in these cycles, so cycle 0's first steps,
+    as phase psfnoise reads them, can already be below it).
+    (c) Launches: K2/K3 once a grid step for all 7 transformers (⌊256/b⌋ a
+    cycle, in ``trans_grid``'s graph, never in ``resnet_grid``'s); K1 once
+    per D class a cycle (4) and once per validation D a build (4). (d) The
+    runner writes the 14 members' histories. (e) The card against the CPU
+    (``_denoising_card_against_cpu``)."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch import run_experiment
+    from moleculardiffusion_mivit_tpu_torch.experiments import denoising
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    deep = ("trans_grid",)
+    torch.cuda.reset_peak_memory_stats()
+    engines = []
+
+    def build(batch, fused):
+        exp = denoising.build(seed=0, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    t_phase = time.perf_counter()
+
+    cap = _captured_against_eager(torch, build, "denoising", card)
+    n_seq = _sequences(cap)
+    names = [f"{k}_{s}" for k in ("trans", "resnet") for s in denoising.SETTINGS]
+    check(n_seq == 256 and cap.model_names == names, f"denoising: {n_seq} sequences, models {cap.model_names}")
+    del cap
+    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+        torch, build, "denoising", deep, renders=4)
+    eng = exp.engine
+    check(set(units1) == set(exp.arms), f"denoising: units {sorted(units1)}")
+    check(len(losses) == 14, f"denoising: losses of {len(losses)} models")
+
+    # the user's entry point: one cycle (batch 1 by the schedule)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        cli = run_experiment.main(["denoising", "--cycles", "1", "--out", out, "--checkpoint-last", "0"])
+        torch.cuda.synchronize()
+        runner_s = time.perf_counter() - t0
+        engines.append(cli.engine)
+        for f in ("metrics.jsonl", "history.json", "final/meta.json", "final/states/trans_grid.pt",
+                  "final/states/resnet_grid.pt"):
+            check(Path(out, f).is_file(), f"run_experiment denoising wrote no {f}")
+        history = json.loads(Path(out, "history.json").read_text())
+    check(list(history) == names and all(math.isfinite(h["val_avg"][-1]) for h in history.values()),
+          f"denoising: runner history {list(history)[:3]}…")
+    del cli
+    torch.cuda.synchronize()
+    launches = kernel_launches(counts0, engines)
+    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) 2 × 2 cycles, (b) 3, the runner's 1
+    k1_want = 4 * builds + 4 * cycles
+    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    check(launches["render_frames"] == k1_want, f"denoising: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"denoising: {k} launches {launches[k]} != {k23_want}")
+
+    # after the counts: replays, generation and the card against the CPU
+    replay_host_ms = _replay_host_ms(torch, eng)
+    gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
+    gen_ms = time_ms(torch, gen, iters=5, warmup=1)
+    s_cycle = marks[2] - marks[1]
+    emit({"phase": "denoising", "part": "b", "card": card, "batch": 1, "models": len(losses),
+          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
+          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
+          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
+          "kernels_per_step": n_kernels / n_seq, "profiled_kernels_once_per_k1_k2_k3_call": seen,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
+          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "denoising", "part": "c_launches", "launches": launches, "k1_expected": k1_want,
+          "k2_k3_expected": k23_want})
+    emit({"phase": "denoising", "part": "d_runner", "seconds": runner_s,
+          "val_avg": {n: h["val_avg"][-1] for n, h in history.items()}})
+    _denoising_card_against_cpu(torch, exp, card)
+    emit({"phase": "denoising", "part": "phase_s", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def _denoising_card_against_cpu(torch, exp, card):
+    """Part (e) of phase denoising, on one class of the cycle (64 sequences
+    at D = 5, 1,920 frames): the four-variant renderer's deterministic part,
+    the filter and RL-TV on the card against the plain CPU path, at the CPU
+    tests' tolerances (``tests/test_torch_denoising.py``):
+
+    - ``no_noise`` (K1) against the plain renderer on the CPU given the same
+      sub-positions and the card's per-frame intensity, 1e-5 × max|frame|;
+      ``gauss − no_noise`` in ``[0, bg + 3σ]``;
+    - ``filtered`` against the CPU's ``gaussian_filter_2d`` of the card's
+      ``poisson``, 1e-6 × max|poisson|;
+    - each of RL-TV's 11 steps on the card from the CPU's estimate, 5e-5
+      (the TV step amplifies a convolution's rounding difference up to
+      100×); the snapshots after 3, 6 and 11 steps at 1e-4 on at least
+      99.5 % of the pixels (the largest gap reported beside the CPU's own
+      between the input and the input one ulp up: RL-TV is ill-conditioned
+      at plateaus);
+    - ``torch.poisson`` on the card at λ = 1e5, 2e5 and 4e5 (the shot noise
+      of the renderer: λ = gauss · 100) against the CPU's: 2^20 draws each,
+      mean and variance within 5 standard errors of λ on both sides.
+
+    Then K1 at this call, RL-TV, the filter, a class's whole render and
+    its seven-variant stack timed."""
+    from moleculardiffusion_mivit_tpu_torch.denoise import rl_tv
+    from moleculardiffusion_mivit_tpu_torch.experiments.denoising import DENOISING_OPTICS as optics
+    from moleculardiffusion_mivit_tpu_torch.ops.filters import gaussian_filter_2d
+    from moleculardiffusion_mivit_tpu_torch.ops.render import render_frames, render_frames_reference
+    from moleculardiffusion_mivit_tpu_torch.sim import normalize_images, single_state
+    from moleculardiffusion_mivit_tpu_torch.sim.render import (
+        _prepare_subpositions,
+        trajectories_to_video_multiple_settings,
+    )
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
+
+    cfg = exp.train_cfg
+    n, p, s, u = cfg.sequences_per_d, cfg.n_pos_per_frame, optics.output_size, optics.upsampling_factor
+    g = seeded_generator("cuda", 5, 0)
+    trajs, _ = single_state(fold_in(g, 0), n, cfg.n_frames * p, Ds=(5.0, 1.0))
+    trajs = trajs / cfg.traj_div_factor
+    gr = fold_in(g, 1)
+    no_noise, gauss, poisson, filtered = trajectories_to_video_multiple_settings(gr, trajs, p, cfg.center, optics)
+    torch.cuda.synchronize()
+
+    part_mean, part_std = optics.particle_intensity
+    w = (part_mean + part_std * torch.randn((n, cfg.n_frames), generator=fold_in(gr, 0), device="cuda")) / p
+    w = w[..., None].expand(n, cfg.n_frames, p).contiguous()
+    x_hr, y_hr = _prepare_subpositions(trajs, p, cfg.center, optics)
+    ref = render_frames_reference(x_hr.cpu(), y_hr.cpu(), w.cpu(), optics.gaussian_sigma_hr, s, u)
+    err_render = float((no_noise.cpu() - ref).abs().max())
+    check(err_render <= 1e-5 * float(ref.abs().max()), f"denoising: no_noise max|Δ| {err_render} to the CPU")
+    added = gauss - no_noise
+    bg_mean, bg_std = optics.background_intensity
+    check(float(added.min()) >= 0.0 and float(added.max()) <= bg_mean + 3 * bg_std + 1e-3,
+          f"denoising: gauss − no_noise in [{float(added.min())}, {float(added.max())}]")
+    err_filter = float((filtered.cpu() - gaussian_filter_2d(poisson.cpu(), 0.5)).abs().max())
+    check(err_filter <= 1e-6 * float(poisson.abs().max()), f"denoising: filter max|Δ| {err_filter} to the CPU")
+
+    bg_sigma = optics.background_intensity[1]
+    videos, _ = normalize_images(torch.stack([no_noise, gauss, poisson, filtered], 1), bg_mean, bg_sigma,
+                                 part_mean + bg_mean)
+    image = videos[:, 2]
+    psf = torch.from_numpy(rl_tv.create_gaussian_psf(sigma=1.0))
+    clipped = torch.clamp(image, min=1e-6).cpu()
+    estimate, step_err = torch.full_like(clipped, 0.5), 0.0
+    for _ in range(11):
+        card_step = rl_tv._rl_tv_step(estimate.cuda(), clipped.cuda(), psf.cuda(), psf.flip(-2, -1).cuda(), 0.01)
+        estimate = rl_tv._rl_tv_step(estimate, clipped, psf, psf.flip(-2, -1), 0.01)
+        step_err = max(step_err, float((card_step.cpu() - estimate).abs().max()))
+    check(step_err <= 5e-5, f"denoising: an RL-TV step on the card differs from the CPU's by {step_err}")
+    snaps = rl_tv.apply_rl_tv_iter_list_batch(image, psf).cpu()
+    snaps_cpu = rl_tv.apply_rl_tv_iter_list_batch(image.cpu(), psf)
+    one_ulp = rl_tv.apply_rl_tv_iter_list_batch(torch.nextafter(image.cpu(), torch.tensor(float("inf"))), psf)
+    rl_rows = {}
+    for j, steps in enumerate((3, 6, 11)):
+        d = (snaps[:, j] - snaps_cpu[:, j]).abs()
+        row = {"max_abs": float(d.max()), "rms": float(d.pow(2).mean().sqrt()),
+               "share_beyond_1e-4": float((d > 1e-4).float().mean()),
+               "cpu_one_ulp_max_abs": float((one_ulp[:, j] - snaps_cpu[:, j]).abs().max())}
+        check(row["share_beyond_1e-4"] <= 5e-3, f"denoising: RL-TV after {steps}: {row}")
+        rl_rows[f"steps_{steps}"] = row
+
+    poisson_rows = {}
+    for lam in (1e5, 2e5, 4e5):
+        rates = torch.full((2**20,), lam)
+        row = {}
+        for dev, gen in (("cuda", seeded_generator("cuda", 11, int(lam))), ("cpu", seeded_generator("cpu", 11, int(lam)))):
+            draws = torch.poisson(rates.to(dev), generator=gen).double()
+            z_mean = float((draws.mean() - lam) / math.sqrt(lam / draws.numel()))
+            z_var = float((draws.var() / lam - 1.0) / math.sqrt(2.0 / draws.numel()))
+            check(abs(z_mean) <= 5 and abs(z_var) <= 5, f"torch.poisson on {dev} at λ {lam}: z {z_mean}, {z_var}")
+            row[dev] = {"z_mean": z_mean, "z_var": z_var}
+        poisson_rows[f"lambda_{lam:g}"] = row
+
+    flat = [v.reshape(-1, p).contiguous() for v in (x_hr, y_hr, w)]
+    sigma, b = optics.gaussian_sigma_hr, flat[0].shape[0]
+    k1 = lambda: render_frames(*flat, sigma, s, u)  # noqa: E731
+    k1_bound, k1_by = bound(4 * (3 * b * p + b * s * s), b * p * (2 * s * u * 5 + 2 + s) + b * s * s * p * 2)
+    timing = {
+        "k1": dict(B=b, ms=time_ms(torch, k1, iters=100), device_ms=time_ms(torch, k1, device_only=True),
+                   plain_ms=time_ms(torch, lambda: render_frames_reference(*flat, sigma, s, u)),
+                   bound_ms=k1_bound, bound_by=k1_by, max_abs_err=err_render),
+        "rl_tv_ms": time_ms(torch, lambda: rl_tv.apply_rl_tv_iter_list_batch(image, psf), iters=10),
+        "rl_tv_device_ms": time_ms(torch, lambda: rl_tv.apply_rl_tv_iter_list_batch(image, psf), iters=10,
+                                   device_only=True),
+        "filter_ms": time_ms(torch, lambda: gaussian_filter_2d(poisson, 0.5)),
+        "four_variants_ms": time_ms(torch, lambda: trajectories_to_video_multiple_settings(
+            gr, trajs, p, cfg.center, optics), iters=10),
+        "seven_variant_stack_ms": time_ms(torch, lambda: rl_tv.trajs_to_vid_norm_rl(
+            gr, trajs, p, cfg.center, optics), iters=10),
+    }
+    emit({"phase": "denoising", "part": "e_card_vs_cpu", "card": card, "frames": b,
+          "no_noise_max_abs_err": err_render, "filter_max_abs_err": err_filter,
+          "rl_tv_step_max_abs_err": step_err, "rl_tv_snapshots": rl_rows, "poisson": poisson_rows,
+          "timing": timing})
+
+
 # The main paths, each driven by its phase, in groups that each run in a
 # process of their own: in one long process torch.profiler came to lose
 # single K1 records (one of 36 in a framerate cycle, one of 5 in a modular
@@ -1535,9 +1763,9 @@ def phase_psfnoise(torch, card):
 # fresh process. The first group ran in one process in every earlier smoke.
 PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features": phase_images_features,
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
-         "psfnoise": phase_psfnoise}
+         "psfnoise": phase_psfnoise, "denoising": phase_denoising}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
-               ("psfnoise",))
+               ("psfnoise",), ("denoising",))
 GROUP_TIMEOUT_S = 600
 
 

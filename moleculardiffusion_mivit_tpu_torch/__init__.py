@@ -15,12 +15,14 @@ Subpackages
 -----------
 - ``config``      copies of the JAX package's typed configuration
 - ``sim``         pure-Brownian trajectories, frame rendering, noise
-- ``ops``         the hand-written kernels, their wrappers and plain versions
+- ``ops``         the hand-written kernels, their wrappers and plain versions; plain
+                  batched filters, hull and curve fits
 - ``models``      GeneralTransformer (linear, cnn, deep-ResNet embeddings), ModularTransformer,
                   HybridFusionTransformer, MultiImageResNet, MultiImageFeatureResNet
 - ``features``    the 25 trajectory features, the per-frame tokens, MSD estimators
 - ``train``       the cycle-based training loop, the fused cycle as CUDA graphs
-- ``experiments`` the baseline, images-features and modular experiments
+- ``denoise``     Richardson-Lucy deconvolution with TV regularisation
+- ``experiments`` the seven experiments of ``run_experiment``
 - ``evaluation``  frozen validation sets, the published in-order suite (``data/``)
 - ``utils``       flax → torch weight conversion, metrics, checkpoints, streams
 """

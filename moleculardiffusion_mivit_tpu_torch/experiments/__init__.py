@@ -8,13 +8,14 @@ trajectory features against image-only, features-only and MSD arms) and
 ``with_hybrid`` also HybridFusionTransformer and its early-fusion parent),
 ``embeddings`` (three embeddings at three sizes and MultiImageResNet),
 ``framerate`` (a transformer and a ResNet per exposure setting, on 13×13
-frames) and ``psfnoise`` (the 5 PSF × 6 noise grid: two 30-model
-``GridArm``s). ``denoising`` is listed under its name and raises
-``NotImplementedError`` (ROADMAP.md, queue 1, item 12).
+frames), ``psfnoise`` (the 5 PSF × 6 noise grid: two 30-model
+``GridArm``s) and ``denoising`` (seven input settings, raw to RL-TV
+deconvolved: two 7-model ``GridArm``s trained with L1 loss).
 """
 
 from moleculardiffusion_mivit_tpu_torch.experiments import (
     baseline,
+    denoising,
     embeddings,
     framerate,
     images_features,
@@ -29,13 +30,6 @@ from moleculardiffusion_mivit_tpu_torch.experiments.base import (  # noqa: F401
 )
 
 
-def _not_ported(name: str):
-    def build(**kwargs) -> Experiment:
-        raise NotImplementedError(f"experiment {name!r} is not ported yet (ROADMAP.md, queue 1, item 12)")
-
-    return build
-
-
 REGISTRY = {
     "baseline": baseline.build,
     "images_features": images_features.build,
@@ -43,7 +37,7 @@ REGISTRY = {
     "embeddings": embeddings.build,
     "framerate": framerate.build,
     "psfnoise": psfnoise.build,
-    "denoising": _not_ported("denoising"),
+    "denoising": denoising.build,
 }
 
 

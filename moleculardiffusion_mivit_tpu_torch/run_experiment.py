@@ -9,6 +9,7 @@ Usage:
         --cycles 100 --in-order [--with-hybrid]
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment embeddings|framerate --cycles 100
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment psfnoise --cycles 100 --in-order
+    python -m moleculardiffusion_mivit_tpu_torch.run_experiment denoising --cycles 100 --seqs-per-d 128
 
 Port of ``moleculardiffusion_mivit_tpu/run_experiment.py``: runs the named
 experiment on ``--device`` (CUDA by default; without a card it raises unless
@@ -40,8 +41,7 @@ def main(argv=None):
     """Run the command line ``argv``; returns the trained ``Experiment``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("experiment",
-                    help="baseline | images_features | modular | embeddings | framerate | psfnoise "
-                         "(denoising is not ported yet)")
+                    help="baseline | images_features | modular | embeddings | framerate | psfnoise | denoising")
     ap.add_argument("--cycles", type=int, default=None, help="override num_cycles")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seqs-per-d", type=int, default=64)

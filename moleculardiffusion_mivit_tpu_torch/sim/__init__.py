@@ -8,5 +8,6 @@ from moleculardiffusion_mivit_tpu_torch.sim.render import (  # noqa: F401
     render_frames_core,
     render_videos,
     trajectories_to_video,
+    trajectories_to_video_multiple_settings,
     trajectories_to_video_psf_noise_grid,
 )

@@ -1,6 +1,8 @@
 """Fluorescence video renderer.
 
-Port of ``moleculardiffusion_mivit_tpu/sim/render.py`` (the main-path part).
+Port of ``moleculardiffusion_mivit_tpu/sim/render.py``: the renderers the
+experiments use (``render_widefield`` and ``generate_images_legacy`` are
+not ported yet).
 A frame before noise is ``Σ_p w_p · pool(g_y,p) ⊗ pool(g_x,p)``: the 2-D
 Gaussian on the upsampled grid is an outer product of 1-D Gaussians, and
 both the u×u mean pooling and the grid maximum factor over it, so only
@@ -137,6 +139,57 @@ def trajectories_to_video(
         lam = torch.full(frames.shape, k, dtype=torch.float32, device=dev)
         frames = frames * (_poisson(generator, lam) / k)
     return frames
+
+
+def trajectories_to_video_multiple_settings(
+    generator: torch.Generator,
+    trajectories: torch.Tensor,
+    n_pos_per_frame: int,
+    center: bool = False,
+    optics: OpticsConfig = OpticsConfig(),
+    filter_sigma: float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Four aligned noise variants of each video (the denoising experiment),
+    as the JAX package's: trajectories ``(N, T, 2)`` → ``(no_noise, gauss,
+    poisson, filtered)``, each ``(N, T // n_pos_per_frame, S, S)`` float32,
+    not normalised.
+
+    - ``no_noise``: one intensity draw ``N(μ, σ)`` per *frame*, split evenly
+      over its P sub-positions (``trajectories_to_video`` draws one per
+      sub-position), rendered at ``optics``' sigma; zeros when μ or σ ≤ 1e-4.
+    - ``gauss``: ``no_noise`` plus the clipped background.
+    - ``poisson``: ``Pois(max(gauss, 0) · k) / k`` with ``k =
+      optics.poisson_noise``.
+    - ``filtered``: ``poisson`` blurred by ``gaussian_filter_2d`` at
+      ``filter_sigma``.
+
+    Streams, in the JAX key layout: intensities ``fold_in(g, 0)``,
+    background ``fold_in(g, 1)``, shot noise ``fold_in(g, 2)``.
+    ``generator`` lies on the trajectories' device."""
+    from moleculardiffusion_mivit_tpu_torch.ops.filters import gaussian_filter_2d
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in
+
+    n, t, _ = trajectories.shape
+    p = n_pos_per_frame
+    n_frames = t // p
+    s, u = optics.output_size, optics.upsampling_factor
+    part_mean, part_std = optics.particle_intensity
+    bg_mean, bg_std = optics.background_intensity
+    dev = trajectories.device
+
+    x_hr, y_hr = _prepare_subpositions(trajectories, p, center, optics)
+    if part_mean > 1e-4 and part_std > 1e-4:
+        frame_intensity = part_mean + part_std * torch.randn((n, n_frames), generator=fold_in(generator, 0),
+                                                             device=dev)
+        intensities = (frame_intensity / p)[..., None].expand(n, n_frames, p)
+        no_noise = render_frames_core(x_hr, y_hr, intensities, optics.gaussian_sigma_hr, s, u)
+    else:
+        no_noise = torch.zeros((n, n_frames, s, s), dtype=torch.float32, device=dev)
+
+    gauss = no_noise + _clipped_background(fold_in(generator, 1), no_noise.shape, bg_mean, bg_std)
+    k = torch.tensor(float(optics.poisson_noise), dtype=torch.float32)
+    poisson = _poisson(fold_in(generator, 2), torch.clamp(gauss, min=0.0) * k) / k
+    return no_noise, gauss, poisson, gaussian_filter_2d(poisson, filter_sigma)
 
 
 def psf_sigmas(optics: OpticsConfig, psf_settings: Tuple[float, ...]) -> Tuple[float, ...]:

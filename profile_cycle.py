@@ -30,8 +30,10 @@ of 320 sequences), ``--experiment modular`` for the modular experiment as
 seven of them deep-ResNet transformers; generation computes the per-frame
 tokens and the 25 features of 320 sequences), ``--experiment psfnoise`` for
 the PSF × noise grid (two grid arms of 30 models each, stepped as one
-program; generation renders 352 sequences at 5 PSF × 6 noise settings);
-an experiment's name with no mode runs it captured.
+program; generation renders 352 sequences at 5 PSF × 6 noise settings),
+``--experiment denoising`` for the denoising grids (two grid arms of 7;
+generation renders 256 sequences in four noise variants and RL-TV-
+deconvolves one); an experiment's name with no mode runs it captured.
 
 ``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
 alone: for each shape, device time by kernel over 5 calls of K2
@@ -131,7 +133,7 @@ def profile(torch, arm: str, batch: int, val):
 def profile_experiment(torch, name: str, batch: int, fused: bool):
     """An experiment's cycle (``name``: baseline, images_features,
     modular, the last with its hybrid arms and the in-order suite's
-    training classes, or psfnoise) at full width through ``Experiment.run``,
+    training classes, psfnoise or denoising) at full width through ``Experiment.run``,
     at a fixed batch size, captured (``fused``) or eager: one cycle to warm
     up (and capture), one timed, one under the profiler. A grid arm's
     training losses are its members' (a list a cycle)."""
@@ -233,7 +235,8 @@ def main() -> None:
     ap.add_argument("--embedding", type=int, nargs="+", default=None, metavar="B_T_S",
                     help="profile K2/K3 alone at these (B, T, S) shapes")
     ap.add_argument("--experiment", nargs="+", default=None,
-                    choices=("captured", "eager", "baseline", "images_features", "modular", "psfnoise"),
+                    choices=("captured", "eager", "baseline", "images_features", "modular", "psfnoise",
+                             "denoising"),
                     help="profile an experiment's cycle (Experiment.run) at each --batch, captured "
                          "and/or eager: modes and experiment names (default baseline; a name alone "
                          "runs captured)")

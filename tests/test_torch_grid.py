@@ -49,10 +49,11 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _models(kind):
+def _models(kind, **cfg):
     if kind == "resnet":
         return JResNet(single_prediction=True), MultiImageResNet(single_prediction=True)
-    return JGeneral(JModelConfig(**SMALL), embedding="deep_resnet"), GeneralTransformer(ModelConfig(**SMALL))
+    small = {**SMALL, **cfg}
+    return JGeneral(JModelConfig(**small), embedding="deep_resnet"), GeneralTransformer(ModelConfig(**small))
 
 
 def _data(seed, n=6, frames=4):
@@ -94,28 +95,35 @@ def _torch_grid(tmodel, jgrid, cfg):
     return tloop.TrainState(grid, tloop.make_optimizer(grid, cfg))
 
 
-@pytest.mark.parametrize("kind", ["deep_resnet", "resnet"])
-def test_grid_train_step_matches_jax(kind):
+@pytest.mark.parametrize("kind,loss,pos", [
+    pytest.param("deep_resnet", "mse", False, id="deep_resnet"),
+    pytest.param("resnet", "mse", False, id="resnet"),
+    pytest.param("deep_resnet", "l1", True, id="deep_resnet-l1-pos_embedding"),
+    pytest.param("resnet", "l1", False, id="resnet-l1"),
+])
+def test_grid_train_step_matches_jax(kind, loss, pos):
     """From the same stacked weights, minibatch index ``(M, B)`` and LR, one
-    grid step gives every member the JAX grid step's loss (1e-5 relative),
+    grid step with ``loss`` (MSE, or the denoising experiment's L1; the
+    transformer with ``pos``, its learned positional embedding) gives every
+    member the JAX grid step's loss (1e-5 relative),
     parameters and BN running statistics (1e-5 relative plus 1e-7; where
     Adam's first step lr·g/(|g| + eps) meets a gradient within 1000·eps of
     zero, float noise in g moves the step by up to 2·lr, so parameters there
     are held to that bound, as ``tests/test_torch_train.py`` holds one
     model's step)."""
-    jmodel, tmodel = _models(kind)
+    jmodel, tmodel = _models(kind, use_pos_encoding=pos)
     lr = 1e-3
     videos, labels = _data(1)
     idx = np.array([[4, 1], [0, 5], [2, 2]])
-    jcfg = JTrainConfig(lr=lr)
+    jcfg = JTrainConfig(lr=lr, loss=loss)
     impls, jgrid = _jax_grid(jmodel, jcfg, videos)
-    state = _torch_grid(tmodel, jgrid, TrainConfig(lr=lr))
+    state = _torch_grid(tmodel, jgrid, TrainConfig(lr=lr, loss=loss))
     with jax.default_matmul_precision("highest"):
         new, jl = jax.jit(impls.train_step)(
             jgrid, jnp.asarray(videos), jnp.asarray(labels), None, jnp.asarray(idx),
             jax.random.split(jax.random.key(1), M), jnp.float32(lr),
         )
-    tl = make_grid_impls(tmodel, TrainConfig(lr=lr), device="cpu").train_step(
+    tl = make_grid_impls(tmodel, TrainConfig(lr=lr, loss=loss), device="cpu").train_step(
         state, torch.from_numpy(videos), torch.from_numpy(labels), torch.from_numpy(idx)
     )
     assert tl.shape == (M,)

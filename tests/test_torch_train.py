@@ -280,11 +280,13 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "profile_cycle.py", ROOT / "feature_outliers.py"]
+        ROOT / "chip_smoke.py", ROOT / "profile_cycle.py", ROOT / "feature_outliers.py",
+        ROOT / "denoising_outcome.py"]
     scanned = {path.relative_to(ROOT).as_posix() for path in files}
     assert {f"moleculardiffusion_mivit_tpu_torch/{m}.py" for m in (
         "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features",
-        "features/per_frame", "experiments/modular")} <= scanned
+        "features/per_frame", "experiments/modular", "ops/filters", "denoise/rl_tv",
+        "experiments/denoising")} <= scanned
     banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu")
     for path in files:
         for mod in _imports(path):
