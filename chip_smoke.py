@@ -3,8 +3,8 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
-line each on stdout; phases 4-6, 7, 8, 9, 10 and 11 in six processes of
-their own:
+line each on stdout; phases 4-6, 7, 8, 9, 10, 11 and 12 in seven processes
+of their own:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
@@ -99,6 +99,14 @@ their own:
    transformers (⌊256/b⌋ a cycle), K1 once a class; then the renderer's
    deterministic part, the filter, RL-TV and ``torch.poisson`` on the card
    against the CPU, and each timed.
+12. realdata: the real-data pipeline (``realdata/``): K1 at the wide-field
+   shapes (S = 63 at u = 5; P = 60, 100 and a 1,600-frame call) against its
+   plain version; the pipeline on the card against the CPU on one movie
+   (TIFF round trip, DoG, peaks, tracks, refinement, fallbacks, per-track
+   D); the demo through ``realdata.demo.main --train-cycles 5`` at full
+   width (K2/K3 16 launches a cycle, K1 one a cycle and one for the movie);
+   a camera-size stack of 16 tiles × 10 particles × 100 frames rendered in
+   one launch and run through the whole pipeline.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's
 launches on the main paths (by path beside the total), error, times
@@ -110,6 +118,7 @@ the package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -143,7 +152,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(obj), flush=True, file=sys.__stdout__)  # also where a phase sends prose to stderr
 
 
 def card_line() -> str:
@@ -192,11 +201,6 @@ def bound(nbytes: float, flops: float, flops_3xtf32: float = 0.0):
 
 def phase_k1(torch):
     from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS
-    from moleculardiffusion_mivit_tpu_torch.ops.render import (
-        launch_floor,
-        render_frames,
-        render_frames_reference,
-    )
 
     sigma, u = BASELINE_OPTICS.gaussian_sigma_hr, BASELINE_OPTICS.upsampling_factor
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -215,39 +219,54 @@ def phase_k1(torch):
     for (b, p, s) in ((full, 10, 9), (full, 10, 13), (64 * 30, 10, 9), (64 * 30, 10, 13), (64 * 30, 4, 10),
                       (in_order, 10, 9)) + framerate:
         x, y, w = (v[:b, :p].contiguous() for v in (xs, ys, ws))
-        render = lambda: render_frames(x, y, w, sigma, s, u)  # noqa: E731
-        got = render()
-        ref = render_frames_reference(x, y, w, sigma, s, u)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        check(bool(torch.isfinite(got).all()), f"K1 {b,p,s}: non-finite frames")
-        check(err <= 1e-5 * scale, f"K1 {b,p,s}: max|Δ| {err} > 1e-5·{scale}")
-        check(torch.equal(got, render()), f"K1 {b,p,s}: two calls differ")
-        # 200 timings each: a call is tens of microseconds and the host's share varies
-        ms = time_ms(torch, render, iters=200)
-        device_ms = time_ms(torch, render, device_only=True)
-        plain_ms = time_ms(torch, lambda: render_frames_reference(x, y, w, sigma, s, u))
-        # the card's floor for one allocation and one launch, timed the same way
-        floor = lambda: launch_floor((b, s, s), "cuda")  # noqa: E731
-        floor_ms = time_ms(torch, floor, iters=200)
-        floor_device_ms = time_ms(torch, floor, device_only=True)
-        g_pts = s * u
-        nbytes = 4 * (3 * b * p + b * s * s)
-        # per (frame, p, axis, grid point): sub, mul, mul, exp, add; per
-        # (frame, p): the peak product, division and S row scalings; per
-        # output pixel and p: one multiply-add
-        flops = b * p * (2 * g_pts * 5 + 2 + s) + b * s * s * p * 2
-        bound_ms, by = bound(nbytes, flops)
-        rows[(b, p, s)] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=by,
-                               launch_floor_ms=floor_ms, launch_floor_device_ms=floor_device_ms)
-        emit({"phase": "k1", "B": b, "P": p, "S": s, "u": u, "tol": 1e-5 * scale, **rows[(b, p, s)]})
+        rows[(b, p, s)] = _k1_row(torch, x, y, w, sigma, s, u, "k1")
     call = rows[(64 * 30, 10, 9)]
     at_s13 = {f"P_{p}": rows[(64 * 300 // p, p, 13)] for p in FRAMERATE_RATES}
     return dict(rows[(full, 10, 9)], ms_per_main_path_call=call["ms"],
                 device_ms_per_main_path_call=call["device_ms"], framerate_calls_at_s13=at_s13,
                 psf_settings=_k1_psf_settings(torch, g))
+
+
+def _k1_row(torch, x, y, w, sigma, s, u, phase):
+    """K1 on ``(B, P)`` sub-positions against its plain version (1e-5 of the
+    largest pixel, bitwise repeatable), timed beside its plain version and
+    the card's launch floor, with its bound; emitted as a ``phase`` line and
+    returned."""
+    from moleculardiffusion_mivit_tpu_torch.ops.render import (
+        launch_floor,
+        render_frames,
+        render_frames_reference,
+    )
+
+    b, p = x.shape
+    render = lambda: render_frames(x, y, w, sigma, s, u)  # noqa: E731
+    got = render()
+    ref = render_frames_reference(x, y, w, sigma, s, u)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()), f"K1 {b,p,s}: non-finite frames")
+    check(err <= 1e-5 * scale, f"K1 {b,p,s}: max|Δ| {err} > 1e-5·{scale}")
+    check(torch.equal(got, render()), f"K1 {b,p,s}: two calls differ")
+    # 200 timings each: a call is tens of microseconds and the host's share varies
+    ms = time_ms(torch, render, iters=200)
+    device_ms = time_ms(torch, render, device_only=True)
+    plain_ms = time_ms(torch, lambda: render_frames_reference(x, y, w, sigma, s, u))
+    # the card's floor for one allocation and one launch, timed the same way
+    floor = lambda: launch_floor((b, s, s), "cuda")  # noqa: E731
+    floor_ms = time_ms(torch, floor, iters=200)
+    floor_device_ms = time_ms(torch, floor, device_only=True)
+    g_pts = s * u
+    nbytes = 4 * (3 * b * p + b * s * s)
+    # per (frame, p, axis, grid point): sub, mul, mul, exp, add; per
+    # (frame, p): the peak product, division and S row scalings; per
+    # output pixel and p: one multiply-add
+    flops = b * p * (2 * g_pts * 5 + 2 + s) + b * s * s * p * 2
+    bound_ms, by = bound(nbytes, flops)
+    row = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+               launch_floor_ms=floor_ms, launch_floor_device_ms=floor_device_ms)
+    emit({"phase": phase, "B": b, "P": p, "S": s, "u": u, "tol": 1e-5 * scale, **row})
+    return row
 
 
 def _k1_psf_settings(torch, g):
@@ -357,10 +376,12 @@ def phase_k2_k3(torch):
     # The embeddings experiment's small and big deep arms embed into E = 32
     # and 128 (two and eight fc tiles): batch 1 and 16. The framerate arms
     # embed 13×13 frames, 60 (tr_0) to 6 (tr_5) of them a sequence: batch 1
-    # and 16 of each.
+    # and 16 of each. The real-data demo's patch model trains at batch 16 on
+    # 25-frame sequences (32,400 rows).
     for (b, t, s, e) in ((1, 30, 9, 64), (16, 30, 9, 64), (1, 10, 13, 64), (8, 30, 9, 64), (4, 30, 9, 64),
                          (1, 30, 9, 58), (16, 30, 9, 58), (1, 30, 9, 32), (16, 30, 9, 32), (1, 30, 9, 128),
-                         (16, 30, 9, 128), (1, 60, 13, 64), (16, 60, 13, 64), (1, 6, 13, 64), (16, 6, 13, 64)):
+                         (16, 30, 9, 128), (1, 60, 13, 64), (16, 60, 13, 64), (1, 6, 13, 64), (16, 6, 13, 64),
+                         (16, 25, 9, 64)):
         x, kernels, scales, biases, wfc, bfc = _embedding_inputs(torch, b, t, s, seed=b + t + s, e=e)
         leaves = [x, *kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
         emb_k, st_k = fe.fused_deep_resnet_embed(x, kernels, scales, biases, wfc, bfc)
@@ -480,6 +501,7 @@ def phase_k2_k3(torch):
         for e in (58, 32, 128):
             row[f"at_embed_dim_{e}"] = {f"batch_{b}": records[(b, 30, 9, e)][k] for b in (1, 16)}
         row["at_s13"] = {f"T_{t}_batch_{b}": records[(b, t, 13, 64)][k] for t in (60, 6) for b in (1, 16)}
+        row["realdata_patch_model_batch_16_T_25"] = records[(16, 25, 9, 64)][k]
         for m in (30, 7):
             row[f"members_{m}"] = {f"batch_{b}": members[(m, b)][k] for b in (1, 16)}
         out.append(row)
@@ -1756,6 +1778,216 @@ def _denoising_card_against_cpu(torch, exp, card):
           "timing": timing})
 
 
+def phase_realdata(torch, card):
+    """The real-data pipeline (``realdata/``) and its demo at full width.
+
+    (a) K1 at the wide-field shapes against its plain version: the demo's
+    movie (25 frames of 6 particles × 10 sub-positions, S = 63, u = 5), the
+    sim-to-real movie's P = 100 (50,400 bytes of shared memory: the opt-in
+    above 48 KB) and the camera-size call of part (d) (1,600 frames of P =
+    100), each timed beside its plain version and the launch floor. (b) The
+    pipeline on the card against the port's own CPU path on one movie
+    rendered on the card (``_realdata_card_against_cpu``). (c) The demo
+    through its entry point (``realdata.demo.main --train-cycles 5``, the
+    full-width patch model, 256 sequences a cycle at batch 16): the last
+    cycle's training loss below the first's, a finite metrics file with 6
+    tracks, K2/K3 16 launches a cycle, K1 one a cycle and one for the movie.
+    (d) A camera-size stack: 16 independent 63-px tiles of 10 particles, 100
+    frames each, rendered in one batched ``render_widefield`` call (one K1
+    launch) and assembled into (100, 252, 252), then detect → track →
+    patches → localise → ``estimate_d_for_tracks`` with a full-width patch
+    model of random weights; track count, stage seconds, peak memory.
+    The path's launches are counted over (c) and (d)."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch.realdata import demo
+    from moleculardiffusion_mivit_tpu_torch.sim.render import widefield_subpositions
+    from moleculardiffusion_mivit_tpu_torch.train.capture import launch_counts
+
+    t_phase = time.perf_counter()
+    optics, u = demo.OPTICS, demo.OPTICS.upsampling_factor
+    g = torch.Generator(device="cuda").manual_seed(12)
+    k1_rows = {}
+    for b, k in ((25, 6), (25, 10), (1600, 10)):
+        trajs = 14 + 35 * torch.rand((k, b * demo.N_POS, 2), generator=g, device="cuda")
+        x, y = widefield_subpositions(trajs, demo.N_POS, demo.FIELD, u)
+        w = 400.0 + 20.0 * torch.randn(x.shape, generator=g, device="cuda")
+        k1_rows[f"B_{b}_P_{k * demo.N_POS}"] = _k1_row(torch, x, y, w, optics.gaussian_sigma_hr, demo.FIELD, u,
+                                                        "realdata")
+    with contextlib.redirect_stdout(sys.stderr):
+        _realdata_card_against_cpu(torch, card)
+
+    # (c) and (d): the path, its launches counted from here
+    counts0 = launch_counts()
+    cycles = 5
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the demo's prose, off the JSON lines
+            report = demo.main(["--train-cycles", str(cycles), "--out", out, "--seed", "0"])
+        demo_s = time.perf_counter() - t0
+        written = json.loads(Path(out, "realdata_metrics.json").read_text())
+    after_demo = launch_counts()
+    demo_launches = {k: after_demo[k] - counts0[k] for k in counts0}
+    losses = report["train_loss"]
+    check(losses[-1] < losses[0], f"realdata demo: training loss did not fall: {losses}")
+    check(written == report["summary"] and written["n_tracks"] == 6
+          and all(math.isfinite(v) for v in written.values()), f"realdata demo: metrics {written}")
+    steps = cycles * (256 // 16)
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(demo_launches[k] == steps, f"realdata demo: {k} launches {demo_launches[k]} != {steps}")
+    check(demo_launches["render_frames"] == cycles + 1,
+          f"realdata demo: K1 launches {demo_launches['render_frames']} != {cycles + 1}")
+    emit({"phase": "realdata", "part": "c_demo", "card": card, "seconds": demo_s, "train_loss": losses,
+          "s_per_cycle": report["s_per_cycle"], "stage_s": report["stage_s"], "metrics": written,
+          "d_model": report["d_model"], "d_msd": report["d_msd"], "launches": demo_launches})
+
+    with contextlib.redirect_stdout(sys.stderr):
+        camera = _realdata_camera_stack(torch, card)
+    launches = {k: v - counts0[k] for k, v in launch_counts().items()}
+    check(launches["render_frames"] == cycles + 2, f"realdata: K1 launches {launches}")
+    emit({"phase": "realdata", "part": "summary", "card": card, "k1_widefield": k1_rows, "camera": camera,
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def _realdata_card_against_cpu(torch, card):
+    """Part (b) of phase realdata: the demo's movie rendered on the card,
+    then every stage of the pipeline on the card and on the CPU from the
+    same stack. The TIFF round trip bitwise; the DoG at 1e-5 of its largest
+    value; every frame's peaks, the tracks and the fallback set identical;
+    the refined x/y within 1e-3 px, PSF size and fitted amplitude within
+    1e-3 relative; d_msd at 1e-5 relative and d_model at 1e-4 of the
+    largest |d_model| (one full-width patch model's random weights on both
+    devices)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, init_model
+    from moleculardiffusion_mivit_tpu_torch.ops.curve_fit import fit_gaussian_2d
+    from moleculardiffusion_mivit_tpu_torch.realdata import (
+        demo,
+        detect_particles_stack,
+        estimate_d_for_tracks,
+        extract_particle_patches,
+        read_tiff_stack,
+        refine_localizations,
+        track_particles,
+    )
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        movie = demo.make_movie(f"{tmp}/m.tif", seeded_generator("cuda", 0, 3))
+        stack = read_tiff_stack(f"{tmp}/m.tif")
+    check(np.array_equal(stack, movie), "realdata: the TIFF round trip is not bitwise")
+    coords, dog = detect_particles_stack(stack, min_distance=5, device="cuda")
+    coords_cpu, dog_cpu = detect_particles_stack(stack, min_distance=5, device="cpu")
+    dog_err = float(np.abs(dog - dog_cpu).max())
+    check(dog_err <= 1e-5 * float(np.abs(dog_cpu).max()), f"realdata: DoG max|Δ| {dog_err} to the CPU")
+    check(all(np.array_equal(a, b) for a, b in zip(coords, coords_cpu)), "realdata: peaks differ from the CPU's")
+    tracks, dets, _ = track_particles(stack, device="cuda", **demo.TRACKING)
+    tracks_cpu, dets_cpu, _ = track_particles(stack, device="cpu", **demo.TRACKING)
+    check(tracks == tracks_cpu and dets == dets_cpu and len(tracks) == 6, "realdata: tracks differ from the CPU's")
+    patches = extract_particle_patches(stack, tracks, demo.PATCH)
+    refined = refine_localizations(tracks, patches, demo.PATCH, device="cuda")
+    refined_cpu = refine_localizations(tracks, patches, demo.PATCH, device="cpu")
+    fallback = {k for k, v in refined.items() if v["psf_size"] == 10.0}
+    check(fallback == {k for k, v in refined_cpu.items() if v["psf_size"] == 10.0}, "realdata: fallback sets differ")
+    xy_err = max(abs(refined[k][c] - v[c]) for k, v in refined_cpu.items() for c in ("x_refined", "y_refined"))
+    psf_err = max(abs(refined[k]["psf_size"] - v["psf_size"]) / v["psf_size"] for k, v in refined_cpu.items())
+    flat = torch.tensor(np.concatenate(list(patches.values())))
+    amp = fit_gaussian_2d(flat.cuda())[0][:, 0].cpu()
+    amp_cpu = fit_gaussian_2d(flat)[0][:, 0]
+    amp_err = float(((amp - amp_cpu).abs() / amp_cpu.abs()).max())
+    check(xy_err <= 1e-3 and psf_err <= 1e-3 and amp_err <= 1e-3,
+          f"realdata: refined x/y {xy_err} px, PSF {psf_err}, amplitude {amp_err} relative to the CPU")
+
+    model = init_model(GeneralTransformer(demo.MODEL_CONFIG, embedding="deep_resnet"),
+                       torch.Generator().manual_seed(5)).eval()
+    model_cpu, model = copy.deepcopy(model), model.cuda()
+
+    def predictor(m):
+        return lambda videos: m(videos).detach()
+
+    kw = dict(patch_size=demo.PATCH, background_mean=demo.BG_MEAN, background_sigma=demo.BG_SIGMA,
+              theoretical_max=demo.THEO_MAX, msd_calibration=0.375, refined_positions=refined_cpu)
+    with torch.no_grad():
+        d = estimate_d_for_tracks(tracks, stack, predictor(model), device="cuda", **kw)
+        d_cpu = estimate_d_for_tracks(tracks, stack, predictor(model_cpu), device="cpu", **kw)
+    scale = max(abs(v["d_model"]) for v in d_cpu.values())  # random weights: a track's D may lie near 0
+    model_err = max(abs(d[k]["d_model"] - v["d_model"]) for k, v in d_cpu.items()) / scale
+    msd_err = max(abs(d[k]["d_msd"] - v["d_msd"]) / abs(v["d_msd"]) for k, v in d_cpu.items())
+    check(model_err <= 1e-4 and msd_err <= 1e-5,
+          f"realdata: d_model {model_err}, d_msd {msd_err} relative to the CPU")
+    emit({"phase": "realdata", "part": "b_card_vs_cpu", "card": card, "tracks": len(tracks),
+          "fits": len(refined), "fallbacks": len(fallback), "dog_max_abs_err": dog_err,
+          "refined_xy_max_abs_err_px": xy_err, "psf_max_rel_err": psf_err, "amplitude_max_rel_err": amp_err,
+          "d_model_max_rel_err": model_err, "d_msd_max_rel_err": msd_err})
+
+
+def _realdata_camera_stack(torch, card):
+    """Part (d) of phase realdata: 16 independent 63-px tiles of 10
+    particles (the sim-to-real movie), 100 frames each, in one
+    ``render_widefield`` call, assembled 4 × 4 into a (100, 252, 252) stack
+    with 160 particles, then the whole pipeline on the card."""
+    import numpy as np
+
+    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, init_model
+    from moleculardiffusion_mivit_tpu_torch.realdata import (
+        demo,
+        estimate_d_for_tracks,
+        extract_particle_patches,
+        refine_localizations,
+        track_particles,
+    )
+    from moleculardiffusion_mivit_tpu_torch.sim import render_widefield
+
+    tiles, particles, frames = 16, 10, 100
+    rng = np.random.default_rng(16)
+    starts = rng.uniform(14, demo.FIELD - 14, size=(tiles, particles, 1, 2))
+    steps = rng.normal(0, np.sqrt(2 * demo.D_TRUE / demo.N_POS), size=(tiles, particles, frames * demo.N_POS, 2))
+    steps[..., 0, :] = 0
+    trajs = torch.tensor(starts + np.cumsum(steps, axis=2), dtype=torch.float32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    stage = {}
+    t0 = time.perf_counter()
+    movies = render_widefield(torch.Generator(device="cuda").manual_seed(16), trajs, demo.N_POS, demo.FIELD,
+                              demo.OPTICS)
+    side = 4 * demo.FIELD
+    stack = movies.reshape(4, 4, frames, demo.FIELD, demo.FIELD).permute(2, 0, 3, 1, 4).reshape(frames, side, side)
+    stack = stack.cpu().numpy()
+    stage["render"] = time.perf_counter() - t0
+    tracks, _, _ = track_particles(stack, device="cuda", **demo.TRACKING)
+    stage["detect"], stage["track"] = track_particles.seconds["detect"], track_particles.seconds["link"]
+    t0 = time.perf_counter()
+    patches = extract_particle_patches(stack, tracks, demo.PATCH)
+    stage["patches"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refined = refine_localizations(tracks, patches, demo.PATCH, device="cuda")
+    stage["localize"] = time.perf_counter() - t0
+    model = init_model(GeneralTransformer(demo.MODEL_CONFIG, embedding="deep_resnet"),
+                       torch.Generator().manual_seed(6)).cuda().eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        d = estimate_d_for_tracks(tracks, stack, lambda v: model(v), patch_size=demo.PATCH,
+                                  background_mean=demo.BG_MEAN, background_sigma=demo.BG_SIGMA,
+                                  theoretical_max=demo.THEO_MAX, msd_calibration=0.375, refined_positions=refined,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    stage["predict"] = time.perf_counter() - t0
+    d_msd = np.array([v["d_msd"] for v in d.values()])
+    check(stack.shape == (frames, side, side) and len(tracks) >= 100 and len(d) == len(tracks)
+          and np.isfinite([v["d_model"] for v in d.values()]).all() and np.isfinite(d_msd).all(),
+          f"realdata: camera stack gave {len(tracks)} tracks, {len(d)} estimates")
+    row = {"shape": list(stack.shape), "particles": tiles * particles, "tracks": len(tracks),
+           "fits": len(refined), "fallbacks": sum(v["psf_size"] == 10.0 for v in refined.values()),
+           "d_msd_median": float(np.median(d_msd)), "stage_s": stage,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit({"phase": "realdata", "part": "d_camera", "card": card, **row})
+    return row
+
+
 # The main paths, each driven by its phase, in groups that each run in a
 # process of their own: in one long process torch.profiler came to lose
 # single K1 records (one of 36 in a framerate cycle, one of 5 in a modular
@@ -1763,9 +1995,9 @@ def _denoising_card_against_cpu(torch, exp, card):
 # fresh process. The first group ran in one process in every earlier smoke.
 PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features": phase_images_features,
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
-         "psfnoise": phase_psfnoise, "denoising": phase_denoising}
+         "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
-               ("psfnoise",), ("denoising",))
+               ("psfnoise",), ("denoising",), ("realdata",))
 GROUP_TIMEOUT_S = 600
 
 

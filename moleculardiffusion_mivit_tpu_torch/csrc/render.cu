@@ -51,9 +51,14 @@
 // renormalisation is a reciprocal and a product (__fdividef, 2 ulp). S, u and P
 // are compiled in for the package's shapes (S = 9 and 13 at u = 5, P = 10)
 // and are run-time values in the generic instantiation that takes every
-// other S*u <= 65. The TPU kernel's bf16 hi/lo operand splitting, its one-hot
-// assembly matrices and its closed-form peak exist for the TPU's matrix unit
-// and VMEM, and are dropped.
+// other shape within the kernel's limits: S <= 96 (32 lanes of 3 cells),
+// S*u <= 480, and 8 * frames_per_block * P * S bytes of shared memory at
+// most 227 KB (the wide-field movies: S = 63 at u = 5, P = 60 or 100, a
+// frame a block, 30,240 or 50,400 bytes). Above 48 KB the launch opts in to
+// Hopper's larger dynamic shared memory. ops/render.py states the same
+// limits and raises beyond them. The TPU kernel's bf16 hi/lo operand
+// splitting, its one-hot assembly matrices and its closed-form peak exist
+// for the TPU's matrix unit and VMEM, and are dropped.
 //
 // Settings. One launch may render several PSF settings (the PSF x noise
 // grid: 5 sigmas over one stack of frames): the frames are K runs of
@@ -116,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) render_frames_kernel(
   const int S = kS ? kS : S_rt;
   const int U = kU ? kU : U_rt;
   const int P = kP ? kP : P_rt;
-  constexpr int kCellsPerLane = kS ? 1 : 3;  // S <= 32 compiled in, <= 65 else
+  constexpr int kCellsPerLane = kS ? 1 : 3;  // S <= 32 compiled in, <= 96 else
   const int lanes_per_seg = S < 32 ? S : 32;
   const int segs_per_warp = 32 / lanes_per_seg;
   const int G = S * U;
@@ -237,8 +242,14 @@ int launch(const float* x, const float* y, const float* w, float* out, int B,
            float step, const Settings& settings, cudaStream_t stream) {
   const int blocks = (B + frames_per_block - 1) / frames_per_block;
   const size_t smem = sizeof(float) * 2 * frames_per_block * P * S;
-  render_frames_kernel<kS, kU, kP, kTable><<<blocks, kThreads, smem, stream>>>(
-      x, y, w, out, B, P, S, U, frames_per_block, neg_log2e_inv_two_s2, step, settings);
+  auto kernel = render_frames_kernel<kS, kU, kP, kTable>;
+  if (smem > 48 * 1024) {  // the opt-in; a launch without it is refused
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(x, y, w, out, B, P, S, U, frames_per_block,
+                                             neg_log2e_inv_two_s2, step, settings);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -262,8 +273,8 @@ extern "C" {
 
 // x, y, w: (B, P) f32; out: (B, S, S) f32. All device pointers, contiguous.
 // frames_per_block >= 1 with 8 * frames_per_block * P * S bytes of shared
-// memory at most 48 KB; neg_log2e_inv_two_s2 = -log2(e) / (2 sigma^2); step = the grid
-// spacing 2L / (S*U - 1) (unused when S*U is odd). S*U <= 65. Returns the
+// memory at most 227 KB; neg_log2e_inv_two_s2 = -log2(e) / (2 sigma^2); step = the grid
+// spacing 2L / (S*U - 1) (unused when S*U is odd). S <= 96, S*U <= 480. Returns the
 // launch's cudaGetLastError() code.
 int render_frames(const float* x, const float* y, const float* w, float* out,
                   int B, int P, int S, int U, int frames_per_block,

@@ -27,10 +27,15 @@ import torch
 
 from moleculardiffusion_mivit_tpu_torch.sim.render import _pooled_gaussian_1d
 
-MAX_GRID = 13 * 5  # largest S*u the kernel takes (the Framerate patch)
+# The kernel's limits, here and in csrc/render.cu: S up to 32 lanes x 3
+# cells a lane (the generic instantiation's kCellsPerLane), S*u up to S's
+# limit at u = 5 (every grid coordinate the tests hold), and the dynamic
+# shared memory a Hopper block can have (above 48 KB the launch opts in).
+MAX_OUTPUT = 32 * 3
+MAX_GRID = MAX_OUTPUT * 5
 WARPS_PER_BLOCK = 10  # kWarps in csrc/render.cu
 MAX_SETTINGS = 8  # kMaxSettings in csrc/render.cu
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 227 * 1024
 
 
 def render_frames_reference(x_hr, y_hr, intensities, sigma_hr, output_size, upsampling_factor):
@@ -79,10 +84,12 @@ def _launch_constants(sigma, p: int, s: int, u: int):
     after the checks that depend on the shape alone. The kernel takes a
     Gaussian as ``2 ** (d*d * factor)``. ``sigma`` is a float, or a tuple of
     one per PSF setting, and then the factor is the tuple of theirs."""
-    if s * u > MAX_GRID or s < 1 or u < 1:
-        raise ValueError(f"render_frames: S*u={s * u} outside the kernel's 1..{MAX_GRID}")
+    if not (1 <= s <= MAX_OUTPUT and 1 <= u and s * u <= MAX_GRID):
+        raise ValueError(
+            f"render_frames: S={s}, S*u={s * u} outside the kernel's S <= {MAX_OUTPUT}, S*u <= {MAX_GRID}"
+        )
     if shared_memory_bytes(p, s) > _SMEM_LIMIT:
-        raise ValueError(f"render_frames: P={p}, S={s}, u={u} needs more than 48 KB of shared memory")
+        raise ValueError(f"render_frames: P={p}, S={s}, u={u} needs more than 227 KB of shared memory")
     if isinstance(sigma, tuple):
         if not 1 <= len(sigma) <= MAX_SETTINGS:
             raise ValueError(f"render_frames: {len(sigma)} PSF settings outside the kernel's 1..{MAX_SETTINGS}")

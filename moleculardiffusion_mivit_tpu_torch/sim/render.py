@@ -1,7 +1,7 @@
 """Fluorescence video renderer.
 
 Port of ``moleculardiffusion_mivit_tpu/sim/render.py``: the renderers the
-experiments use (``render_widefield`` and ``generate_images_legacy`` are
+experiments and the real-data pipeline use (``generate_images_legacy`` is
 not ported yet).
 A frame before noise is ``Σ_p w_p · pool(g_y,p) ⊗ pool(g_x,p)``: the 2-D
 Gaussian on the upsampled grid is an outer product of 1-D Gaussians, and
@@ -270,6 +270,63 @@ def trajectories_to_video_psf_noise_grid(
                                             part_mean * noise_settings[j])
         arms.append(_poisson(fold_in(generator, 3, j), torch.clamp(noised, min=0.0) * k) / k)
     return torch.stack(arms, dim=1).permute(2, 0, 1, 3, 4, 5)
+
+
+def widefield_subpositions(
+    trajectories_px: torch.Tensor, n_pos_per_frame: int, field_size: int, upsampling_factor: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absolute pixel positions ``(..., K, T, 2)`` (x, y; y = row, no
+    inversion) → HR-grid sub-positions ``(x_hr, y_hr)``, each ``(..., F,
+    K·p)``: the ``K`` particles of a frame side by side, particle-major,
+    ``p = n_pos_per_frame`` sub-positions each. A pixel's centre maps to the
+    centre of its ``u``-cell: ``pos·u + (u−1)/2 − L``."""
+    *lead, k, t, _ = trajectories_px.shape
+    p = n_pos_per_frame
+    if t % p != 0:
+        raise ValueError("T is not divisible by n_pos_per_frame")
+    n_frames, u = t // p, upsampling_factor
+    limit = (field_size * u - 1) // 2
+    seg = trajectories_px.to(torch.float32).reshape(*lead, k, n_frames, p, 2)
+    hr = seg * u + (u - 1) / 2.0 - limit
+
+    def frame_major(v):  # (..., K, F, p) -> (..., F, K·p)
+        return v.transpose(-3, -2).reshape(*lead, n_frames, k * p)
+
+    return frame_major(hr[..., 0]), frame_major(hr[..., 1])
+
+
+def render_widefield(
+    generator: torch.Generator,
+    trajectories_px: torch.Tensor,
+    n_pos_per_frame: int = 1,
+    field_size: int = 63,
+    optics: OpticsConfig = OpticsConfig(),
+) -> torch.Tensor:
+    """Render several particles into one shared field of view, as the JAX
+    package's: every particle's sub-positions of a frame go into that frame.
+    ``trajectories_px (K, T, 2)`` absolute (x, y) pixel positions (rows =
+    y) → ``(T // n_pos_per_frame, S, S)`` with ``S = field_size``; a leading
+    batch axis of independent movies, ``(N, K, T, 2)`` → ``(N, F, S, S)``,
+    renders all ``N·F`` frames in one K1 launch on the card.
+
+    Each (frame, sub-position) draws its intensity ``mean/p + (std/p)·N``;
+    then the clipped background is added and the frames are multiplied by
+    ``Pois(k)/k`` (a fixed rate ``k = optics.poisson_noise``; -1 disables
+    it). ``generator`` lies on the trajectories' device."""
+    p, s, u = n_pos_per_frame, field_size, optics.upsampling_factor
+    part_mean, part_std = optics.particle_intensity
+    bg_mean, bg_std = optics.background_intensity
+    x_hr, y_hr = widefield_subpositions(trajectories_px, p, s, u)
+    intensities = part_mean / p + (part_std / p) * torch.randn(
+        x_hr.shape, generator=generator, device=x_hr.device
+    )
+    frames = render_frames_core(x_hr, y_hr, intensities, optics.gaussian_sigma_hr, s, u)
+    frames = frames + _clipped_background(generator, frames.shape, bg_mean, bg_std)
+    if optics.poisson_noise != -1:
+        kk = float(optics.poisson_noise)
+        lam = torch.full(frames.shape, kk, dtype=torch.float32, device=frames.device)
+        frames = frames * _poisson(generator, lam) / kk
+    return frames
 
 
 def normalize_images(

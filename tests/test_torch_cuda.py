@@ -53,7 +53,9 @@ def test_render_kernel_matches_plain_on_card(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         trender_ops.render_frames(x.double(), y, w, 5.96, 9, 5)
     with pytest.raises(ValueError, match="S\\*u"):
-        trender_ops.render_frames(x, y, w, 5.96, 14, 5)
+        trender_ops.render_frames(x, y, w, 5.96, 97, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        trender_ops.render_frames(*(v[:2].repeat(1, 31) for v in (x, y, w)), 5.96, 96, 5)  # P = 310
 
 
 @pytest.mark.parametrize(
@@ -61,7 +63,8 @@ def test_render_kernel_matches_plain_on_card(cuda_device):
     [(1, 10, 9, 5), (15, 10, 9, 5), (1920, 10, 9, 5), (7680, 10, 9, 5),
      (1, 10, 13, 5), (15, 10, 13, 5), (1920, 10, 13, 5), (7680, 10, 13, 5),
      (100, 4, 10, 5), (33, 7, 9, 5), (9, 3, 65, 1), (50, 45, 7, 3),
-     (3840, 5, 13, 5), (1280, 15, 13, 5), (960, 20, 13, 5), (640, 30, 13, 5), (384, 50, 13, 5)],
+     (3840, 5, 13, 5), (1280, 15, 13, 5), (960, 20, 13, 5), (640, 30, 13, 5), (384, 50, 13, 5),
+     (25, 60, 63, 5), (3, 100, 63, 5), (1600, 100, 63, 5), (5, 300, 96, 5), (4, 20, 96, 5)],
 )
 def test_render_kernel_shapes_on_card(cuda_device, b, p, s, u):
     """K1 against its plain version where a block is partly filled (1 and 15
@@ -70,7 +73,9 @@ def test_render_kernel_shapes_on_card(cuda_device, b, p, s, u):
     grid, P other than 10, cells on more lanes than a warp has (S = 65) and
     more segments than a block's warps hold in one pass (P = 45), and the
     framerate experiment's calls (one class of 64 × 300 steps at P = 5 … 50
-    on 13×13). Two calls on the same inputs agree bitwise (no atomics, fixed
+    on 13×13), the wide-field movies (S = 63 at P = 60 and 100: 50,400
+    bytes of shared memory, above 48 KB) and the kernel's largest S with
+    230,400 bytes (P = 300). Two calls on the same inputs agree bitwise (no atomics, fixed
     summation order)."""
     x, y, w = _render_inputs(b, p, b + s, cuda_device)
     got = trender_ops.render_frames(x, y, w, 5.96, s, u)

@@ -108,7 +108,7 @@ def grid_coord_value(k: int, grid: int) -> np.float32:
 
 @pytest.mark.parametrize("parity", ["odd", "even"])
 def test_kernel_grid_coords_match_hr_grid_coords(parity):
-    """K1 derives a grid coordinate from its index. For every S*u in 1..65:
+    """K1 derives a grid coordinate from its index. For every S*u in 1..480:
     at odd sizes it equals ``hr_grid_coords`` to the bit (the integers
     k - L); at even sizes to 2 ulp of the largest coordinate (one fused
     multiply-add from the nearer end, where ``linspace`` on the CPU rounds
@@ -130,13 +130,15 @@ def test_kernel_grid_coords_match_hr_grid_coords(parity):
 
 @pytest.mark.parametrize(
     "p,s,frames_expected",
-    [(10, 9, 3), (10, 13, 2), (4, 10, 7), (1, 1, 320), (40, 9, 1), (3, 65, 3), (10, 33, 1), (7, 32, 1)],
+    [(10, 9, 3), (10, 13, 2), (4, 10, 7), (1, 1, 320), (40, 9, 1), (3, 65, 3), (10, 33, 1), (7, 32, 1),
+     (60, 63, 1), (100, 63, 1)],  # the last two: the wide-field movies
 )
 def test_kernel_block_layout_gives_every_cell_to_one_thread(p, s, frames_expected):
     """Over the 320 threads of a block, every (frame, sub-position, cell) of
     the block's frames is computed exactly once, for a full block and for
-    the last, partial one; segments never straddle a warp; and the shared
-    memory is what the pooled rows need."""
+    the last, partial one; segments never straddle a warp; a lane holds at
+    most the kernel's 3 cells of a segment; and the shared memory is what
+    the pooled rows need (50,400 bytes at P = 100, S = 63: above 48 KB)."""
     lanes, segments, frames = trender_ops.block_layout(p, s)
     assert frames == frames_expected and lanes * segments <= 32 and lanes == min(s, 32)
     assert trender_ops.shared_memory_bytes(p, s) == 8 * frames * p * s
@@ -148,6 +150,8 @@ def test_kernel_block_layout_gives_every_cell_to_one_thread(p, s, frames_expecte
                 assert cell not in seen, f"{cell} computed by threads {seen[cell]} and {tid}"
                 seen[cell] = tid
         assert set(seen) == {(f, q, c) for f in range(nf) for q in range(p) for c in range(s)}
+        assert all(len(thread_cells(t, nf, p, s)) <= 3 * len({c[:2] for c in thread_cells(t, nf, p, s)})
+                   for t in range(threads))
         # the lanes of one segment lie in one warp (the peak is a warp shuffle)
         for f in range(nf):
             for q in range(p):
@@ -182,7 +186,9 @@ def _render_as_kernel(x, y, w, sigma, s, u):
     return out.astype(np.float32)
 
 
-@pytest.mark.parametrize("b,p,s,u", [(64, 10, 9, 5), (32, 10, 13, 5), (16, 4, 10, 5), (5, 3, 65, 1)])
+@pytest.mark.parametrize(
+    "b,p,s,u", [(64, 10, 9, 5), (32, 10, 13, 5), (16, 4, 10, 5), (5, 3, 65, 1), (4, 60, 63, 5), (2, 100, 63, 5)]
+)
 def test_kernel_arithmetic_stays_inside_the_gate(b, p, s, u):
     """What K1's pre-scaled power of two, its reciprocal of u and, at even
     grids, its own coordinates do against the plain version: the
@@ -199,9 +205,13 @@ def test_kernel_arithmetic_stays_inside_the_gate(b, p, s, u):
 def test_render_wrapper_shape_checks_need_no_card():
     """The checks that depend on the shape alone raise before any launch."""
     with pytest.raises(ValueError, match="S\\*u"):
-        trender_ops._launch_constants(5.96, 10, 14, 5)
+        trender_ops._launch_constants(5.96, 10, 97, 5)
+    with pytest.raises(ValueError, match="S\\*u"):
+        trender_ops._launch_constants(5.96, 10, 63, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        trender_ops._launch_constants(5.96, 7000, 1, 1)
+        trender_ops._launch_constants(5.96, 30000, 1, 1)
+    assert trender_ops._launch_constants(5.96, 100, 63, 5)[0] == 1  # 50,400 bytes: the opt-in
+    assert trender_ops.shared_memory_bytes(100, 63) == 50_400
     frames, factor, step = trender_ops._launch_constants(5.96, 10, 9, 5)
     assert frames == 3 and step == 1.0
     np.testing.assert_allclose(factor, -np.log2(np.e) / (2 * 5.96 ** 2), rtol=1e-6)

@@ -281,17 +281,25 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_cycle.py", ROOT / "feature_outliers.py",
-        ROOT / "denoising_outcome.py"]
+        ROOT / "denoising_outcome.py", ROOT / "realdata_outcome.py"]
     scanned = {path.relative_to(ROOT).as_posix() for path in files}
     assert {f"moleculardiffusion_mivit_tpu_torch/{m}.py" for m in (
         "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features",
         "features/per_frame", "experiments/modular", "ops/filters", "denoise/rl_tv",
-        "experiments/denoising")} <= scanned
-    banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu")
+        "experiments/denoising", "realdata/__init__", "realdata/tiff", "realdata/detect", "realdata/link",
+        "realdata/track", "realdata/patches", "realdata/localize", "realdata/stats", "realdata/pipeline",
+        "realdata/demo")} <= scanned
+    banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu", "PIL")
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in banned, f"{path.relative_to(ROOT)} imports {mod}"
+        # pandas only inside a function (the DataFrame wrappers), never at import
+        tree = ast.parse(path.read_text())
+        for node in tree.body:
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+            assert all(n.split(".")[0] != "pandas" for n in names), f"{path.relative_to(ROOT)} imports pandas"
 
 
 def _decodable(n, f):
