@@ -3,8 +3,8 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
-line each on stdout; phases 4-6, 7, 8, 9, 10, 11 and 12 in seven processes
-of their own:
+line each on stdout; phases 4-6, 7, 8, 9, 10, 11, 12 and 13 in eight
+processes of their own:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
@@ -29,7 +29,11 @@ of their own:
    Then over 30 and 7 members in one launch each (the psfnoise and the
    denoising grid at batch 1 and 16: 72,900 and 1,166,400 rows, 17,010 and
    272,160): bitwise equal to as many one-member launches and repeatable,
-   against the plain version under ``torch.vmap``.
+   against the plain version under ``torch.vmap``. Then (phase 13's part
+   (a), in this process) K2-bf16/K3-bf16 at 2,430 and 38,880 rows against
+   their plain bf16 version (1e-2 / 5e-2 relative L2, ``BF16_TOL``), bitwise
+   repeatable, and over 7 members at batch 1 and 16 bitwise equal to their
+   single launches; each timed beside the f32 kernels on the same inputs.
 4. slice: the baseline experiment's seven models (GeneralTransformer with
    the linear, cnn and deep_resnet embeddings, relu and leaky_relu each, and
    MultiImageResNet) at full width and full data, each through
@@ -107,8 +111,17 @@ of their own:
    width (K2/K3 16 launches a cycle, K1 one a cycle and one for the movie);
    a camera-size stack of 16 tiles × 10 particles × 100 frames rendered in
    one launch and run through the whole pipeline.
+13. bf16: ``compute_dtype="bfloat16"`` (``phase_bf16``): the baseline
+   experiment's seven arms captured against eager at batch 16 (bitwise),
+   batch 1 timed and profiled (losses falling, K2-bf16/K3-bf16 once a step
+   of each deepcnn arm, the f32 K2/K3 never), batch 64 timed, and the f32
+   cycle at batch 1, 16 and 64 beside it; masters, AdamW state and BN
+   buffers f32; denoising's ``trans_grid`` (7 members) two cycles at batch
+   1 and two at 16, the second of each timed; ``utils.flops.multi_cycle_flops`` of the baseline cycle
+   and each timed cycle's MFU against the card's bf16 peak.
 
-Then the smoke's total seconds, a ``kernels`` line with each kernel's
+Then the smoke's total seconds, a ``kernels`` line with each kernel's (K1,
+K2, K3, K2-bf16, K3-bf16)
 launches on the main paths (by path beside the total), error, times
 (``ms`` around the wrapper, ``device_ms`` of its launches alone) and bound,
 the card's name and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -132,6 +145,7 @@ PKG = "moleculardiffusion_mivit_tpu_torch"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 # The JAX package's in-order MSD rows on the published 100-value suite
 # (results/images_features_reconciled/metrics.jsonl, event error_tables),
 # held at 1e-5 relative: the card's f32 sums differ from the CPU's.
@@ -187,16 +201,18 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3, device_only: bool = Fal
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, flops_3xtf32: float = 0.0):
+def bound(nbytes: float, flops: float, flops_3xtf32: float = 0.0, flops_bf16: float = 0.0):
     """Least time (ms) for ``nbytes`` moved, ``flops`` f32 operations outside
-    the tensor cores and ``flops_3xtf32`` f32-grade operations that the
-    kernel runs as three TF32 tensor-core operations each; and what bounds
-    it."""
+    the tensor cores, ``flops_3xtf32`` f32-grade operations that the kernel
+    runs as three TF32 tensor-core operations each and ``flops_bf16`` bf16
+    tensor-core operations; and what bounds it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_F32_FLOP_PER_S + 3 * flops_3xtf32 / PEAK_TF32_FLOP_PER_S) * 1e3
+    t_ops = (flops / PEAK_F32_FLOP_PER_S + 3 * flops_3xtf32 / PEAK_TF32_FLOP_PER_S
+             + flops_bf16 / PEAK_BF16_FLOP_PER_S) * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes"
-    return t_ops, "operations (3xTF32)" if flops_3xtf32 else "operations"
+    kind = "3xTF32" if flops_3xtf32 else "bf16" if flops_bf16 else ""
+    return t_ops, f"operations ({kind})" if kind else "operations"
 
 
 def phase_k1(torch):
@@ -344,11 +360,14 @@ def _embedding_inputs(torch, b, t, s, seed, e=64):
 
 
 def _embedding_flops(r, n, e):
-    """``(simt, tensor_core)`` f32-grade operations of one forward: the
-    initial conv and the fc run outside the tensor cores, the six convs at
-    32..128 channels on them."""
-    convs = 9 * 32 * 64 + 9 * 64 * 64 + 32 * 64 + 9 * 64 * 128 + 9 * 128 * 128 + 64 * 128
-    return 2 * r * 9 * 1 * 32 + 2 * n * 128 * e, 2 * r * convs
+    """``(simt, tensor_core)`` operations of one forward
+    (``ops.fused_embedding.embedding_flops``, split): the initial conv and
+    the fc run outside the tensor cores, the six convs at 32..128 channels
+    on them."""
+    from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import CONV_MACS_PER_ROW, embedding_flops
+
+    tensor = 2 * r * CONV_MACS_PER_ROW
+    return embedding_flops(r, n, e) - tensor, tensor
 
 
 def _defined(fe, outs):
@@ -393,17 +412,7 @@ def phase_k2_k3(torch):
                 check(torch.allclose(st_k[name][i], st_r[name][i], rtol=1e-4, atol=1e-4),
                       f"K2 {b,t,s,e}: {name} {what} differs")
         n, r = b * t, b * t * s * s
-        weights = [
-            kernels["initial"].detach().reshape(9, 32), fe._pack_w3(kernels["rb1_conv1"].detach()),
-            kernels["rb1_skip"].detach().reshape(32, 64), fe._pack_w3(kernels["rb1_conv2"].detach()),
-            fe._pack_w3(kernels["rb2_conv1"].detach()), kernels["rb2_skip"].detach().reshape(64, 128),
-            fe._pack_w3(kernels["rb2_conv2"].detach()),
-        ]
-        weights = tuple(w.contiguous() for w in weights)
-        sc = fe._pack_rows([v.detach() for v in scales.values()]).contiguous()
-        bi = fe._pack_rows([v.detach() for v in biases.values()]).contiguous()
-        xs = x.detach().reshape(n, s, s).contiguous()
-        wf, bf = wfc.detach(), bfc.detach()
+        xs, weights, sc, bi, wf, bf = _kernel_args(fe, x, kernels, scales, biases, wfc, bfc)
         emb_1, stats_1, saved = fe.deep_resnet_embed_fwd(xs, weights, sc, bi, wf, bf)
         stages_fwd = fe.last_stage_launches()
 
@@ -970,7 +979,8 @@ def _captured_against_eager(torch, build, phase, card, tol=1e-4):
     return cap
 
 
-def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None):
+def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None,
+                        kernels=("deep_resnet_embed_fwd", "deep_resnet_embed_bwd")):
     """Part (b) of an experiment phase: at batch 1, captured, a capture
     cycle, a timed cycle and a profiled one. Checks finite losses and MSEs,
     training loss falling for every model (each member of a grid), K2/K3
@@ -982,7 +992,8 @@ def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None):
     (the loss from initialisation: a model on the predict-the-mean plateau
     has fallen to it in cycle 0 and may stay there for cycles). Returns the
     experiment, the cycle marks, ``_profiled``'s results, launches per replay
-    by unit, the losses and the profiler's counts."""
+    by unit, the losses and the profiler's counts. ``kernels``: the wrappers
+    the deep arms' graphs must record (K2-bf16/K3-bf16 at bf16)."""
     exp = build(1, True)
     eng = exp.engine
     marks = [time.perf_counter()]
@@ -1015,8 +1026,8 @@ def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None):
     units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
     for key, per in units1.items():
         want = sum(1 for n in key.split("+") if n in deep)
-        check(per.get("deep_resnet_embed_fwd", 0) == want and per.get("deep_resnet_embed_bwd", 0) == want,
-              f"{phase}: unit {key} records K2/K3 {per}, expected {want} each a replay")
+        check(all(per.get(k, 0) == want for k in kernels),
+              f"{phase}: unit {key} records {per}, expected {want} of each of {kernels} a replay")
     n_seq = _sequences(exp)
     seen = {k: names.get(k, 0) for k in ("render_frames_kernel", "pool_fc_kernel", "pool_fc_bwd_kernel")}
     want = {"render_frames_kernel": renders, "pool_fc_kernel": len(deep) * n_seq,
@@ -1988,6 +1999,372 @@ def _realdata_camera_stack(torch, card):
     return row
 
 
+# ------------------------------------------------------------------ bf16
+# K2-bf16/K3-bf16 against their plain bf16 version on the card: the
+# embedding to 1e-2 relative L2 and 1e-2 of its largest value, each
+# gradient to 5e-2 relative L2 and 5e-2 of its largest value. Both round at
+# the same places (the JAX kernel's), so what differs is the f32 order of
+# the products' sums, which can move a value across a bf16 rounding
+# boundary (one ulp, 2^-8), and the products and BatchNorms after it carry
+# that on, most into the BN parameters' gradients (sums that cancel). The
+# gradient limit sits between two readings of bf16_kernel_spread.py
+# (results/bf16_kernel_spread): two sound bf16 implementations differ by at
+# most 2.8 % at their worst gradient, the plain version in f32 lies at least
+# 8.2 % from it in bf16; each row checks that this f32 control exceeds the
+# limit. tests/test_torch_cuda.py holds the kernels to the same numbers.
+# The BN statistics are f32: 1e-3 relative.
+BF16_TOL, BF16_GRAD_L2_TOL, BF16_GRAD_MAX_TOL = 1e-2, 5e-2, 5e-2
+
+
+def _kernel_args(fe, x, kernels, scales, biases, wfc, bfc):
+    """The wrappers' arguments (packed, contiguous, detached) for the
+    embedding inputs of ``_embedding_inputs``."""
+    b, t, s, _ = x.shape
+    weights = (kernels["initial"].reshape(9, 32), fe._pack_w3(kernels["rb1_conv1"]),
+               kernels["rb1_skip"].reshape(32, 64), fe._pack_w3(kernels["rb1_conv2"]),
+               fe._pack_w3(kernels["rb2_conv1"]), kernels["rb2_skip"].reshape(64, 128),
+               fe._pack_w3(kernels["rb2_conv2"]))
+    return (x.detach().reshape(b * t, s, s).contiguous(), tuple(w.detach().contiguous() for w in weights),
+            fe._pack_rows([v.detach() for v in scales.values()]).contiguous(),
+            fe._pack_rows([v.detach() for v in biases.values()]).contiguous(),
+            wfc.detach().contiguous(), bfc.detach().contiguous())
+
+
+def _bf16_inputs(torch, b, t, s, seed, e=64):
+    """``_embedding_inputs`` rounded to bf16, as leaves."""
+    x, kernels, scales, biases, wfc, bfc = _embedding_inputs(torch, b, t, s, seed, e)
+    c = lambda v: v.detach().bfloat16().requires_grad_()  # noqa: E731
+    return (c(x), {k: c(v) for k, v in kernels.items()}, {k: c(v) for k, v in scales.items()},
+            {k: c(v) for k, v in biases.items()}, c(wfc), c(bfc))
+
+
+def _bf16_bounds(r, n, e, m=1):
+    """Bounds of K2-bf16 and K3-bf16 over ``m`` members of ``r`` rows,
+    counted as the f32 rows are: bytes of the function's bf16 inputs,
+    parameters, embedding and gradients and its f32 statistics (the
+    activations K2 saves for K3 are the port's choice, not the function's,
+    and are left out); operations: the six convs as bf16 products, the
+    initial conv and the fc in f32."""
+    simt, tensor = _embedding_flops(r, n, e)
+    params = 9 * 32 + 9 * 32 * 64 + 32 * 64 + 9 * 64 * 64 + 9 * 64 * 128 + 64 * 128 + 9 * 128 * 128
+    params += 2 * 7 * 128 + 128 * e + e
+    k2 = bound(m * (2 * r + 2 * params + 2 * n * e + 4 * 7 * 2 * 128), m * simt, flops_bf16=m * tensor)
+    k3 = bound(m * (2 * n * e + 2 * r + 2 * params + 2 * r + 2 * params), 2 * m * simt,
+               flops_bf16=2 * m * tensor)
+    return k2, k3
+
+
+def _bf16_kernel_row(torch, fe, b, t=30, s=9, e=64):
+    """K2-bf16/K3-bf16 at batch ``b`` through ``fused_deep_resnet_embed``
+    against the plain bf16 version (``BF16_TOL``), both calls of each
+    wrapper bitwise repeatable, and timed beside the f32 kernels on the
+    same inputs in f32."""
+    n, r = b * t, b * t * s * s
+    x, kernels, scales, biases, wfc, bfc = _bf16_inputs(torch, b, t, s, seed=200 + b, e=e)
+    leaves = [x, *kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
+    f0, b0 = fe.deep_resnet_embed_fwd_bf16.launches, fe.deep_resnet_embed_bwd_bf16.launches
+    emb_k, st_k = fe.fused_deep_resnet_embed(x, kernels, scales, biases, wfc, bfc)
+    emb_r, st_r = fe.deep_resnet_embed_reference(x, kernels, scales, biases, wfc, bfc)
+    check(emb_k.dtype == emb_r.dtype == torch.bfloat16, f"K2-bf16 {b}: embedding dtype {emb_k.dtype}")
+    ek, er = emb_k.detach().float(), emb_r.detach().float()
+    err_fwd, scale_fwd = float((ek - er).abs().max()), float(er.abs().max())
+    l2_fwd = float((ek - er).norm() / er.norm())
+    check(err_fwd <= BF16_TOL * scale_fwd and l2_fwd <= BF16_TOL,
+          f"K2-bf16 {b}: emb max|Δ| {err_fwd} (of {scale_fwd}), relative L2 {l2_fwd}")
+    for name, _ in fe.BN_LAYOUT:
+        for i in (0, 1):
+            u, v = st_k[name][i], st_r[name][i]
+            check(u.dtype == torch.float32 and torch.allclose(u, v, rtol=1e-3, atol=1e-3 * float(v.abs().max())),
+                  f"K2-bf16 {b}: {name} statistic {i} differs")
+    g_out = torch.randn(emb_r.shape, generator=torch.Generator(device="cuda").manual_seed(b), device="cuda")
+    g_out = g_out.bfloat16()
+    grads_k = torch.autograd.grad(emb_k, leaves, g_out, retain_graph=True)
+    grads_r = torch.autograd.grad(emb_r, leaves, g_out, retain_graph=True)
+    check((fe.deep_resnet_embed_fwd_bf16.launches - f0, fe.deep_resnet_embed_bwd_bf16.launches - b0) == (1, 1),
+          f"K2-bf16/K3-bf16 {b}: not one launch each")
+    err_bwd, worst, worst_l2, l2s = 0.0, 0.0, 0.0, []
+    for i, (gk, gr) in enumerate(zip(grads_k, grads_r)):
+        check(gk.dtype == torch.bfloat16, f"K3-bf16 {b}: gradient {i} is {gk.dtype}")
+        gk, gr = gk.float(), gr.float()
+        scale = float(gr.abs().max())
+        ek = float((gk - gr).abs().max())
+        l2 = float((gk - gr).norm() / gr.norm())
+        check(ek <= BF16_GRAD_MAX_TOL * scale and l2 <= BF16_GRAD_L2_TOL,
+              f"K3-bf16 {b}: gradient {i} max|Δ| {ek} (of {scale}), relative L2 {l2}")
+        err_bwd, worst, worst_l2 = max(err_bwd, ek), max(worst, ek / scale), max(worst_l2, l2)
+        l2s.append(l2)
+
+    # how far bf16 arithmetic itself moves them: the plain version in f32 on
+    # the same (bf16-valued) inputs, against the plain bf16 version
+    leaves32 = [v.detach().float().requires_grad_() for v in leaves]
+    it = iter(leaves32[1:])
+    args32_ = ({k: next(it) for k in kernels}, {k: next(it) for k in scales}, {k: next(it) for k in biases},
+               next(it), next(it))
+    emb_f, _ = fe.deep_resnet_embed_reference(leaves32[0], *args32_)
+    grads_f = torch.autograd.grad(emb_f, leaves32, g_out.float())
+    f32_l2 = max(float((gf - gr.float()).norm() / gr.float().norm()) for gf, gr in zip(grads_f, grads_r))
+    check(f32_l2 > BF16_GRAD_L2_TOL, f"K3-bf16 {b}: the f32 control {f32_l2} passes the gradient limit")
+
+    args = _kernel_args(fe, x, kernels, scales, biases, wfc, bfc)
+    g2 = g_out.reshape(n, e).contiguous()
+    out1 = fe.deep_resnet_embed_fwd_bf16(*args)
+    stages_fwd = fe.last_stage_launches()
+    out2 = fe.deep_resnet_embed_fwd_bf16(*args)
+    flat_fwd = lambda o: _defined(fe, [o[0], o[1], *(o[2][k] for k, _ in fe.SAVED), o[2]["pooled"]])  # noqa: E731
+    for i, (u, v) in enumerate(zip(flat_fwd(out1), flat_fwd(out2))):
+        check(torch.equal(u, v), f"K2-bf16 {b}: output {i} differs between two calls")
+    saved = out1[2]
+    bwd1 = fe.deep_resnet_embed_bwd_bf16(*args, saved, g2)
+    stages_bwd = fe.last_stage_launches()
+    bwd2 = fe.deep_resnet_embed_bwd_bf16(*args, saved, g2)
+    flat_bwd = lambda o: _defined(fe, [o[0], *o[1], *o[2:]])  # noqa: E731
+    for i, (u, v) in enumerate(zip(flat_bwd(bwd1), flat_bwd(bwd2))):
+        check(torch.equal(u, v), f"K3-bf16 {b}: gradient {i} differs between two calls")
+
+    args32 = tuple(tuple(w.float() for w in a) if isinstance(a, tuple) else a.float() for a in args)
+    saved32 = fe.deep_resnet_embed_fwd(*args32)[2]
+    g32 = g2.float()
+    times = {}
+    for what, fwd, bwd in (("bf16", lambda: fe.deep_resnet_embed_fwd_bf16(*args),
+                            lambda: fe.deep_resnet_embed_bwd_bf16(*args, saved, g2)),
+                           ("f32", lambda: fe.deep_resnet_embed_fwd(*args32),
+                            lambda: fe.deep_resnet_embed_bwd(*args32, saved32, g32))):
+        times[what] = {"k2": (time_ms(torch, fwd), time_ms(torch, fwd, device_only=True)),
+                       "k3": (time_ms(torch, bwd), time_ms(torch, bwd, device_only=True))}
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(torch, lambda: fe.deep_resnet_embed_reference(x, kernels, scales, biases, wfc, bfc))
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(emb_r, leaves, g_out, retain_graph=True))
+    (b2, by2), (b3, by3) = _bf16_bounds(r, n, e)
+    row = {"phase": "bf16", "part": "a", "B": b, "T": t, "S": s, "E": e, "rows": r, "deterministic": True,
+           "tolerance_rel_l2": {"k2": BF16_TOL, "k3": BF16_GRAD_L2_TOL},
+           "tolerance_max_rel": {"k2": BF16_TOL, "k3": BF16_GRAD_MAX_TOL},
+           "k2_rel_l2": l2_fwd, "k3_worst_rel_err": worst, "k3_worst_rel_l2": worst_l2, "k3_rel_l2_by_gradient": l2s,
+           "plain_bf16_against_plain_f32_worst_gradient_rel_l2": f32_l2,
+           "stage_launches": {"k2": stages_fwd, "k3": stages_bwd},
+           "k2": dict(max_abs_err=err_fwd, ms=times["bf16"]["k2"][0], device_ms=times["bf16"]["k2"][1],
+                      f32_kernel_ms=times["f32"]["k2"][0], f32_kernel_device_ms=times["f32"]["k2"][1],
+                      plain_ms=plain_fwd_ms, bound_ms=b2, bound_by=by2),
+           "k3": dict(max_abs_err=err_bwd, ms=times["bf16"]["k3"][0], device_ms=times["bf16"]["k3"][1],
+                      f32_kernel_ms=times["f32"]["k3"][0], f32_kernel_device_ms=times["f32"]["k3"][1],
+                      plain_ms=plain_bwd_ms, bound_ms=b3, bound_by=by3)}
+    emit(row)
+    return row
+
+
+def _bf16_members(torch, fe, m, b, t=30, s=9, e=64):
+    """K2-bf16/K3-bf16 over ``m`` members in one launch each (the denoising
+    grid's 7 transformers at batch ``b``): every output bitwise equal to
+    the member's own launch and to a second call; timed beside the
+    one-member launches and the f32 kernels over the same members."""
+    n, r = b * t, b * t * s * s
+    per = [_kernel_args(fe, *_bf16_inputs(torch, b, t, s, seed=300 + i, e=e)) for i in range(m)]
+    stack = lambda j: (tuple(torch.stack([p[j][k] for p in per]) for k in range(7)) if j == 1  # noqa: E731
+                       else torch.stack([p[j] for p in per]))
+    args = tuple(stack(j) for j in range(6))
+    g = torch.randn((m, n, e), generator=torch.Generator(device="cuda").manual_seed(b), device="cuda").bfloat16()
+    f0 = fe.deep_resnet_embed_fwd_bf16.launches
+    out = fe.deep_resnet_embed_fwd_bf16(*args)
+    grads = fe.deep_resnet_embed_bwd_bf16(*args, out[2], g)
+    check(fe.deep_resnet_embed_fwd_bf16.launches - f0 == 1, "K2-bf16 members: more than one launch")
+    again = fe.deep_resnet_embed_fwd_bf16(*args), fe.deep_resnet_embed_bwd_bf16(*args, out[2], g)
+
+    def flat_fwd(o, i=None):
+        if i is not None:
+            o = (o[0][i], o[1][i], {k: v[i] for k, v in o[2].items()})
+        return _defined(fe, [o[0], o[1], *(o[2][k] for k, _ in fe.SAVED), o[2]["pooled"]])
+
+    def flat_bwd(o, i=None):
+        if i is not None:
+            o = (o[0][i], tuple(w[i] for w in o[1]), *(v[i] for v in o[2:]))
+        return _defined(fe, [o[0], *o[1], *o[2:]])
+
+    for i in range(m):
+        fwd1 = fe.deep_resnet_embed_fwd_bf16(*per[i])
+        bwd1 = fe.deep_resnet_embed_bwd_bf16(*per[i], fwd1[2], g[i])
+        for j, (u, v, w) in enumerate(zip(flat_fwd(fwd1), flat_fwd(out, i), flat_fwd(again[0], i))):
+            check(torch.equal(u, v) and torch.equal(v, w), f"K2-bf16 members {b}: member {i} output {j}")
+        for j, (u, v, w) in enumerate(zip(flat_bwd(bwd1), flat_bwd(grads, i), flat_bwd(again[1], i))):
+            check(torch.equal(u, v) and torch.equal(v, w), f"K3-bf16 members {b}: member {i} gradient {j}")
+    del again
+    args32 = tuple(tuple(w.float() for w in a) if isinstance(a, tuple) else a.float() for a in args)
+    saved32 = fe.deep_resnet_embed_fwd(*args32)[2]
+    saved1 = [fe.deep_resnet_embed_fwd_bf16(*per[i])[2] for i in range(m)]
+    calls = {
+        "k2": (lambda: fe.deep_resnet_embed_fwd_bf16(*args),
+               lambda: [fe.deep_resnet_embed_fwd_bf16(*per[i]) for i in range(m)],
+               lambda: fe.deep_resnet_embed_fwd(*args32)),
+        "k3": (lambda: fe.deep_resnet_embed_bwd_bf16(*args, out[2], g),
+               lambda: [fe.deep_resnet_embed_bwd_bf16(*per[i], saved1[i], g[i]) for i in range(m)],
+               lambda: fe.deep_resnet_embed_bwd(*args32, saved32, g.float())),
+    }
+    bounds = dict(zip(("k2", "k3"), _bf16_bounds(r, n, e, m)))
+    row = {"phase": "bf16", "part": "a_members", "members": m, "B": b, "rows_per_member": r, "rows": m * r,
+           "bitwise_equal_to_single_launches": True, "deterministic": True}
+    for k, (one, singles, f32) in calls.items():
+        row[k] = dict(ms=time_ms(torch, one, iters=10), device_ms=time_ms(torch, one, iters=10, device_only=True),
+                      single_launches_ms=time_ms(torch, singles, iters=5),
+                      f32_kernel_ms=time_ms(torch, f32, iters=10),
+                      f32_kernel_device_ms=time_ms(torch, f32, iters=10, device_only=True),
+                      bound_ms=bounds[k][0], bound_by=bounds[k][1])
+    emit(row)
+    return row
+
+
+def _bf16_kernels(torch):
+    """Part (a) of phase bf16: the kernel rows at 2,430 and 38,880 rows and
+    over 7 members at batch 1 and 16. Returns the K2-bf16 and K3-bf16 rows
+    of the ``kernels`` line (batch 16, the others beside it)."""
+    from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
+
+    rows = {b: _bf16_kernel_row(torch, fe, b) for b in (1, 16)}
+    members = {b: _bf16_members(torch, fe, 7, b) for b in (1, 16)}
+    out = []
+    for k in ("k2", "k3"):
+        row = dict(rows[16][k])
+        row["batch_1"] = rows[1][k]
+        row["members_7"] = {f"batch_{b}": members[b][k] for b in (1, 16)}
+        out.append(row)
+    return out
+
+
+def _all_f32(torch, exp) -> bool:
+    """Every learned arm's master parameters, AdamW state and buffers are
+    f32 (integer counters aside)."""
+    for state in exp.states.values():
+        tensors = [*state.model.parameters(), *state.model.buffers()]
+        tensors += [v for s in state.optimizer.state.values() for v in s.values() if torch.is_tensor(v)]
+        if any(t.is_floating_point() and t.dtype != torch.float32 for t in tensors):
+            return False
+    return True
+
+
+def _timed_cycles(torch, exp, cycles: int = 2) -> list:
+    """Seconds of each of ``cycles`` cycles (the first of a batch size
+    captures its graphs)."""
+    out = []
+    for c in range(cycles):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run(1, start_cycle=c)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_bf16(torch, card):
+    """The baseline experiment and a grid arm at ``compute_dtype=
+    "bfloat16"`` through their entry points (``experiments.*.build`` +
+    ``Experiment.set_compute_dtype`` + ``Experiment.run``, captured CUDA
+    graphs), with the f32 figures beside them. (b) Baseline, all seven arms:
+    at batch 16 two cycles captured and two eager from one seed agree
+    bitwise (losses, validation MSEs, every parameter and buffer); at batch
+    1 a capture cycle, a timed cycle and a profiled one, the losses finite
+    and falling, K2-bf16/K3-bf16 recorded once a replay in exactly the two
+    deepcnn arms' graphs and run once a step of each (the profiler's count
+    of their pool kernels) and the f32 K2/K3 never; at batch 64 a capture
+    cycle and a timed one; every master, AdamW state and BN buffer f32; s a
+    cycle and seq/s at f32 at batch 1, 16 and 64 in the same process. (c)
+    Denoising's ``trans_grid`` (7 deep-ResNet transformers in one grid) at
+    bf16: two cycles at batch 1 and two at 16 (the first captures, the
+    second is timed), K2-bf16/K3-bf16 once a grid step. (d) ``utils.flops.multi_cycle_flops`` of the baseline cycle at
+    f32 and bf16, and each timed cycle's achieved TFLOP/s and MFU against
+    ``device_peak_flops``."""
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline, denoising
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils import flops
+
+    deep = ("deepcnn_2layer_s", "deepcnn_2layer_leaky")
+    k23_bf16 = ("deep_resnet_embed_fwd_bf16", "deep_resnet_embed_bwd_bf16")
+    engines = []
+    t_phase = time.perf_counter()
+
+    def build(batch, fused, dtype="bfloat16"):
+        exp = baseline.build(seed=0, device="cuda").set_compute_dtype(dtype)
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    # (b) batch 16: captured against eager, bitwise (tolerance 0), then a timed cycle
+    cap = _captured_against_eager(torch, build, "bf16", card, tol=0.0)
+    check(_all_f32(torch, cap), "bf16: a master, AdamW state or buffer is not f32")
+    n_seq = _sequences(cap)
+    s_cycle = {"bfloat16": {16: _timed_cycles(torch, cap, 1)[0]}}
+    models = {n: a.model for n, a in cap.arms.items() if a.model is not None}
+    cfg = cap.train_cfg
+    val_videos = [v["videos"] for v in cap.val_data.values()]
+    val_shape = (sum(v.shape[0] for v in val_videos), *val_videos[0].shape[1:])
+    del cap
+    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+        torch, build, "bf16", deep, renders=4, kernels=k23_bf16)
+    check(_all_f32(torch, exp), "bf16: a master, AdamW state or buffer is not f32 after batch 1")
+    check(not any(per.get(k, 0) for per in units1.values() for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd")),
+          f"bf16: an f32 K2/K3 launch in a bf16 graph: {units1}")
+    s_cycle["bfloat16"][1] = marks[2] - marks[1]
+    del exp
+    s_cycle["bfloat16"][64] = _timed_cycles(torch, build(64, True))[1]
+    s_cycle["float32"] = {b: _timed_cycles(torch, build(b, True, "float32"))[1] for b in (1, 16, 64)}
+    counts1 = launch_counts()
+    launches = kernel_launches(counts0, engines)
+    # batch 16: three captured cycles and two eager; batch 1: three; batch 64: two
+    want = len(deep) * (5 * (n_seq // 16) + 3 * n_seq + 2 * (n_seq // 64))
+    for k in k23_bf16:
+        check(launches[k] == want, f"bf16: {k} launches {launches[k]} != {want}")
+    f32_want = len(deep) * (2 * n_seq + 2 * (n_seq // 16) + 2 * (n_seq // 64))
+    check(launches["deep_resnet_embed_fwd"] == f32_want, f"bf16: f32 K2 launches {launches} != {f32_want}")
+
+    # (c) denoising's trans_grid at bf16: two cycles at batch 1 and two at 16,
+    # the first of each capturing the graphs, the second timed
+    grid_s, grid_capture_s, grid_losses = {}, {}, {}
+    grid_engines = []
+    for batch in (1, 16):
+        g = denoising.build(seed=0, device="cuda").set_compute_dtype("bfloat16")
+        del g.arms["resnet_grid"]
+        g.train_cfg = g.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        g.build()
+        grid_engines.append(g.engine)
+        grid_capture_s[batch], grid_s[batch] = _timed_cycles(torch, g, 2)
+        grid_losses[batch] = _member_losses(g)
+        check(all(math.isfinite(x) for v in grid_losses[batch].values() for x in v) and len(grid_losses[batch]) == 7,
+              f"bf16: trans_grid losses at batch {batch}: {grid_losses[batch]}")
+        check(_all_f32(torch, g), "bf16: trans_grid master, AdamW state or buffer not f32")
+        grid_seq = _sequences(g)
+        del g
+    grid_launches = kernel_launches(counts1, grid_engines)
+    grid_want = 2 * (grid_seq + grid_seq // 16)
+    for k in k23_bf16:
+        check(grid_launches[k] == grid_want, f"bf16: trans_grid {k} launches {grid_launches[k]} != {grid_want}")
+    for k, v in grid_launches.items():
+        launches[k] += v
+
+    # (d) FLOPs and MFU of the baseline cycle
+    peak = flops.device_peak_flops()
+    mfu = {}
+    for dtype, by_batch in s_cycle.items():
+        c = cfg.replace(compute_dtype=dtype)
+        for b, s in by_batch.items():
+            f = flops.multi_cycle_flops(models, c, b, val_shape)
+            mfu[f"{dtype}_batch_{b}"] = {"s_per_cycle": s, "seq_per_s": n_seq / s, **flops.utilization(f, s, peak)}
+    emit({"phase": "bf16", "part": "b", "card": card, "arms": list(models), "sequences_per_cycle": n_seq,
+          "captured_equal_to_eager_batch_16": True, "masters_optimizer_bn_f32": True,
+          "s_per_cycle": s_cycle, "seq_per_s": {d: {b: n_seq / s for b, s in v.items()} for d, v in s_cycle.items()},
+          "batch_1": {"s_per_cycle_capture": marks[1] - marks[0], "profiled_s_per_cycle": prof_wall,
+                      "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
+                      "kernels_in_profiled_cycle": n_kernels, "profiled_pool_kernels_once_per_k2_k3_call": seen,
+                      "launches_per_replay_by_unit": units1, "train_loss": losses}})
+    emit({"phase": "bf16", "part": "c", "card": card, "grid": "denoising trans_grid", "members": 7,
+          "sequences_per_cycle": grid_seq, "s_per_cycle": grid_s, "s_per_cycle_capture": grid_capture_s,
+          "train_loss": grid_losses,
+          "launches": grid_launches})
+    emit({"phase": "bf16", "part": "d", "card": card, "peak_flops": peak,
+          "flops_note": "matrix products and convolutions of every step and the validation forward; "
+                        "generation not counted", "by_dtype_and_batch": mfu,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 # The main paths, each driven by its phase, in groups that each run in a
 # process of their own: in one long process torch.profiler came to lose
 # single K1 records (one of 36 in a framerate cycle, one of 5 in a modular
@@ -1995,9 +2372,9 @@ def _realdata_camera_stack(torch, card):
 # fresh process. The first group ran in one process in every earlier smoke.
 PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features": phase_images_features,
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
-         "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata}
+         "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
-               ("psfnoise",), ("denoising",), ("realdata",))
+               ("psfnoise",), ("denoising",), ("realdata",), ("bf16",))
 GROUP_TIMEOUT_S = 600
 
 
@@ -2060,6 +2437,7 @@ def main() -> None:
 
     k1 = timed("k1", phase_k1, torch)
     k2, k3 = timed("k2_k3", phase_k2_k3, torch)
+    k2_bf16, k3_bf16 = timed("bf16_kernels", _bf16_kernels, torch)
     by_path = {}
     for group in PATH_GROUPS:
         t = time.perf_counter()
@@ -2067,7 +2445,8 @@ def main() -> None:
             by_path[name] = got["launches"]
             phase_s[name] = got["seconds"]
         phase_s["+".join(group) + " process"] = time.perf_counter() - t
-    launches = {k: sum(path[k] for path in by_path.values()) for k in by_path["slice"]}
+    names = {k for path in by_path.values() for k in path}
+    launches = {k: sum(path.get(k, 0) for path in by_path.values()) for k in names}
 
     src = f"{PKG}/csrc"
     kernels = [
@@ -2083,6 +2462,16 @@ def main() -> None:
              replaces="moleculardiffusion_mivit_tpu/ops/fused_embedding.py:373",
              launches=launches["deep_resnet_embed_bwd"],
              launches_by_path={p: v["deep_resnet_embed_bwd"] for p, v in by_path.items()}, library_ms=None, **k3),
+        dict(name="deep_resnet_embed_fwd_bf16", route="cuda", source=f"{src}/fused_embedding.cu",
+             replaces="moleculardiffusion_mivit_tpu/ops/fused_embedding.py:350",
+             launches=launches["deep_resnet_embed_fwd_bf16"],
+             launches_by_path={p: v.get("deep_resnet_embed_fwd_bf16", 0) for p, v in by_path.items()},
+             library_ms=None, **k2_bf16),
+        dict(name="deep_resnet_embed_bwd_bf16", route="cuda", source=f"{src}/fused_embedding.cu",
+             replaces="moleculardiffusion_mivit_tpu/ops/fused_embedding.py:373",
+             launches=launches["deep_resnet_embed_bwd_bf16"],
+             launches_by_path={p: v.get("deep_resnet_embed_bwd_bf16", 0) for p, v in by_path.items()},
+             library_ms=None, **k3_bf16),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")

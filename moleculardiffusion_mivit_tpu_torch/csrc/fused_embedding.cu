@@ -86,6 +86,27 @@
 // ReLU are not applied while the next conv loads its slab, because the
 // backward needs the post-ReLU activations in memory anyway.
 //
+// bf16 (K2-bf16 / K3-bf16: deep_resnet_embed_fwd_bf16 / _bwd_bf16). The
+// same launch sequence, instantiated over the operand type T = bf16: it
+// computes what the JAX kernel computes on the TPU off its exact mode
+// (_dot / _dot_t with bf16 operands and f32 accumulation). Inputs, the
+// embedding and every gradient are bf16; the conv outputs, BatchNorm and
+// its statistics, the residual gradient sum (BUF_G) and the initial conv
+// (one input channel, not a product in JAX either) are f32. Every product
+// reads bf16 operands: the post-ReLU activations are saved in bf16 (A, Z1,
+// Y1, Z1B, Y2: only products and ReLU masks read them), BN's backward writes
+// its output for the products in bf16 (BUF_D1, BUF_D2: the rounding JAX
+// makes on the gradient entering a product), the pool and fc products round
+// their f32 operands as they read them (the pool is a product with
+// bf16(1 / S^2) in JAX), and the weights are packed as bf16 for mma.sync
+// m16n8k16: one product per f32 product, where f32 runs three. What bounds
+// it: at 38,880 rows the products are 6.7e10 operations for K2 and K3
+// together, 0.07 ms at the 989 TFLOP/s bf16 peak, and the saved activations
+// (3.3 KB a row, written by K2 and read by K3) 0.08 ms of memory at 3.35
+// TB/s; the elementwise passes, the weight gradients' 2-byte operand reads
+// and the launch chain take the rest, as they do in the f32 kernels. Simple
+// first: mma.sync everywhere, no wgmma.
+//
 // Members. Both entries take M independent members at once (a grid of
 // models: each member its own input rows, weights, BN statistics and
 // gradients). Every launch above carries the member index in its grid
@@ -107,6 +128,10 @@ namespace {
 
 using conv::ceil_div;
 using conv::member_ptr;
+using tc::bf16;
+using tc::from_f32;
+using tc::operand;
+using tc::to_f32;
 
 constexpr int C0 = 32, C1 = 64, C2 = 128, CMAX = 128;
 constexpr float kEps = 1e-5f;
@@ -132,6 +157,9 @@ constexpr int kPackedFloats = packed_floats_before(kNumPacked);
 // Largest set of weight-gradient partials: (target blocks + tiles) * tile.
 constexpr long long kWgradFloats =
     static_cast<long long>(conv::kWgTargetBlocks + 8) * 9 * conv::CIB * conv::COB;
+// f32 copies of the BN scale and bias gradients (7 x CMAX each), which BN's
+// backward reads whatever the type of the gradients it returns.
+constexpr long long kBnGradFloats = 2 * 7 * CMAX;
 
 // Kernel launches of the last entry call, by kind (deep_resnet_last_launches).
 enum Kind {
@@ -192,11 +220,46 @@ __global__ void pack_weights_kernel(PackList list, int flip) {
   }
 }
 
+// bf16: dst = B[tap][k][n] (as above) laid out as conv_rows_tc_kernel<bf16>
+// reads it: [tap][K / 16][N / 8][32 lanes][2 words], lane (gid, tig) holding
+// B[k0 + 2 tig, + 1][n0 + gid] and B[k0 + 2 tig + 8, + 9][n0 + gid], the
+// lower k in the low half: mma_bf16's B registers.
+struct PackItemBf16 {
+  const bf16* src;
+  uint32_t* dst;
+  int taps, K, N;
+  long long src_ms, dst_ms;
+};
+struct PackListBf16 {
+  PackItemBf16 item[kNumPacked];
+};
+
+__global__ void pack_weights_bf16_kernel(PackListBf16 list, int flip) {
+  PackItemBf16 it = list.item[blockIdx.y];
+  it.src = member_ptr(it.src, it.src_ms, blockIdx.z);
+  it.dst = member_ptr(it.dst, it.dst_ms, blockIdx.z);
+  const int nb = it.N / 8, kb = it.K / 16;
+  const int n = it.taps * kb * nb * 32;  // one thread per lane of a block: (tap, kb, nb, lane)
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int lane = i % 32, blk = i / 32;
+    const int col = (blk % nb) * 8 + lane / 4;
+    const int k0 = ((blk / nb) % kb) * 16 + 2 * (lane % 4);
+    const int tap = blk / (nb * kb);
+    auto w = [&](int k) {
+      return flip ? it.src[((it.taps - 1 - tap) * it.N + col) * it.K + k] : it.src[(tap * it.K + k) * it.N + col];
+    };
+    reinterpret_cast<uint2*>(it.dst)[i] =
+        make_uint2(tc::pack_bf16(w(k0), w(k0 + 1)), tc::pack_bf16(w(k0 + 8), w(k0 + 9)));
+  }
+}
+
 __device__ __forceinline__ int tap_offset(int t, int S) { return (t / 3 - 1) * S + (t % 3 - 1); }
 
-// Initial conv, 1 -> 32 channels: z[r, c] = sum_t x[r + off(t)] * w[t, c].
+// Initial conv, 1 -> 32 channels: z[r, c] = sum_t x[r + off(t)] * w[t, c],
+// in f32 for either T.
+template <typename T>
 __global__ void __launch_bounds__(NT) conv0_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ z,
+    const T* __restrict__ x, const T* __restrict__ w, float* __restrict__ z,
     const int* __restrict__ valid, int R, int S, long long x_ms, long long w_ms, long long z_ms) {
   x = member_ptr(x, x_ms, blockIdx.y);
   w = member_ptr(w, w_ms, blockIdx.y);
@@ -208,14 +271,15 @@ __global__ void __launch_bounds__(NT) conv0_fwd_kernel(
   float acc = 0.f;
 #pragma unroll
   for (int t = 0; t < 9; ++t)
-    if ((vm >> t) & 1) acc = fmaf(x[r + tap_offset(t, S)], w[t * C0 + c], acc);
+    if ((vm >> t) & 1) acc = fmaf(to_f32(x[r + tap_offset(t, S)]), to_f32(w[t * C0 + c]), acc);
   z[i] = acc;
 }
 
 // Its data gradient, one warp per pixel:
 // gx[r] = sum_{t, c} d[r + off(t), c] * w[8 - t, c].
+template <typename T>
 __global__ void __launch_bounds__(NT) conv0_dgrad_kernel(
-    const float* __restrict__ d, const float* __restrict__ w, float* __restrict__ gx,
+    const float* __restrict__ d, const T* __restrict__ w, T* __restrict__ gx,
     const int* __restrict__ valid, int R, int S, long long d_ms, long long w_ms, long long gx_ms) {
   d = member_ptr(d, d_ms, blockIdx.y);
   w = member_ptr(w, w_ms, blockIdx.y);
@@ -227,16 +291,17 @@ __global__ void __launch_bounds__(NT) conv0_dgrad_kernel(
 #pragma unroll
   for (int t = 0; t < 9; ++t)
     if ((vm >> t) & 1)
-      s = fmaf(d[static_cast<size_t>(r + tap_offset(t, S)) * C0 + lane], w[(8 - t) * C0 + lane], s);
+      s = fmaf(d[static_cast<size_t>(r + tap_offset(t, S)) * C0 + lane], to_f32(w[(8 - t) * C0 + lane]), s);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) gx[r] = s;
+  if (lane == 0) gx[r] = from_f32<T>(s);
 }
 
 // Its weight gradient: partial[chunk, t, c] = sum over the chunk's rows of
 // x[r + off(t)] * d[r, c].
+template <typename T>
 __global__ void __launch_bounds__(NT) conv0_wgrad_kernel(
-    const float* __restrict__ x, const float* __restrict__ d, float* __restrict__ partial,
+    const T* __restrict__ x, const float* __restrict__ d, float* __restrict__ partial,
     const int* __restrict__ valid, int R, int S, int rows_per_chunk, long long x_ms, long long d_ms,
     long long partial_ms) {
   __shared__ float red[NT / C0][9][C0];
@@ -252,7 +317,7 @@ __global__ void __launch_bounds__(NT) conv0_wgrad_kernel(
     const int vm = valid[r % SS];
 #pragma unroll
     for (int t = 0; t < 9; ++t)
-      if ((vm >> t) & 1) acc[t] = fmaf(x[r + tap_offset(t, S)], g, acc[t]);
+      if ((vm >> t) & 1) acc[t] = fmaf(to_f32(x[r + tap_offset(t, S)]), g, acc[t]);
   }
 #pragma unroll
   for (int t = 0; t < 9; ++t) red[lane][t][c] = acc[t];
@@ -266,9 +331,11 @@ __global__ void __launch_bounds__(NT) conv0_wgrad_kernel(
 
 // out[c, e] = sum_n pooled[n, c] * g[n, e]: a 16 x 16 tile of fc weights per
 // block, the images brought through shared memory 32 at a time; f32 within
-// a batch of 32, double across batches.
+// a batch of 32, double across batches. (bf16: pooled read as a product's
+// operand, bf16.)
+template <typename T>
 __global__ void __launch_bounds__(NT) fc_wgrad_kernel(
-    const float* __restrict__ pooled, const float* __restrict__ g, float* __restrict__ out,
+    const float* __restrict__ pooled, const T* __restrict__ g, T* __restrict__ out,
     int N, int E, long long pooled_ms, long long g_ms, long long out_ms) {
   __shared__ float p_s[32][16 + 1];
   pooled = member_ptr(pooled, pooled_ms, blockIdx.z);
@@ -281,8 +348,8 @@ __global__ void __launch_bounds__(NT) fc_wgrad_kernel(
   for (int n0 = 0; n0 < N; n0 += 32) {
     for (int i = threadIdx.x; i < 32 * 16; i += NT) {
       const int r = i / 16, col = i % 16, n = n0 + r;
-      p_s[r][col] = n < N ? pooled[static_cast<size_t>(n) * C2 + c0 + col] : 0.f;
-      g_s[r][col] = n < N && e0 + col < E ? g[static_cast<size_t>(n) * E + e0 + col] : 0.f;
+      p_s[r][col] = n < N ? operand<T>(pooled[static_cast<size_t>(n) * C2 + c0 + col]) : 0.f;
+      g_s[r][col] = n < N && e0 + col < E ? to_f32(g[static_cast<size_t>(n) * E + e0 + col]) : 0.f;
     }
     __syncthreads();
     float s = 0.f;
@@ -291,11 +358,12 @@ __global__ void __launch_bounds__(NT) fc_wgrad_kernel(
     total += s;
     __syncthreads();
   }
-  if (e0 + tx < E) out[static_cast<size_t>(c0 + ty) * E + e0 + tx] = static_cast<float>(total);
+  if (e0 + tx < E) out[static_cast<size_t>(c0 + ty) * E + e0 + tx] = from_f32<T>(static_cast<float>(total));
 }
 
+template <typename T>
 __global__ void sum_chunks_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, int n, int chunks,
+                                  T* __restrict__ out, int n, int chunks,
                                   long long partial_ms, long long out_ms) {
   partial = member_ptr(partial, partial_ms, blockIdx.y);
   out = member_ptr(out, out_ms, blockIdx.y);
@@ -303,7 +371,7 @@ __global__ void sum_chunks_kernel(const float* __restrict__ partial,
   if (i >= n) return;
   double s = 0.0;
   for (int ch = 0; ch < chunks; ++ch) s += partial[static_cast<size_t>(ch) * n + i];
-  out[i] = static_cast<float>(s);
+  out[i] = from_f32<T>(static_cast<float>(s));
 }
 
 // Per block of kStatRows rows: partial[blk, 0, c] = mean, [blk, 1, c] =
@@ -418,11 +486,12 @@ struct ActStrides {
   long long za, zb, st, bn, out;
 };
 
+template <typename T>
 __global__ void bn_act_kernel(const float* __restrict__ za, const float* __restrict__ sta,
-                              const float* __restrict__ sca, const float* __restrict__ bia,
+                              const T* __restrict__ sca, const T* __restrict__ bia,
                               const float* __restrict__ zb, const float* __restrict__ stb,
-                              const float* __restrict__ scb, const float* __restrict__ bib,
-                              float* __restrict__ out, int R, int C, ActStrides ms) {
+                              const T* __restrict__ scb, const T* __restrict__ bib,
+                              T* __restrict__ out, int R, int C, ActStrides ms) {
   const int m = blockIdx.y;
   za = member_ptr(za, ms.za, m);
   zb = member_ptr(zb, ms.zb, m);
@@ -437,9 +506,9 @@ __global__ void bn_act_kernel(const float* __restrict__ za, const float* __restr
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int c = static_cast<int>(i % C);
-    float v = (za[i] - sta[c]) * sta[2 * CMAX + c] * sca[c] + bia[c];
-    if (zb) v += (zb[i] - stb[c]) * stb[2 * CMAX + c] * scb[c] + bib[c];
-    out[i] = fmaxf(v, 0.f);
+    float v = (za[i] - sta[c]) * sta[2 * CMAX + c] * to_f32(sca[c]) + to_f32(bia[c]);
+    if (zb) v += (zb[i] - stb[c]) * stb[2 * CMAX + c] * to_f32(scb[c]) + to_f32(bib[c]);
+    out[i] = from_f32<T>(fmaxf(v, 0.f));
   }
 }
 
@@ -447,8 +516,9 @@ __global__ void bn_act_kernel(const float* __restrict__ za, const float* __restr
 // skipped when z is null) over the block's kStatRows rows. Each thread sums
 // its rows in four independent f32 chains (at most kStatRows / 4 terms each);
 // everything beyond that accumulates in double. Needs C <= NT.
+template <typename TG>
 __global__ void __launch_bounds__(NT) bn_bwd_partial_kernel(
-    const float* __restrict__ g, const float* __restrict__ z,
+    const TG* __restrict__ g, const float* __restrict__ z,
     const float* __restrict__ st, double* __restrict__ partial, int R, int C, long long g_ms,
     long long z_ms, long long st_ms, long long partial_ms) {
   __shared__ double red0[NT];
@@ -468,7 +538,7 @@ __global__ void __launch_bounds__(NT) bn_bwd_partial_kernel(
         const int rr = r + u * lanes;
         if (rr >= r1) continue;
         const size_t o = static_cast<size_t>(rr) * C + c;
-        const float gv = g[o];
+        const float gv = to_f32(g[o]);
         a0[u] += gv;
         if (z) a1[u] = fmaf(gv, (z[o] - mean) * rstd, a1[u]);
       }
@@ -490,14 +560,18 @@ __global__ void __launch_bounds__(NT) bn_bwd_partial_kernel(
 
 // Sums of the per-block partials, in double: each lane sums a contiguous
 // run of blocks in order, then the lanes are summed in order. Grid
-// ceil(C / kFinalCols).
+// ceil(C / kFinalCols). `f0`/`f1` (optional) receive the sums in f32 too.
+template <typename T>
 __global__ void __launch_bounds__(kFinalThreads) colsum_final_kernel(
-    const double* __restrict__ partial, float* __restrict__ out0, float* __restrict__ out1,
-    int nblk, int C, long long partial_ms, long long out_ms) {
+    const double* __restrict__ partial, T* __restrict__ out0, T* __restrict__ out1,
+    float* __restrict__ f0, float* __restrict__ f1, int nblk, int C, long long partial_ms,
+    long long out_ms, long long f_ms) {
   __shared__ double buf[kFinalThreads];
   partial = member_ptr(partial, partial_ms, blockIdx.y);
   out0 = member_ptr(out0, out_ms, blockIdx.y);
   out1 = member_ptr(out1, out_ms, blockIdx.y);
+  f0 = member_ptr(f0, f_ms, blockIdx.y);
+  f1 = member_ptr(f1, f_ms, blockIdx.y);
   const int c = blockIdx.x * kFinalCols + threadIdx.x % kFinalCols;
   const int lane = threadIdx.x / kFinalCols;
   const int per = (nblk + kFinalLanes - 1) / kFinalLanes;
@@ -511,25 +585,29 @@ __global__ void __launch_bounds__(kFinalThreads) colsum_final_kernel(
   t0 = sum_over_lanes(t0, buf);
   t1 = sum_over_lanes(t1, buf);
   if (lane != 0 || c >= C) return;
-  out0[c] = static_cast<float>(t0);
-  if (out1) out1[c] = static_cast<float>(t1);
+  out0[c] = from_f32<T>(static_cast<float>(t0));
+  if (out1) out1[c] = from_f32<T>(static_cast<float>(t1));
+  if (f0) f0[c] = static_cast<float>(t0);
+  if (f1) f1[c] = static_cast<float>(t1);
 }
 
-// dz = (g - dbias/R - xhat*dscale/R) * scale * rstd
-__global__ void bn_bwd_apply_kernel(const float* __restrict__ g, const float* __restrict__ z,
-                                    const float* __restrict__ st, const float* __restrict__ sc,
+// dz = (g - dbias/R - xhat*dscale/R) * scale * rstd, written as TO (BN 0's
+// in place of g: the initial conv reads it in f32).
+template <typename T, typename TO>
+__global__ void bn_bwd_apply_kernel(const float* g, const float* __restrict__ z,
+                                    const float* __restrict__ st, const T* __restrict__ sc,
                                     const float* __restrict__ dbias,
                                     const float* __restrict__ dscale,
-                                    float* __restrict__ out, int R, int C, long long g_ms,
+                                    TO* out, int R, int C, long long g_ms,
                                     long long z_ms, long long st_ms, long long bn_ms,
-                                    long long out_ms) {
+                                    long long d_ms, long long out_ms) {
   const int m = blockIdx.y;
   g = member_ptr(g, g_ms, m);
   z = member_ptr(z, z_ms, m);
   st = member_ptr(st, st_ms, m);
   sc = member_ptr(sc, bn_ms, m);
-  dbias = member_ptr(dbias, bn_ms, m);
-  dscale = member_ptr(dscale, bn_ms, m);
+  dbias = member_ptr(dbias, d_ms, m);
+  dscale = member_ptr(dscale, d_ms, m);
   out = member_ptr(out, out_ms, m);
   const size_t n = static_cast<size_t>(R) * C;
   const float inv_r = 1.f / static_cast<float>(R);
@@ -538,15 +616,24 @@ __global__ void bn_bwd_apply_kernel(const float* __restrict__ g, const float* __
     const int c = static_cast<int>(i % C);
     const float rstd = st[2 * CMAX + c];
     const float xh = (z[i] - st[c]) * rstd;
-    out[i] = (g[i] - dbias[c] * inv_r - xh * (dscale[c] * inv_r)) * (sc[c] * rstd);
+    out[i] = from_f32<TO>((g[i] - dbias[c] * inv_r - xh * (dscale[c] * inv_r)) * (to_f32(sc[c]) * rstd));
   }
+}
+
+// The mean pool's factor on an image's sum: f32 divides by S^2; bf16 is the
+// JAX kernel's product with bf16(1 / S^2).
+template <typename T>
+__device__ __forceinline__ float pool_scale(float sum, int SS) {
+  if constexpr (conv::kIsBf16<T>) return sum * operand<T>(1.f / static_cast<float>(SS));
+  return sum / static_cast<float>(SS);
 }
 
 // One block per image: pooled[n] = mean over the image's rows of y2;
 // emb[n] = pooled[n] @ wfc + bfc.
-__global__ void pool_fc_kernel(const float* __restrict__ y2, const float* __restrict__ wfc,
-                               const float* __restrict__ bfc, float* __restrict__ pooled,
-                               float* __restrict__ emb, int SS, int E, long long y2_ms,
+template <typename T>
+__global__ void pool_fc_kernel(const T* __restrict__ y2, const T* __restrict__ wfc,
+                               const T* __restrict__ bfc, float* __restrict__ pooled,
+                               T* __restrict__ emb, int SS, int E, long long y2_ms,
                                long long wfc_ms, long long bfc_ms, long long pooled_ms,
                                long long emb_ms) {
   __shared__ float p_s[C2];
@@ -558,21 +645,23 @@ __global__ void pool_fc_kernel(const float* __restrict__ y2, const float* __rest
   const int n = blockIdx.x;
   for (int c = threadIdx.x; c < C2; c += blockDim.x) {
     float s = 0.f;
-    for (int pix = 0; pix < SS; ++pix) s += y2[(static_cast<size_t>(n) * SS + pix) * C2 + c];
-    p_s[c] = s / static_cast<float>(SS);
+    for (int pix = 0; pix < SS; ++pix) s += to_f32(y2[(static_cast<size_t>(n) * SS + pix) * C2 + c]);
+    p_s[c] = pool_scale<T>(s, SS);
     pooled[static_cast<size_t>(n) * C2 + c] = p_s[c];
   }
   __syncthreads();
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     float acc = 0.f;
-    for (int c = 0; c < C2; ++c) acc = fmaf(p_s[c], wfc[c * E + e], acc);
-    emb[static_cast<size_t>(n) * E + e] = acc + bfc[e];
+    for (int c = 0; c < C2; ++c) acc = fmaf(operand<T>(p_s[c]), to_f32(wfc[c * E + e]), acc);
+    emb[static_cast<size_t>(n) * E + e] = from_f32<T>(acc + to_f32(bfc[e]));
   }
 }
 
 // One block per image: gpre[r, c] = (y2[r, c] > 0) * (g[n] @ wfc^T)[c] / SS
-__global__ void pool_fc_bwd_kernel(const float* __restrict__ g, const float* __restrict__ wfc,
-                                   const float* __restrict__ y2, float* __restrict__ gpre,
+// (bf16: the pool's product with its operands rounded).
+template <typename T>
+__global__ void pool_fc_bwd_kernel(const T* __restrict__ g, const T* __restrict__ wfc,
+                                   const T* __restrict__ y2, float* __restrict__ gpre,
                                    int SS, int E, long long g_ms, long long wfc_ms,
                                    long long y2_ms, long long gpre_ms) {
   __shared__ float gp[C2];
@@ -583,17 +672,36 @@ __global__ void pool_fc_bwd_kernel(const float* __restrict__ g, const float* __r
   const int n = blockIdx.x;
   for (int c = threadIdx.x; c < C2; c += blockDim.x) {
     float s = 0.f;
-    for (int e = 0; e < E; ++e) s = fmaf(g[static_cast<size_t>(n) * E + e], wfc[c * E + e], s);
-    gp[c] = s / static_cast<float>(SS);
+    for (int e = 0; e < E; ++e) s = fmaf(to_f32(g[static_cast<size_t>(n) * E + e]), to_f32(wfc[c * E + e]), s);
+    gp[c] = pool_scale<T>(operand<T>(s), SS);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < SS * C2; i += blockDim.x) {
     const size_t o = static_cast<size_t>(n) * SS * C2 + i;
-    gpre[o] = y2[o] > 0.f ? gp[i % C2] : 0.f;
+    gpre[o] = to_f32(y2[o]) > 0.f ? gp[i % C2] : 0.f;
   }
 }
 
 // ---------------------------------------------------------------- launches
+
+// Order of the pointer array both entries take (ops/fused_embedding.py
+// builds it from the same list). Weights keep the JAX layout: 3x3 kernels
+// tap-major (9 * cin, cout), 1x1 kernels (cin, cout), fc (128, E); BN scales
+// and biases packed (7, 128) in BN_LAYOUT order; stats (7, 3, 128) =
+// mean, biased var, rstd per BN; VALID the S*S tap-validity words (bit t set
+// where tap t of that pixel reads inside the image). Each array is a stack
+// of M members; the second array holds each pointer's member stride in
+// elements (any value for VALID, which all members share). In the T = bf16
+// entries the inputs, EMB, the gradients, the saved post-ReLU activations
+// (A, Z1, Y1, Z1B, Y2) and BUF_D1/BUF_D2 are bf16; everything else is f32.
+enum Ptr {
+  X, WI, W1C1, W1SK, W1C2, W2C1, W2SK, W2C2, SC, BI, WFC, BFC,
+  Z0, A, Z1P, Z1, Z2P, IP1, Y1, Z1BP, Z1B, Z2BP, IP2, Y2, POOLED, STATS,
+  EMB, SCRATCH, VALID,
+  GEMB, GX, GWI, GW1C1, GW1SK, GW1C2, GW2C1, GW2SK, GW2C2, GSC, GBI, GWFC, GBFC,
+  BUF_G, BUF_D1, BUF_D2,
+  NPTR
+};
 
 #define CHECK(call)                  \
   do {                               \
@@ -625,7 +733,8 @@ const FArr kNone{nullptr, 0};
 
 // What every launcher needs of one entry call. The scratch holds, per
 // member (at m times `scratch_ms`), the BN partials (doubles), the packed
-// weights and the weight-gradient partials.
+// weights, the weight-gradient partials and f32 copies of the BN parameter
+// gradients.
 struct Call {
   int M, R, S;
   cudaStream_t st;
@@ -634,41 +743,60 @@ struct Call {
   Arr<double> stat;
   FArr packed;
   FArr wg;
+  FArr bn_grads;       // [scale, bias][7][CMAX]
   FArr w[kNumPacked];  // packed GEMM operands, in kPackedShapes order
 
-  Call(void* const* p, int m, int n, int s, void* stream, int scratch_index, int valid_index)
+  Call(void* const* p, int m, int n, int s, void* stream)
       : M(m), R(n * s * s), S(s), st(static_cast<cudaStream_t>(stream)),
-        valid(static_cast<const int*>(p[valid_index])) {
-    float* scratch = static_cast<float*>(p[scratch_index]);
-    scratch_ms = stat_floats(R) + kPackedFloats + kWgradFloats;
+        valid(static_cast<const int*>(p[VALID])) {
+    float* scratch = static_cast<float*>(p[SCRATCH]);
+    scratch_ms = stat_floats(R) + kPackedFloats + kWgradFloats + kBnGradFloats;
     stat = {reinterpret_cast<double*>(scratch), scratch_ms / 2};
     packed = {scratch + stat_floats(R), scratch_ms};
     wg = packed.at(kPackedFloats);
+    bn_grads = wg.at(kWgradFloats);
     for (int i = 0; i < kNumPacked; ++i) w[i] = packed.at(packed_floats_before(i));
   }
 };
 
+// The six GEMM-shaped weights packed for the products of T (flipped and
+// transposed for the data gradients).
+template <typename T>
 int pack_weights(const Call& c, void* const* p, const long long* ms, int first_weight, int flip) {
-  PackList list;
   int largest = 0;
-  for (int i = 0; i < kNumPacked; ++i) {
-    const WeightShape s = kPackedShapes[i];
-    list.item[i] = {static_cast<const float*>(p[first_weight + i]),
-                    c.packed.p + packed_floats_before(i), s.taps, flip ? s.co : s.ci,
-                    flip ? s.ci : s.co, ms[first_weight + i], c.packed.s};
-    largest = std::max(largest, s.taps * s.ci * s.co);
+  for (int i = 0; i < kNumPacked; ++i)
+    largest = std::max(largest, kPackedShapes[i].taps * kPackedShapes[i].ci * kPackedShapes[i].co);
+  const dim3 grid(ceil_div(largest, 4 * NT), kNumPacked, c.M);
+  if constexpr (conv::kIsBf16<T>) {
+    PackListBf16 list;
+    for (int i = 0; i < kNumPacked; ++i) {
+      const WeightShape s = kPackedShapes[i];
+      list.item[i] = {static_cast<const bf16*>(p[first_weight + i]),
+                      reinterpret_cast<uint32_t*>(c.packed.p + packed_floats_before(i)), s.taps,
+                      flip ? s.co : s.ci, flip ? s.ci : s.co, ms[first_weight + i], c.packed.s};
+    }
+    pack_weights_bf16_kernel<<<grid, NT, 0, c.st>>>(list, flip);
+  } else {
+    PackList list;
+    for (int i = 0; i < kNumPacked; ++i) {
+      const WeightShape s = kPackedShapes[i];
+      list.item[i] = {static_cast<const float*>(p[first_weight + i]),
+                      c.packed.p + packed_floats_before(i), s.taps, flip ? s.co : s.ci,
+                      flip ? s.ci : s.co, ms[first_weight + i], c.packed.s};
+    }
+    pack_weights_kernel<<<grid, NT, 0, c.st>>>(list, flip);
   }
-  pack_weights_kernel<<<dim3(ceil_div(largest, 4 * NT), kNumPacked, c.M), NT, 0, c.st>>>(list, flip);
   return launched(K_PACK);
 }
 
 // Tensor-core conv; with `stats` also the BN statistics of its output.
-int conv_tc(const Call& c, FArr x, FArr wp, FArr add, FArr mask, FArr y, FArr stats, int Ci,
+template <typename T>
+int conv_tc(const Call& c, Arr<T> x, FArr wp, FArr add, Arr<T> mask, FArr y, FArr stats, int Ci,
             int Co, int taps) {
   int bm = 0;
   const conv::ConvStrides ms{x.s, wp.s, add.s, mask.s, y.s, c.stat.s};
-  CHECK(conv::launch_conv(x.p, wp.p, add.p, mask.p, y.p, stats.p ? c.stat.p : nullptr, c.valid,
-                          c.R, c.S, Ci, Co, taps, c.M, ms, &bm, c.st));
+  CHECK(conv::launch_conv<T>(x.p, wp.p, add.p, mask.p, y.p, stats.p ? c.stat.p : nullptr, c.valid,
+                             c.R, c.S, Ci, Co, taps, c.M, ms, &bm, c.st));
   ++g_launches[K_CONV_TC];
   if (!stats.p) return 0;
   bn_stats_final_kernel<<<dim3(Co / kFinalCols, c.M), kFinalThreads, 0, c.st>>>(
@@ -676,20 +804,22 @@ int conv_tc(const Call& c, FArr x, FArr wp, FArr add, FArr mask, FArr y, FArr st
   return launched(K_BN_STATS);
 }
 
-int sum_chunks(const Call& c, FArr out, int n, int chunks) {
-  sum_chunks_kernel<<<dim3(ceil_div(n, NT), c.M), NT, 0, c.st>>>(c.wg.p, out.p, n, chunks, c.wg.s,
-                                                                 out.s);
+template <typename T>
+int sum_chunks(const Call& c, Arr<T> out, int n, int chunks) {
+  sum_chunks_kernel<T><<<dim3(ceil_div(n, NT), c.M), NT, 0, c.st>>>(c.wg.p, out.p, n, chunks, c.wg.s,
+                                                                    out.s);
   return launched(K_SUM_CHUNKS);
 }
 
-int wgrad_tc(const Call& c, FArr x, FArr g, FArr out, int Ci, int Co, int taps) {
+template <typename T>
+int wgrad_tc(const Call& c, Arr<T> x, Arr<T> g, Arr<T> out, int Ci, int Co, int taps) {
   int chunks = 0;
   if (taps == 9) {
-    CHECK(conv::launch_wgrad<9>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s, c.wg.s,
-                                &chunks, c.st));
+    CHECK((conv::launch_wgrad<T, 9>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s,
+                                    c.wg.s, &chunks, c.st)));
   } else {
-    CHECK(conv::launch_wgrad<1>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s, c.wg.s,
-                                &chunks, c.st));
+    CHECK((conv::launch_wgrad<T, 1>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s,
+                                    c.wg.s, &chunks, c.st)));
   }
   ++g_launches[K_WGRAD_TC];
   return sum_chunks(c, out, taps * Ci * Co, chunks);
@@ -697,171 +827,192 @@ int wgrad_tc(const Call& c, FArr x, FArr g, FArr out, int Ci, int Co, int taps) 
 
 // BN apply (+ a second BN branch) + ReLU. `st` is the stats array, `bn` the
 // packed BN scales (biases share its stride).
-int bn_act(const Call& c, FArr za, FArr sta, FArr sca, FArr bia, FArr zb, FArr stb, FArr scb,
-           FArr bib, FArr out, int C) {
+template <typename T>
+int bn_act(const Call& c, FArr za, FArr sta, Arr<T> sca, Arr<T> bia, FArr zb, FArr stb, Arr<T> scb,
+           Arr<T> bib, Arr<T> out, int C) {
   const ActStrides ms{za.s, zb.s, sta.s, sca.s, out.s};
-  bn_act_kernel<<<dim3(elementwise_blocks(c.R, C), c.M), NT, 0, c.st>>>(
+  bn_act_kernel<T><<<dim3(elementwise_blocks(c.R, C), c.M), NT, 0, c.st>>>(
       za.p, sta.p, sca.p, bia.p, zb.p, stb.p, scb.p, bib.p, out.p, c.R, C, ms);
   return launched(K_BN_ACT);
 }
 
-// Column sums of g and of g * xhat into out0 (d bias) and out1 (d scale).
-int colsum(const Call& c, FArr g, FArr z, FArr stats, FArr out0, FArr out1, int rows, int C) {
+// Column sums of g and of g * xhat into out0 (d bias) and out1 (d scale),
+// and in f32 into f0 and f1 where given.
+template <typename TG, typename T>
+int colsum(const Call& c, Arr<TG> g, FArr z, FArr stats, Arr<T> out0, Arr<T> out1, FArr f0, FArr f1,
+           int rows, int C) {
   const int nblk = ceil_div(rows, kStatRows);
-  bn_bwd_partial_kernel<<<dim3(nblk, c.M), NT, 0, c.st>>>(g.p, z.p, stats.p, c.stat.p, rows, C,
-                                                          g.s, z.s, stats.s, c.stat.s);
+  bn_bwd_partial_kernel<TG><<<dim3(nblk, c.M), NT, 0, c.st>>>(g.p, z.p, stats.p, c.stat.p, rows, C,
+                                                              g.s, z.s, stats.s, c.stat.s);
   CHECK(launched(K_BN_BWD));
-  colsum_final_kernel<<<dim3(ceil_div(C, kFinalCols), c.M), kFinalThreads, 0, c.st>>>(
-      c.stat.p, out0.p, out1.p, nblk, C, c.stat.s, out0.s);
+  colsum_final_kernel<T><<<dim3(ceil_div(C, kFinalCols), c.M), kFinalThreads, 0, c.st>>>(
+      c.stat.p, out0.p, out1.p, f0.p, f1.p, nblk, C, c.stat.s, out0.s, f0.s);
   return launched(K_BN_BWD);
 }
 
-int bn_bwd(const Call& c, FArr g, FArr z, FArr stats, FArr sc, FArr dsc, FArr dbi, FArr out,
-           int C) {
-  CHECK(colsum(c, g, z, stats, dbi, dsc, c.R, C));
-  bn_bwd_apply_kernel<<<dim3(elementwise_blocks(c.R, C), c.M), NT, 0, c.st>>>(
-      g.p, z.p, stats.p, sc.p, dbi.p, dsc.p, out.p, c.R, C, g.s, z.s, stats.s, sc.s, out.s);
+// BN backward: d scale and d bias (as T, and in f32 for the apply), then dz
+// into `out` (TO).
+template <typename T, typename TO>
+int bn_bwd(const Call& c, FArr g, FArr z, FArr stats, Arr<T> sc, Arr<T> dsc, Arr<T> dbi, FArr dsc32,
+           FArr dbi32, Arr<TO> out, int C) {
+  CHECK(colsum(c, g, z, stats, dbi, dsc, dbi32, dsc32, c.R, C));
+  bn_bwd_apply_kernel<T, TO><<<dim3(elementwise_blocks(c.R, C), c.M), NT, 0, c.st>>>(
+      g.p, z.p, stats.p, sc.p, dbi32.p, dsc32.p, out.p, c.R, C, g.s, z.s, stats.s, sc.s, dbi32.s,
+      out.s);
   return launched(K_BN_BWD);
+}
+
+// M members of N images of S x S each; E the embedding width.
+template <typename T>
+int embed_fwd(void* const* p, const long long* ms, int M, int N, int S, int E, void* stream) {
+  auto fa = [p, ms](int i) { return FArr{static_cast<float*>(p[i]), ms[i]}; };
+  auto ta = [p, ms](int i) { return Arr<T>{static_cast<T*>(p[i]), ms[i]}; };
+  const Call c(p, M, N, S, stream);
+  std::fill(g_launches, g_launches + NKIND, 0);
+  const int R = c.R;
+  const FArr stats = fa(STATS);
+  const Arr<T> sc = ta(SC), bi = ta(BI);
+  auto S_ = [&](int i) { return stats.at(i * 3 * CMAX); };
+  auto SC_ = [&](int i) { return sc.at(i * CMAX); };
+  auto BI_ = [&](int i) { return bi.at(i * CMAX); };
+  const FArr none = kNone;
+  const Arr<T> tnone{nullptr, 0};
+
+  CHECK(pack_weights<T>(c, p, ms, W1C1, 0));
+
+  conv0_fwd_kernel<T><<<dim3(ceil_div(static_cast<long long>(R) * C0, NT), M), NT, 0, c.st>>>(
+      ta(X).p, ta(WI).p, fa(Z0).p, c.valid, R, S, ta(X).s, ta(WI).s, fa(Z0).s);
+  CHECK(launched(K_CONV0));
+  bn_stats_partial_kernel<<<dim3(ceil_div(R, kStatRows), M), NT, 0, c.st>>>(fa(Z0).p, c.stat.p, R, C0,
+                                                                            fa(Z0).s, c.stat.s);
+  CHECK(launched(K_BN_STATS));
+  bn_stats_final_kernel<<<dim3(C0 / kFinalCols, M), kFinalThreads, 0, c.st>>>(
+      c.stat.p, S_(0).p, ceil_div(R, kStatRows), kStatRows, R, C0, c.stat.s, stats.s);
+  CHECK(launched(K_BN_STATS));
+  CHECK(bn_act(c, fa(Z0), S_(0), SC_(0), BI_(0), none, none, tnone, tnone, ta(A), C0));
+
+  CHECK(conv_tc(c, ta(A), c.w[0], none, tnone, fa(Z1P), S_(1), C0, C1, 9));
+  CHECK(bn_act(c, fa(Z1P), S_(1), SC_(1), BI_(1), none, none, tnone, tnone, ta(Z1), C1));
+  CHECK(conv_tc(c, ta(Z1), c.w[2], none, tnone, fa(Z2P), S_(2), C1, C1, 9));
+  CHECK(conv_tc(c, ta(A), c.w[1], none, tnone, fa(IP1), S_(3), C0, C1, 1));
+  CHECK(bn_act(c, fa(Z2P), S_(2), SC_(2), BI_(2), fa(IP1), S_(3), SC_(3), BI_(3), ta(Y1), C1));
+
+  CHECK(conv_tc(c, ta(Y1), c.w[3], none, tnone, fa(Z1BP), S_(4), C1, C2, 9));
+  CHECK(bn_act(c, fa(Z1BP), S_(4), SC_(4), BI_(4), none, none, tnone, tnone, ta(Z1B), C2));
+  CHECK(conv_tc(c, ta(Z1B), c.w[5], none, tnone, fa(Z2BP), S_(5), C2, C2, 9));
+  CHECK(conv_tc(c, ta(Y1), c.w[4], none, tnone, fa(IP2), S_(6), C1, C2, 1));
+  CHECK(bn_act(c, fa(Z2BP), S_(5), SC_(5), BI_(5), fa(IP2), S_(6), SC_(6), BI_(6), ta(Y2), C2));
+
+  pool_fc_kernel<T><<<dim3(N, M), C2, 0, c.st>>>(ta(Y2).p, ta(WFC).p, ta(BFC).p, fa(POOLED).p,
+                                                 ta(EMB).p, S * S, E, ta(Y2).s, ta(WFC).s,
+                                                 ta(BFC).s, fa(POOLED).s, ta(EMB).s);
+  return launched(K_POOL_FC);
+}
+
+template <typename T>
+int embed_bwd(void* const* p, const long long* ms, int M, int N, int S, int E, void* stream) {
+  auto fa = [p, ms](int i) { return FArr{static_cast<float*>(p[i]), ms[i]}; };
+  auto ta = [p, ms](int i) { return Arr<T>{static_cast<T*>(p[i]), ms[i]}; };
+  const Call c(p, M, N, S, stream);
+  std::fill(g_launches, g_launches + NKIND, 0);
+  const int R = c.R;
+  const FArr stats = fa(STATS);
+  const FArr G = fa(BUF_G);
+  const Arr<T> D1 = ta(BUF_D1), D2 = ta(BUF_D2);
+  const FArr dsc32 = c.bn_grads, dbi32 = c.bn_grads.at(7 * CMAX);
+  // BN i of BN_LAYOUT with pre-BN input z: its parameter gradients, and dz to `out`
+  auto bn = [&](FArr g, int i, int z, auto out, int C) {
+    return bn_bwd(c, g, fa(z), stats.at(i * 3 * CMAX), ta(SC).at(i * CMAX), ta(GSC).at(i * CMAX),
+                  ta(GBI).at(i * CMAX), dsc32.at(i * CMAX), dbi32.at(i * CMAX), out, C);
+  };
+  const FArr none = kNone;
+  const Arr<T> tnone{nullptr, 0};
+
+  // the data gradients read the weights tap-flipped and transposed
+  CHECK(pack_weights<T>(c, p, ms, W1C1, 1));
+
+  // fc and mean pool; G = d(pre-ReLU output of block 2)
+  pool_fc_bwd_kernel<T><<<dim3(N, M), 4 * C2, 0, c.st>>>(ta(GEMB).p, ta(WFC).p, ta(Y2).p, G.p, S * S,
+                                                         E, ta(GEMB).s, ta(WFC).s, ta(Y2).s, G.s);
+  CHECK(launched(K_POOL_FC));
+  fc_wgrad_kernel<T><<<dim3(C2 / 16, ceil_div(E, 16), M), NT, 0, c.st>>>(
+      fa(POOLED).p, ta(GEMB).p, ta(GWFC).p, N, E, fa(POOLED).s, ta(GEMB).s, ta(GWFC).s);
+  CHECK(launched(K_WGRAD_SIMT));
+  CHECK(colsum(c, ta(GEMB), none, none, ta(GBFC), tnone, none, none, N, E));
+
+  // residual block 2: bn2 and skip bn both receive G
+  CHECK(bn(G, 5, Z2BP, D1, C2));
+  CHECK(bn(G, 6, IP2, D2, C2));
+  CHECK(wgrad_tc(c, ta(Z1B), D1, ta(GW2C2), C2, C2, 9));
+  CHECK(conv_tc(c, D1, c.w[5], none, ta(Z1B), G, none, C2, C2, 9));
+  CHECK(bn(G, 4, Z1BP, D1, C2));
+  CHECK(wgrad_tc(c, ta(Y1), D1, ta(GW2C1), C1, C2, 9));
+  CHECK(wgrad_tc(c, ta(Y1), D2, ta(GW2SK), C1, C2, 1));
+  CHECK(conv_tc(c, D2, c.w[4], none, tnone, G, none, C2, C1, 1));
+  CHECK(conv_tc(c, D1, c.w[3], G, ta(Y1), G, none, C2, C1, 9));
+
+  // residual block 1
+  CHECK(bn(G, 2, Z2P, D1, C1));
+  CHECK(bn(G, 3, IP1, D2, C1));
+  CHECK(wgrad_tc(c, ta(Z1), D1, ta(GW1C2), C1, C1, 9));
+  CHECK(conv_tc(c, D1, c.w[2], none, ta(Z1), G, none, C1, C1, 9));
+  CHECK(bn(G, 1, Z1P, D1, C1));
+  CHECK(wgrad_tc(c, ta(A), D1, ta(GW1C1), C0, C1, 9));
+  CHECK(wgrad_tc(c, ta(A), D2, ta(GW1SK), C0, C1, 1));
+  CHECK(conv_tc(c, D2, c.w[1], none, tnone, G, none, C1, C0, 1));
+  CHECK(conv_tc(c, D1, c.w[0], G, ta(A), G, none, C1, C0, 9));
+
+  // initial conv: BN 0's dz in place of G, in f32 (a product in neither
+  // JAX's kernel nor here)
+  CHECK(bn(G, 0, Z0, G, C0));
+  const int chunks = std::min(ceil_div(R, 64), conv::kWgTargetBlocks);
+  conv0_wgrad_kernel<T><<<dim3(chunks, M), NT, 0, c.st>>>(ta(X).p, G.p, c.wg.p, c.valid, R, S,
+                                                          ceil_div(R, chunks), ta(X).s, G.s, c.wg.s);
+  CHECK(launched(K_WGRAD_SIMT));
+  CHECK(sum_chunks(c, ta(GWI), 9 * C0, chunks));
+  conv0_dgrad_kernel<T><<<dim3(ceil_div(static_cast<long long>(R) * 32, NT), M), NT, 0, c.st>>>(
+      G.p, ta(WI).p, ta(GX).p, c.valid, R, S, G.s, ta(WI).s, ta(GX).s);
+  return launched(K_CONV0);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Order of the pointer array both entries take (ops/fused_embedding.py
-// builds it from the same list). Weights keep the JAX layout: 3x3 kernels
-// tap-major (9 * cin, cout), 1x1 kernels (cin, cout), fc (128, E); BN scales
-// and biases packed (7, 128) in BN_LAYOUT order; stats (7, 3, 128) =
-// mean, biased var, rstd per BN; VALID the S*S tap-validity words (bit t set
-// where tap t of that pixel reads inside the image). Each array is a stack
-// of M members; the second array holds each pointer's member stride in
-// elements (any value for VALID, which all members share).
-enum Ptr {
-  X, WI, W1C1, W1SK, W1C2, W2C1, W2SK, W2C2, SC, BI, WFC, BFC,
-  Z0, A, Z1P, Z1, Z2P, IP1, Y1, Z1BP, Z1B, Z2BP, IP2, Y2, POOLED, STATS,
-  EMB, SCRATCH, VALID,
-  GEMB, GX, GWI, GW1C1, GW1SK, GW1C2, GW2C1, GW2SK, GW2C2, GSC, GBI, GWFC, GBFC,
-  BUF_G, BUF_D1, BUF_D2,
-  NPTR
-};
-
 int deep_resnet_num_ptrs() { return NPTR; }
 
 // Floats of scratch either entry needs for each member of R activation rows.
 long long deep_resnet_scratch_floats(int R) {
-  return stat_floats(R) + kPackedFloats + kWgradFloats;
+  return stat_floats(R) + kPackedFloats + kWgradFloats + kBnGradFloats;
 }
 
-// Kernel launches the last call of either entry made, by kind, in the
-// order of `enum Kind`; returns the number of kinds.
+// Kernel launches the last call of any entry made, by kind, in the order of
+// `enum Kind`; returns the number of kinds.
 int deep_resnet_last_launches(int* out) {
   for (int k = 0; k < NKIND; ++k) out[k] = g_launches[k];
   return NKIND;
 }
 
-// M members of N images of S x S each; E the embedding width.
+// K2 / K3: f32 in and out, products in 3xTF32.
 int deep_resnet_embed_fwd(void* const* p, const long long* ms, int M, int N, int S, int E,
                           void* stream) {
-  auto f = [p, ms](int i) { return FArr{static_cast<float*>(p[i]), ms[i]}; };
-  const Call c(p, M, N, S, stream, SCRATCH, VALID);
-  std::fill(g_launches, g_launches + NKIND, 0);
-  const int R = c.R;
-  const FArr sc = f(SC), bi = f(BI), stats = f(STATS);
-  auto S_ = [&](int i) { return stats.at(i * 3 * CMAX); };
-  auto SC_ = [&](int i) { return sc.at(i * CMAX); };
-  auto BI_ = [&](int i) { return bi.at(i * CMAX); };
-  const FArr none = kNone;
-
-  CHECK(pack_weights(c, p, ms, W1C1, 0));
-
-  conv0_fwd_kernel<<<dim3(ceil_div(static_cast<long long>(R) * C0, NT), M), NT, 0, c.st>>>(
-      f(X).p, f(WI).p, f(Z0).p, c.valid, R, S, f(X).s, f(WI).s, f(Z0).s);
-  CHECK(launched(K_CONV0));
-  bn_stats_partial_kernel<<<dim3(ceil_div(R, kStatRows), M), NT, 0, c.st>>>(f(Z0).p, c.stat.p, R, C0,
-                                                                            f(Z0).s, c.stat.s);
-  CHECK(launched(K_BN_STATS));
-  bn_stats_final_kernel<<<dim3(C0 / kFinalCols, M), kFinalThreads, 0, c.st>>>(
-      c.stat.p, S_(0).p, ceil_div(R, kStatRows), kStatRows, R, C0, c.stat.s, stats.s);
-  CHECK(launched(K_BN_STATS));
-  CHECK(bn_act(c, f(Z0), S_(0), SC_(0), BI_(0), none, none, none, none, f(A), C0));
-
-  CHECK(conv_tc(c, f(A), c.w[0], none, none, f(Z1P), S_(1), C0, C1, 9));
-  CHECK(bn_act(c, f(Z1P), S_(1), SC_(1), BI_(1), none, none, none, none, f(Z1), C1));
-  CHECK(conv_tc(c, f(Z1), c.w[2], none, none, f(Z2P), S_(2), C1, C1, 9));
-  CHECK(conv_tc(c, f(A), c.w[1], none, none, f(IP1), S_(3), C0, C1, 1));
-  CHECK(bn_act(c, f(Z2P), S_(2), SC_(2), BI_(2), f(IP1), S_(3), SC_(3), BI_(3), f(Y1), C1));
-
-  CHECK(conv_tc(c, f(Y1), c.w[3], none, none, f(Z1BP), S_(4), C1, C2, 9));
-  CHECK(bn_act(c, f(Z1BP), S_(4), SC_(4), BI_(4), none, none, none, none, f(Z1B), C2));
-  CHECK(conv_tc(c, f(Z1B), c.w[5], none, none, f(Z2BP), S_(5), C2, C2, 9));
-  CHECK(conv_tc(c, f(Y1), c.w[4], none, none, f(IP2), S_(6), C1, C2, 1));
-  CHECK(bn_act(c, f(Z2BP), S_(5), SC_(5), BI_(5), f(IP2), S_(6), SC_(6), BI_(6), f(Y2), C2));
-
-  pool_fc_kernel<<<dim3(N, M), C2, 0, c.st>>>(f(Y2).p, f(WFC).p, f(BFC).p, f(POOLED).p, f(EMB).p,
-                                              S * S, E, f(Y2).s, f(WFC).s, f(BFC).s, f(POOLED).s,
-                                              f(EMB).s);
-  return launched(K_POOL_FC);
+  return embed_fwd<float>(p, ms, M, N, S, E, stream);
 }
 
 int deep_resnet_embed_bwd(void* const* p, const long long* ms, int M, int N, int S, int E,
                           void* stream) {
-  auto f = [p, ms](int i) { return FArr{static_cast<float*>(p[i]), ms[i]}; };
-  const Call c(p, M, N, S, stream, SCRATCH, VALID);
-  std::fill(g_launches, g_launches + NKIND, 0);
-  const int R = c.R;
-  const FArr stats = f(STATS);
-  const FArr G = f(BUF_G), D1 = f(BUF_D1), D2 = f(BUF_D2);
-  // BN i of BN_LAYOUT with pre-BN input z: its parameter gradients, and dz to `out`
-  auto bn = [&](FArr g, int i, int z, FArr out, int C) {
-    return bn_bwd(c, g, f(z), stats.at(i * 3 * CMAX), f(SC).at(i * CMAX), f(GSC).at(i * CMAX),
-                  f(GBI).at(i * CMAX), out, C);
-  };
-  const FArr none = kNone;
+  return embed_bwd<float>(p, ms, M, N, S, E, stream);
+}
 
-  // the data gradients read the weights tap-flipped and transposed
-  CHECK(pack_weights(c, p, ms, W1C1, 1));
+// K2-bf16 / K3-bf16: bf16 in and out, bf16 products with f32 accumulation.
+int deep_resnet_embed_fwd_bf16(void* const* p, const long long* ms, int M, int N, int S, int E,
+                               void* stream) {
+  return embed_fwd<bf16>(p, ms, M, N, S, E, stream);
+}
 
-  // fc and mean pool; G = d(pre-ReLU output of block 2)
-  pool_fc_bwd_kernel<<<dim3(N, M), 4 * C2, 0, c.st>>>(f(GEMB).p, f(WFC).p, f(Y2).p, G.p, S * S, E,
-                                                      f(GEMB).s, f(WFC).s, f(Y2).s, G.s);
-  CHECK(launched(K_POOL_FC));
-  fc_wgrad_kernel<<<dim3(C2 / 16, ceil_div(E, 16), M), NT, 0, c.st>>>(
-      f(POOLED).p, f(GEMB).p, f(GWFC).p, N, E, f(POOLED).s, f(GEMB).s, f(GWFC).s);
-  CHECK(launched(K_WGRAD_SIMT));
-  CHECK(colsum(c, f(GEMB), none, none, f(GBFC), none, N, E));
-
-  // residual block 2: bn2 and skip bn both receive G
-  CHECK(bn(G, 5, Z2BP, D1, C2));
-  CHECK(bn(G, 6, IP2, D2, C2));
-  CHECK(wgrad_tc(c, f(Z1B), D1, f(GW2C2), C2, C2, 9));
-  CHECK(conv_tc(c, D1, c.w[5], none, f(Z1B), G, none, C2, C2, 9));
-  CHECK(bn(G, 4, Z1BP, D1, C2));
-  CHECK(wgrad_tc(c, f(Y1), D1, f(GW2C1), C1, C2, 9));
-  CHECK(wgrad_tc(c, f(Y1), D2, f(GW2SK), C1, C2, 1));
-  CHECK(conv_tc(c, D2, c.w[4], none, none, G, none, C2, C1, 1));
-  CHECK(conv_tc(c, D1, c.w[3], G, f(Y1), G, none, C2, C1, 9));
-
-  // residual block 1
-  CHECK(bn(G, 2, Z2P, D1, C1));
-  CHECK(bn(G, 3, IP1, D2, C1));
-  CHECK(wgrad_tc(c, f(Z1), D1, f(GW1C2), C1, C1, 9));
-  CHECK(conv_tc(c, D1, c.w[2], none, f(Z1), G, none, C1, C1, 9));
-  CHECK(bn(G, 1, Z1P, D1, C1));
-  CHECK(wgrad_tc(c, f(A), D1, f(GW1C1), C0, C1, 9));
-  CHECK(wgrad_tc(c, f(A), D2, f(GW1SK), C0, C1, 1));
-  CHECK(conv_tc(c, D2, c.w[1], none, none, G, none, C1, C0, 1));
-  CHECK(conv_tc(c, D1, c.w[0], G, f(A), G, none, C1, C0, 9));
-
-  // initial conv
-  CHECK(bn(G, 0, Z0, D1, C0));
-  const int chunks = std::min(ceil_div(R, 64), conv::kWgTargetBlocks);
-  conv0_wgrad_kernel<<<dim3(chunks, M), NT, 0, c.st>>>(f(X).p, D1.p, c.wg.p, c.valid, R, S,
-                                                       ceil_div(R, chunks), f(X).s, D1.s, c.wg.s);
-  CHECK(launched(K_WGRAD_SIMT));
-  CHECK(sum_chunks(c, f(GWI), 9 * C0, chunks));
-  conv0_dgrad_kernel<<<dim3(ceil_div(static_cast<long long>(R) * 32, NT), M), NT, 0, c.st>>>(
-      D1.p, f(WI).p, f(GX).p, c.valid, R, S, D1.s, f(WI).s, f(GX).s);
-  return launched(K_CONV0);
+int deep_resnet_embed_bwd_bf16(void* const* p, const long long* ms, int M, int N, int S, int E,
+                               void* stream) {
+  return embed_bwd<bf16>(p, ms, M, N, S, E, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy primitives used by the implicit-GEMM
 // kernels in conv_rows.cuh: mma.sync and cp.async (sm_80 and later) and the
-// warpgroup-wide wgmma (sm_90a only).
+// warpgroup-wide wgmma (sm_90a only); the TF32 products of the f32 kernels
+// and the bf16 products of the bf16 ones (end of the file).
 //
 // f32-grade products on the TF32 tensor cores ("3xTF32"): an f32 value a is
 // split as a = big + small with big = tf32(a) (round to nearest, 10 mantissa
@@ -14,6 +15,7 @@
 // product would keep three decimal digits.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -153,6 +155,55 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---- bf16: one product per f32 product, as the JAX kernel computes on the
+// TPU off its exact mode (bf16 operands, f32 accumulation). The chain of
+// mma accumulates on the tensor core: its truncating adds cost ~1e-5 of a
+// sum of this depth, far below bf16's own 2^-9, so no f32 side sum is kept.
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// f32 -> T, rounding to nearest even for bf16.
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The value a product of the T kernels reads of an f32 operand: itself for
+// f32, its bf16 rounding for bf16.
+template <typename T>
+__device__ __forceinline__ float operand(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// Two bf16 in one register, `lo` in the low half (the lower k index).
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// D (16x8, f32) += A (16x16, row-major, bf16) * B (16x8, column-major, bf16).
+// With gid = lane / 4 and tig = lane % 4 a thread holds, each register two
+// bf16 of adjacent k (the lower in the low half):
+//   a0 = A[gid][2tig..]    a1 = A[gid+8][2tig..]  a2 = A[gid][2tig+8..]  a3 = A[gid+8][2tig+8..]
+//   b0 = B[2tig..][gid]    b1 = B[2tig+8..][gid]
+//   d as mma_tf32's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace tc

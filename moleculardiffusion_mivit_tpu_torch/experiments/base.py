@@ -143,6 +143,17 @@ class Experiment:
         self._stack_groups: List[Tuple[List[str], Dict[str, torch.Tensor]]] = []
         self._combined_val_cache = None
 
+    def set_compute_dtype(self, dtype: str) -> "Experiment":
+        """Train every learned arm and grid arm in ``dtype`` (``"float32"``
+        or ``"bfloat16"``, ``TrainConfig.compute_dtype``): the experiment's
+        config and each arm's own. Call before ``build``; the MSD arms do not
+        train and are not touched."""
+        self.train_cfg = self.train_cfg.replace(compute_dtype=dtype)
+        for arm in self.arms.values():
+            if getattr(arm, "train_cfg", None) is not None:
+                arm.train_cfg = arm.train_cfg.replace(compute_dtype=dtype)
+        return self
+
     def use_mesh(self, mesh) -> "Experiment":
         raise NotImplementedError("use_mesh is not ported (ROADMAP.md, queue 1, item 14: parallel/)")
 

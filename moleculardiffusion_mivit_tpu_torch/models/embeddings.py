@@ -53,16 +53,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
+        """A bf16 ``x`` (with bf16 weight and bias, ``compute_dtype``) is
+        normalised in f32, as flax does: statistics, running buffers and the
+        affine map in f32, the result rounded to bf16."""
         shape = (1, -1) + (1,) * (x.ndim - 2)
+        xf = x.float()
         if self.training:
             axes = [0] + list(range(2, x.ndim))
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight.float()
+        return ((xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)).to(x.dtype)
 
     @torch.no_grad()
     def update_running(self, batch_mean, batch_var):

@@ -76,9 +76,11 @@ class FeedForward(nn.Module):
         a leaky ReLU of that slope (relu is slope 0, the reference's
         leaky_relu 0.01), as the JAX package's stacked training passes it;
         a tensor lets a captured CUDA graph carry it. The forward equals
-        relu/leaky_relu; the gradient differs only at inputs of exactly 0."""
+        relu/leaky_relu (at bf16 too: the product is taken in f32 and
+        rounded once, as ``leaky_relu`` does); the gradient differs only at
+        inputs of exactly 0."""
         h = self.fc1(x)
-        h = self.act(h) if act_slope is None else torch.where(h >= 0, h, act_slope * h)
+        h = self.act(h) if act_slope is None else torch.where(h >= 0, h, (act_slope * h.float()).to(h.dtype))
         return self.fc2(self.dropout(h))
 
 

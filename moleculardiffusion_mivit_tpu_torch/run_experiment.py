@@ -61,7 +61,9 @@ def main(argv=None):
                          "features in one model, fused by concat_proj and by add) and its early-fusion "
                          "GeneralTransformer parent, trained on the same data as the five modular arms")
     ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default=None,
-                    help="forward/backward precision; bfloat16 is not ported yet")
+                    help="forward/backward precision (TrainConfig.compute_dtype): bfloat16 casts the parameters and "
+                         "inputs inside each step and keeps f32 master parameters, AdamW state, BatchNorm statistics "
+                         "and evaluation; the deep-ResNet arms then run K2-bf16/K3-bf16. Default float32")
     ap.add_argument("--resume", type=str, default=None,
                     help="checkpoint directory (e.g. <out>/final) to restore and continue from")
     ap.add_argument("--no-stack-pairs", action="store_true",
@@ -97,10 +99,7 @@ def main(argv=None):
         kwargs["with_hybrid"] = True
     exp = get_experiment(args.experiment, **kwargs)
     if args.compute_dtype:
-        exp.train_cfg = exp.train_cfg.replace(compute_dtype=args.compute_dtype)
-        for arm in exp.arms.values():
-            if getattr(arm, "train_cfg", None) is not None:
-                arm.train_cfg = arm.train_cfg.replace(compute_dtype=args.compute_dtype)
+        exp.set_compute_dtype(args.compute_dtype)
     if args.no_stack_pairs:
         exp.stack_pairs = False
     n_cycles = args.cycles or exp.train_cfg.num_cycles
@@ -108,6 +107,7 @@ def main(argv=None):
     logger.log(
         "start",
         experiment=args.experiment,
+        compute_dtype=exp.train_cfg.compute_dtype,
         devices=[torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)],
         num_cycles=n_cycles,
         sequences_per_d=args.seqs_per_d,

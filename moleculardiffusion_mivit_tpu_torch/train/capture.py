@@ -62,7 +62,8 @@ def launch_counts() -> Dict[str, int]:
     from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
     from moleculardiffusion_mivit_tpu_torch.ops.render import render_frames
 
-    return {f.__name__: f.launches for f in (render_frames, fe.deep_resnet_embed_fwd, fe.deep_resnet_embed_bwd)}
+    kernels = (render_frames, *fe.kernels_for(torch.float32), *fe.kernels_for(torch.bfloat16))
+    return {f.__name__: f.launches for f in kernels}
 
 
 class Member(NamedTuple):

@@ -47,6 +47,7 @@ from moleculardiffusion_mivit_tpu_torch.models import init_model
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
 from moleculardiffusion_mivit_tpu_torch.train.loop import (
     TrainState,
+    _cast_for_compute,
     _check_supported,
     _loss,
     _set_lr,
@@ -83,13 +84,15 @@ class GridModule(nn.Module):
         return ({n: getattr(self, _key(n)) for n in self.param_names},
                 {n: getattr(self, _key(n)) for n in self.buffer_names})
 
-    def vmapped(self, fn: Callable, *args) -> torch.Tensor:
+    def vmapped(self, fn: Callable, *args, params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """``torch.vmap`` over the members of ``fn(model, *member_args)``,
         ``model(*inputs)`` running the template on one member's parameters
         and buffers, in this module's train or eval mode; every ``args``
-        tensor has the member axis first."""
+        tensor has the member axis first. ``params`` (stacked, by template
+        name) stand in for the module's own, e.g. their bf16 casts."""
         self.template.train(self.training)
-        params, buffers = self.stacked()
+        own, buffers = self.stacked()
+        params = own if params is None else params
         template = self.template
 
         def one(p, b, *a):
@@ -132,8 +135,10 @@ def make_grid_impls(
       ``GridModule`` with one member per CPU generator (``init_model``
       from each), on the device, and its AdamW.
     - ``train_step(state, videos, labels, idx, act_slope=None,
-      features=None)``: one minibatch of every member, ``idx (M, B)``;
-      returns the per-member losses ``(M,)`` (not synchronised).
+      features=None)``: one minibatch of every member, ``idx (M, B)``, in
+      ``compute_dtype`` (the parameters and inputs cast inside the step, as
+      ``train.loop``'s); returns the per-member losses ``(M,)`` (not
+      synchronised).
     - ``train_cycle(state, videos, labels, generator, lr, batch_size,
       features=None)``: one epoch in ``make_perms`` order; returns the
       per-member mean losses ``(M,)``.
@@ -160,10 +165,12 @@ def make_grid_impls(
         if with_features and features is None:
             raise ValueError("this grid's models take features: pass features=")
         rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
-        batch = (videos[rows, idx], labels[rows, idx]) + ((features[rows, idx],) if with_features else ())
         grid = state.model
+        params, bv, bf = _cast_for_compute(train_cfg, grid.stacked()[0], videos[rows, idx],
+                                           features[rows, idx] if with_features else None)
+        batch = (bv, labels[rows, idx]) + ((bf,) if with_features else ())
         with f32_convolutions():  # autograd's convolutions read the setting when they run
-            losses = grid.vmapped(member_loss, *batch)
+            losses = grid.vmapped(member_loss, *batch, params=params)
             state.optimizer.zero_grad(set_to_none=True)
             losses.sum().backward()
         state.optimizer.step()

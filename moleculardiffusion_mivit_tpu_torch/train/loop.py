@@ -19,9 +19,16 @@ The losses are mse and l1; in sequence mode ``mix_trajectories`` swaps
 trajectory tails across D classes after generation
 (``mix_trajectory_tails``). With ``with_features`` a model also takes the
 25 global trajectory features of each sequence (``features``), gathered
-with the same minibatch indices. Not ported yet, and raising
-``NotImplementedError``: the bf16 ``compute_dtype`` (ROADMAP.md, queue 1,
-item 5).
+with the same minibatch indices.
+
+``compute_dtype="bfloat16"`` runs each step's forward and backward in bf16,
+as the JAX package's ``_cast_for_compute``: the f32 parameters and the
+minibatch (videos, features) are cast to bf16 inside the step
+(``torch.func.functional_call`` on bf16 copies, not ``torch.autocast``),
+the gradients flow back through the cast into the f32 masters, and AdamW
+with its state, the BatchNorm running statistics and ``evaluate`` stay f32.
+The loss is taken in f32. The deep-ResNet embedding then runs K2-bf16/K3-bf16
+(``ops.fused_embedding``).
 
 On the card a model's optimizer may be *capturable* (``make_optimizer(...,
 capturable=True)``): its learning rate is then a 0-d device tensor that
@@ -34,6 +41,7 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.func import functional_call
 
 from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
@@ -89,13 +97,24 @@ def _set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
             group["lr"] = lr
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _check_supported(cfg: TrainConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported yet (ROADMAP.md, queue 1, item 5)"
-        )
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}; expected one of {list(COMPUTE_DTYPES)}")
     if cfg.loss not in ("mse", "l1"):
         raise ValueError(f"unknown loss {cfg.loss!r}; expected 'mse' or 'l1'")
+
+
+def _cast_for_compute(cfg: TrainConfig, params: Dict[str, torch.Tensor], bv, bf):
+    """``(params, videos, features)`` in the step's compute dtype: at bf16
+    every f32 tensor cast (a differentiable cast, so gradients reach the f32
+    masters), anything else as it is. At float32 every tensor is returned
+    as it is."""
+    dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    cast = lambda v: v.to(dtype) if v.dtype == torch.float32 else v  # noqa: E731
+    return {n: cast(p) for n, p in params.items()}, cast(bv), None if bf is None else cast(bf)
 
 
 def _loss(pred: torch.Tensor, y: torch.Tensor, kind: str) -> torch.Tensor:
@@ -221,7 +240,7 @@ def make_train_impls(
       moves it to the device and makes its optimizer.
     - ``train_step(state, videos, labels, idx, act_slope=None,
       features=None)`` is one minibatch forward/backward/AdamW update at the
-      optimizer's current LR (``act_slope``: see
+      optimizer's current LR, in ``compute_dtype`` (``act_slope``: see
       ``models.layers.FeedForward``; ``features`` are indexed by ``idx`` like
       the videos); returns the loss (on the device, not synchronised). It
       makes no host synchronisation, so ``train.capture`` captures it in a
@@ -249,9 +268,11 @@ def make_train_impls(
 
     def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None) -> torch.Tensor:
         bv, by = videos.index_select(0, idx), labels.index_select(0, idx)
-        args = inputs(bv, None if features is None else features.index_select(0, idx))
+        bf = None if features is None else features.index_select(0, idx)
+        kwargs = {} if act_slope is None else {"act_slope": act_slope}
         with f32_convolutions():  # autograd's convolutions read the setting when they run
-            out = state.model(*args) if act_slope is None else state.model(*args, act_slope=act_slope)
+            params, bv, bf = _cast_for_compute(train_cfg, dict(state.model.named_parameters()), bv, bf)
+            out = functional_call(state.model, params, inputs(bv, bf), kwargs)
             if by.ndim == 2 and out.ndim == 3:
                 by = by[..., None]
             loss = _loss(out.float(), by, train_cfg.loss)

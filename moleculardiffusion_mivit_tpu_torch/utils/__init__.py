@@ -1,8 +1,14 @@
-"""Weight conversion, random-number helpers, metrics logging and
-checkpoints."""
+"""Weight conversion, random-number helpers, metrics logging, checkpoints
+and FLOP accounting."""
 
 from moleculardiffusion_mivit_tpu_torch.utils.checkpoint import (  # noqa: F401
     restore_experiment,
     save_experiment,
 )
 from moleculardiffusion_mivit_tpu_torch.utils.metrics import MetricsLogger  # noqa: F401
+from moleculardiffusion_mivit_tpu_torch.utils.flops import (  # noqa: F401
+    device_peak_flops,
+    grid_cycle_flops,
+    multi_cycle_flops,
+    utilization,
+)

@@ -35,6 +35,10 @@ program; generation renders 352 sequences at 5 PSF × 6 noise settings),
 generation renders 256 sequences in four noise variants and RL-TV-
 deconvolves one); an experiment's name with no mode runs it captured.
 
+``--compute-dtype bfloat16`` takes every mode but ``--embedding`` at bf16
+(``TrainConfig.compute_dtype``; the deep-ResNet arms then run
+K2-bf16/K3-bf16, which the layer split counts as the embedding too).
+
 ``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
 alone: for each shape, device time by kernel over 5 calls of K2
 (``deep_resnet_embed_fwd``) and of K3 (``deep_resnet_embed_bwd``) on random
@@ -73,7 +77,7 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile(torch, arm: str, batch: int, val):
+def profile(torch, arm: str, batch: int, val, dtype: str = "float32"):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from chip_smoke import baseline_arms
@@ -81,7 +85,7 @@ def profile(torch, arm: str, batch: int, val):
     from moleculardiffusion_mivit_tpu_torch.train.loop import generate_cycle_data, make_train_impls
     from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
 
-    cfg = TrainConfig(adaptive_batch_size=-1, fixed_batch_size=batch)
+    cfg = TrainConfig(adaptive_batch_size=-1, fixed_batch_size=batch, compute_dtype=dtype)
     model = baseline_arms()[arm]
     init_state, train_cycle, evaluate, _ = make_train_impls(model, cfg, "cuda")
     state = init_state(seeded_generator("cpu", 0, 0))
@@ -119,7 +123,7 @@ def profile(torch, arm: str, batch: int, val):
                   key=lambda kv: -kv[1])[:12]
     n_seq = cfg.sequences_per_d * len(cfg.training_ds)
     return {
-        "arm": arm, "batch": batch, "steps": n_seq // batch,
+        "arm": arm, "batch": batch, "compute_dtype": dtype, "steps": n_seq // batch,
         "wall_s": plain_wall_s, "seq_per_s": n_seq / plain_wall_s, "profiled_wall_s": wall_s,
         "device_kernel_ms": device_ms, "device_busy_share_profiled": busy_ms / (wall_s * 1e3) if intervals else None,
         "device_busy_share_est": device_ms / (plain_wall_s * 1e3) if intervals else None,
@@ -130,7 +134,7 @@ def profile(torch, arm: str, batch: int, val):
     }
 
 
-def profile_experiment(torch, name: str, batch: int, fused: bool):
+def profile_experiment(torch, name: str, batch: int, fused: bool, dtype: str = "float32"):
     """An experiment's cycle (``name``: baseline, images_features,
     modular, the last with its hybrid arms and the in-order suite's
     training classes, psfnoise or denoising) at full width through ``Experiment.run``,
@@ -144,7 +148,7 @@ def profile_experiment(torch, name: str, batch: int, fused: bool):
     from moleculardiffusion_mivit_tpu_torch.experiments.base import class_sequence_counts
 
     options = dict(with_hybrid=True, with_in_order=True) if name == "modular" else {}
-    exp = get_experiment(name, seed=0, device="cuda", **options)
+    exp = get_experiment(name, seed=0, device="cuda", **options).set_compute_dtype(dtype)
     exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
     exp.fused_cycles = fused
     exp.build()
@@ -170,7 +174,7 @@ def profile_experiment(torch, name: str, batch: int, fused: bool):
     n_seq = sum(class_sequence_counts(exp.train_cfg.training_ds, exp.train_cfg.sequences_per_d))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "experiment": name, "arms": len(exp.arms), "batch": batch,
+        "experiment": name, "arms": len(exp.arms), "batch": batch, "compute_dtype": dtype,
         "mode": "captured" if fused else "eager", "steps_per_arm": n_seq // batch,
         "first_cycle_s": first_s, "wall_s": wall_s, "seq_per_s": n_seq / wall_s, "profiled_wall_s": prof_s,
         "device_kernel_ms": device_ms, "kernels": len(intervals),
@@ -240,6 +244,8 @@ def main() -> None:
                     help="profile an experiment's cycle (Experiment.run) at each --batch, captured "
                          "and/or eager: modes and experiment names (default baseline; a name alone "
                          "runs captured)")
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the cycles' compute dtype (TrainConfig.compute_dtype)")
     args = ap.parse_args()
     import torch
 
@@ -280,7 +286,7 @@ def main() -> None:
         for name in names:
             for b in args.batch:
                 for mode in modes:
-                    emit(profile_experiment(torch, name, b, mode == "captured"))
+                    emit(profile_experiment(torch, name, b, mode == "captured", args.compute_dtype))
         return
     from chip_smoke import baseline_arms
 
@@ -294,7 +300,7 @@ def main() -> None:
     val = {float(k[3:]): v for k, v in rendered.items()}
     for arm in arms:
         for b in args.batch:
-            emit(profile(torch, arm, b, val))
+            emit(profile(torch, arm, b, val, args.compute_dtype))
 
 
 if __name__ == "__main__":

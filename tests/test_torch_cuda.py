@@ -699,3 +699,74 @@ def test_grid_captured_epochs_equal_eager_epochs_on_card(cuda_device, kind):
         assert launched["deep_resnet_embed_fwd"] - launched["deep_resnet_embed_bwd"] == 0
         # 8 + 4 + 4 captured steps, and the eager run's as many again
         assert launched["deep_resnet_embed_fwd"] == 2 * (8 + 4 + 4)
+
+
+def _bf16_leaves(args):
+    return tuple({k: v.detach().bfloat16().requires_grad_() for k, v in a.items()} if isinstance(a, dict)
+                 else a.detach().bfloat16().requires_grad_() for a in args)
+
+
+@pytest.mark.parametrize("b,t,s,e", [(1, 30, 9, 64), (1, 6, 13, 32), (3, 30, 9, 58)])
+def test_bf16_embedding_kernels_match_plain_bf16_on_card(cuda_device, b, t, s, e):
+    """K2-bf16/K3-bf16 against the plain bf16 version (bf16 products, f32
+    accumulation, as the JAX kernel off its exact mode): the embedding bf16
+    and within 1e-2 relative L2 of the plain version's, the statistics f32
+    within 1e-3 of each vector's largest value, every gradient bf16 and
+    within 5e-2 relative L2 (``BF16_GRAD_L2_TOL`` in ``chip_smoke.py``);
+    one launch each, none of the f32 kernels. The two round at the same
+    places; a value the f32 sums leave on the other side of a bf16 rounding
+    boundary is what they differ by, and the BN parameters' gradients
+    (sums that cancel) carry that furthest. The limit sits between two
+    readings of ``bf16_kernel_spread.py`` at these shapes, six seeds each
+    (``results/bf16_kernel_spread``): two sound bf16 implementations (JAX's
+    kernel at exact=False against the plain version, on the CPU; the
+    kernels against the plain version, on the card) differ by at most
+    2.8 % at their worst gradient, and the plain version in f32 lies at
+    least 8.2 % from it in bf16. The f32 control is asserted here too."""
+    args = _bf16_leaves(_embedding_args(b, t, s, cuda_device, e=e))
+    before = {f: f.launches for f in (*tfe.kernels_for(torch.float32), *tfe.kernels_for(torch.bfloat16))}
+    out_k, st_k = tfe.fused_deep_resnet_embed(*args)
+    out_r, st_r = tfe.deep_resnet_embed_reference(*args)
+    assert out_k.dtype == out_r.dtype == torch.bfloat16
+    rel = lambda a, r: float((a.float() - r.float()).norm() / r.float().norm())  # noqa: E731
+    assert rel(out_k.detach(), out_r.detach()) <= 1e-2
+    for name, _ in tfe.BN_LAYOUT:
+        for k, r in zip(st_k[name], st_r[name]):
+            assert k.dtype == torch.float32
+            assert float((k - r).abs().max()) <= 1e-3 * float(r.abs().max())
+    x, kernels, scales, biases, wfc, bfc = args
+    leaves = [x, *kernels.values(), *scales.values(), *biases.values(), wfc, bfc]
+    g = torch.randn(out_r.shape, generator=torch.Generator(device=cuda_device).manual_seed(0),
+                    device=cuda_device).bfloat16()
+    leaves32 = [v.detach().float().requires_grad_() for v in leaves]
+    it = iter(leaves32[1:])
+    out_f, _ = tfe.deep_resnet_embed_reference(leaves32[0], {k: next(it) for k in kernels}, {k: next(it) for k in scales},
+                                               {k: next(it) for k in biases}, next(it), next(it))
+    grads_r = torch.autograd.grad(out_r, leaves, g)
+    grads_f = torch.autograd.grad(out_f, leaves32, g.float())
+    worst_f32 = 0.0
+    for a, r, f in zip(torch.autograd.grad(out_k, leaves, g), grads_r, grads_f):
+        assert a.dtype == torch.bfloat16 and rel(a, r) <= 5e-2
+        worst_f32 = max(worst_f32, rel(f, r))
+    assert worst_f32 > 5e-2
+    launched = {f: f.launches - n for f, n in before.items()}
+    assert [launched[f] for f in tfe.kernels_for(torch.bfloat16)] == [1, 1]
+    assert [launched[f] for f in tfe.kernels_for(torch.float32)] == [0, 0]
+
+
+def test_bf16_embedding_kernels_are_bitwise_repeatable_and_reject_mixed_dtypes(cuda_device):
+    """Two calls of each bf16 wrapper on the same inputs give the same bits;
+    an f32 argument among bf16 ones is refused, never cast."""
+    x, kernels, scales, biases, wfc, bfc = _bf16_leaves(_embedding_args(2, 30, 9, cuda_device))
+    n = x.shape[0] * x.shape[1]
+    args = (x.detach().reshape(n, 9, 9).contiguous(), *_packed(kernels, scales, biases, wfc, bfc))
+    one, two = tfe.deep_resnet_embed_fwd_bf16(*args), tfe.deep_resnet_embed_fwd_bf16(*args)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[2]["y2"], two[2]["y2"])
+    assert one[2]["y2"].dtype == torch.bfloat16 and one[2]["z2bp"].dtype == torch.float32
+    g = torch.ones((n, 64), device=cuda_device, dtype=torch.bfloat16)
+    ga, gb = (tfe.deep_resnet_embed_bwd_bf16(*args, one[2], g) for _ in range(2))
+    assert torch.equal(ga[0], gb[0]) and all(torch.equal(u, v) for u, v in zip(ga[1], gb[1]))
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfe.deep_resnet_embed_fwd_bf16(*args[:4], args[4].float(), args[5])
+    with pytest.raises(ValueError, match="float32"):
+        tfe.deep_resnet_embed_fwd(*args)

@@ -135,3 +135,27 @@ def test_demo_needs_a_card_or_the_cpu(tmp_path):
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         demo.main(["--train-cycles", "1", "--out", str(tmp_path)])
+
+
+def test_f6_the_ports_seeds_judged_against_the_jax_key_spread():
+    """Fault F6 (ROADMAP.md section 3) by the rule fixed before the runs
+    (``realdata_msd_spread.py``): the JAX pipeline's MSD(τ=1) error over 64
+    render keys of the demo's movie (``results/realdata_msd_spread``, JAX on
+    the CPU, no training) against the port's four seeds
+    (``results/torch_realdata_demo_seed0-3``). Key 0 is the JAX record's
+    render and reproduces its error. Every port seed lies inside JAX's
+    range (rule 1 holds), but the port's mean lies below JAX's by more
+    than two standard errors (rule 2 misses): JAX's movies swap an identity
+    in 48 of 64 keys, the port's in 1 of 4 seeds. So F6 stays open, with
+    these numbers. The port's own pipeline on the CPU over 64 render seeds
+    (``port_spread.json``, which the rule does not read) swaps in 47."""
+    spread = _load_script("realdata_msd_spread")
+    keys = json.loads((spread.OUT / "msd_spread.json").read_text())
+    verdict = spread.judge(keys, spread.port_seeds())
+    record = json.loads((spread.ROOT / "results" / "realdata_demo" / "realdata_metrics.json").read_text())
+    assert abs(keys["keys"][0]["msd_mean_abs_err"] - record["msd_mean_abs_err"]) < 5e-4
+    assert verdict["jax_keys"] == 64 and verdict["jax_keys_with_a_swap"] == 48
+    assert verdict["rules"] == {"every_port_seed_within_jax_range": True, "port_mean_within_2_se_of_jax_mean": False}
+    assert not verdict["closed"] and verdict["port_mean"] < verdict["jax_mean"]
+    port = json.loads((spread.OUT / "port_spread.json").read_text())["summary"]
+    assert port["seeds"] == 64 and port["with_a_swap"] == 47

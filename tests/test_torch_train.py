@@ -24,7 +24,6 @@ from moleculardiffusion_mivit_tpu_torch import evaluation as tval
 from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, ModelConfig, TrainConfig
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageFeatureResNet, MultiImageResNet
 from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
-from moleculardiffusion_mivit_tpu_torch.train.multi import make_multi_cycle
 from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -229,31 +228,6 @@ def test_train_cycle_schedule_and_remainder():
     assert cfg.batch_size_for_cycle(40) == 4 and cfg.replace(adaptive_batch_size=-1).batch_size_for_cycle(3) == 16
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        ("make_train_impls", dict(compute_dtype="bfloat16")),
-        ("make_multi_cycle", dict(compute_dtype="bfloat16")),
-        ("make_multi_cycle", dict(compute_dtype="bfloat16", with_features=True)),
-    ],
-)
-def test_unported_train_options_raise(kw):
-    """What is left of the training options raises, naming its ROADMAP item:
-    the bf16 compute dtype (item 5), through one model's and the fused
-    cycle's entry, with and without features. The l1 loss,
-    ``mix_trajectories`` and features are ported (tests above and in
-    ``test_torch_multi.py``)."""
-    entry, options = kw
-    model = GeneralTransformer(ModelConfig(**SMALL), embedding="deep_resnet")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item (5|8)"):
-        if entry == "make_train_impls":
-            tloop.make_train_impls(model, TrainConfig(**options), device="cpu")
-        else:
-            cfg = TrainConfig(compute_dtype=options.get("compute_dtype", "float32"))
-            make_multi_cycle({"m": model}, cfg, BASELINE_OPTICS,
-                             with_features=options.get("with_features", False), device="cpu")
-
-
 def test_entry_points_raise_without_a_card(monkeypatch):
     """With no CUDA device, an entry point given no device raises instead of
     running on the CPU."""
@@ -281,7 +255,7 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_cycle.py", ROOT / "feature_outliers.py",
-        ROOT / "denoising_outcome.py", ROOT / "realdata_outcome.py"]
+        ROOT / "denoising_outcome.py", ROOT / "realdata_outcome.py", ROOT / "images_features_bf16_outcome.py"]
     scanned = {path.relative_to(ROOT).as_posix() for path in files}
     assert {f"moleculardiffusion_mivit_tpu_torch/{m}.py" for m in (
         "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features",
