@@ -3,8 +3,9 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
-line each on stdout; phases 4-6, 7, 8, 9, 10, 11, 12 and 13 in eight
-processes of their own:
+line each on stdout (a phase's line also carries ``t``, its process's
+seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-15 and 13 in eight
+processes of their own, each started while the one before runs:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
@@ -47,8 +48,8 @@ processes of their own:
    epochs as captured CUDA graphs (``train.capture``). At batch 16 the
    captured and the eager cycle agree (losses, validation MSEs, every
    parameter and buffer; bitwise is reported); at batch 1 the captured
-   cycle is timed and profiled (busy share, kernels a step, host ms of one
-   replay). Launches are what ran: wrapper calls less those recorded while
+   cycle is timed, a cycle at the cut size profiled (busy share, kernels a
+   step), and the host ms of one replay taken. Launches are what ran: wrapper calls less those recorded while
    capturing plus replays × the calls a graph recorded; K2/K3 once a step of
    each deepcnn arm and in no other unit's graph, K1 once per D class and
    cycle plus the validation renders.
@@ -59,7 +60,7 @@ processes of their own:
    without features; the features-only MLP; three MSD estimators), 5 D
    classes × 64 sequences of 30 frames with their features, validation at
    D = 1..9. At batch 16 the captured and the eager cycle agree; at batch 1
-   the captured cycle is timed and profiled, generation and the features
+   the captured cycle is timed (a cut-size one profiled), generation and the features
    timed on their own; the features of one cycle computed on the card equal
    the CPU's at the CPU test's tolerance; K2/K3 launch 3 × ⌊320/b⌋ times a
    cycle, K1 5 times a cycle in generation; the runner's in-order MSD rows
@@ -70,7 +71,7 @@ processes of their own:
    eight arms, seven of them deep-ResNet transformers (one embedding into
    58 dims), 5 D classes × 64 sequences of 30 frames with their per-frame
    tokens and 25 features. As phase 6: captured against eager at batch 16,
-   batch 1 timed and profiled, the card's per-frame tokens against the
+   batch 1 timed (a cut-size cycle profiled), the card's per-frame tokens against the
    CPU's; K2/K3 launch 7 × ⌊320/b⌋ times a cycle and never in
    ``mod_features``' graph; the published in-order suite's MSD rows on the
    card equal the JAX record's.
@@ -113,12 +114,36 @@ processes of their own:
    one launch and run through the whole pipeline.
 13. bf16: ``compute_dtype="bfloat16"`` (``phase_bf16``): the baseline
    experiment's seven arms captured against eager at batch 16 (bitwise),
-   batch 1 timed and profiled (losses falling, K2-bf16/K3-bf16 once a step
+   batch 1 timed as f32 is (losses falling, K2-bf16/K3-bf16 once a step
    of each deepcnn arm, the f32 K2/K3 never), batch 64 timed, and the f32
    cycle at batch 1, 16 and 64 beside it; masters, AdamW state and BN
    buffers f32; denoising's ``trans_grid`` (7 members) two cycles at batch
    1 and two at 16, the second of each timed; ``utils.flops.multi_cycle_flops`` of the baseline cycle
    and each timed cycle's MFU against the card's bf16 peak.
+14. constrained (``phase_constrained``): ``single_state`` off the Brownian
+   branch on the card (α = 0.5, 1.5, α ~ N(1, 0.3), with drift, in a box;
+   256 × 300 steps), each rendered through K1, the MSD exponent against α;
+   the fGn's deterministic part and the reflected and path walks on the
+   card against the CPU; ``sim.mitochondria_demo.main --cycles 2`` at full
+   width (K1 4 a cycle and 1 for evaluation, K2/K3 64 a cycle).
+15. changepoint (``phase_changepoint``): the baseline experiment in sequence
+   mode, captured against eager at batch 16 (all seven arms, K2/K3 once a
+   step of each deepcnn arm); a planted-transition set; ``detect_change_
+   points`` on its per-frame predictions on the card against the CPU.
+
+Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
+check dropped. The batch-1 part of every experiment phase and of phase 13
+(``_batch_one_profiled``) runs, at the protocol's size, a capture cycle
+and one timed cycle (two in phases embeddings and denoising, whose loss
+check reads the second), and profiles a cycle of an experiment at
+``CUT_SEQS_PER_D`` = 16 sequences a class: the profiler costs ~30 µs of
+host time a kernel it records, 95 s for the 3.2 million of one
+protocol-size framerate cycle. Each runner call (``run_experiment.main``)
+trains its one cycle, and the captured-against-eager cycles of phases 5-11
+run, at that cut size too (phases 13 and 15 compare at the protocol's 64).
+Phase 13 counts the baseline cycle's FLOPs once (they depend neither on the
+batch size nor on the dtype), phases 14-15 share phase 12's process, and
+each group's process starts up while the group before it runs.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's (K1,
 K2, K3, K2-bf16, K3-bf16)
@@ -153,6 +178,14 @@ MSD_ROWS = {"MSD_Perfect": 0.10239888891559892, "MSD_Frame": 1.284755779813329}
 MSD_RTOL = 1e-5
 # sub-positions a frame of the framerate experiment's six exposures
 FRAMERATE_RATES = (5, 10, 15, 20, 30, 50)
+# sequences a D class (a quarter of the protocol's 64) of the cycles the
+# experiment phases run below the protocol's size, where a check holds at
+# any size: part (a)'s captured-against-eager cycles (their eager batch-16
+# cycles take 1.7-7.1 s at the protocol's size), part (b)'s profiled cycle
+# (the profiler's host cost grows with the kernels it records) and the one
+# cycle through run_experiment.main (whose files and events are its checks)
+CUT_SEQS_PER_D = 16
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -166,6 +199,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def emit(obj) -> None:
+    """One JSON line on stdout; a phase's line also carries ``t``, its
+    process's seconds so far (where a phase's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True, file=sys.__stdout__)  # also where a phase sends prose to stderr
 
 
@@ -703,15 +740,6 @@ def phase_slice(torch, card):
     return total
 
 
-def _busy_ms(intervals) -> float:
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
-
-
 def device_kernels(torch, prof):
     """``(name, start_ns, end_ns)`` of every kernel a ``torch.profiler``
     run saw on the card, kernels inside replayed CUDA graphs included, read
@@ -734,21 +762,34 @@ def _profiled(torch, fn):
     """Run ``fn`` under ``torch.profiler`` (CUDA activity); returns its wall
     seconds, the card's busy share over them (union of kernel intervals),
     the kernels' summed device ms, their number, and the kernels counted by
-    name."""
+    name. Emits the host seconds the profiler took to stop and to be read
+    (a batch-1 cycle records 0.5-3.2 million kernels)."""
+    from collections import Counter
+
+    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
     kernels = device_kernels(torch, prof)
-    names = {}
-    for name, _, _ in kernels:
-        key = kernel_key(name)
-        names[key] = names.get(key, 0) + 1
-    busy = _busy_ms([(a / 1e3, b / 1e3) for _, a, b in kernels]) / (wall * 1e3)
-    return wall, busy, sum(b - a for _, a, b in kernels) / 1e6, len(kernels), names
+    names = Counter()
+    for name, n in Counter(name for name, _, _ in kernels).items():
+        names[kernel_key(name)] += n
+    start = np.fromiter((a for _, a, _ in kernels), np.int64, len(kernels))
+    end = np.fromiter((b for _, _, b in kernels), np.int64, len(kernels))
+    order = np.argsort(start, kind="stable")
+    start, end = start[order], end[order]
+    # union of the intervals: each adds what reaches past every earlier end
+    reach = np.concatenate(([np.iinfo(np.int64).min], np.maximum.accumulate(end)[:-1]))
+    busy_ms = float(np.clip(end - np.maximum(start, reach), 0, None).sum()) / 1e6
+    wall = t1 - t0
+    emit({"phase": "profiler", "kernels": len(kernels), "wall_s": wall, "stop_s": t2 - t1,
+          "read_s": time.perf_counter() - t2})
+    return wall, busy_ms / (wall * 1e3), float((end - start).sum()) / 1e6, len(kernels), dict(names)
 
 
 def _replay_host_ms(torch, engine, n: int = 20) -> dict:
@@ -825,8 +866,9 @@ def phase_experiment(torch, card):
     full width: all seven arms, 4 D classes × 64 sequences of 30 frames, the
     frozen validation suite. (a) Cycles at batch 16 captured and eager from
     the same seed: over two cycles, losses, validation MSEs and every
-    parameter and buffer agree; the second is timed. (b) Three cycles at batch 1 captured: the first captures,
-    the second is timed, the third runs under the profiler. (c) K2/K3 run
+    parameter and buffer agree; the second is timed. (b) At batch 1,
+    captured, ``_batch_one_profiled``: a capture cycle and a timed one, then
+    a profiled cycle at the cut size. (c) K2/K3 run
     inside the replayed graphs once a step of each deepcnn arm and in no
     other unit; K1 once per D class and cycle plus the validation renders.
     (d) Finite losses and MSEs, training loss falling at batch 1."""
@@ -841,8 +883,8 @@ def phase_experiment(torch, card):
     torch.cuda.reset_peak_memory_stats()
     engines = []
 
-    def build(batch, fused):
-        exp = baseline.build(seed=0, device="cuda")
+    def build(batch, fused, **kw):
+        exp = baseline.build(seed=0, device="cuda", **kw)
         exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         exp.fused_cycles = fused
         exp.build()
@@ -856,7 +898,7 @@ def phase_experiment(torch, card):
     # timed
     runs = {}
     for fused in (True, False):
-        exp = build(16, fused)
+        exp = build(16, fused, sequences_per_d=CUT_SEQS_PER_D)
         exp.run(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -864,7 +906,7 @@ def phase_experiment(torch, card):
         torch.cuda.synchronize()
         runs[fused] = [exp, time.perf_counter() - t0]
     cap, eag = runs[True][0], runs[False][0]
-    n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
+    n_cmp = _sequences(cap)
     tol = 1e-4
     diffs = _compare_experiments(torch, cap, eag)
     emit({"phase": "experiment", "part": "a_agreement", "tolerance_relative": tol, "by_arm": diffs})
@@ -875,36 +917,21 @@ def phase_experiment(torch, card):
     emit({"phase": "experiment", "part": "a", "card": card, "batch": 16, "arms": len(cap.arms),
           "tolerance_relative": tol, "bitwise_equal": all(d["bitwise"] for d in diffs.values()),
           "s_per_cycle": {"captured": runs[True][1], "eager": runs[False][1]},
-          "seq_per_s": {"captured": n_seq / runs[True][1], "eager": n_seq / runs[False][1]},
-          "captures": cap.engine.captures, "replays": cap.engine.replays,
+          "seq_per_s": {"captured": n_cmp / runs[True][1], "eager": n_cmp / runs[False][1]},
+          "sequences": n_cmp, "captures": cap.engine.captures, "replays": cap.engine.replays,
           "launches_per_replay_by_unit": units16,
           "val_avg": {n: h["val_avg"] for n, h in cap.history.items()}})
 
-    # (b) batch 1, captured: capture cycle, timed cycle, profiled cycle
-    exp = build(1, True)
+    # (b) batch 1, captured: a capture cycle, a timed one; a profiled one at
+    # the cut size
+    exp, marks, prof, units1, losses = _batch_one_profiled(torch, build, "experiment", deep, renders=4)
     eng = exp.engine
-    marks = [time.perf_counter()]
-    exp.run(2, callback=lambda c, m: marks.append(time.perf_counter()))
-    torch.cuda.synchronize()
-    eng.unit_seconds = {}
-    prof_wall, busy, kernel_ms, n_kernels, names = _profiled(torch, lambda: exp.run(1, start_cycle=2))
-    steps = n_seq  # at batch 1
-    per_unit = {"+".join(k): v for k, v in eng.unit_seconds.items()}
-    losses = {n: [float(v) for v in exp.train_loss[n]] for n in exp.arms}
-    for n, ls in losses.items():
-        hist = exp.history[n]
-        check(all(math.isfinite(v) for v in ls + [x for vals in hist.values() for x in vals]),
-              f"experiment: {n}: non-finite loss or val MSE")
-        check(ls[1] < ls[0] and ls[2] < ls[0], f"experiment: {n}: training loss did not fall: {ls}")
-    units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
-    for key, per in units1.items():
-        want = sum(1 for n in key.split("+") if n in deep)
-        check(per.get("deep_resnet_embed_fwd", 0) == want and per.get("deep_resnet_embed_bwd", 0) == want,
-              f"experiment: unit {key} records K2/K3 {per}, expected {want} each a replay")
+    n_seq = _sequences(exp)
 
     # the user's entry point, one cycle (batch 1 by the schedule) with its files
     with tempfile.TemporaryDirectory() as out:
-        cli = run_experiment.main(["baseline", "--cycles", "1", "--out", out, "--checkpoint-last", "0"])
+        cli = run_experiment.main(["baseline", "--cycles", "1", "--out", out, "--checkpoint-last", "0",
+                                    "--seqs-per-d", str(CUT_SEQS_PER_D)])
         engines.append(cli.engine)
         for f in ("metrics.jsonl", "history.json", "final/meta.json", "baseline_errors.csv",
                   "in_order_predictions.npz"):
@@ -912,26 +939,17 @@ def phase_experiment(torch, card):
         cli_events = [json.loads(line)["event"] for line in Path(out, "metrics.jsonl").read_text().splitlines()]
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) two experiments of two cycles, (b) three, the runner's one
+    # (a) two experiments of two cycles; (b) two at the protocol's size and
+    # two at the cut size; the runner's one (at the cut size too)
+    builds, cycles = 5, 2 * 2 + 2 + 2 + 1
     k1_want = n_val_renders * builds + 4 * cycles
-    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 2 * n_seq + 3 * n_cmp)
     check(launches["render_frames"] == k1_want, f"experiment: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
         check(launches[k] == k23_want, f"experiment: {k} launches {launches[k]} != {k23_want}")
-    # the profiler's own count of the kernels each K1, K2 and K3 call runs
-    # once, in the profiled cycle: K1 per D class, K2/K3 in the replays
-    seen = {k: names.get(k, 0) for k in ("render_frames_kernel", "pool_fc_kernel", "pool_fc_bwd_kernel")}
-    want = {"render_frames_kernel": 4, "pool_fc_kernel": len(deep) * steps, "pool_fc_bwd_kernel": len(deep) * steps}
-    check(seen == want, f"experiment: profiled cycle ran {seen}, expected {want}")
     replay_host_ms = _replay_host_ms(torch, eng)  # after the counts: these replays are not the main path's
     emit({"phase": "experiment", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
-          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": marks[2] - marks[1],
-          "seq_per_s": n_seq / (marks[2] - marks[1]),
-          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
-          "device_busy_share_est": kernel_ms / ((marks[2] - marks[1]) * 1e3),
-          "kernels_in_profiled_cycle": n_kernels, "kernels_per_step_incl_generation_and_validation": n_kernels / steps,
-          "profiled_kernels_once_per_k1_k2_k3_call": seen,
-          "unit_s_profiled_cycle": per_unit, "replay_host_ms_card_idle": replay_host_ms,
+          **_batch_one_times(marks, n_seq), **prof, "replay_host_ms_card_idle": replay_host_ms,
           "launches_per_replay_by_unit": units1, "train_loss": losses,
           "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
           "run_experiment_events": cli_events,
@@ -940,22 +958,23 @@ def phase_experiment(torch, card):
     return launches
 
 
-def _sequences(exp) -> int:
+def _sequences(exp, per_d=None) -> int:
     """Sequences an experiment generates a cycle (a 10.2 tail class at half
-    count)."""
+    count), at ``per_d`` a class if given."""
     from moleculardiffusion_mivit_tpu_torch.experiments.base import class_sequence_counts
 
-    return sum(class_sequence_counts(exp.train_cfg.training_ds, exp.train_cfg.sequences_per_d))
+    return sum(class_sequence_counts(exp.train_cfg.training_ds, per_d or exp.train_cfg.sequences_per_d))
 
 
-def _captured_against_eager(torch, build, phase, card, tol=1e-4):
+def _captured_against_eager(torch, build, phase, card, tol=1e-4, seqs_per_d=CUT_SEQS_PER_D):
     """Part (a) of an experiment phase: at batch 16, two cycles captured and
-    two eager from one seed; losses, validation MSEs and every parameter and
-    buffer must agree to ``tol`` relative; the second cycle is timed.
-    Returns the captured experiment."""
+    two eager from one seed, ``seqs_per_d`` sequences a class (None: the
+    experiment's own); losses,
+    validation MSEs and every parameter and buffer must agree to ``tol``
+    relative; the second cycle is timed. Returns the captured experiment."""
     runs = {}
     for fused in (True, False):
-        exp = build(16, fused)
+        exp = build(16, fused, **({"sequences_per_d": seqs_per_d} if seqs_per_d else {}))
         exp.run(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -970,7 +989,7 @@ def _captured_against_eager(torch, build, phase, card, tol=1e-4):
             check(d[what] <= tol, f"{phase}: {name}: captured and eager {what} differ by {d[what]} > {tol}")
     emit({"phase": phase, "part": "a", "card": card, "batch": 16, "arms": list(cap.arms),
           "tolerance_relative": tol, "bitwise_equal": all(d["bitwise"] for d in diffs.values()), "by_arm": diffs,
-          "s_per_cycle": {"captured": runs[True][1], "eager": runs[False][1]},
+          "s_per_cycle": {"captured": runs[True][1], "eager": runs[False][1]}, "sequences": n_seq,
           "seq_per_s": {"captured": n_seq / runs[True][1], "eager": n_seq / runs[False][1]},
           "captures": cap.engine.captures, "replays": cap.engine.replays,
           "launches_per_replay_by_unit": {"+".join(u.names): u.launches_per_replay
@@ -980,26 +999,38 @@ def _captured_against_eager(torch, build, phase, card, tol=1e-4):
 
 
 def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None,
-                        kernels=("deep_resnet_embed_fwd", "deep_resnet_embed_bwd")):
-    """Part (b) of an experiment phase: at batch 1, captured, a capture
-    cycle, a timed cycle and a profiled one. Checks finite losses and MSEs,
-    training loss falling for every model (each member of a grid), K2/K3
-    recorded once a replay in exactly the ``deep`` arms' graphs (a grid arm
-    once for all its members), and the profiler's own count of K1
-    (``renders`` a cycle) and K2/K3 (once a step of each deep arm). The loss
-    falls if the third cycle's mean is below the first's; with
-    ``early_steps``, below the mean of cycle 0's first ``early_steps`` steps
-    (the loss from initialisation: a model on the predict-the-mean plateau
-    has fallen to it in cycle 0 and may stay there for cycles). Returns the
-    experiment, the cycle marks, ``_profiled``'s results, launches per replay
-    by unit, the losses and the profiler's counts. ``kernels``: the wrappers
-    the deep arms' graphs must record (K2-bf16/K3-bf16 at bf16)."""
+                        kernels=("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"), timed_cycles=1):
+    """Part (b) of an experiment phase, at batch 1, captured. At the
+    protocol's size: a capture cycle, then ``timed_cycles`` cycles without
+    the profiler (the first is the batch-1 time; the embeddings experiment's
+    cnn_2layer_b and denoising's trans_poisson_noise are still on their
+    plateaus after one cycle, so there the loss check reads a second,
+    ``timed_cycles=2``). Checks finite losses and MSEs, training loss falling
+    for every model (each member of a grid), and K2/K3 recorded once a
+    replay in exactly the ``deep`` arms' graphs (a grid arm once for all its
+    members). The loss falls if the last cycle's mean is below the first's;
+    with ``early_steps``, below the mean of cycle 0's first ``early_steps``
+    steps (the loss from initialisation: a model on the predict-the-mean
+    plateau has fallen to it in cycle 0 and may stay there for cycles).
+
+    Then, in an experiment of ``CUT_SEQS_PER_D`` sequences a class, a
+    capture cycle and a profiled one: the card's busy share and the
+    profiler's own count of K1 (``renders`` a cycle) and K2/K3 (once a step
+    of each deep arm). The profiler costs ~30 µs of host time a kernel it
+    records (95 s for the 3.2 million of a protocol-size framerate cycle),
+    so it records a quarter of the steps.
+
+    Returns the protocol-size experiment, its cycle marks, the profiled
+    cycle's figures (a dict to emit), launches per replay by unit and the
+    losses. ``kernels``: the wrappers the deep arms' graphs must record
+    (K2-bf16/K3-bf16 at bf16)."""
     exp = build(1, True)
     eng = exp.engine
     marks = [time.perf_counter()]
     early = {}
 
     def after_cycle(c, m):
+        torch.cuda.synchronize()
         marks.append(time.perf_counter())
         if c == 0 and early_steps:  # the engine's buffers hold cycle 0's per-step losses
             for key, unit in eng.units.items():
@@ -1008,32 +1039,48 @@ def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None,
                     first = buf[:early_steps].mean(dim=0).reshape(-1).tolist()
                     early.update(zip(names, first))
 
-    exp.run(2, callback=after_cycle)
-    torch.cuda.synchronize()
-    eng.unit_seconds = {}
-    profiled = _profiled(torch, lambda: exp.run(1, start_cycle=2))
-    names = profiled[4]
+    exp.run(1 + timed_cycles, callback=after_cycle)
     losses = _member_losses(exp)
     for n, hist in exp.history.items():
         check(all(math.isfinite(v) for vals in hist.values() for v in vals), f"{phase}: {n}: non-finite val MSE")
     for n, ls in losses.items():
         check(all(math.isfinite(v) for v in ls), f"{phase}: {n}: non-finite loss {ls}")
         start = early[n] if early_steps else ls[0]
-        check(ls[2] < start, f"{phase}: {n}: training loss did not fall: {ls} from {start}")
+        check(ls[-1] < start, f"{phase}: {n}: training loss did not fall: {ls} from {start}")
     if early_steps:
         emit({"phase": phase, "part": "b_loss", "early_steps": early_steps, "early_loss": early,
-              "cycle_loss": losses, "not_below_cycle_0": sorted(n for n, ls in losses.items() if ls[2] >= ls[0])})
+              "cycle_loss": losses, "not_below_cycle_0": sorted(n for n, ls in losses.items() if ls[-1] >= ls[0])})
     units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
     for key, per in units1.items():
         want = sum(1 for n in key.split("+") if n in deep)
         check(all(per.get(k, 0) == want for k in kernels),
               f"{phase}: unit {key} records {per}, expected {want} of each of {kernels} a replay")
-    n_seq = _sequences(exp)
+
+    small = build(1, True, sequences_per_d=CUT_SEQS_PER_D)
+    small.run(1)
+    torch.cuda.synchronize()
+    small.engine.unit_seconds = {}
+    wall, busy, kernel_ms, n_kernels, names = _profiled(torch, lambda: small.run(1, start_cycle=1))
+    check(all(math.isfinite(v) for ls in _member_losses(small).values() for v in ls),
+          f"{phase}: non-finite loss in the profiled cycle")
+    n_small = _sequences(small)
     seen = {k: names.get(k, 0) for k in ("render_frames_kernel", "pool_fc_kernel", "pool_fc_bwd_kernel")}
-    want = {"render_frames_kernel": renders, "pool_fc_kernel": len(deep) * n_seq,
-            "pool_fc_bwd_kernel": len(deep) * n_seq}
+    want = {"render_frames_kernel": renders, "pool_fc_kernel": len(deep) * n_small,
+            "pool_fc_bwd_kernel": len(deep) * n_small}
     check(seen == want, f"{phase}: profiled cycle ran {seen}, expected {want}")
-    return exp, marks, profiled, units1, losses, seen
+    prof = {"profiled_sequences": n_small, "profiled_s_per_cycle": wall, "device_busy_share_profiled": busy,
+            "device_kernel_ms": kernel_ms, "device_busy_share_est": kernel_ms / (wall * 1e3),
+            "kernels_in_profiled_cycle": n_kernels, "kernels_per_step": n_kernels / n_small,
+            "profiled_kernels_once_per_k1_k2_k3_call": seen,
+            "unit_s_profiled_cycle": {"+".join(k): v for k, v in small.engine.unit_seconds.items()}}
+    return exp, marks, prof, units1, losses
+
+
+def _batch_one_times(marks, n_seq: int) -> dict:
+    """Part (b)'s times at the protocol's size: the capture cycle's, and the
+    first cycle after it (no profiler) as the batch-1 time."""
+    s = marks[2] - marks[1]
+    return {"s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s, "seq_per_s": n_seq / s}
 
 
 def phase_images_features(torch, card):
@@ -1044,7 +1091,7 @@ def phase_images_features(torch, card):
     3, 5, 7, 9 (50 sequences each). (a) Batch 16, captured against eager from
     one seed, two cycles: losses, validation MSEs and every parameter and
     buffer agree to 1e-4 relative; the second cycle is timed. (b) Batch 1,
-    captured: a capture cycle, a timed cycle and a profiled one; generation
+    captured: a capture cycle and a timed one, a cut-size cycle profiled; generation
     and the features timed on their own; host ms of one replay per unit.
     (c) The features of one cycle's 320 frame-averaged trajectories on the
     card against the CPU at the CPU test's ``PARITY_TOLERANCE``. (d) Launches:
@@ -1064,8 +1111,8 @@ def phase_images_features(torch, card):
     torch.cuda.reset_peak_memory_stats()
     engines = []
 
-    def build(batch, fused):
-        exp = images_features.build(seed=0, device="cuda")
+    def build(batch, fused, **kw):
+        exp = images_features.build(seed=0, device="cuda", **kw)
         exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         exp.fused_cycles = fused
         exp.build()
@@ -1076,14 +1123,16 @@ def phase_images_features(torch, card):
     t_phase = time.perf_counter()
 
     cap = _captured_against_eager(torch, build, "images_features", card)
-    n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
-    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+    n_cmp = _sequences(cap)
+    exp, marks, prof, units1, losses = _batch_one_profiled(
         torch, build, "images_features", deep, renders=5)
+    n_seq = _sequences(exp)
     eng = exp.engine
 
     # the user's entry point: one cycle (batch 1 by the schedule) and the in-order sweep
     with tempfile.TemporaryDirectory() as out:
         cli = run_experiment.main(["images_features", "--cycles", "1", "--out", out, "--checkpoint-last", "0",
+                                    "--seqs-per-d", str(CUT_SEQS_PER_D),
                                    "--in-order"])
         engines.append(cli.engine)
         for f in ("metrics.jsonl", "history.json", "final/meta.json", "images_features_errors.csv",
@@ -1103,9 +1152,11 @@ def phase_images_features(torch, card):
               f"images_features: in-order {name} {msd_rows[name]} is not the JAX record's {want}")
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) two experiments of two cycles, (b) three, the runner's one
+    # (a) two experiments of two cycles; (b) two at the protocol's size and
+    # two at the cut size; the runner's one (at the cut size too)
+    builds, cycles = 5, 2 * 2 + 2 + 2 + 1
     k1_want = 5 * builds + 1 + 5 * cycles
-    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 2 * n_seq + 3 * n_cmp)
     check(launches["render_frames"] == k1_want,
           f"images_features: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
@@ -1134,15 +1185,10 @@ def phase_images_features(torch, card):
                              "worst_share_of_limit": float((delta[:, i] / limit).max())}
         check(bool((delta[:, i] <= limit).all()), f"images_features: card feature {name} off the CPU by "
                                                    f"{float(delta[:, i].max())} (rtol {rtol}, atol {atol})")
-    s_cycle = marks[2] - marks[1]
     emit({"phase": "images_features", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
-          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
-          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
-          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
-          "profiled_kernels_once_per_k1_k2_k3_call": seen,
-          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
+          **_batch_one_times(marks, n_seq), **prof,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (1e3 * (marks[2] - marks[1])),
           "features_ms": feat_ms, "features_device_kernel_ms": feat_kernel_ms, "features_kernels": feat_kernels,
-          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
           "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
           "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
           "run_experiment_in_order_csv": in_order_rows, "in_order_msd_rows": msd_rows,
@@ -1166,7 +1212,7 @@ def phase_modular(torch, card):
     3, 5, 7. (a) Batch 16, captured against eager from one seed, two cycles:
     losses, validation MSEs and every parameter and buffer agree to 1e-4
     relative; the second cycle is timed. (b) Batch 1, captured: a capture
-    cycle, a timed cycle and a profiled one; generation timed on its own.
+    cycle and a timed one, a cut-size cycle profiled; generation timed on its own.
     (c) One cycle's per-frame tokens on the card against the CPU's at the
     CPU test's tolerance. (d) Launches: K2/K3 7 × ⌊320/b⌋ a cycle (every arm
     but ``mod_features``, whose graph launches neither), K1 5 a cycle in
@@ -1190,8 +1236,8 @@ def phase_modular(torch, card):
     torch.cuda.reset_peak_memory_stats()
     engines = []
 
-    def build(batch, fused):
-        exp = modular.build(seed=0, with_hybrid=True, with_in_order=True, device="cuda")
+    def build(batch, fused, **kw):
+        exp = modular.build(seed=0, with_hybrid=True, with_in_order=True, device="cuda", **kw)
         exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         exp.fused_cycles = fused
         exp.build()
@@ -1203,16 +1249,18 @@ def phase_modular(torch, card):
 
     cap = _captured_against_eager(torch, build, "modular", card)
     check(list(cap.arms) == arms, f"modular: arms {list(cap.arms)}")
-    n_seq = cap.train_cfg.sequences_per_d * len(cap.train_cfg.training_ds)
-    check(n_seq == 320, f"modular: {n_seq} sequences a cycle, expected 5 classes × 64")
-    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+    n_cmp = _sequences(cap)
+    exp, marks, prof, units1, losses = _batch_one_profiled(
         torch, build, "modular", deep, renders=5)
+    n_seq = _sequences(exp)
+    check(n_seq == 320, f"modular: {n_seq} sequences a cycle, expected 5 classes × 64")
     eng = exp.engine
     check(set(units1) == set(arms), f"modular: units {sorted(units1)}: no arm may stack")
 
     # the user's entry point: one cycle (batch 1 by the schedule) and the in-order sweep
     with tempfile.TemporaryDirectory() as out:
         cli = run_experiment.main(["modular", "--with-hybrid", "--in-order", "--cycles", "1", "--out", out,
+                                    "--seqs-per-d", str(CUT_SEQS_PER_D),
                                    "--checkpoint-last", "0"])
         engines.append(cli.engine)
         for f in ("metrics.jsonl", "history.json", "final/meta.json", "modular_errors.csv",
@@ -1226,9 +1274,11 @@ def phase_modular(torch, card):
     check(n_in_order == 100, f"modular: in-order sweep of {n_in_order} D values, expected 100")
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) two experiments of two cycles, (b) three, the runner's one
+    # (a) two experiments of two cycles; (b) two at the protocol's size and
+    # two at the cut size; the runner's one (at the cut size too)
+    builds, cycles = 5, 2 * 2 + 2 + 2 + 1
     k1_want = (4 + 1) * builds + 5 * cycles
-    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 2 * n_seq + 3 * n_cmp)
     check(launches["render_frames"] == k1_want, f"modular: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
         check(launches[k] == k23_want, f"modular: {k} launches {launches[k]} != {k23_want}")
@@ -1263,14 +1313,9 @@ def phase_modular(torch, card):
     for name, want in MSD_ROWS.items():
         check(abs(msd_rows[name] / want - 1) <= MSD_RTOL, f"modular: in-order {name} {msd_rows[name]} != {want}")
 
-    s_cycle = marks[2] - marks[1]
     emit({"phase": "modular", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
-          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
-          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
-          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
-          "profiled_kernels_once_per_k1_k2_k3_call": seen,
-          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
-          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          **_batch_one_times(marks, n_seq), **prof,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (1e3 * (marks[2] - marks[1])),
           "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
           "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
           "run_experiment_in_order_csv": in_order_rows,
@@ -1294,8 +1339,8 @@ def phase_embeddings(torch, card):
     sequences of 30 frames, validation at D = 1, 3, 5, 7. (a) Batch 16,
     captured against eager from one seed, two cycles: losses, validation
     MSEs and every parameter and buffer agree to 1e-4 relative; the second
-    cycle is timed. (b) Batch 1, captured: a capture cycle, a timed cycle and
-    a profiled one; generation timed on its own. (c) Launches: K2/K3 3 ×
+    cycle is timed. (b) Batch 1, captured: a capture cycle, two timed
+    ones (the first is the batch-1 time), a cut-size cycle profiled; generation timed on its own. (c) Launches: K2/K3 3 ×
     ⌊256/b⌋ a cycle, once a step of each ``deepcnn_2layer_*`` arm (E = 64,
     32, 128) and in no other unit's graph; K1 4 a cycle in generation and 4
     a build for validation."""
@@ -1310,8 +1355,8 @@ def phase_embeddings(torch, card):
     torch.cuda.reset_peak_memory_stats()
     engines = []
 
-    def build(batch, fused):
-        exp = embeddings.build(seed=0, device="cuda")
+    def build(batch, fused, **kw):
+        exp = embeddings.build(seed=0, device="cuda", **kw)
         exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         exp.fused_cycles = fused
         exp.build()
@@ -1322,19 +1367,22 @@ def phase_embeddings(torch, card):
     t_phase = time.perf_counter()
 
     cap = _captured_against_eager(torch, build, "embeddings", card)
-    n_seq = _sequences(cap)
-    check(n_seq == 256 and len(cap.arms) == 10, f"embeddings: {n_seq} sequences, {len(cap.arms)} arms")
+    n_cmp = _sequences(cap)
+    check(len(cap.arms) == 10, f"embeddings: {len(cap.arms)} arms")
     widths = {n: cap.arms[n].model.embedding.fc.out_features for n in deep}
     check(widths == {"deepcnn_2layer_n": 64, "deepcnn_2layer_s": 32, "deepcnn_2layer_b": 128},
           f"embeddings: deep-ResNet embed dims {widths}")
-    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
-        torch, build, "embeddings", deep, renders=4)
+    exp, marks, prof, units1, losses = _batch_one_profiled(
+        torch, build, "embeddings", deep, renders=4, timed_cycles=2)
+    n_seq = _sequences(exp)
+    check(n_seq == 256, f"embeddings: {n_seq} sequences a cycle, expected 4 classes × 64")
     eng = exp.engine
     check(set(units1) == set(exp.arms), f"embeddings: units {sorted(units1)}: no arm may stack")
 
     # the user's entry point: one cycle (batch 1 by the schedule)
     with tempfile.TemporaryDirectory() as out:
-        cli = run_experiment.main(["embeddings", "--cycles", "1", "--out", out, "--checkpoint-last", "0"])
+        cli = run_experiment.main(["embeddings", "--cycles", "1", "--out", out, "--checkpoint-last", "0",
+                                    "--seqs-per-d", str(CUT_SEQS_PER_D)])
         engines.append(cli.engine)
         for f in ("metrics.jsonl", "history.json", "final/meta.json", "final/states/deepcnn_2layer_b.pt"):
             check(Path(out, f).is_file(), f"run_experiment embeddings wrote no {f}")
@@ -1343,9 +1391,11 @@ def phase_embeddings(torch, card):
               f"run_experiment embeddings: histories {history}")
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) two experiments of two cycles, (b) three, the runner's one
+    # (a) two experiments of two cycles; (b) three at the protocol's size and
+    # two at the cut size; the runner's one (at the cut size too)
+    builds, cycles = 5, 2 * 2 + 3 + 2 + 1
     k1_want = 4 * builds + 4 * cycles
-    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 3 * n_seq + 3 * n_cmp)
     check(launches["render_frames"] == k1_want, f"embeddings: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
         check(launches[k] == k23_want, f"embeddings: {k} launches {launches[k]} != {k23_want}")
@@ -1354,15 +1404,10 @@ def phase_embeddings(torch, card):
     replay_host_ms = _replay_host_ms(torch, eng)
     gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
     gen_ms = time_ms(torch, gen, iters=5, warmup=1)
-    s_cycle = marks[2] - marks[1]
     emit({"phase": "embeddings", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
           "parameters": embeddings.param_counts(exp),
-          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
-          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
-          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
-          "kernels_per_step": n_kernels / n_seq, "profiled_kernels_once_per_k1_k2_k3_call": seen,
-          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
-          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          **_batch_one_times(marks, n_seq), **prof,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (1e3 * (marks[2] - marks[1])),
           "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
           "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
@@ -1381,8 +1426,8 @@ def phase_framerate(torch, card):
     sequence; 5 D classes × 64 sequences and the 10.2 class × 32 of 300
     steps, rendered at each rate; validation at D = 1, 3, 5, 7, 9. (a) Batch
     16, captured against eager from one seed, two cycles (1e-4 relative);
-    the second cycle is timed. (b) Batch 1, captured: a capture cycle, a
-    timed cycle and a profiled one; generation timed on its own. (c)
+    the second cycle is timed. (b) Batch 1, captured: a capture cycle and
+    a timed one, a cut-size cycle profiled; generation timed on its own. (c)
     Launches: K2/K3 6 × ⌊352/b⌋ a cycle, never in a ``res_i`` graph; K1 36 a
     cycle (6 classes × 6 rates), 30 a build for validation, 60 for the
     rescore (10 chunks × 6 rates). (d) The rescore writes the JAX example's
@@ -1398,8 +1443,8 @@ def phase_framerate(torch, card):
     torch.cuda.reset_peak_memory_stats()
     engines = []
 
-    def build(batch, fused):
-        exp = framerate.build(seed=0, device="cuda")
+    def build(batch, fused, **kw):
+        exp = framerate.build(seed=0, device="cuda", **kw)
         exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         exp.fused_cycles = fused
         exp.build()
@@ -1410,18 +1455,21 @@ def phase_framerate(torch, card):
     t_phase = time.perf_counter()
 
     cap = _captured_against_eager(torch, build, "framerate", card)
-    n_seq = _sequences(cap)
-    check(n_seq == 352 and list(cap.arms) == [f"{k}_{i}" for i in range(6) for k in ("tr", "res")],
-          f"framerate: {n_seq} sequences, arms {list(cap.arms)}")
-    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
+    n_cmp = _sequences(cap)
+    check(list(cap.arms) == [f"{k}_{i}" for i in range(6) for k in ("tr", "res")],
+          f"framerate: arms {list(cap.arms)}")
+    exp, marks, prof, units1, losses = _batch_one_profiled(
         torch, build, "framerate", deep, renders=36)
+    n_seq = _sequences(exp)
+    check(n_seq == 352, f"framerate: {n_seq} sequences a cycle, expected 5 classes × 64 + 32")
     eng = exp.engine
     check(set(units1) == set(exp.arms), f"framerate: units {sorted(units1)}: no arm may stack")
 
     # the user's entry points: one cycle (batch 1 by the schedule), then the
     # in-order rescore of the checkpoint it wrote
     with tempfile.TemporaryDirectory() as out:
-        cli = run_experiment.main(["framerate", "--cycles", "1", "--out", out, "--checkpoint-last", "0"])
+        cli = run_experiment.main(["framerate", "--cycles", "1", "--out", out, "--checkpoint-last", "0",
+                                    "--seqs-per-d", str(CUT_SEQS_PER_D)])
         engines.append(cli.engine)
         for f in ("metrics.jsonl", "history.json", "final/meta.json", "final/states/tr_5.pt"):
             check(Path(out, f).is_file(), f"run_experiment framerate wrote no {f}")
@@ -1438,9 +1486,11 @@ def phase_framerate(torch, card):
     check(all(math.isfinite(r["mse"]) for r in rows.values()), f"framerate: rescore {rows}")
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 5, 2 * 2 + 3 + 1  # the rescore builds too; (a) 2 × 2 cycles, (b) 3, the runner's 1
+    # (a) two experiments of two cycles; (b) two at the protocol's size and
+    # two at the cut size; the runner's one (at the cut size too)
+    builds, cycles = 6, 2 * 2 + 2 + 2 + 1  # the rescore builds too
     k1_want = 30 * builds + 36 * cycles + 60  # the rescore: 10 chunks × 6 rates
-    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 2 * n_seq + 3 * n_cmp)
     check(launches["render_frames"] == k1_want, f"framerate: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
         check(launches[k] == k23_want, f"framerate: {k} launches {launches[k]} != {k23_want}")
@@ -1449,14 +1499,9 @@ def phase_framerate(torch, card):
     replay_host_ms = _replay_host_ms(torch, eng)
     gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
     gen_ms = time_ms(torch, gen, iters=5, warmup=1)
-    s_cycle = marks[2] - marks[1]
     emit({"phase": "framerate", "part": "b", "card": card, "batch": 1, "arms": len(exp.arms),
-          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
-          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
-          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
-          "kernels_per_step": n_kernels / n_seq, "profiled_kernels_once_per_k1_k2_k3_call": seen,
-          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
-          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          **_batch_one_times(marks, n_seq), **prof,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (1e3 * (marks[2] - marks[1])),
           "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
           "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
@@ -1479,8 +1524,8 @@ def phase_psfnoise(torch, card):
     (a) Batch 16, captured against eager from one seed, two cycles: every
     member's losses, validation MSEs, parameters and buffers agree to 1e-4
     relative; the second cycle is timed. (b) Batch 1, captured: a capture
-    cycle, a timed cycle and a profiled one; every member's training loss
-    falls from initialisation (the third cycle's mean below the mean of
+    cycle and a timed one, a cut-size cycle profiled; every member's training loss
+    falls from initialisation (the second cycle's mean below the mean of
     cycle 0's first 35 steps: the noisiest cells sit on the predict-the-mean
     plateau for their first cycles, in the JAX record too, so the cycle
     means of 0 and 2 are reported, not held); generation timed on its own. (c) Launches: K2/K3 once a grid step
@@ -1501,8 +1546,8 @@ def phase_psfnoise(torch, card):
     torch.cuda.reset_peak_memory_stats()
     engines = []
 
-    def build(batch, fused):
-        exp = psfnoise.build(seed=0, device="cuda")
+    def build(batch, fused, **kw):
+        exp = psfnoise.build(seed=0, device="cuda", **kw)
         exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         exp.fused_cycles = fused
         exp.build()
@@ -1513,12 +1558,14 @@ def phase_psfnoise(torch, card):
     t_phase = time.perf_counter()
 
     cap = _captured_against_eager(torch, build, "psfnoise", card)
-    n_seq = _sequences(cap)
+    n_cmp = _sequences(cap)
     names = [f"{k}_{i}_{j}" for k in ("tr", "res") for i in range(5) for j in range(6)]
-    check(n_seq == 352 and cap.model_names == names, f"psfnoise: {n_seq} sequences, models {cap.model_names}")
+    check(cap.model_names == names, f"psfnoise: models {cap.model_names}")
     del cap
-    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
-        torch, build, "psfnoise", deep, renders=6, early_steps=n_seq // 10)
+    exp, marks, prof, units1, losses = _batch_one_profiled(
+        torch, build, "psfnoise", deep, renders=6, early_steps=35)  # a tenth of the cycle's steps
+    n_seq = _sequences(exp)
+    check(n_seq == 352, f"psfnoise: {n_seq} sequences a cycle, expected 5 classes × 64 + 32")
     eng = exp.engine
     check(set(units1) == set(exp.arms), f"psfnoise: units {sorted(units1)}")
     check(len(losses) == 60, f"psfnoise: losses of {len(losses)} models")
@@ -1528,6 +1575,7 @@ def phase_psfnoise(torch, card):
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         cli = run_experiment.main(["psfnoise", "--cycles", "1", "--out", out, "--checkpoint-last", "0",
+                                    "--seqs-per-d", str(CUT_SEQS_PER_D),
                                    "--in-order"])
         torch.cuda.synchronize()
         runner_s = time.perf_counter() - t0
@@ -1544,9 +1592,11 @@ def phase_psfnoise(torch, card):
     del cli
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) 2 × 2 cycles, (b) 3, the runner's 1
+    # (a) two experiments of two cycles; (b) two at the protocol's size and
+    # two at the cut size; the runner's one (at the cut size too)
+    builds, cycles = 5, 2 * 2 + 2 + 2 + 1
     k1_want = 5 * builds + 6 * cycles + 1  # the runner's in-order suite
-    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 2 * n_seq + 3 * n_cmp)
     check(launches["render_frames"] == k1_want, f"psfnoise: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
         check(launches[k] == k23_want, f"psfnoise: {k} launches {launches[k]} != {k23_want}")
@@ -1555,14 +1605,9 @@ def phase_psfnoise(torch, card):
     replay_host_ms = _replay_host_ms(torch, eng)
     gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
     gen_ms = time_ms(torch, gen, iters=5, warmup=1)
-    s_cycle = marks[2] - marks[1]
     emit({"phase": "psfnoise", "part": "b", "card": card, "batch": 1, "models": len(losses),
-          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
-          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
-          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
-          "kernels_per_step": n_kernels / n_seq, "profiled_kernels_once_per_k1_k2_k3_call": seen,
-          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
-          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          **_batch_one_times(marks, n_seq), **prof,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (1e3 * (marks[2] - marks[1])),
           "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
     emit({"phase": "psfnoise", "part": "c_launches", "launches": launches, "k1_expected": k1_want,
@@ -1584,8 +1629,8 @@ def phase_denoising(torch, card):
     one RL-TV-deconvolved after 3, 6 and 11 steps); validation at D = 1, 3,
     5, 7. (a) Batch 16, captured against eager from one seed, two cycles:
     every member's losses, validation MSEs, parameters and buffers agree to
-    1e-4 relative. (b) Batch 1, captured: a capture cycle, a timed cycle and
-    a profiled one; every member's training loss falls (the third cycle's
+    1e-4 relative. (b) Batch 1, captured: a capture cycle, two timed ones
+    (the first is the batch-1 time), a cut-size cycle profiled; every member's training loss falls (the third cycle's
     mean below the first's; the transformers on noisy settings sit near the
     L1 plateau of ≈ 0.21-0.24 in these cycles, so cycle 0's first steps,
     as phase psfnoise reads them, can already be below it).
@@ -1605,8 +1650,8 @@ def phase_denoising(torch, card):
     torch.cuda.reset_peak_memory_stats()
     engines = []
 
-    def build(batch, fused):
-        exp = denoising.build(seed=0, device="cuda")
+    def build(batch, fused, **kw):
+        exp = denoising.build(seed=0, device="cuda", **kw)
         exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         exp.fused_cycles = fused
         exp.build()
@@ -1617,12 +1662,14 @@ def phase_denoising(torch, card):
     t_phase = time.perf_counter()
 
     cap = _captured_against_eager(torch, build, "denoising", card)
-    n_seq = _sequences(cap)
+    n_cmp = _sequences(cap)
     names = [f"{k}_{s}" for k in ("trans", "resnet") for s in denoising.SETTINGS]
-    check(n_seq == 256 and cap.model_names == names, f"denoising: {n_seq} sequences, models {cap.model_names}")
+    check(cap.model_names == names, f"denoising: models {cap.model_names}")
     del cap
-    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
-        torch, build, "denoising", deep, renders=4)
+    exp, marks, prof, units1, losses = _batch_one_profiled(
+        torch, build, "denoising", deep, renders=4, timed_cycles=2)
+    n_seq = _sequences(exp)
+    check(n_seq == 256, f"denoising: {n_seq} sequences a cycle, expected 4 classes × 64")
     eng = exp.engine
     check(set(units1) == set(exp.arms), f"denoising: units {sorted(units1)}")
     check(len(losses) == 14, f"denoising: losses of {len(losses)} models")
@@ -1630,7 +1677,8 @@ def phase_denoising(torch, card):
     # the user's entry point: one cycle (batch 1 by the schedule)
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
-        cli = run_experiment.main(["denoising", "--cycles", "1", "--out", out, "--checkpoint-last", "0"])
+        cli = run_experiment.main(["denoising", "--cycles", "1", "--out", out, "--checkpoint-last", "0",
+                                    "--seqs-per-d", str(CUT_SEQS_PER_D)])
         torch.cuda.synchronize()
         runner_s = time.perf_counter() - t0
         engines.append(cli.engine)
@@ -1643,9 +1691,11 @@ def phase_denoising(torch, card):
     del cli
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    builds, cycles = 4, 2 * 2 + 3 + 1  # (a) 2 × 2 cycles, (b) 3, the runner's 1
+    # (a) two experiments of two cycles; (b) three at the protocol's size and
+    # two at the cut size; the runner's one (at the cut size too)
+    builds, cycles = 5, 2 * 2 + 3 + 2 + 1
     k1_want = 4 * builds + 4 * cycles
-    k23_want = len(deep) * (2 * 2 * (n_seq // 16) + 4 * n_seq)
+    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 3 * n_seq + 3 * n_cmp)
     check(launches["render_frames"] == k1_want, f"denoising: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
         check(launches[k] == k23_want, f"denoising: {k} launches {launches[k]} != {k23_want}")
@@ -1654,14 +1704,9 @@ def phase_denoising(torch, card):
     replay_host_ms = _replay_host_ms(torch, eng)
     gen = lambda: exp.generate_fn(seeded_generator("cuda", 7, 0))  # noqa: E731
     gen_ms = time_ms(torch, gen, iters=5, warmup=1)
-    s_cycle = marks[2] - marks[1]
     emit({"phase": "denoising", "part": "b", "card": card, "batch": 1, "models": len(losses),
-          "s_per_cycle_capture": marks[1] - marks[0], "s_per_cycle": s_cycle, "seq_per_s": n_seq / s_cycle,
-          "profiled_s_per_cycle": prof_wall, "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
-          "device_busy_share_est": kernel_ms / (s_cycle * 1e3), "kernels_in_profiled_cycle": n_kernels,
-          "kernels_per_step": n_kernels / n_seq, "profiled_kernels_once_per_k1_k2_k3_call": seen,
-          "generation_ms": gen_ms, "generation_share": gen_ms / (s_cycle * 1e3),
-          "unit_s_profiled_cycle": {"+".join(k): v for k, v in eng.unit_seconds.items()},
+          **_batch_one_times(marks, n_seq), **prof,
+          "generation_ms": gen_ms, "generation_share": gen_ms / (1e3 * (marks[2] - marks[1])),
           "replay_host_ms_card_idle": replay_host_ms, "launches_per_replay_by_unit": units1, "train_loss": losses,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
     emit({"phase": "denoising", "part": "c_launches", "launches": launches, "k1_expected": k1_want,
@@ -2258,7 +2303,7 @@ def phase_bf16(torch, card):
     graphs), with the f32 figures beside them. (b) Baseline, all seven arms:
     at batch 16 two cycles captured and two eager from one seed agree
     bitwise (losses, validation MSEs, every parameter and buffer); at batch
-    1 a capture cycle, a timed cycle and a profiled one, the losses finite
+    1 a capture cycle and a timed one, a cut-size cycle profiled, the losses finite
     and falling, K2-bf16/K3-bf16 recorded once a replay in exactly the two
     deepcnn arms' graphs and run once a step of each (the profiler's count
     of their pool kernels) and the f32 K2/K3 never; at batch 64 a capture
@@ -2278,8 +2323,8 @@ def phase_bf16(torch, card):
     engines = []
     t_phase = time.perf_counter()
 
-    def build(batch, fused, dtype="bfloat16"):
-        exp = baseline.build(seed=0, device="cuda").set_compute_dtype(dtype)
+    def build(batch, fused, dtype="bfloat16", **kw):
+        exp = baseline.build(seed=0, device="cuda", **kw).set_compute_dtype(dtype)
         exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         exp.fused_cycles = fused
         exp.build()
@@ -2288,7 +2333,7 @@ def phase_bf16(torch, card):
 
     counts0 = launch_counts()
     # (b) batch 16: captured against eager, bitwise (tolerance 0), then a timed cycle
-    cap = _captured_against_eager(torch, build, "bf16", card, tol=0.0)
+    cap = _captured_against_eager(torch, build, "bf16", card, tol=0.0, seqs_per_d=None)
     check(_all_f32(torch, cap), "bf16: a master, AdamW state or buffer is not f32")
     n_seq = _sequences(cap)
     s_cycle = {"bfloat16": {16: _timed_cycles(torch, cap, 1)[0]}}
@@ -2297,19 +2342,21 @@ def phase_bf16(torch, card):
     val_videos = [v["videos"] for v in cap.val_data.values()]
     val_shape = (sum(v.shape[0] for v in val_videos), *val_videos[0].shape[1:])
     del cap
-    exp, marks, (prof_wall, busy, kernel_ms, n_kernels, _), units1, losses, seen = _batch_one_profiled(
-        torch, build, "bf16", deep, renders=4, kernels=k23_bf16)
+    # batch 1: a capture cycle and a timed one (f32 is timed the same way
+    # below), then a profiled one at the cut size
+    exp, marks, prof, units1, losses = _batch_one_profiled(torch, build, "bf16", deep, renders=4, kernels=k23_bf16)
     check(_all_f32(torch, exp), "bf16: a master, AdamW state or buffer is not f32 after batch 1")
     check(not any(per.get(k, 0) for per in units1.values() for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd")),
           f"bf16: an f32 K2/K3 launch in a bf16 graph: {units1}")
     s_cycle["bfloat16"][1] = marks[2] - marks[1]
     del exp
     s_cycle["bfloat16"][64] = _timed_cycles(torch, build(64, True))[1]
-    s_cycle["float32"] = {b: _timed_cycles(torch, build(b, True, "float32"))[1] for b in (1, 16, 64)}
+    s_cycle["float32"] = {b: _timed_cycles(torch, build(b, True, dtype="float32"))[1] for b in (1, 16, 64)}
     counts1 = launch_counts()
     launches = kernel_launches(counts0, engines)
-    # batch 16: three captured cycles and two eager; batch 1: three; batch 64: two
-    want = len(deep) * (5 * (n_seq // 16) + 3 * n_seq + 2 * (n_seq // 64))
+    # batch 16: three captured cycles and two eager; batch 1: two and two at
+    # the cut size; batch 64: two
+    want = len(deep) * (5 * (n_seq // 16) + 2 * n_seq + 2 * prof["profiled_sequences"] + 2 * (n_seq // 64))
     for k in k23_bf16:
         check(launches[k] == want, f"bf16: {k} launches {launches[k]} != {want}")
     f32_want = len(deep) * (2 * n_seq + 2 * (n_seq // 16) + 2 * (n_seq // 64))
@@ -2339,20 +2386,17 @@ def phase_bf16(torch, card):
     for k, v in grid_launches.items():
         launches[k] += v
 
-    # (d) FLOPs and MFU of the baseline cycle
+    # (d) FLOPs and MFU of the baseline cycle, its FLOPs counted once: they
+    # depend neither on the batch size nor on the dtype (2.819e12 in every
+    # earlier smoke at 1, 16 and 64, f32 and bf16)
     peak = flops.device_peak_flops()
-    mfu = {}
-    for dtype, by_batch in s_cycle.items():
-        c = cfg.replace(compute_dtype=dtype)
-        for b, s in by_batch.items():
-            f = flops.multi_cycle_flops(models, c, b, val_shape)
-            mfu[f"{dtype}_batch_{b}"] = {"s_per_cycle": s, "seq_per_s": n_seq / s, **flops.utilization(f, s, peak)}
+    f = flops.multi_cycle_flops(models, cfg, 1, val_shape)
+    mfu = {f"{dtype}_batch_{b}": {"s_per_cycle": s, "seq_per_s": n_seq / s, **flops.utilization(f, s, peak)}
+           for dtype, by_batch in s_cycle.items() for b, s in by_batch.items()}
     emit({"phase": "bf16", "part": "b", "card": card, "arms": list(models), "sequences_per_cycle": n_seq,
           "captured_equal_to_eager_batch_16": True, "masters_optimizer_bn_f32": True,
           "s_per_cycle": s_cycle, "seq_per_s": {d: {b: n_seq / s for b, s in v.items()} for d, v in s_cycle.items()},
-          "batch_1": {"s_per_cycle_capture": marks[1] - marks[0], "profiled_s_per_cycle": prof_wall,
-                      "device_busy_share_profiled": busy, "device_kernel_ms": kernel_ms,
-                      "kernels_in_profiled_cycle": n_kernels, "profiled_pool_kernels_once_per_k2_k3_call": seen,
+          "batch_1": {**_batch_one_times(marks, n_seq), **prof,
                       "launches_per_replay_by_unit": units1, "train_loss": losses}})
     emit({"phase": "bf16", "part": "c", "card": card, "grid": "denoising trans_grid", "members": 7,
           "sequences_per_cycle": grid_seq, "s_per_cycle": grid_s, "s_per_cycle_capture": grid_capture_s,
@@ -2365,6 +2409,260 @@ def phase_bf16(torch, card):
     return launches
 
 
+def _fgn_card_against_cpu(torch, card):
+    """The fGn's deterministic part (``sim.trajectory._fgn_from_normals``)
+    on the card and on the CPU from the same normals, at the smoke's Hurst
+    exponents (α = 0.5, 1.0, 1.5) and 300 steps. Tolerance: 1e-5 of the
+    series' sd plus three times the CPU f32 series' own distance from the
+    f64 evaluation of the same formula. At H > ½ the f32 autocovariance
+    cancels large terms, so two f32 evaluations (the CPU's, the card's, as
+    JAX's) differ by what f32 itself is off, not by f32 rounding."""
+    from moleculardiffusion_mivit_tpu_torch.sim import trajectory as tr
+
+    g = torch.Generator().manual_seed(31)
+    n, per = 300, 64
+    zr, zi = (torch.randn((3 * per, 2 * n), generator=g) for _ in range(2))
+    rows = {}
+    for i, hurst in enumerate((0.25, 0.5, 0.75)):
+        sl = slice(i * per, (i + 1) * per)
+        h = torch.full((per,), hurst)
+        cpu = tr._fgn_from_normals(h, zr[sl], zi[sl])
+        exact = tr._fgn_from_normals(h.double(), zr[sl].double(), zi[sl].double())
+        on_card = tr._fgn_from_normals(h.cuda(), zr[sl].cuda(), zi[sl].cuda()).cpu()
+        sd = float(exact.std())
+        cpu_off = float((cpu.double() - exact).abs().max()) / sd
+        err = float((on_card - cpu).abs().max()) / sd
+        tol = 1e-5 + 3 * cpu_off
+        rows[f"H_{hurst}"] = {"card_vs_cpu_over_sd": err, "cpu_f32_vs_f64_over_sd": cpu_off,
+                              "card_f32_vs_f64_over_sd": float((on_card.double() - exact).abs().max()) / sd,
+                              "tolerance_over_sd": tol}
+        check(err <= tol, f"constrained: fGn H={hurst} card vs CPU {err} > {tol} of the sd")
+    emit({"phase": "constrained", "part": "b_fgn_card_vs_cpu", "card": card, "steps": n, "series": per,
+          "by_hurst": rows})
+
+
+def _walks_card_against_cpu(torch, card):
+    """``reflected_walk`` and ``PiecewiseLinearGeometry.map_displacements`` on
+    the card and on the CPU given the same displacements (drawn on the CPU):
+    positions within 4 f32 ulps of the largest coordinate (the clamps and
+    folds are exact IEEE operations; the rotation's cos, sin and 2×2 product
+    may round differently)."""
+    from moleculardiffusion_mivit_tpu_torch.sim import constrained as con
+    from moleculardiffusion_mivit_tpu_torch.sim import mitochondria_demo
+
+    g = torch.Generator().manual_seed(32)
+    n, t = 256, 300
+    rows = {}
+    dxy = torch.stack([con.disp_fbm(g, 0.8, 1.0, t, 1.0, n) for _ in range(2)], dim=-1)
+    geo = mitochondria_demo.build_skeleton()
+    disp = con.disp_fbm(g, 1.0, 4.0, t, 1.0, n)
+    for name, fn, arg in (
+            ("reflected_walk", lambda d: con.reflected_walk(d, (5.0, -2.0), (2.0, 1.0), 0.3), dxy),
+            ("map_displacements", lambda d: geo.map_displacements(d, geo.total_length / 2.0), disp)):
+        cpu = fn(arg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = fn(arg.cuda())
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        err = float((on_card.cpu() - cpu).abs().max())
+        tol = 4 * 2.0**-23 * float(cpu.abs().max())
+        rows[name] = {"max_abs_diff": err, "tolerance": tol, "card_s": card_s}
+        check(err <= tol, f"constrained: {name} card vs CPU {err} > {tol}")
+    emit({"phase": "constrained", "part": "e_walks_card_vs_cpu", "card": card, "particles": n, "steps": t,
+          "by_walk": rows})
+
+
+def _msd_exponent(trajs, lags=(1, 2, 4, 8, 16, 32)) -> float:
+    """Slope of log ensemble-MSD against log lag."""
+    import numpy as np
+
+    x = trajs.double()
+    msd = [float(((x[:, lag:] - x[:, :-lag]) ** 2).sum(-1).mean()) for lag in lags]
+    return float(np.polyfit(np.log(lags), np.log(msd), 1)[0])
+
+
+def phase_constrained(torch, card):
+    """The rest of ``sim/`` and the constrained-diffusion demo on the card.
+
+    (a) ``single_state`` at α = 0.5, α = 1.5, α ~ N(1, 0.3), α = 0.5 with
+    drift (0.5, −0.3) and α = 0.6 in a box of L = 5, 256 particles × 300
+    steps (D ~ N(3, 1)), each timed and rendered through K1
+    (``render_videos``: one launch, 7,680 frames): finite videos; the
+    ensemble-MSD exponent within 0.1 of α (0.5, 1.5); the drawn α in [0, 2]
+    with mean 1 ± 0.05; the mean step equal to the drift ± 0.05; every
+    position inside the box. (b) The fGn's deterministic part on the card
+    against the CPU from the same normals (``_fgn_card_against_cpu``). (e)
+    The reflected walk and the path walk on the card against the CPU given
+    the same displacements (``_walks_card_against_cpu``). (f) The demo
+    through its entry point (``sim.mitochondria_demo.main --cycles 2``) at
+    full width: K1 once per D class a cycle plus the evaluation render, K2
+    and K3 once a step (64 a cycle at batch 1), finite losses and estimates.
+    The path's launches are counted over (a) and (f)."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, TrainConfig
+    from moleculardiffusion_mivit_tpu_torch.sim import mitochondria_demo, render_videos, single_state
+    from moleculardiffusion_mivit_tpu_torch.train.capture import launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    t_phase = time.perf_counter()
+    n, t, cfg = 256, 300, TrainConfig()
+    cases = {"alpha_0.5": dict(alphas=0.5), "alpha_1.5": dict(alphas=1.5), "alpha_1.0_sd_0.3": dict(alphas=(1.0, 0.3)),
+             "alpha_0.5_drift": dict(alphas=0.5, drift=(0.5, -0.3)), "alpha_0.6_box_5": dict(alphas=0.6, L=5.0)}
+    counts0 = launch_counts()
+    rows = {}
+    for i, (name, kw) in enumerate(cases.items()):
+        g = seeded_generator("cuda", 30, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trajs, labels = single_state(g, n, t, Ds=(3.0, 1.0), **kw)
+        torch.cuda.synchronize()
+        sim_s = time.perf_counter() - t0
+        videos = render_videos(g, trajs / cfg.traj_div_factor, cfg, BASELINE_OPTICS)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0 - sim_s
+        check(trajs.is_cuda and trajs.shape == (n, t, 2) and bool(torch.isfinite(trajs).all()),
+              f"constrained: {name}: trajectories {tuple(trajs.shape)}")
+        check(videos.shape == (n, t // cfg.n_pos_per_frame, 9, 9) and bool(torch.isfinite(videos).all()),
+              f"constrained: {name}: videos {tuple(videos.shape)}")
+        alpha = labels[:, 0, 0]
+        row = {"sim_s": sim_s, "render_s": render_s, "alpha_mean": float(alpha.mean()),
+               "msd_exponent": _msd_exponent(trajs)}
+        if isinstance(kw["alphas"], float) and "drift" not in kw and "L" not in kw:
+            check(abs(row["msd_exponent"] - kw["alphas"]) <= 0.1,
+                  f"constrained: {name}: MSD exponent {row['msd_exponent']} for α = {kw['alphas']}")
+        if name == "alpha_1.0_sd_0.3":
+            check(float(alpha.min()) >= 0.0 and float(alpha.max()) <= 2.0 and abs(row["alpha_mean"] - 1.0) <= 0.05,
+                  f"constrained: {name}: drawn α {row['alpha_mean']} in [{float(alpha.min())}, {float(alpha.max())}]")
+        if "drift" in kw:
+            row["mean_step"] = torch.diff(trajs, dim=1).mean(dim=(0, 1)).tolist()
+            check(all(abs(a - b) <= 0.05 for a, b in zip(row["mean_step"], kw["drift"])),
+                  f"constrained: {name}: mean step {row['mean_step']} for drift {kw['drift']}")
+        if "L" in kw:
+            row["range"] = [float(trajs.min()), float(trajs.max())]
+            check(row["range"][0] >= 0.0 and row["range"][1] <= kw["L"], f"constrained: {name}: outside the box {row}")
+        rows[name] = row
+    emit({"phase": "constrained", "part": "a_single_state", "card": card, "particles": n, "steps": t, "by_case": rows})
+    sim_launches = {k: v - counts0[k] for k, v in launch_counts().items()}
+    check(sim_launches["render_frames"] == len(cases), f"constrained: K1 launches {sim_launches}")
+
+    _fgn_card_against_cpu(torch, card)
+    _walks_card_against_cpu(torch, card)
+
+    cycles = 2
+    before = launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the demo's prose, off the JSON lines
+            report = mitochondria_demo.main(["--cycles", str(cycles), "--seed", "0", "--out", out])
+        demo_s = time.perf_counter() - t0
+        written = json.loads(Path(out, "mitochondria_report.json").read_text())
+    demo_launches = {k: v - before[k] for k, v in launch_counts().items()}
+    steps = cycles * len(mitochondria_demo.D_TRAIN) * mitochondria_demo.N_TRAIN_PER_D  # batch 1
+    check(written["mivit"] == report["mivit"] and all(math.isfinite(v) for v in report["train_loss"])
+          and all(math.isfinite(report[k]) for k in ("msd_naive", "msd_confined", "mivit", "mivit_sd")),
+          f"constrained demo: report {written}")
+    check(demo_launches["render_frames"] == cycles * len(mitochondria_demo.D_TRAIN) + 1,
+          f"constrained demo: K1 launches {demo_launches}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(demo_launches[k] == steps, f"constrained demo: {k} launches {demo_launches[k]} != {steps}")
+    launches = {k: v - counts0[k] for k, v in launch_counts().items()}
+    emit({"phase": "constrained", "part": "f_demo", "card": card, "seconds": demo_s, "cycles": cycles,
+          "train_loss": report["train_loss"], "s_per_cycle": report["s_per_cycle"],
+          "estimates": {k: report[k] for k in ("msd_naive", "msd_confined", "mivit", "mivit_sd")},
+          "launches": demo_launches, "path_launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_changepoint(torch, card):
+    """Sequence mode on the card and the change points that read it.
+
+    (a) The baseline experiment in sequence mode (``experiments.baseline.
+    build(sequences=True)`` + ``Experiment.run``: per-frame predictions,
+    tail-swap mixing) at full width, all seven arms: at batch 16 two cycles
+    captured and two eager from one seed agree (losses, validation MSEs,
+    every parameter and buffer, 1e-4 relative), K2/K3 once a step of each
+    deepcnn arm, K1 once per D class a cycle plus the validation renders.
+    (b) A planted-transition set as ``examples/sequence_changepoint_demo.py``
+    step 2 builds it: one cycle's data (4 classes × 64, a held-out seed)
+    with the training augmentation's tail swaps (``mix_trajectory_tails``,
+    the first half of each class swapped at a known frame) and the same
+    sequences unmixed as constant-D controls, predicted per frame by
+    ``deepcnn_2layer_s``. (c) ``detect_change_points`` on those
+    predictions on the card and on the CPU: equal split indices, scores
+    within 1e-5 relative; the planted and control score means."""
+    from moleculardiffusion_mivit_tpu_torch.evaluation import detect_change_points
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.train.loop import generate_cycle_data, mix_trajectory_tails
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
+
+    deep = ("deepcnn_2layer_s", "deepcnn_2layer_leaky")
+    n_val_renders = 6
+    engines = []
+    t_phase = time.perf_counter()
+
+    def build(batch, fused, **kw):
+        exp = baseline.build(seed=0, sequences=True, device="cuda", **kw)
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    cap = _captured_against_eager(torch, build, "changepoint", card, seqs_per_d=None)
+    n_seq = _sequences(cap)
+    for n, h in cap.history.items():
+        check(all(math.isfinite(v) for vals in h.values() for v in vals), f"changepoint: {n}: non-finite val MSE")
+
+    cfg = cap.train_cfg
+    g = seeded_generator("cuda", 777)
+    videos, labels = generate_cycle_data(fold_in(g, 0), cfg, cap.optics)
+    mixed, mixed_labels = mix_trajectory_tails(fold_in(g, 1), videos, labels, len(cfg.training_ds), cfg.n_frames)
+    changed = mixed_labels != mixed_labels[:, :1]
+    planted = changed.any(dim=1)
+    true_split = torch.where(planted, changed.int().argmax(dim=1), -1)
+    launches = kernel_launches(counts0, engines)
+    builds, cycles = 2, 2 * 2
+    k1_want = n_val_renders * builds + len(cfg.training_ds) * (cycles + 1)
+    k23_want = len(deep) * cycles * (n_seq // 16)
+    check(launches["render_frames"] == k1_want, f"changepoint: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"changepoint: {k} launches {launches[k]} != {k23_want}")
+
+    preds = {name: cap.predict("deepcnn_2layer_s", {"videos": v, "labels": None})[..., 0]
+             for name, v in (("planted", mixed), ("control", videos))}
+    check(all(p.shape == (n_seq, cfg.n_frames) and bool(torch.isfinite(p).all()) for p in preds.values()),
+          f"changepoint: per-frame predictions {[tuple(p.shape) for p in preds.values()]}")
+    scores, splits = {}, {}
+    for name, p in preds.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        split_card, score_card = detect_change_points(p)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        split_cpu, score_cpu = detect_change_points(p.cpu())
+        check(torch.equal(split_card.cpu(), split_cpu), f"changepoint: {name}: split indices differ card vs CPU")
+        rel = float(((score_card.cpu() - score_cpu).abs() / score_cpu.abs().clamp_min(1e-12)).max())
+        check(rel <= 1e-5, f"changepoint: {name}: scores differ card vs CPU by {rel} relative")
+        scores[name], splits[name] = score_cpu, split_cpu
+        emit({"phase": "changepoint", "part": f"c_{name}", "card": card, "sequences": n_seq,
+              "detect_ms_card": card_ms, "max_rel_score_diff": rel})
+    sm = scores["planted"][planted.cpu()]
+    auc = float((sm[:, None] > scores["control"][None, :]).double().mean()
+                + 0.5 * (sm[:, None] == scores["control"][None, :]).double().mean())
+    hit = planted.cpu()
+    loc_err = (splits["planted"][hit] - true_split.cpu()[hit]).abs().double()
+    emit({"phase": "changepoint", "part": "summary", "card": card, "planted": int(planted.sum()),
+          "controls": n_seq, "mean_score_planted": float(sm.mean()), "mean_score_control": float(scores["control"].mean()),
+          "roc_auc": auc, "median_split_error_frames": float(loc_err.median()),
+          "val_avg": {n: h["val_avg"] for n, h in cap.history.items()}, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 # The main paths, each driven by its phase, in groups that each run in a
 # process of their own: in one long process torch.profiler came to lose
 # single K1 records (one of 36 in a framerate cycle, one of 5 in a modular
@@ -2372,22 +2670,32 @@ def phase_bf16(torch, card):
 # fresh process. The first group ran in one process in every earlier smoke.
 PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features": phase_images_features,
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
-         "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16}
+         "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16,
+         "constrained": phase_constrained, "changepoint": phase_changepoint}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
-               ("psfnoise",), ("denoising",), ("realdata",), ("bf16",))
+               ("psfnoise",), ("denoising",), ("realdata", "constrained", "changepoint"), ("bf16",))
 GROUP_TIMEOUT_S = 600
 
 
-def run_paths_alone(names) -> dict:
-    """Run the phases of the paths ``names`` in a fresh process of this
-    script (the kernels are built already); pass its lines on and return
-    each path's launches and seconds."""
+def start_paths(names) -> subprocess.Popen:
+    """Start this script in a fresh process for the paths ``names`` (the
+    kernels are built already). It starts CUDA and imports the package at
+    once, while the group before it runs, then waits for ``go`` on its
+    stdin; it exits if its stdin closes first."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--paths", "--on-go", *names],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+
+def run_paths(proc, names) -> dict:
+    """Let a started group run its paths; pass its lines on and return each
+    path's launches and seconds."""
     try:
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--paths", *names],
-                              stdout=subprocess.PIPE, text=True, timeout=GROUP_TIMEOUT_S)
+        stdout, _ = proc.communicate("go\n", timeout=GROUP_TIMEOUT_S)
     except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
         fail(f"paths {names} ran past {GROUP_TIMEOUT_S} s")
-    lines = proc.stdout.splitlines()
+    lines = stdout.splitlines()
     for line in lines[:-1]:
         print(line, flush=True)
     check(proc.returncode == 0 and bool(lines), f"paths {names} failed (exit code {proc.returncode})")
@@ -2395,6 +2703,7 @@ def run_paths_alone(names) -> dict:
 
 
 def main() -> None:
+    global T_START
     if not (ROOT / PKG / "__init__.py").is_file():
         fail(f"the {PKG} package is not beside this script")
     t_start = time.perf_counter()
@@ -2408,9 +2717,16 @@ def main() -> None:
 
     from moleculardiffusion_mivit_tpu_torch.ops._build import build_all, load_library
 
-    if sys.argv[1:2] == ["--paths"]:  # a group of paths, in the process run_paths_alone started
+    if sys.argv[1:2] == ["--paths"]:  # a group of paths: alone, or in a process start_paths started
+        on_go = sys.argv[2:3] == ["--on-go"]
         card, out = card_line(), {}
-        for name in sys.argv[2:]:
+        torch.empty(1, device="cuda")  # the CUDA context
+        from moleculardiffusion_mivit_tpu_torch import run_experiment  # noqa: F401  (most of the package)
+
+        if on_go and sys.stdin.readline().strip() != "go":
+            return  # the smoke stopped before this group's turn
+        T_START = time.perf_counter()
+        for name in sys.argv[3 if on_go else 2:]:
             t = time.perf_counter()
             out[name] = {"launches": PATHS[name](torch, card), "seconds": time.perf_counter() - t}
         emit({"paths": out})
@@ -2439,12 +2755,16 @@ def main() -> None:
     k2, k3 = timed("k2_k3", phase_k2_k3, torch)
     k2_bf16, k3_bf16 = timed("bf16_kernels", _bf16_kernels, torch)
     by_path = {}
-    for group in PATH_GROUPS:
+    proc = start_paths(PATH_GROUPS[0])
+    for i, group in enumerate(PATH_GROUPS):
+        # the next group's process starts up while this one runs
+        following = start_paths(PATH_GROUPS[i + 1]) if i + 1 < len(PATH_GROUPS) else None
         t = time.perf_counter()
-        for name, got in run_paths_alone(group).items():
+        for name, got in run_paths(proc, group).items():
             by_path[name] = got["launches"]
             phase_s[name] = got["seconds"]
         phase_s["+".join(group) + " process"] = time.perf_counter() - t
+        proc = following
     names = {k for path in by_path.values() for k in path}
     launches = {k: sum(path.get(k, 0) for path in by_path.values()) for k in names}
 

@@ -14,7 +14,8 @@ hold against the JAX package.
 Subpackages
 -----------
 - ``config``      copies of the JAX package's typed configuration
-- ``sim``         pure-Brownian trajectories, frame rendering, noise
+- ``sim``         trajectories (Brownian, fBm, drift, boxes), constrained
+                  geometries, frame rendering, noise, the constrained demo
 - ``ops``         the hand-written kernels, their wrappers and plain versions; plain
                   batched filters, hull and curve fits
 - ``models``      GeneralTransformer (linear, cnn, deep-ResNet embeddings), ModularTransformer,
@@ -23,7 +24,8 @@ Subpackages
 - ``train``       the cycle-based training loop, the fused cycle as CUDA graphs
 - ``denoise``     Richardson-Lucy deconvolution with TV regularisation
 - ``experiments`` the seven experiments of ``run_experiment``
-- ``evaluation``  frozen validation sets, the published in-order suite (``data/``)
+- ``evaluation``  frozen validation sets, the published in-order suite (``data/``),
+                  change points, result analysis, figures
 - ``utils``       flax → torch weight conversion, metrics, checkpoints, streams
 """
 

@@ -10,3 +10,4 @@ from moleculardiffusion_mivit_tpu_torch.evaluation.validation import (  # noqa: 
     render_validation_videos,
     save_error_table_csv,
 )
+from moleculardiffusion_mivit_tpu_torch.evaluation.changepoint import detect_change_points  # noqa: F401

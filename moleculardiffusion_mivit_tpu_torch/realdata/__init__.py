@@ -1,6 +1,6 @@
 """The real-data pipeline: TIFF stacks → detect → track → patches →
 localise → per-track D (port of ``moleculardiffusion_mivit_tpu/realdata``;
-its ``viz`` plots are not ported yet). ``python -m
+``realdata.viz`` holds its plots, matplotlib imported inside them). ``python -m
 moleculardiffusion_mivit_tpu_torch.realdata.demo`` drives it end to end."""
 
 from moleculardiffusion_mivit_tpu_torch.realdata.detect import detect_particles, detect_particles_stack  # noqa: F401

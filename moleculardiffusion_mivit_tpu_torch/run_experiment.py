@@ -10,6 +10,7 @@ Usage:
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment embeddings|framerate --cycles 100
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment psfnoise --cycles 100 --in-order
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment denoising --cycles 100 --seqs-per-d 128
+    python -m moleculardiffusion_mivit_tpu_torch.run_experiment baseline --cycles 100 --plots
 
 Port of ``moleculardiffusion_mivit_tpu/run_experiment.py``: runs the named
 experiment on ``--device`` (CUDA by default; without a card it raises unless
@@ -18,13 +19,16 @@ stderr (``start``, ``built``, ``resumed``, ``cycle``, ``trained``,
 ``final_val_avg``, ``error_tables``), checkpoints the last cycles, and writes
 ``history.json``, ``final/``, and, where the experiment has an in-order
 sweep, ``<experiment>_errors.csv`` and ``in_order_predictions.npz``.
+``--plots`` renders ``evaluation.plots.render_all`` into ``<out>/figures``
+after the run and logs a ``figures`` event; it needs matplotlib, and the
+command line raises when it parses ``--plots`` on a machine where
+matplotlib does not import, before anything is built.
 ``--in-order`` applies to the experiments that offer the option; framerate
 is rescored on the in-order suite from its checkpoint, by
 ``python -m moleculardiffusion_mivit_tpu_torch.experiments.framerate --ckpt
 <out>/final``.
 
-Not offered: ``--mesh``, ``--no-aot-cache`` and ``--unroll`` (TPU-only), and
-``--plots`` (ROADMAP.md, queue 1, item 12).
+Not offered: ``--mesh``, ``--no-aot-cache`` and ``--unroll`` (TPU-only).
 """
 
 from __future__ import annotations
@@ -68,8 +72,15 @@ def main(argv=None):
                     help="checkpoint directory (e.g. <out>/final) to restore and continue from")
     ap.add_argument("--no-stack-pairs", action="store_true",
                     help="step the activation-slope pairs as separate units (Experiment.stack_pairs)")
+    ap.add_argument("--plots", action="store_true",
+                    help="render the figures (val-MSE curves, error bars and violins, prediction-vs-D, PSF×noise "
+                         "heatmaps) into <out>/figures after the run; needs matplotlib")
     ap.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.plots:
+        from moleculardiffusion_mivit_tpu_torch.evaluation.plots import require_matplotlib
+
+        require_matplotlib()  # raise now, not after the run
 
     import numpy as np
     import torch
@@ -160,6 +171,11 @@ def main(argv=None):
 
     with open(os.path.join(out_dir, "history.json"), "w") as f:
         json.dump(exp.history, f)
+    if args.plots:
+        from moleculardiffusion_mivit_tpu_torch.evaluation.plots import render_all
+
+        made = render_all(out_dir)
+        logger.log("figures", paths=list(made.values()))
     logger.close()
     print(f"results in {out_dir}", file=sys.stderr)
     return exp

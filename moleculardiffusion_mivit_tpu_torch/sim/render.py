@@ -1,8 +1,10 @@
 """Fluorescence video renderer.
 
 Port of ``moleculardiffusion_mivit_tpu/sim/render.py``: the renderers the
-experiments and the real-data pipeline use (``generate_images_legacy`` is
-not ported yet).
+experiments and the real-data pipeline use, the one-call helper
+``generate_traj_and_videos_brownian`` and the legacy generator
+``generate_images_legacy`` (plain torch on any device: in the JAX package
+too it runs outside the Pallas kernel).
 A frame before noise is ``Σ_p w_p · pool(g_y,p) ⊗ pool(g_x,p)``: the 2-D
 Gaussian on the upsampled grid is an outer product of 1-D Gaussians, and
 both the u×u mean pooling and the grid maximum factor over it, so only
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
+from moleculardiffusion_mivit_tpu_torch.sim.trajectory import single_state
 
 
 def hr_grid_coords(output_size: int, upsampling_factor: int, device=None) -> torch.Tensor:
@@ -351,6 +354,60 @@ def normalize_images(
     if clip_image:
         normalized = torch.clamp(normalized, 0.0, 1.5)
     return normalized, (background_mean, background_sigma, theoretical_max)
+
+
+def generate_images_legacy(
+    generator: torch.Generator,
+    trajectory: torch.Tensor,
+    nframes: int,
+    npixel: int,
+    factor_hr: int,
+    nposframe: int,
+    fwhm_psf: float,
+    pixelsize: float,
+    flux: float,
+    background: float,
+    gaussian_noise: float,
+):
+    """The legacy image generator, as the JAX package's: one trajectory
+    ``(≥ nframes·nposframe, 2)`` (HR-grid coordinates) → ``(frame_hr (F,
+    S·u, S·u), frame_lr (F, S, S), frame_noisy (F, S, S))``. Unlike the main
+    renderer: sigma = ``2.35·fwhm/pixel`` (the constant multiplies), a
+    constant ``flux`` for every sub-position, no peak renormalisation, and
+    only a clipped Gaussian background ``clip(background + N(0, σ²), 0,
+    background + 3σ)`` (``σ = gaussian_noise``, drawn from ``generator`` on
+    the trajectory's device)."""
+    dev = trajectory.device
+    seg = trajectory[: nframes * nposframe].to(torch.float32).reshape(nframes, nposframe, 2)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    sigma = f32(fwhm_psf) * 2.35 / f32(pixelsize)
+    coords = hr_grid_coords(npixel, factor_hr, device=dev)
+    gx = torch.exp(-((coords - seg[..., 0, None]) ** 2) / (2.0 * sigma**2))
+    gy = torch.exp(-((coords - seg[..., 1, None]) ** 2) / (2.0 * sigma**2))
+    frame_hr = torch.einsum("fps,fpt->fst", f32(flux) * gy, gx)
+    frame_lr = frame_hr.reshape(nframes, npixel, factor_hr, npixel, factor_hr).mean(dim=(2, 4))
+    noise = torch.randn(frame_lr.shape, generator=generator, device=dev) * f32(gaussian_noise)
+    bg, sd = f32(background), f32(gaussian_noise)
+    frame_noisy = frame_lr + torch.clamp(bg + noise, min=f32(0.0), max=bg + 3.0 * sd)
+    return frame_hr, frame_lr, frame_noisy
+
+
+def generate_traj_and_videos_brownian(
+    generator: torch.Generator,
+    Ds: Tuple[float, float],
+    n_particles: int,
+    n_images: int,
+    n_pos_per_frame: int,
+    optics: OpticsConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Simulate and render in one call, as the JAX package's: pure-Brownian
+    ``single_state`` trajectories (in trajectory units, not divided) rendered
+    with per-frame centering by ``trajectories_to_video`` (K1 on the card).
+    Returns ``(videos (N, F, S, S), D labels (N,))``; both draws come from
+    ``generator``, on its device."""
+    trajs, labels = single_state(generator, n_particles, n_images * n_pos_per_frame, Ds, alphas=1)
+    videos = trajectories_to_video(generator, trajs, n_pos_per_frame, True, optics)
+    return videos, labels[:, 0, 1]
 
 
 def render_videos(

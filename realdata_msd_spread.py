@@ -22,14 +22,29 @@ pipeline's own spread, and F6 closes, when both hold:
 1. every port seed's error lies within [min J, max J];
 2. |mean P − mean J| ≤ 2 · sd(J) · sqrt(1/4 + 1/N), N the number of keys.
 
-Usage: ``python3 realdata_msd_spread.py [--keys N] [--out results/realdata_msd_spread]``
+The second rule, on the two pipelines' spreads, written before its runs.
+Run JAX's pipeline over keys 64-127 and the port's on the CPU over render
+seeds 64-127 (``--first-key 64 --keys 64 --port 64``; neither range
+overlaps the 0-63 judged above). Let s_J and s_P be the shares of keys and
+seeds with a swapped track, p̄ = (s_J + s_P) / 2 their pooled rate, and
+mean/sd the MSD mean absolute errors over each side's 64. F6 closes as the
+pipeline's own spread when both hold:
+
+1. |s_P − s_J| ≤ 2 · sqrt(p̄ (1 − p̄) · 2 / 64);
+2. |mean_P − mean_J| ≤ 2 · sqrt(sd_P² / 64 + sd_J² / 64).
+
+Otherwise F6 stays open with the numbers.
+
+Usage: ``python3 realdata_msd_spread.py [--keys N] [--first-key K] [--out results/realdata_msd_spread]``
 (JAX on the CPU, ~1 s a key after the first). It writes ``msd_spread.json``
 under ``--out`` and prints the verdict; ``--judge`` only re-reads that file
 and the port's reports and exits 1 when the rule misses. ``--port N`` also
 runs the port's own pipeline on the CPU over N render seeds of the same
 movie (its ``realdata.demo.make_movie`` and TIFF round trip, CPU streams)
 and writes ``port_spread.json``: the port's swap rate beside JAX's, which
-the rule does not read.
+the first rule does not read. ``--first-key K`` starts both ranges at K,
+writes ``msd_spread_fromK.json`` and ``port_spread_fromK.json``, and judges
+them by the second rule (with ``--judge``, the written files only).
 """
 
 from __future__ import annotations
@@ -116,6 +131,27 @@ def judge(spread: dict, port: list[dict]) -> dict:
             "rules": rules, "closed": all(rules.values())}
 
 
+def judge_spreads(jax_keys: list[dict], port: list[dict]) -> dict:
+    """The second rule of the module docstring: the two pipelines' swap rates
+    and MSD errors over as many keys as seeds."""
+    n = len(jax_keys)
+    if len(port) != n:
+        raise ValueError(f"the rule compares as many seeds as keys, got {len(port)} and {n}")
+    s_j = sum(k["swapped_tracks"] > 0 for k in jax_keys) / n
+    s_p = sum(k["swapped_tracks"] > 0 for k in port) / n
+    pooled = (s_j + s_p) / 2
+    j = np.asarray([k["msd_mean_abs_err"] for k in jax_keys])
+    p = np.asarray([k["msd_mean_abs_err"] for k in port])
+    rate_limit = 2 * np.sqrt(pooled * (1 - pooled) * 2 / n)
+    mean_limit = 2 * np.sqrt(p.var(ddof=1) / n + j.var(ddof=1) / n)
+    rules = {"swap_rates_within_2_binomial_se": bool(abs(s_p - s_j) <= rate_limit),
+             "msd_means_within_2_pooled_se": bool(abs(p.mean() - j.mean()) <= mean_limit)}
+    return {"n": n, "jax_swap_rate": s_j, "port_swap_rate": s_p, "swap_rate_limit": float(rate_limit),
+            "jax_mean": float(j.mean()), "jax_sd": float(j.std(ddof=1)), "port_mean": float(p.mean()),
+            "port_sd": float(p.std(ddof=1)), "mean_limit": float(mean_limit), "rules": rules,
+            "closed": all(rules.values())}
+
+
 def port_seeds() -> list[dict]:
     out = []
     for path in PORT_SEEDS:
@@ -129,33 +165,41 @@ def port_seeds() -> list[dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=32)
+    ap.add_argument("--first-key", type=int, default=0, help="first JAX key and port seed (second rule when > 0)")
     ap.add_argument("--out", default=str(OUT))
     ap.add_argument("--judge", action="store_true", help="judge the written spread only")
     ap.add_argument("--port", type=int, default=0, help="also the port's pipeline over this many CPU seeds")
     args = ap.parse_args(argv)
-    path = Path(args.out) / "msd_spread.json"
+    first, suffix = args.first_key, f"_from{args.first_key}" if args.first_key else ""
+    path = Path(args.out) / f"msd_spread{suffix}.json"
+    port_path = Path(args.out) / f"port_spread{suffix}.json"
+    flag = f" --first-key {first}" if first else ""
     if not args.judge:
         os.environ.setdefault("JAX_PLATFORMS", "cpu")
         t0 = time.perf_counter()
         keys = []
-        for k in range(args.keys):
+        for k in range(first, first + args.keys):
             keys.append(jax_key(k))
             print(json.dumps(keys[-1]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps({"keys": keys, "seconds": time.perf_counter() - t0,
-                                    "command": f"python3 realdata_msd_spread.py --keys {args.keys}"}, indent=1) + "\n")
+                                    "command": f"python3 realdata_msd_spread.py --keys {args.keys}{flag}"},
+                                   indent=1) + "\n")
     if args.port:
         t0 = time.perf_counter()
-        seeds = [port_key(s) for s in range(args.port)]
+        seeds = [port_key(s) for s in range(first, first + args.port)]
         errors = np.asarray([k["msd_mean_abs_err"] for k in seeds])
         summary = {"seeds": len(seeds), "with_a_swap": sum(k["swapped_tracks"] > 0 for k in seeds),
                    "mean": float(errors.mean()), "sd": float(errors.std(ddof=1)),
                    "above_0.10": int((errors > 0.10).sum())}
-        (Path(args.out) / "port_spread.json").write_text(json.dumps(
+        port_path.write_text(json.dumps(
             {"seeds": seeds, "summary": summary, "seconds": time.perf_counter() - t0,
-             "command": f"python3 realdata_msd_spread.py --judge --port {args.port}"}, indent=1) + "\n")
+             "command": f"python3 realdata_msd_spread.py --judge --port {args.port}{flag}"}, indent=1) + "\n")
         print(json.dumps({"port_spread": summary}))
-    verdict = judge(json.loads(path.read_text()), port_seeds())
+    if first:
+        verdict = judge_spreads(json.loads(path.read_text())["keys"], json.loads(port_path.read_text())["seeds"])
+    else:
+        verdict = judge(json.loads(path.read_text()), port_seeds())
     print(json.dumps(verdict))
     return 0 if verdict["closed"] else 1
 

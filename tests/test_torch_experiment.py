@@ -8,6 +8,7 @@ CUDA graphs (``chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
 
 import functools
 import json
+import os
 import re
 from pathlib import Path
 
@@ -109,9 +110,10 @@ def _events(path):
 def test_run_experiment_writes_the_files_and_events_of_the_jax_runner(small_validation, monkeypatch, tmp_path):
     """``run_experiment.main([... "--device", "cpu"])`` writes metrics.jsonl,
     history.json, final/ (states, history, meta), the error-table CSV and
-    the in-order predictions; a second call with ``--resume`` continues.
-    Its events are those the JAX package's ``run_experiment.py`` logs, less
-    ``figures`` (``--plots``, not ported)."""
+    the in-order predictions; a second call with ``--resume`` and
+    ``--plots`` continues and renders the figures JAX's ``render_all`` makes
+    from the same directory, under the same names. Its events are those the
+    JAX package's ``run_experiment.py`` logs."""
     monkeypatch.setitem(REGISTRY, "baseline", functools.partial(baseline.build, val_length=4, try_leaky_relu=False))
     out = tmp_path / "run"
     run_experiment.main(["baseline", "--cycles", "1", "--seqs-per-d", "2", "--out", str(out), "--device", "cpu"])
@@ -126,13 +128,19 @@ def test_run_experiment_writes_the_files_and_events_of_the_jax_runner(small_vali
     assert (out / "baseline_errors.csv").read_text().splitlines()[0] == "model,mse,std"
 
     run_experiment.main(["baseline", "--cycles", "2", "--seqs-per-d", "2", "--out", str(out), "--device", "cpu",
-                         "--resume", str(out / "final")])
+                         "--resume", str(out / "final"), "--plots"])
     history = json.loads((out / "history.json").read_text())
     assert all(len(h["val_avg"]) == 2 for h in history.values())
     events = _events(out / "metrics.jsonl")
     jax_runner = (ROOT / "moleculardiffusion_mivit_tpu" / "run_experiment.py").read_text()
     jax_events = set(re.findall(r'logger\.log\(\s*"(\w+)"', jax_runner)) | {"cycle"}
-    assert set(events) == jax_events - {"figures"}
+    assert set(events) == jax_events
+    from moleculardiffusion_mivit_tpu.evaluation.plots import render_all as jax_render_all
+
+    figures = json.loads((out / "metrics.jsonl").read_text().splitlines()[-1])["paths"]
+    want = jax_render_all(str(out), str(tmp_path / "jax_figures"))
+    assert sorted(os.path.basename(p) for p in figures) == sorted(os.path.basename(p) for p in want.values())
+    assert all(os.path.getsize(p) > 0 for p in figures)
     assert events.count("resumed") == 1 and events.count("cycle") == 2
 
 

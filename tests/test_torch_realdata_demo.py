@@ -159,3 +159,22 @@ def test_f6_the_ports_seeds_judged_against_the_jax_key_spread():
     assert not verdict["closed"] and verdict["port_mean"] < verdict["jax_mean"]
     port = json.loads((spread.OUT / "port_spread.json").read_text())["summary"]
     assert port["seeds"] == 64 and port["with_a_swap"] == 47
+
+
+def test_f6_closed_by_the_spread_rule_on_fresh_keys():
+    """Fault F6 by the second rule of ``realdata_msd_spread.py``, fixed
+    before its runs: JAX's pipeline over render keys 64-127 and the port's
+    on the CPU over seeds 64-127 (``*_from64.json``). Their swap rates lie
+    within two binomial standard errors (45 and 46 of 64) and their MSD
+    mean errors within two pooled standard errors, so F6 closes as the
+    pipeline's own spread."""
+    spread = _load_script("realdata_msd_spread")
+    keys = json.loads((spread.OUT / "msd_spread_from64.json").read_text())["keys"]
+    port = json.loads((spread.OUT / "port_spread_from64.json").read_text())["seeds"]
+    assert [k["key"] for k in keys] == list(range(64, 128)) and [s["seed"] for s in port] == list(range(64, 128))
+    verdict = spread.judge_spreads(keys, port)
+    assert verdict["n"] == 64 and round(verdict["jax_swap_rate"] * 64) == 45 and round(verdict["port_swap_rate"] * 64) == 46
+    assert verdict["rules"] == {"swap_rates_within_2_binomial_se": True, "msd_means_within_2_pooled_se": True}
+    assert verdict["closed"]
+    with pytest.raises(ValueError, match="as many seeds as keys"):
+        spread.judge_spreads(keys, port[:10])

@@ -63,12 +63,14 @@ def test_truncated_normal_far_tail_and_constant():
     assert (c == 2.5).all()
 
 
-@pytest.mark.parametrize(
-    "kwargs", [dict(alphas=0.5), dict(alphas=(1.0, 0.1)), dict(L=5.0), dict(drift=(0.1, 0.0))]
-)
-def test_single_state_off_brownian_raises(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttraj.single_state(_gen(), 4, 10, Ds=1.0, **kwargs)
+def test_single_state_drift_with_box_raises_as_jax():
+    """Drift with L > 0 raises ValueError on both sides (the fold is exact
+    only for driftless increments); a zero drift with a box is accepted."""
+    for single_state, key in ((jtraj.single_state, jax.random.key(0)), (ttraj.single_state, _gen())):
+        with pytest.raises(ValueError, match="drift"):
+            single_state(key, 4, 10, Ds=1.0, drift=(0.1, 0.0), L=5.0)
+        trajs, _ = single_state(key, 4, 10, Ds=1.0, drift=(0.0, 0.0), L=5.0)
+        assert trajs.shape == (4, 10, 2)
 
 
 def test_brownian_motion_and_frame_average():

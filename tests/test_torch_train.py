@@ -262,18 +262,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "features/per_frame", "experiments/modular", "ops/filters", "denoise/rl_tv",
         "experiments/denoising", "realdata/__init__", "realdata/tiff", "realdata/detect", "realdata/link",
         "realdata/track", "realdata/patches", "realdata/localize", "realdata/stats", "realdata/pipeline",
-        "realdata/demo")} <= scanned
+        "realdata/demo", "realdata/viz", "sim/constrained", "sim/mitochondria_demo", "evaluation/changepoint",
+        "evaluation/analysis", "evaluation/plots")} <= scanned
     banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu", "PIL")
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in banned, f"{path.relative_to(ROOT)} imports {mod}"
-        # pandas only inside a function (the DataFrame wrappers), never at import
+        # pandas and matplotlib only inside a function (the DataFrame wrappers,
+        # the plots), never at import: the card machine has neither
         tree = ast.parse(path.read_text())
         for node in tree.body:
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
                 [node.module or ""] if isinstance(node, ast.ImportFrom) else []
-            assert all(n.split(".")[0] != "pandas" for n in names), f"{path.relative_to(ROOT)} imports pandas"
+            for top in ("pandas", "matplotlib"):
+                assert all(n.split(".")[0] != top for n in names), f"{path.relative_to(ROOT)} imports {top}"
 
 
 def _decodable(n, f):
