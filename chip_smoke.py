@@ -31,10 +31,15 @@ processes of their own, each started while the one before runs:
    denoising grid at batch 1 and 16: 72,900 and 1,166,400 rows, 17,010 and
    272,160): bitwise equal to as many one-member launches and repeatable,
    against the plain version under ``torch.vmap``. Then (phase 13's part
-   (a), in this process) K2-bf16/K3-bf16 at 2,430 and 38,880 rows against
-   their plain bf16 version (1e-2 / 5e-2 relative L2, ``BF16_TOL``), bitwise
-   repeatable, and over 7 members at batch 1 and 16 bitwise equal to their
-   single launches; each timed beside the f32 kernels on the same inputs.
+   (a), in this process) K2-bf16/K3-bf16 at ``BF16_SHAPES`` (2,430 to
+   162,240 rows, S = 9 and 13, E = 58 and 64: every tile of their wgmma
+   kernels) against their plain bf16 version (1e-2 / 5e-2 relative L2,
+   ``BF16_TOL``), bitwise repeatable, and over 7 members at batch 1 and 16
+   bitwise equal to their single launches; each timed beside the f32
+   kernels on the same inputs, with the mma.sync kernels' device ms they
+   replaced and the share of the bound; and where the toolkit has
+   ``cuobjdump``, the count of ``HGMMA`` in each bf16 conv and
+   weight-gradient kernel (none fails).
 4. slice: the baseline experiment's seven models (GeneralTransformer with
    the linear, cnn and deep_resnet embeddings, relu and leaky_relu each, and
    MultiImageResNet) at full width and full data, each through
@@ -2059,6 +2064,20 @@ def _realdata_camera_stack(torch, card):
 # limit. tests/test_torch_cuda.py holds the kernels to the same numbers.
 # The BN statistics are f32: 1e-3 relative.
 BF16_TOL, BF16_GRAD_L2_TOL, BF16_GRAD_MAX_TOL = 1e-2, 5e-2, 5e-2
+# Part (a)'s shapes (B, T, S, E): between them they launch every tile of
+# the bf16 conv kernel that the embedding's layers reach (64 or 128 rows by
+# 32, 64 or 128 columns, 32 or 64 channels a stage) and every weight-gradient
+# kernel: 2,430 (the batch-1 step), 10,140 and 162,240 (13×13 frames),
+# 32,400 (the real-data patch model, E = 58 as the modular experiment's
+# concat arm) and 38,880 rows.
+BF16_SHAPES = ((1, 30, 9, 64), (1, 60, 13, 64), (16, 25, 9, 58), (16, 30, 9, 64), (16, 60, 13, 64))
+# Device ms of the mma.sync kernels these replaced (K2-bf16, K3-bf16; the
+# earlier figures in PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700 W):
+# one member at batch 1 / 16, and 7 members at batch 1 / 16. A record, not a
+# measurement of this run: the phase rows print it beside this run's device
+# ms, and it stays out of the kernel rows that reach the ``kernels`` line.
+REPLACED_MMA_SYNC_DEVICE_MS = {(1, 30, 9, 64): (0.1216, 0.2944), (16, 30, 9, 64): (0.3792, 0.8374),
+                               ("members_7", 1): (0.2903, 0.6898), ("members_7", 16): (1.8242, 4.1685)}
 
 
 def _kernel_args(fe, x, kernels, scales, biases, wfc, bfc):
@@ -2180,16 +2199,20 @@ def _bf16_kernel_row(torch, fe, b, t=30, s=9, e=64):
         plain_fwd_ms = time_ms(torch, lambda: fe.deep_resnet_embed_reference(x, kernels, scales, biases, wfc, bfc))
     plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(emb_r, leaves, g_out, retain_graph=True))
     (b2, by2), (b3, by3) = _bf16_bounds(r, n, e)
+    recorded = REPLACED_MMA_SYNC_DEVICE_MS.get((b, t, s, e), (None, None))
     row = {"phase": "bf16", "part": "a", "B": b, "T": t, "S": s, "E": e, "rows": r, "deterministic": True,
            "tolerance_rel_l2": {"k2": BF16_TOL, "k3": BF16_GRAD_L2_TOL},
            "tolerance_max_rel": {"k2": BF16_TOL, "k3": BF16_GRAD_MAX_TOL},
            "k2_rel_l2": l2_fwd, "k3_worst_rel_err": worst, "k3_worst_rel_l2": worst_l2, "k3_rel_l2_by_gradient": l2s,
            "plain_bf16_against_plain_f32_worst_gradient_rel_l2": f32_l2,
            "stage_launches": {"k2": stages_fwd, "k3": stages_bwd},
+           "replaced_mma_sync_device_ms": dict(zip(("k2", "k3"), recorded)),
            "k2": dict(max_abs_err=err_fwd, ms=times["bf16"]["k2"][0], device_ms=times["bf16"]["k2"][1],
+                      bound_share=b2 / times["bf16"]["k2"][1],
                       f32_kernel_ms=times["f32"]["k2"][0], f32_kernel_device_ms=times["f32"]["k2"][1],
                       plain_ms=plain_fwd_ms, bound_ms=b2, bound_by=by2),
            "k3": dict(max_abs_err=err_bwd, ms=times["bf16"]["k3"][0], device_ms=times["bf16"]["k3"][1],
+                      bound_share=b3 / times["bf16"]["k3"][1],
                       f32_kernel_ms=times["f32"]["k3"][0], f32_kernel_device_ms=times["f32"]["k3"][1],
                       plain_ms=plain_bwd_ms, bound_ms=b3, bound_by=by3)}
     emit(row)
@@ -2202,7 +2225,8 @@ def _bf16_members(torch, fe, m, b, t=30, s=9, e=64):
     the member's own launch and to a second call; timed beside the
     one-member launches and the f32 kernels over the same members."""
     n, r = b * t, b * t * s * s
-    per = [_kernel_args(fe, *_bf16_inputs(torch, b, t, s, seed=300 + i, e=e)) for i in range(m)]
+    inputs = [_bf16_inputs(torch, b, t, s, seed=300 + i, e=e) for i in range(m)]
+    per = [_kernel_args(fe, *a) for a in inputs]
     stack = lambda j: (tuple(torch.stack([p[j][k] for p in per]) for k in range(7)) if j == 1  # noqa: E731
                        else torch.stack([p[j] for p in per]))
     args = tuple(stack(j) for j in range(6))
@@ -2242,32 +2266,81 @@ def _bf16_members(torch, fe, m, b, t=30, s=9, e=64):
                lambda: [fe.deep_resnet_embed_bwd_bf16(*per[i], saved1[i], g[i]) for i in range(m)],
                lambda: fe.deep_resnet_embed_bwd(*args32, saved32, g.float())),
     }
+    # the plain bf16 version of the same function: every member at once under vmap
+    leaves = [torch.stack([a[0].detach() for a in inputs]).requires_grad_()]
+    dicts = [{k: torch.stack([a[j][k].detach() for a in inputs]).requires_grad_() for k in inputs[0][j]}
+             for j in (1, 2, 3)]
+    fc = [torch.stack([a[j].detach() for a in inputs]).requires_grad_() for j in (4, 5)]
+    leaves += [v for d in dicts for v in d.values()] + fc
+    plain = lambda: torch.vmap(fe.deep_resnet_embed_reference)(leaves[0], *dicts, *fc)  # noqa: E731
+    emb_r, _ = plain()
+    with torch.no_grad():
+        plain_ms = {"k2": time_ms(torch, plain, iters=3, warmup=1)}
+    plain_ms["k3"] = time_ms(torch, lambda: torch.autograd.grad(emb_r, leaves, g.reshape(emb_r.shape),
+                                                                retain_graph=True), iters=3, warmup=1)
+    del emb_r
     bounds = dict(zip(("k2", "k3"), _bf16_bounds(r, n, e, m)))
+    recorded = REPLACED_MMA_SYNC_DEVICE_MS.get(("members_7", b), (None, None)) if m == 7 else (None, None)
     row = {"phase": "bf16", "part": "a_members", "members": m, "B": b, "rows_per_member": r, "rows": m * r,
-           "bitwise_equal_to_single_launches": True, "deterministic": True}
+           "bitwise_equal_to_single_launches": True, "deterministic": True,
+           "replaced_mma_sync_device_ms": dict(zip(("k2", "k3"), recorded))}
     for k, (one, singles, f32) in calls.items():
-        row[k] = dict(ms=time_ms(torch, one, iters=10), device_ms=time_ms(torch, one, iters=10, device_only=True),
+        device_ms = time_ms(torch, one, iters=10, device_only=True)
+        row[k] = dict(ms=time_ms(torch, one, iters=10), device_ms=device_ms, bound_share=bounds[k][0] / device_ms,
                       single_launches_ms=time_ms(torch, singles, iters=5),
                       f32_kernel_ms=time_ms(torch, f32, iters=10),
                       f32_kernel_device_ms=time_ms(torch, f32, iters=10, device_only=True),
+                      plain_ms=plain_ms[k],
                       bound_ms=bounds[k][0], bound_by=bounds[k][1])
     emit(row)
     return row
 
 
+def _hgmma_counts(torch) -> dict:
+    """``HGMMA`` (wgmma) instructions in the built library's bf16 conv and
+    weight-gradient kernels, by kernel, from ``cuobjdump -sass`` where the
+    toolkit has it (else None). Fails if one of them has none."""
+    from moleculardiffusion_mivit_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.is_file():
+        print("chip_smoke: no cuobjdump beside nvcc; HGMMA not counted", file=sys.stderr)
+        return None
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._lib_path("fused_embedding"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if "conv_bf16_kernel" in name or "wgrad_bf16_kernel" in name:
+                counts[name] = 0
+            else:
+                name = None
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    check(len(counts) >= 2 and all(counts.values()),
+          f"bf16 tensor-core kernels without wgmma (HGMMA by kernel: {counts})")
+    return counts
+
+
 def _bf16_kernels(torch):
-    """Part (a) of phase bf16: the kernel rows at 2,430 and 38,880 rows and
-    over 7 members at batch 1 and 16. Returns the K2-bf16 and K3-bf16 rows
-    of the ``kernels`` line (batch 16, the others beside it)."""
+    """Part (a) of phase bf16: the kernel rows at ``BF16_SHAPES`` and over 7
+    members at batch 1 and 16, and the HGMMA count of the bf16 kernels.
+    Returns the K2-bf16 and K3-bf16 rows of the ``kernels`` line (38,880
+    rows, the others beside it)."""
     from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
 
-    rows = {b: _bf16_kernel_row(torch, fe, b) for b in (1, 16)}
+    hgmma = _hgmma_counts(torch)
+    emit({"phase": "bf16", "part": "a_hgmma", "hgmma_by_kernel": hgmma})
+    rows = {shape: _bf16_kernel_row(torch, fe, *shape) for shape in BF16_SHAPES}
     members = {b: _bf16_members(torch, fe, 7, b) for b in (1, 16)}
     out = []
     for k in ("k2", "k3"):
-        row = dict(rows[16][k])
-        row["batch_1"] = rows[1][k]
+        row = dict(rows[(16, 30, 9, 64)][k])
+        row["batch_1"] = rows[(1, 30, 9, 64)][k]
+        row["shapes"] = {"x".join(map(str, shape)): rows[shape][k] for shape in BF16_SHAPES}
         row["members_7"] = {f"batch_{b}": members[b][k] for b in (1, 16)}
+        row["hgmma_by_kernel"] = hgmma
         out.append(row)
     return out
 

@@ -86,26 +86,46 @@
 // ReLU are not applied while the next conv loads its slab, because the
 // backward needs the post-ReLU activations in memory anyway.
 //
-// bf16 (K2-bf16 / K3-bf16: deep_resnet_embed_fwd_bf16 / _bwd_bf16). The
-// same launch sequence, instantiated over the operand type T = bf16: it
-// computes what the JAX kernel computes on the TPU off its exact mode
-// (_dot / _dot_t with bf16 operands and f32 accumulation). Inputs, the
-// embedding and every gradient are bf16; the conv outputs, BatchNorm and
-// its statistics, the residual gradient sum (BUF_G) and the initial conv
-// (one input channel, not a product in JAX either) are f32. Every product
-// reads bf16 operands: the post-ReLU activations are saved in bf16 (A, Z1,
-// Y1, Z1B, Y2: only products and ReLU masks read them), BN's backward writes
-// its output for the products in bf16 (BUF_D1, BUF_D2: the rounding JAX
+// bf16 (K2-bf16 / K3-bf16: deep_resnet_embed_fwd_bf16 / _bwd_bf16). They
+// replace the same two TPU kernels in the mode the TPU runs them,
+// _core_fwd_impl / _core_bwd at exact=False: _dot / _dot_t with bf16 operands
+// and f32 accumulation. The same launch sequence over the operand type T =
+// bf16. Inputs, the embedding and every gradient are bf16; the conv outputs,
+// BatchNorm and its statistics, the residual gradient sum (BUF_G) and the
+// initial conv (one input channel, not a product in JAX either) are f32. Every
+// product reads bf16 operands: the post-ReLU activations are saved in bf16 (A,
+// Z1, Y1, Z1B, Y2: only products and ReLU masks read them), BN's backward
+// writes its output for the products in bf16 (BUF_D1, BUF_D2: the rounding JAX
 // makes on the gradient entering a product), the pool and fc products round
-// their f32 operands as they read them (the pool is a product with
-// bf16(1 / S^2) in JAX), and the weights are packed as bf16 for mma.sync
-// m16n8k16: one product per f32 product, where f32 runs three. What bounds
-// it: at 38,880 rows the products are 6.7e10 operations for K2 and K3
-// together, 0.07 ms at the 989 TFLOP/s bf16 peak, and the saved activations
-// (3.3 KB a row, written by K2 and read by K3) 0.08 ms of memory at 3.35
-// TB/s; the elementwise passes, the weight gradients' 2-byte operand reads
-// and the launch chain take the rest, as they do in the f32 kernels. Simple
-// first: mma.sync everywhere, no wgmma.
+// their f32 operands as they read them (the pool is a product with bf16(1 /
+// S^2) in JAX), and the weights are packed as bf16: one product per f32
+// product, where f32 runs three.
+// What bounds them. At 38,880 rows the six convs are 2.2e10 operations forward
+// and twice that backward, 0.023 / 0.046 ms at the 989 TFLOP/s bf16 peak
+// (data-sheet peaks of the H100 SXM here and below); the function's own bytes
+// are far fewer, but the launch sequence moves the f32 conv outputs and the
+// saved activations through memory (~5 KB a row with the passes that read them
+// back, ~0.06 ms at 3.35 TB/s for K2). At 2,430 rows the products are ~1.4 us
+// forward and ~2.8 us backward at the peak, and the time is the latency of the
+// 22 and 47 launches and of the pipeline stages inside each.
+// What the design does. The convs, their data gradients and the weight
+// gradients run on Hopper's wgmma m64nNk16 (conv_rows_bf16.cuh), the
+// instruction that reaches the tensor core's full rate (mma.sync tops out at
+// ~63 %, bench/mma_rate.cu on an NVIDIA H100 80GB HBM3 at 700 W). At many rows
+// a conv tile is 128 rows by all output columns (up to 128), so each weight
+// tile read from L2 and each slab fragment serve as many products as the
+// registers allow; its A operand is loaded by ldmatrix and zeroed in registers
+// where a tap leaves the image, its B read by the tensor core from the packed
+// weights, and the epilogue stages the tile in shared memory so the outputs
+// leave in 16-byte row stores and the BatchNorm partials come from columns. The
+// weight gradient is g^T by the tap-shifted slab: the slab read MN-major
+// through the transpose bit, each tap a shift of the descriptor, g^T one
+// ldmatrix.trans a step for all taps, three warpgroups for the three rows of
+// taps. (The f32 weight gradients cannot do this: wgmma takes a TF32 B only
+// K-major.) At few rows the tile shrinks to 64 rows by 32 columns, so 2,430
+// rows still give 38-152 blocks, and a stage takes 64 input channels, which
+// halves the stages a block waits through. The elementwise passes and the
+// launch chain are the f32 kernels', instantiated over T.
 //
 // Members. Both entries take M independent members at once (a grid of
 // models: each member its own input rows, weights, BN statistics and
@@ -123,6 +143,8 @@
 #include <algorithm>
 
 #include "conv_rows.cuh"
+#include "conv_rows_bf16.cuh"
+#include "operand_types.cuh"
 
 namespace {
 
@@ -154,9 +176,11 @@ constexpr int packed_floats_before(int n) {
   return total;
 }
 constexpr int kPackedFloats = packed_floats_before(kNumPacked);
-// Largest set of weight-gradient partials: (target blocks + tiles) * tile.
+// Largest set of weight-gradient partials: (target blocks + tiles) * tile,
+// of the f32 kernel and of the bf16 one.
 constexpr long long kWgradFloats =
-    static_cast<long long>(conv::kWgTargetBlocks + 8) * 9 * conv::CIB * conv::COB;
+    std::max(static_cast<long long>(conv::kWgTargetBlocks + 8) * 9 * conv::CIB * conv::COB,
+             convbf::kWgradFloats);
 // f32 copies of the BN scale and bias gradients (7 x CMAX each), which BN's
 // backward reads whatever the type of the gradients it returns.
 constexpr long long kBnGradFloats = 2 * 7 * CMAX;
@@ -220,13 +244,13 @@ __global__ void pack_weights_kernel(PackList list, int flip) {
   }
 }
 
-// bf16: dst = B[tap][k][n] (as above) laid out as conv_rows_tc_kernel<bf16>
-// reads it: [tap][K / 16][N / 8][32 lanes][2 words], lane (gid, tig) holding
-// B[k0 + 2 tig, + 1][n0 + gid] and B[k0 + 2 tig + 8, + 9][n0 + gid], the
-// lower k in the low half: mma_bf16's B registers.
+// bf16: dst = B[tap][k][n] (as above) laid out as conv_bf16_kernel reads it
+// (conv_rows_bf16.cuh): [tap][K / 16][N / 8][2][8][8], per block of 16 k and
+// 8 n two core matrices (k 0-7, k 8-15) of 8 rows n, each row the 8 k of
+// that n in 16 bytes.
 struct PackItemBf16 {
   const bf16* src;
-  uint32_t* dst;
+  float* dst;  // member stride in floats, as the f32 packing's
   int taps, K, N;
   long long src_ms, dst_ms;
 };
@@ -239,17 +263,20 @@ __global__ void pack_weights_bf16_kernel(PackListBf16 list, int flip) {
   it.src = member_ptr(it.src, it.src_ms, blockIdx.z);
   it.dst = member_ptr(it.dst, it.dst_ms, blockIdx.z);
   const int nb = it.N / 8, kb = it.K / 16;
-  const int n = it.taps * kb * nb * 32;  // one thread per lane of a block: (tap, kb, nb, lane)
+  const int n = it.taps * kb * nb * 16;  // one thread per core-matrix row: (tap, kb, nb, half, r)
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const int lane = i % 32, blk = i / 32;
-    const int col = (blk % nb) * 8 + lane / 4;
-    const int k0 = ((blk / nb) % kb) * 16 + 2 * (lane % 4);
+    const int r = i % 8, half = (i / 8) % 2, blk = i / 16;
+    const int col = (blk % nb) * 8 + r;
+    const int k0 = ((blk / nb) % kb) * 16 + half * 8;
     const int tap = blk / (nb * kb);
-    auto w = [&](int k) {
-      return flip ? it.src[((it.taps - 1 - tap) * it.N + col) * it.K + k] : it.src[(tap * it.K + k) * it.N + col];
+    auto bits = [&](int k) {
+      const bf16 v = flip ? it.src[((it.taps - 1 - tap) * it.N + col) * it.K + k] : it.src[(tap * it.K + k) * it.N + col];
+      return static_cast<uint32_t>(__bfloat16_as_ushort(v));
     };
-    reinterpret_cast<uint2*>(it.dst)[i] =
-        make_uint2(tc::pack_bf16(w(k0), w(k0 + 1)), tc::pack_bf16(w(k0 + 8), w(k0 + 9)));
+    uint32_t word[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) word[q] = bits(k0 + 2 * q) | (bits(k0 + 2 * q + 1) << 16);
+    reinterpret_cast<uint4*>(it.dst)[i] = make_uint4(word[0], word[1], word[2], word[3]);
   }
 }
 
@@ -624,7 +651,7 @@ __global__ void bn_bwd_apply_kernel(const float* g, const float* __restrict__ z,
 // JAX kernel's product with bf16(1 / S^2).
 template <typename T>
 __device__ __forceinline__ float pool_scale(float sum, int SS) {
-  if constexpr (conv::kIsBf16<T>) return sum * operand<T>(1.f / static_cast<float>(SS));
+  if constexpr (tc::kIsBf16<T>) return sum * operand<T>(1.f / static_cast<float>(SS));
   return sum / static_cast<float>(SS);
 }
 
@@ -767,12 +794,12 @@ int pack_weights(const Call& c, void* const* p, const long long* ms, int first_w
   for (int i = 0; i < kNumPacked; ++i)
     largest = std::max(largest, kPackedShapes[i].taps * kPackedShapes[i].ci * kPackedShapes[i].co);
   const dim3 grid(ceil_div(largest, 4 * NT), kNumPacked, c.M);
-  if constexpr (conv::kIsBf16<T>) {
+  if constexpr (tc::kIsBf16<T>) {
     PackListBf16 list;
     for (int i = 0; i < kNumPacked; ++i) {
       const WeightShape s = kPackedShapes[i];
       list.item[i] = {static_cast<const bf16*>(p[first_weight + i]),
-                      reinterpret_cast<uint32_t*>(c.packed.p + packed_floats_before(i)), s.taps,
+                      c.packed.p + packed_floats_before(i), s.taps,
                       flip ? s.co : s.ci, flip ? s.ci : s.co, ms[first_weight + i], c.packed.s};
     }
     pack_weights_bf16_kernel<<<grid, NT, 0, c.st>>>(list, flip);
@@ -789,14 +816,23 @@ int pack_weights(const Call& c, void* const* p, const long long* ms, int first_w
   return launched(K_PACK);
 }
 
-// Tensor-core conv; with `stats` also the BN statistics of its output.
+// Tensor-core conv (f32: conv_rows.cuh, bf16: conv_rows_bf16.cuh); with
+// `stats` also the BN statistics of its output.
 template <typename T>
 int conv_tc(const Call& c, Arr<T> x, FArr wp, FArr add, Arr<T> mask, FArr y, FArr stats, int Ci,
             int Co, int taps) {
   int bm = 0;
-  const conv::ConvStrides ms{x.s, wp.s, add.s, mask.s, y.s, c.stat.s};
-  CHECK(conv::launch_conv<T>(x.p, wp.p, add.p, mask.p, y.p, stats.p ? c.stat.p : nullptr, c.valid,
-                             c.R, c.S, Ci, Co, taps, c.M, ms, &bm, c.st));
+  // the packed weights' member stride counts floats; bf16 reads them as bf16
+  const long long wp_s = wp.s * static_cast<long long>(sizeof(float) / sizeof(T));
+  const conv::ConvStrides ms{x.s, wp_s, add.s, mask.s, y.s, c.stat.s};
+  double* partial = stats.p ? c.stat.p : nullptr;
+  if constexpr (tc::kIsBf16<T>) {
+    CHECK(convbf::launch_conv(x.p, reinterpret_cast<const bf16*>(wp.p), add.p, mask.p, y.p, partial,
+                              c.valid, c.R, c.S, Ci, Co, taps, c.M, ms, &bm, c.st));
+  } else {
+    CHECK(conv::launch_conv(x.p, wp.p, add.p, mask.p, y.p, partial, c.valid, c.R, c.S, Ci, Co, taps,
+                            c.M, ms, &bm, c.st));
+  }
   ++g_launches[K_CONV_TC];
   if (!stats.p) return 0;
   bn_stats_final_kernel<<<dim3(Co / kFinalCols, c.M), kFinalThreads, 0, c.st>>>(
@@ -811,16 +847,22 @@ int sum_chunks(const Call& c, Arr<T> out, int n, int chunks) {
   return launched(K_SUM_CHUNKS);
 }
 
+template <int TAPS>
+int launch_wgrad(const Call& c, Arr<float> x, Arr<float> g, int Ci, int Co, int* chunks) {
+  return conv::launch_wgrad<TAPS>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s, c.wg.s,
+                                  chunks, c.st);
+}
+
+template <int TAPS>
+int launch_wgrad(const Call& c, Arr<bf16> x, Arr<bf16> g, int Ci, int Co, int* chunks) {
+  return convbf::launch_wgrad<TAPS>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s, c.wg.s,
+                                    chunks, c.st);
+}
+
 template <typename T>
 int wgrad_tc(const Call& c, Arr<T> x, Arr<T> g, Arr<T> out, int Ci, int Co, int taps) {
   int chunks = 0;
-  if (taps == 9) {
-    CHECK((conv::launch_wgrad<T, 9>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s,
-                                    c.wg.s, &chunks, c.st)));
-  } else {
-    CHECK((conv::launch_wgrad<T, 1>(x.p, g.p, c.wg.p, c.valid, c.R, c.S, Ci, Co, c.M, x.s, g.s,
-                                    c.wg.s, &chunks, c.st)));
-  }
+  CHECK(taps == 9 ? launch_wgrad<9>(c, x, g, Ci, Co, &chunks) : launch_wgrad<1>(c, x, g, Ci, Co, &chunks));
   ++g_launches[K_WGRAD_TC];
   return sum_chunks(c, out, taps * Ci * Co, chunks);
 }

@@ -35,9 +35,9 @@ the conv outputs, BatchNorm and its statistics stay f32; the embedding
 comes out in bf16 and every gradient in its input's dtype. The backward
 rounds the gradient that enters a product to bf16, as the JAX kernel's
 backward does. On CUDA tensors that is K2-bf16/K3-bf16
-(``deep_resnet_embed_fwd_bf16``/``_bwd_bf16``, one bf16 ``mma.sync`` per
-product); on CPU tensors the plain version with the same rounding. Any
-other dtype raises.
+(``deep_resnet_embed_fwd_bf16``/``_bwd_bf16``, one bf16 ``wgmma`` product
+per product, ``csrc/conv_rows_bf16.cuh``); on CPU tensors the plain version
+with the same rounding. Any other dtype raises.
 
 The image border is a table the kernels are given: ``tap_validity`` builds
 it here, where the CPU tests reach it (``tests/test_torch_embedding.py``

@@ -35,19 +35,26 @@ program; generation renders 352 sequences at 5 PSF × 6 noise settings),
 generation renders 256 sequences in four noise variants and RL-TV-
 deconvolves one); an experiment's name with no mode runs it captured.
 
-``--compute-dtype bfloat16`` takes every mode but ``--embedding`` at bf16
+``--compute-dtype bfloat16`` takes every mode at bf16
 (``TrainConfig.compute_dtype``; the deep-ResNet arms then run
 K2-bf16/K3-bf16, which the layer split counts as the embedding too).
 
 ``--embedding B T S [B T S ...]`` instead profiles the embedding kernels
 alone: for each shape, device time by kernel over 5 calls of K2
 (``deep_resnet_embed_fwd``) and of K3 (``deep_resnet_embed_bwd``) on random
-inputs, in ms per call, with each kernel's launches per call.
+inputs, in ms per call, with each kernel's launches per call, and the wall
+ms per call of 20 calls without the profiler; with
+``--compute-dtype bfloat16``, of K2-bf16 and K3-bf16 on the same inputs
+rounded to bf16; with ``--members M``, over M members in one launch (the
+grids' member axis). Each line also carries a hash of K2's and K3's outputs
+on its inputs, so two builds of the kernels, each profiled from its own
+checkout, can be compared bitwise.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -188,27 +195,57 @@ def profile_experiment(torch, name: str, batch: int, fused: bool, dtype: str = "
     }
 
 
-def profile_embedding(torch, b: int, t: int, s: int, calls: int = 5):
-    """Device ms per call, by kernel, of K2 and of K3 at one shape."""
+def _digest(torch, fe, tensors, members: int) -> str:
+    """A hash of a K2 or K3 result's bytes: its tensors in order, each
+    (7, ., 128) per-BN row cut to its layer's channels (the kernels never
+    write the rest)."""
+    axis = 1 if members > 1 else 0
+    h = hashlib.sha256()
+    for v in tensors:
+        if v.ndim >= 2 + axis and v.shape[axis] == 7 and v.shape[-1] == 128:
+            parts = [v.select(axis, i)[..., :c] for i, (_, c) in enumerate(fe.BN_LAYOUT)]
+        else:
+            parts = [v]
+        for p in parts:
+            h.update(p.contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def profile_embedding(torch, b: int, t: int, s: int, calls: int = 5, dtype: str = "float32", members: int = 1):
+    """Device ms per call, by kernel, of K2 and of K3 (K2-bf16 and K3-bf16
+    with ``dtype`` bfloat16) at one shape, over ``members`` members."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
 
+    dt = getattr(torch, dtype)
+    fwd, bwd = fe.kernels_for(dt)
     gen = torch.Generator(device="cuda").manual_seed(b + t + s)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    lead = (members,) if members > 1 else ()
+    rand = lambda *shape: torch.randn(lead + shape, generator=gen, device="cuda").to(dt)  # noqa: E731
     weights = tuple(rand(*shape) / shape[0] ** 0.5 for _, shape in fe.WEIGHT_SHAPES)
     sc, bi = 1.0 + 0.1 * rand(7, 128), 0.1 * rand(7, 128)
     wfc, bfc = rand(128, 64) / 128 ** 0.5, 0.1 * rand(64)
     x, g = 0.3 * rand(b * t, s, s) + 0.1, rand(b * t, 64)
-    _, _, saved = fe.deep_resnet_embed_fwd(x, weights, sc, bi, wfc, bfc)
-    fe.deep_resnet_embed_bwd(x, weights, sc, bi, wfc, bfc, saved, g)
+    emb, stats, saved = fwd(x, weights, sc, bi, wfc, bfc)
+    grads = bwd(x, weights, sc, bi, wfc, bfc, saved, g)
     torch.cuda.synchronize()
-    row = {"embedding_shape": [b, t, s], "rows": b * t * s * s}
+    row = {"embedding_shape": [b, t, s], "members": members, "rows": members * b * t * s * s,
+           "compute_dtype": dtype,
+           "output_sha256": {
+               "k2": _digest(torch, fe, [emb, stats, *(saved[k] for k, _ in fe.SAVED), saved["pooled"]], members),
+               "k3": _digest(torch, fe, [grads[0], *grads[1], *grads[2:]], members)}}
     passes = {
-        "k2": lambda: fe.deep_resnet_embed_fwd(x, weights, sc, bi, wfc, bfc),
-        "k3": lambda: fe.deep_resnet_embed_bwd(x, weights, sc, bi, wfc, bfc, saved, g),
+        "k2": lambda: fwd(x, weights, sc, bi, wfc, bfc),
+        "k3": lambda: bwd(x, weights, sc, bi, wfc, bfc, saved, g),
     }
     for name, fn in passes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4 * calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (4 * calls)
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -221,6 +258,7 @@ def profile_embedding(torch, b: int, t: int, s: int, calls: int = 5):
             count[evt.name] += 1
             span.append((evt.time_range.start, evt.time_range.end))
         row[name] = {
+            "wall_ms_per_call": wall_ms,
             "device_ms_per_call": sum(by_name.values()) / 1e3 / calls,
             "busy_ms_per_call": _busy_us(span) / 1e3 / calls,
             "kernels": [[k[:70], v / 1e3 / calls, count[k] / calls]
@@ -238,6 +276,8 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--embedding", type=int, nargs="+", default=None, metavar="B_T_S",
                     help="profile K2/K3 alone at these (B, T, S) shapes")
+    ap.add_argument("--members", type=int, default=1,
+                    help="with --embedding: members in each launch (the grids' member axis)")
     ap.add_argument("--experiment", nargs="+", default=None,
                     choices=("captured", "eager", "baseline", "images_features", "modular", "psfnoise",
                              "denoising"),
@@ -278,7 +318,8 @@ def main() -> None:
         if len(args.embedding) % 3:
             ap.error("--embedding takes B T S triples")
         for i in range(0, len(args.embedding), 3):
-            emit(profile_embedding(torch, *args.embedding[i:i + 3]))
+            emit(profile_embedding(torch, *args.embedding[i:i + 3], dtype=args.compute_dtype,
+                                   members=args.members))
         return
     if args.experiment:
         names = [e for e in args.experiment if e not in ("captured", "eager")] or ["baseline"]

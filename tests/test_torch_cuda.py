@@ -706,10 +706,18 @@ def _bf16_leaves(args):
                  else a.detach().bfloat16().requires_grad_() for a in args)
 
 
-@pytest.mark.parametrize("b,t,s,e", [(1, 30, 9, 64), (1, 6, 13, 32), (3, 30, 9, 58)])
+# Shapes (B, T, S, E) that between them launch every tile of the bf16 conv
+# kernel (64 or 128 rows by 32, 64 or 128 columns, 32 or 64 channels a
+# stage; csrc/conv_rows_bf16.cuh) and both weight-gradient kernels: 2,430,
+# 10,140, 32,400, 38,880 and 162,240 rows, S = 9 and 13, E = 58 and 64.
+BF16_TILE_SHAPES = [(1, 30, 9, 64), (1, 60, 13, 64), (16, 25, 9, 58), (16, 30, 9, 64), (16, 60, 13, 64)]
+
+
+@pytest.mark.parametrize("b,t,s,e", [(1, 30, 9, 64), (1, 6, 13, 32), (3, 30, 9, 58), *BF16_TILE_SHAPES[1:]])
 def test_bf16_embedding_kernels_match_plain_bf16_on_card(cuda_device, b, t, s, e):
     """K2-bf16/K3-bf16 against the plain bf16 version (bf16 products, f32
-    accumulation, as the JAX kernel off its exact mode): the embedding bf16
+    accumulation, as the JAX kernel off its exact mode), at shapes that
+    launch every tile of their wgmma kernels: the embedding bf16
     and within 1e-2 relative L2 of the plain version's, the statistics f32
     within 1e-3 of each vector's largest value, every gradient bf16 and
     within 5e-2 relative L2 (``BF16_GRAD_L2_TOL`` in ``chip_smoke.py``);
@@ -770,3 +778,38 @@ def test_bf16_embedding_kernels_are_bitwise_repeatable_and_reject_mixed_dtypes(c
         tfe.deep_resnet_embed_fwd_bf16(*args[:4], args[4].float(), args[5])
     with pytest.raises(ValueError, match="float32"):
         tfe.deep_resnet_embed_fwd(*args)
+
+
+@pytest.mark.parametrize("m,b,t,s,e", [(7, 1, 30, 9, 64), *((2, *shape) for shape in BF16_TILE_SHAPES[1:])])
+def test_bf16_embedding_kernels_repeat_and_members_equal_single_launches_at_every_tile(cuda_device, m, b, t, s, e):
+    """K2-bf16/K3-bf16 over M members in one launch each, at the shapes of
+    every tile: every output of member i bitwise equal to a launch for
+    member i alone and to a second member launch."""
+    singles, xs, gs = [], [], []
+    for i in range(m):
+        x, kernels, scales, biases, wfc, bfc = _bf16_leaves(_embedding_args(b, t, s, cuda_device, seed=20 + i, e=e))
+        singles.append(_packed(kernels, scales, biases, wfc, bfc))
+        xs.append(x.detach().reshape(b * t, s, s).contiguous())
+        gs.append(torch.randn((b * t, e), generator=torch.Generator(device=cuda_device).manual_seed(i),
+                              device=cuda_device).bfloat16())
+    stacked = _stack_members(singles)
+    x_all, g_all = torch.stack(xs), torch.stack(gs)
+    emb, stats, saved = tfe.deep_resnet_embed_fwd_bf16(x_all, *stacked)
+    grads = tfe.deep_resnet_embed_bwd_bf16(x_all, *stacked, saved, g_all)
+    emb2, stats2, saved2 = tfe.deep_resnet_embed_fwd_bf16(x_all, *stacked)
+    grads2 = tfe.deep_resnet_embed_bwd_bf16(x_all, *stacked, saved, g_all)
+    assert torch.equal(emb, emb2) and all(torch.equal(saved[k], saved2[k]) for k, _ in tfe.SAVED)
+    assert torch.equal(grads[0], grads2[0]) and all(torch.equal(u, v) for u, v in zip(grads[1], grads2[1]))
+    for i in range(m):
+        emb1, stats1, saved1 = tfe.deep_resnet_embed_fwd_bf16(xs[i], *singles[i])
+        gx1, gw1, gsc1, gbi1, gwfc1, gbfc1 = tfe.deep_resnet_embed_bwd_bf16(xs[i], *singles[i], saved1, gs[i])
+        assert torch.equal(emb[i], emb1), f"member {i} embedding"
+        for j, (_, c) in enumerate(tfe.BN_LAYOUT):
+            assert torch.equal(stats[i, j, :, :c], stats1[j, :, :c]), f"member {i} statistics {j}"
+            assert torch.equal(grads[2][i, j, :c], gsc1[j, :c]) and torch.equal(grads[3][i, j, :c], gbi1[j, :c])
+        for name, _ in tfe.SAVED:
+            assert torch.equal(saved[name][i], saved1[name]), f"member {i} {name}"
+        assert torch.equal(grads[0][i], gx1)
+        for g_m, g1 in zip(grads[1], gw1):
+            assert torch.equal(g_m[i], g1)
+        assert torch.equal(grads[4][i], gwfc1) and torch.equal(grads[5][i], gbfc1)
