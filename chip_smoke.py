@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
 line each on stdout (a phase's line also carries ``t``, its process's
-seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-15 and 13 in eight
+seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-16 and 13 in eight
 processes of their own, each started while the one before runs:
 
 1. device: the card's name and power limit; build every kernel under
@@ -135,6 +135,13 @@ processes of their own, each started while the one before runs:
    mode, captured against eager at batch 16 (all seven arms, K2/K3 once a
    step of each deepcnn arm); a planted-transition set; ``detect_change_
    points`` on its per-frame predictions on the card against the CPU.
+16. sim2real (``phase_sim2real``): the sim-to-real study. The randomized
+   arm's panel render at one cycle's 6,400 frames with the 8 members'
+   sigmas in one K1 launch, against the plain version and bitwise against 8
+   one-sigma launches; ``realdata.sim2real.main --train-cycles 4
+   --movies-per-optics 1`` at full width (K2/K3 16 launches a cycle of each
+   arm, K1 one a cycle and one a test row); the nominal row's movie through
+   the pipeline on the card against the CPU with both arms' trained weights.
 
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
@@ -147,7 +154,7 @@ protocol-size framerate cycle. Each runner call (``run_experiment.main``)
 trains its one cycle, and the captured-against-eager cycles of phases 5-11
 run, at that cut size too (phases 13 and 15 compare at the protocol's 64).
 Phase 13 counts the baseline cycle's FLOPs once (they depend neither on the
-batch size nor on the dtype), phases 14-15 share phase 12's process, and
+batch size nor on the dtype), phases 14-16 share phase 12's process, and
 each group's process starts up while the group before it runs.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's (K1,
@@ -1914,47 +1921,62 @@ def phase_realdata(torch, card):
 def _realdata_card_against_cpu(torch, card):
     """Part (b) of phase realdata: the demo's movie rendered on the card,
     then every stage of the pipeline on the card and on the CPU from the
-    same stack. The TIFF round trip bitwise; the DoG at 1e-5 of its largest
-    value; every frame's peaks, the tracks and the fallback set identical;
-    the refined x/y within 1e-3 px, PSF size and fitted amplitude within
-    1e-3 relative; d_msd at 1e-5 relative and d_model at 1e-4 of the
-    largest |d_model| (one full-width patch model's random weights on both
-    devices)."""
+    same stack (``_pipeline_card_against_cpu``), with one full-width patch
+    model's random weights on both devices."""
     import copy
     import tempfile
 
     import numpy as np
 
     from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, init_model
-    from moleculardiffusion_mivit_tpu_torch.ops.curve_fit import fit_gaussian_2d
-    from moleculardiffusion_mivit_tpu_torch.realdata import (
-        demo,
-        detect_particles_stack,
-        estimate_d_for_tracks,
-        extract_particle_patches,
-        read_tiff_stack,
-        refine_localizations,
-        track_particles,
-    )
+    from moleculardiffusion_mivit_tpu_torch.realdata import demo, read_tiff_stack
     from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
 
     with tempfile.TemporaryDirectory() as tmp:
         movie = demo.make_movie(f"{tmp}/m.tif", seeded_generator("cuda", 0, 3))
         stack = read_tiff_stack(f"{tmp}/m.tif")
     check(np.array_equal(stack, movie), "realdata: the TIFF round trip is not bitwise")
+    model = init_model(GeneralTransformer(demo.MODEL_CONFIG, embedding="deep_resnet"),
+                       torch.Generator().manual_seed(5)).eval()
+    model_cpu, model = copy.deepcopy(model), model.cuda()
+    row = _pipeline_card_against_cpu(torch, stack, {"random": (model, model_cpu)}, "realdata")
+    check(row["tracks"] == 6, f"realdata: {row['tracks']} tracks, not 6")
+    emit({"phase": "realdata", "part": "b_card_vs_cpu", "card": card, **row})
+
+
+def _pipeline_card_against_cpu(torch, stack, models: dict, phase: str) -> dict:
+    """Every stage of the pipeline on the card and on the CPU from the same
+    stack: the DoG at 1e-5 of its largest value; every frame's peaks, the
+    tracks and the fallback set identical; the refined x/y within 1e-3 px,
+    PSF size and fitted amplitude within 1e-3 relative; then per model
+    (``{name: (card module, CPU module)}``, the same weights) d_msd at 1e-5
+    relative and d_model at 1e-4 of the largest |d_model|, both devices from
+    the CPU's refined positions."""
+    import numpy as np
+
+    from moleculardiffusion_mivit_tpu_torch.ops.curve_fit import fit_gaussian_2d
+    from moleculardiffusion_mivit_tpu_torch.realdata import (
+        demo,
+        detect_particles_stack,
+        estimate_d_for_tracks,
+        extract_particle_patches,
+        refine_localizations,
+        track_particles,
+    )
+
     coords, dog = detect_particles_stack(stack, min_distance=5, device="cuda")
     coords_cpu, dog_cpu = detect_particles_stack(stack, min_distance=5, device="cpu")
     dog_err = float(np.abs(dog - dog_cpu).max())
-    check(dog_err <= 1e-5 * float(np.abs(dog_cpu).max()), f"realdata: DoG max|Δ| {dog_err} to the CPU")
-    check(all(np.array_equal(a, b) for a, b in zip(coords, coords_cpu)), "realdata: peaks differ from the CPU's")
+    check(dog_err <= 1e-5 * float(np.abs(dog_cpu).max()), f"{phase}: DoG max|Δ| {dog_err} to the CPU")
+    check(all(np.array_equal(a, b) for a, b in zip(coords, coords_cpu)), f"{phase}: peaks differ from the CPU's")
     tracks, dets, _ = track_particles(stack, device="cuda", **demo.TRACKING)
     tracks_cpu, dets_cpu, _ = track_particles(stack, device="cpu", **demo.TRACKING)
-    check(tracks == tracks_cpu and dets == dets_cpu and len(tracks) == 6, "realdata: tracks differ from the CPU's")
+    check(tracks == tracks_cpu and dets == dets_cpu and len(tracks) > 0, f"{phase}: tracks differ from the CPU's")
     patches = extract_particle_patches(stack, tracks, demo.PATCH)
     refined = refine_localizations(tracks, patches, demo.PATCH, device="cuda")
     refined_cpu = refine_localizations(tracks, patches, demo.PATCH, device="cpu")
     fallback = {k for k, v in refined.items() if v["psf_size"] == 10.0}
-    check(fallback == {k for k, v in refined_cpu.items() if v["psf_size"] == 10.0}, "realdata: fallback sets differ")
+    check(fallback == {k for k, v in refined_cpu.items() if v["psf_size"] == 10.0}, f"{phase}: fallback sets differ")
     xy_err = max(abs(refined[k][c] - v[c]) for k, v in refined_cpu.items() for c in ("x_refined", "y_refined"))
     psf_err = max(abs(refined[k]["psf_size"] - v["psf_size"]) / v["psf_size"] for k, v in refined_cpu.items())
     flat = torch.tensor(np.concatenate(list(patches.values())))
@@ -1962,29 +1984,28 @@ def _realdata_card_against_cpu(torch, card):
     amp_cpu = fit_gaussian_2d(flat)[0][:, 0]
     amp_err = float(((amp - amp_cpu).abs() / amp_cpu.abs()).max())
     check(xy_err <= 1e-3 and psf_err <= 1e-3 and amp_err <= 1e-3,
-          f"realdata: refined x/y {xy_err} px, PSF {psf_err}, amplitude {amp_err} relative to the CPU")
-
-    model = init_model(GeneralTransformer(demo.MODEL_CONFIG, embedding="deep_resnet"),
-                       torch.Generator().manual_seed(5)).eval()
-    model_cpu, model = copy.deepcopy(model), model.cuda()
+          f"{phase}: refined x/y {xy_err} px, PSF {psf_err}, amplitude {amp_err} relative to the CPU")
 
     def predictor(m):
         return lambda videos: m(videos).detach()
 
     kw = dict(patch_size=demo.PATCH, background_mean=demo.BG_MEAN, background_sigma=demo.BG_SIGMA,
               theoretical_max=demo.THEO_MAX, msd_calibration=0.375, refined_positions=refined_cpu)
-    with torch.no_grad():
-        d = estimate_d_for_tracks(tracks, stack, predictor(model), device="cuda", **kw)
-        d_cpu = estimate_d_for_tracks(tracks, stack, predictor(model_cpu), device="cpu", **kw)
-    scale = max(abs(v["d_model"]) for v in d_cpu.values())  # random weights: a track's D may lie near 0
-    model_err = max(abs(d[k]["d_model"] - v["d_model"]) for k, v in d_cpu.items()) / scale
-    msd_err = max(abs(d[k]["d_msd"] - v["d_msd"]) / abs(v["d_msd"]) for k, v in d_cpu.items())
-    check(model_err <= 1e-4 and msd_err <= 1e-5,
-          f"realdata: d_model {model_err}, d_msd {msd_err} relative to the CPU")
-    emit({"phase": "realdata", "part": "b_card_vs_cpu", "card": card, "tracks": len(tracks),
-          "fits": len(refined), "fallbacks": len(fallback), "dog_max_abs_err": dog_err,
-          "refined_xy_max_abs_err_px": xy_err, "psf_max_rel_err": psf_err, "amplitude_max_rel_err": amp_err,
-          "d_model_max_rel_err": model_err, "d_msd_max_rel_err": msd_err})
+    row = {"tracks": len(tracks), "fits": len(refined), "fallbacks": len(fallback), "dog_max_abs_err": dog_err,
+           "refined_xy_max_abs_err_px": xy_err, "psf_max_rel_err": psf_err, "amplitude_max_rel_err": amp_err}
+    for name, (model, model_cpu) in models.items():
+        model.eval()
+        model_cpu.eval()
+        with torch.no_grad():
+            d = estimate_d_for_tracks(tracks, stack, predictor(model), device="cuda", **kw)
+            d_cpu = estimate_d_for_tracks(tracks, stack, predictor(model_cpu), device="cpu", **kw)
+        scale = max(abs(v["d_model"]) for v in d_cpu.values())  # random weights: a track's D may lie near 0
+        model_err = max(abs(d[k]["d_model"] - v["d_model"]) for k, v in d_cpu.items()) / scale
+        msd_err = max(abs(d[k]["d_msd"] - v["d_msd"]) / abs(v["d_msd"]) for k, v in d_cpu.items())
+        check(model_err <= 1e-4 and msd_err <= 1e-5,
+              f"{phase}: {name} d_model {model_err}, d_msd {msd_err} relative to the CPU")
+        row[f"{name}_d_model_max_rel_err"], row[f"{name}_d_msd_max_rel_err"] = model_err, msd_err
+    return row
 
 
 def _realdata_camera_stack(torch, card):
@@ -2047,6 +2068,117 @@ def _realdata_camera_stack(torch, card):
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
     emit({"phase": "realdata", "part": "d_camera", "card": card, **row})
     return row
+
+
+def phase_sim2real(torch, card):
+    """The sim-to-real study (``realdata/sim2real.py``) at full width.
+
+    (a) The randomized arm's panel render at the protocol's size: one
+    cycle's 256 patch-following sequences × 25 frames (6,400 frames, P = 10,
+    S = 9, u = 5) with each of the 8 members' sigma and intensities, in one
+    K1 launch, against the plain version (1e-5 of the largest pixel) and
+    against 8 one-sigma launches (bitwise), timed beside both. (b) + (c)
+    The study through its entry point (``sim2real.main --train-cycles 4
+    --movies-per-optics 1``): both arms trained 4 cycles of 256 sequences at
+    batch 16 (K2/K3 once a step, K1 once a cycle: the panel's 8 sigmas in
+    one launch), finite losses; one movie of each of the 7 test rows (one K1
+    launch a row) scored by both arms, every row with a track and finite
+    MAEs. Then the nominal row's movie through the pipeline on the card and
+    on the CPU with both arms' trained weights (``_pipeline_card_against_cpu``).
+    (d) Each stage's seconds. The path's launches are counted over (b) and
+    (c)'s entry-point run."""
+    import copy
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch.ops.render import render_frames, render_frames_reference
+    from moleculardiffusion_mivit_tpu_torch.realdata import demo, sim2real
+    from moleculardiffusion_mivit_tpu_torch.sim import brownian_motion
+    from moleculardiffusion_mivit_tpu_torch.sim.render import widefield_subpositions
+    from moleculardiffusion_mivit_tpu_torch.train.capture import launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    t_phase = time.perf_counter()
+    panel = sim2real.RAND_PANEL
+    k, per, t, p, s, u = len(panel), 256 // len(panel), 25, demo.N_POS, demo.PATCH, demo.OPTICS.upsampling_factor
+    g = seeded_generator("cuda", 14)
+    n = k * per
+    d = 0.02 + 0.98 * torch.rand((n,), generator=g, device="cuda")
+    seg = brownian_motion(g, n, t, p, d, dt=1.0).reshape(n, t, p, 2)
+    pos = (s - 1) / 2.0 + seg - seg.mean(dim=2, keepdim=True) + torch.rand((n, t, 1, 2), generator=g, device="cuda") - 0.5
+    x, y = (v.reshape(n * t, p).contiguous() for v in widefield_subpositions(pos.reshape(n, 1, t * p, 2), p, s, u))
+    z = torch.randn(x.shape, generator=g, device="cuda").reshape(k, per * t, p)
+    w = torch.cat([o.particle_intensity[0] / p + (o.particle_intensity[1] / p) * z[m] for m, o in enumerate(panel)])
+    sigmas = tuple(o.gaussian_sigma_hr for o in panel)
+    b, run = n * t, per * t
+    render = lambda: render_frames(x, y, w, sigmas, s, u)  # noqa: E731
+
+    def one_sigma_launches():
+        return torch.cat([render_frames(x[m * run:(m + 1) * run], y[m * run:(m + 1) * run], w[m * run:(m + 1) * run],
+                                        sig, s, u) for m, sig in enumerate(sigmas)])
+
+    def plain():
+        sig = torch.tensor(sigmas, dtype=torch.float32, device="cuda").view(k, 1, 1)
+        return render_frames_reference(*(v.reshape(k, run, p) for v in (x, y, w)), sig, s, u).reshape(b, s, s)
+
+    got, ref = render(), plain()
+    torch.cuda.synchronize()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()), "sim2real: non-finite panel frames")
+    check(err <= 1e-5 * scale, f"sim2real: panel render max|Δ| {err} > 1e-5·{scale}")
+    eight = one_sigma_launches()
+    eight_err = float((got - eight).abs().max())
+    check(eight_err <= 1e-5 * scale, f"sim2real: panel render differs from {k} one-sigma launches by {eight_err}")
+    check(torch.equal(got, render()), "sim2real: two panel renders differ")
+    nbytes = 4 * (3 * b * p + b * s * s)
+    bound_ms, by = bound(nbytes, b * p * (2 * s * u * 5 + 2 + s) + b * s * s * p * 2)
+    k1_panel = dict(B=b, P=p, S=s, u=u, members=k, max_abs_err=err, tol=1e-5 * scale,
+                    bitwise_equal_to_one_sigma_launches=bool(torch.equal(got, eight)),
+                    one_sigma_launches_max_abs_err=eight_err,
+                    ms=time_ms(torch, render, iters=100), device_ms=time_ms(torch, render, device_only=True),
+                    one_sigma_launches_ms=time_ms(torch, one_sigma_launches, iters=100),
+                    one_sigma_launches_device_ms=time_ms(torch, one_sigma_launches, device_only=True),
+                    plain_ms=time_ms(torch, plain), bound_ms=bound_ms, bound_by=by)
+    emit({"phase": "sim2real", "part": "a_panel_render", "card": card, **k1_panel})
+
+    # (b) and (c): the study through its entry point, its launches counted from here
+    counts0 = launch_counts()
+    cycles = 4
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the study's prose, off the JSON lines
+            study = sim2real.main(["--train-cycles", str(cycles), "--movies-per-optics", "1", "--out", out,
+                                   "--seed", "0"])
+        study_s = time.perf_counter() - t0
+        written = json.loads(Path(out, "sim2real.json").read_text())
+    launches = {name: v - counts0[name] for name, v in launch_counts().items()}
+    report = study.report
+    check(set(written) == {"d_true", "train_cycles", "movies_per_optics", "rows"}
+          and list(written["rows"]) == list(sim2real.TEST_OPTICS), f"sim2real: sim2real.json {written}")
+    for arm, trained in study.arms.items():
+        check(len(trained.losses) == cycles and all(math.isfinite(v) for v in trained.losses),
+              f"sim2real: {arm} losses {trained.losses}")
+    for name, row in report["rows"].items():
+        check(row is not None and row["n_tracks"] >= 1
+              and all(math.isfinite(row[c]) for c in ("fixed_mae", "randomized_mae", "msd_mae")),
+              f"sim2real: row {name}: {row}")
+    steps = 2 * cycles * (256 // 16)
+    for kernel in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[kernel] == steps, f"sim2real: {kernel} launches {launches[kernel]} != {steps}")
+    rows = len(sim2real.TEST_OPTICS)
+    check(launches["render_frames"] == 2 * cycles + rows,
+          f"sim2real: K1 launches {launches['render_frames']} != {2 * cycles} cycles + {rows} rows")
+    emit({"phase": "sim2real", "part": "bc_study", "card": card, "seconds": study_s, "rows": report["rows"],
+          "arms": report["arms"], "stage_s": report["stage_s"], "launches": launches})
+
+    # (c) the nominal row's movie on the card and on the CPU, both arms' trained weights
+    stack = sim2real.make_movies(seeded_generator("cuda", 0, 3, 0), sim2real.NOMINAL, 1)[0]
+    models = {arm: (trained.model, copy.deepcopy(trained.model).cpu()) for arm, trained in study.arms.items()}
+    with contextlib.redirect_stdout(sys.stderr):
+        row = _pipeline_card_against_cpu(torch, stack, models, "sim2real")
+    emit({"phase": "sim2real", "part": "c_card_vs_cpu", "card": card, "row": "nominal", **row})
+    emit({"phase": "sim2real", "part": "summary", "card": card, "k1_panel": k1_panel, "stage_s": report["stage_s"],
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # ------------------------------------------------------------------ bf16
@@ -2744,9 +2876,10 @@ def phase_changepoint(torch, card):
 PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features": phase_images_features,
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
          "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16,
-         "constrained": phase_constrained, "changepoint": phase_changepoint}
+         "constrained": phase_constrained, "changepoint": phase_changepoint, "sim2real": phase_sim2real}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
-               ("psfnoise",), ("denoising",), ("realdata", "constrained", "changepoint"), ("bf16",))
+               ("psfnoise",), ("denoising",), ("realdata", "constrained", "changepoint", "sim2real"),
+               ("bf16",))
 GROUP_TIMEOUT_S = 600
 
 

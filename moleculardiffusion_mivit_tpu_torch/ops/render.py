@@ -117,8 +117,10 @@ def _lib():
 
 def _kernel_sigma(sigma_hr, b: int):
     """A float for one sigma, or a tuple for one per PSF setting (a tuple or
-    list of K floats, K dividing the ``b`` frames). A sigma tensor with
-    axes (a per-frame or per-sub-position sigma) raises."""
+    list of K floats, 1 <= K <= ``MAX_SETTINGS``, K dividing the ``b``
+    frames). A sigma tensor with axes (a per-frame or per-sub-position
+    sigma) raises. Both devices check, so the plain version refuses what the
+    kernel refuses."""
     if isinstance(sigma_hr, torch.Tensor):
         if sigma_hr.ndim != 0:
             raise ValueError(
@@ -128,7 +130,9 @@ def _kernel_sigma(sigma_hr, b: int):
         return float(sigma_hr)
     if isinstance(sigma_hr, (tuple, list)):
         k = len(sigma_hr)
-        if k == 0 or b % k != 0:
+        if not 1 <= k <= MAX_SETTINGS:
+            raise ValueError(f"render_frames: {k} PSF settings outside the kernel's 1..{MAX_SETTINGS}")
+        if b % k != 0:
             raise ValueError(f"render_frames: {k} PSF settings do not divide B={b} frames into equal runs")
         return tuple(float(v) for v in sigma_hr)
     return float(sigma_hr)

@@ -34,6 +34,7 @@ import json
 import os
 import tempfile
 import time
+from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +52,12 @@ from moleculardiffusion_mivit_tpu_torch.realdata import (
     write_tiff_stack,
 )
 from moleculardiffusion_mivit_tpu_torch.realdata.stats import track_columns
-from moleculardiffusion_mivit_tpu_torch.sim import brownian_motion, normalize_images, render_widefield
+from moleculardiffusion_mivit_tpu_torch.sim import (
+    brownian_motion,
+    normalize_images,
+    render_widefield,
+    render_widefield_panel,
+)
 from moleculardiffusion_mivit_tpu_torch.train.loop import make_train_impls
 from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
 
@@ -109,33 +115,50 @@ def track_identities(tracks, refined) -> dict:
     return out
 
 
-def patch_sequences(generator: torch.Generator, n: int, n_frames: int):
+def patch_sequences(generator: torch.Generator, n: int, n_frames: int,
+                    optics_panel: Tuple[OpticsConfig, ...] = (OPTICS,)):
     """One cycle's training data on the generator's device: D ~ U(0.02,
     1.0) per sequence, Brownian sub-positions with the movie's per-step
     variance, each frame re-centred on the patch centre plus U(−0.5, 0.5) px
-    (the rounding of detection-centred patches), all ``n`` sequences
-    rendered in one ``render_widefield`` call and normalised as
-    ``estimate_d_for_tracks`` normalises real patches. Returns ``(videos (n,
-    n_frames, PATCH, PATCH), labels (n, 1))``."""
+    (the rounding of detection-centred patches), all sequences rendered in
+    one ``render_widefield_panel`` call (one K1 launch on the card) and
+    normalised as ``estimate_d_for_tracks`` normalises real patches.
+
+    ``optics_panel`` splits the sequences into equal runs of ``n //
+    len(optics_panel)``, run m rendered with member m (the JAX example
+    ``sim2real_robustness.py``'s randomized arm); the normalisation always
+    uses the nominal camera constants. Returns ``(videos (n', n_frames,
+    PATCH, PATCH), labels (n', 1))``, ``n'`` being ``n`` rounded down to a
+    multiple of the panel's length."""
     dev = generator.device
+    n = (n // len(optics_panel)) * len(optics_panel)
     d = 0.02 + 0.98 * torch.rand((n,), generator=generator, device=dev)
     sub = brownian_motion(generator, n, n_frames, N_POS, d, dt=1.0)
     seg = sub.reshape(n, n_frames, N_POS, 2)
     seg = seg - seg.mean(dim=2, keepdim=True)  # patch-following
     jitter = torch.rand((n, n_frames, 1, 2), generator=generator, device=dev) - 0.5
     pos = (PATCH - 1) / 2.0 + seg + jitter
-    videos = render_widefield(generator, pos.reshape(n, 1, n_frames * N_POS, 2), N_POS, PATCH, OPTICS)
+    videos = render_widefield_panel(generator, pos.reshape(n, 1, n_frames * N_POS, 2), N_POS, PATCH, optics_panel)
     videos, _ = normalize_images(videos, BG_MEAN, BG_SIGMA, THEO_MAX)
     return videos, d[:, None]
 
 
-def train_patch_model(n_frames: int, cycles: int, seed: int, device, seqs_per_cycle: int = SEQS_PER_CYCLE,
-                      batch_size: int = BATCH):
-    """Train the patch model (``MODEL_CONFIG``) for ``cycles`` cycles of
-    fresh sequences (one AdamW epoch each at lr 1e-4). Returns
-    ``(predict_fn, losses, seconds)``:
-    ``predict_fn(videos)`` gives eval-mode D, and the last two are each
+class PatchModel(NamedTuple):
+    """A trained patch model: ``predict(videos)`` gives eval-mode D;
+    ``model`` is the module itself; ``losses`` and ``seconds`` are each
     cycle's mean training loss and wall seconds."""
+
+    predict: Callable
+    model: torch.nn.Module
+    losses: List[float]
+    seconds: List[float]
+
+
+def train_patch_model(n_frames: int, cycles: int, seed: int, device, seqs_per_cycle: int = SEQS_PER_CYCLE,
+                      batch_size: int = BATCH, optics_panel: Tuple[OpticsConfig, ...] = (OPTICS,)) -> PatchModel:
+    """Train the patch model (``MODEL_CONFIG``) for ``cycles`` cycles of
+    fresh sequences (``patch_sequences`` over ``optics_panel``, one AdamW
+    epoch each at lr 1e-4)."""
     dev = resolve_device(device)
     cfg = TrainConfig(d_max_normalization=1.0, n_frames=n_frames, n_pos_per_frame=N_POS, lr=1e-4)
     impls = make_train_impls(GeneralTransformer(MODEL_CONFIG, embedding="deep_resnet"), cfg, dev)
@@ -143,13 +166,13 @@ def train_patch_model(n_frames: int, cycles: int, seed: int, device, seqs_per_cy
     losses, seconds = [], []
     for c in range(cycles):
         t0 = time.perf_counter()
-        videos, labels = patch_sequences(seeded_generator(dev, seed, 1, c), seqs_per_cycle, n_frames)
+        videos, labels = patch_sequences(seeded_generator(dev, seed, 1, c), seqs_per_cycle, n_frames, optics_panel)
         loss = impls.train_cycle(state, videos, labels, seeded_generator(dev, seed, 2, c), cfg.lr, batch_size)
         losses.append(float(loss))
         seconds.append(time.perf_counter() - t0)
         if (c + 1) % 10 == 0:
             print(f"  train cycle {c + 1}/{cycles}: loss {losses[-1]:.4f}", flush=True)
-    return (lambda videos: impls.evaluate(state, videos)), losses, seconds
+    return PatchModel(lambda videos: impls.evaluate(state, videos), state.model, losses, seconds)
 
 
 def _print_table(cols, rows: int = 8) -> None:
@@ -195,7 +218,7 @@ def main(argv=None) -> dict:
     _print_table(track_columns(tracks, refined))
 
     print(f"\ntraining patch model ({args.train_cycles} cycles)…", flush=True)
-    predict_fn, losses, cycle_s = train_patch_model(
+    predict_fn, _, losses, cycle_s = train_patch_model(
         max(len(p) for p in tracks.values()), args.train_cycles, args.seed, dev, SEQS_PER_CYCLE)
 
     # MSD(τ=1) of exposure-averaged positions = 4·D·(2/3) (the blur factor of

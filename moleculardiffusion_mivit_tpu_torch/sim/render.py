@@ -51,15 +51,18 @@ def _pooled_gaussian_1d(
 
 def render_frames_core(x_hr, y_hr, intensities, sigma_hr, output_size: int, upsampling_factor: int):
     """Render noise-free frames ``(..., S, S)`` from ``(..., P)`` HR-grid
-    sub-positions and intensities, with peak renormalisation. CUDA tensors go
-    through kernel K1 (scalar sigma only; anything else raises); CPU tensors
-    through its plain version, which also takes a broadcastable sigma."""
+    sub-positions and intensities, with peak renormalisation. ``sigma_hr``
+    is one sigma, or a tuple of K (one per PSF setting: the frames, flattened
+    to ``(B, P)``, are K equal runs, run k rendered with ``sigma_hr[k]``).
+    CUDA tensors go through kernel K1 (``ops/render.py``, one launch for all
+    settings; a sigma tensor with axes raises); CPU tensors through its plain
+    version, which also takes a sigma tensor broadcastable to ``(..., P)``."""
     from moleculardiffusion_mivit_tpu_torch.ops.render import (
         render_frames,
         render_frames_reference,
     )
 
-    if not x_hr.is_cuda:
+    if not x_hr.is_cuda and not isinstance(sigma_hr, (tuple, list)):
         return render_frames_reference(
             x_hr, y_hr, intensities, sigma_hr, output_size, upsampling_factor
         )
@@ -94,13 +97,16 @@ def _prepare_subpositions(
     return seg[..., 0], seg[..., 1]
 
 
-def _clipped_background(generator: torch.Generator, shape, bg_mean: float, bg_std: float) -> torch.Tensor:
-    """``clip(N(mean, std), 0, mean + 3 std)`` additive background."""
-    noise = torch.randn(shape, generator=generator, device=generator.device) * torch.tensor(
-        bg_std, dtype=torch.float32
-    )
+def _clip_background(noise: torch.Tensor, bg_mean: float, bg_std: float) -> torch.Tensor:
+    """``clip(mean + std·noise, 0, mean + 3 std)`` of standard normal ``noise``."""
+    noise = noise * torch.tensor(bg_std, dtype=torch.float32)
     hi = torch.tensor(bg_mean + 3.0 * bg_std, dtype=torch.float32)
     return torch.clamp(torch.tensor(bg_mean, dtype=torch.float32) + noise, 0.0, float(hi))
+
+
+def _clipped_background(generator: torch.Generator, shape, bg_mean: float, bg_std: float) -> torch.Tensor:
+    """``clip(N(mean, std), 0, mean + 3 std)`` additive background."""
+    return _clip_background(torch.randn(shape, generator=generator, device=generator.device), bg_mean, bg_std)
 
 
 def _poisson(generator: torch.Generator, lam: torch.Tensor) -> torch.Tensor:
@@ -315,20 +321,57 @@ def render_widefield(
     Each (frame, sub-position) draws its intensity ``mean/p + (std/p)·N``;
     then the clipped background is added and the frames are multiplied by
     ``Pois(k)/k`` (a fixed rate ``k = optics.poisson_noise``; -1 disables
-    it). ``generator`` lies on the trajectories' device."""
-    p, s, u = n_pos_per_frame, field_size, optics.upsampling_factor
-    part_mean, part_std = optics.particle_intensity
-    bg_mean, bg_std = optics.background_intensity
+    it). ``generator`` lies on the trajectories' device. It is the
+    one-member ``render_widefield_panel``."""
+    return render_widefield_panel(generator, trajectories_px, n_pos_per_frame, field_size, (optics,))
+
+
+def _per_member(panel, fn, *tensors) -> torch.Tensor:
+    """``fn(optics, *runs)`` on each member's equal run of the tensors'
+    leading axis, concatenated (one member: ``fn(panel[0], *tensors)``)."""
+    if len(panel) == 1:
+        return fn(panel[0], *tensors)
+    runs = zip(*(t.chunk(len(panel)) for t in tensors))
+    return torch.cat([fn(o, *run) for o, run in zip(panel, runs)])
+
+
+def render_widefield_panel(
+    generator: torch.Generator,
+    trajectories_px: torch.Tensor,
+    n_pos_per_frame: int = 1,
+    field_size: int = 63,
+    panel: Tuple[OpticsConfig, ...] = (OpticsConfig(),),
+) -> torch.Tensor:
+    """``render_widefield`` over a panel of optics, as the JAX example
+    ``sim2real_robustness.py`` renders its randomized arm (a ``jax.vmap`` of
+    ``render_widefield`` per member): ``trajectories_px (N, K, T, 2)`` →
+    ``(N, F, S, S)``, the N movies split into ``len(panel)`` equal runs,
+    run m rendered with ``panel[m]``'s PSF sigma, intensity, clipped
+    background and Poisson level. All ``N·F`` frames render in one K1
+    launch on the card, with a sigma per member (at most ``ops.render.
+    MAX_SETTINGS``). Each draw (intensities, background, shot noise) is one
+    call for the whole panel, so a one-member panel is ``render_widefield``
+    draw for draw. ``generator`` lies on the trajectories' device."""
+    if len({o.upsampling_factor for o in panel}) != 1:
+        raise ValueError("render_widefield_panel: the panel's members differ in upsampling factor")
+    p, s, u = n_pos_per_frame, field_size, panel[0].upsampling_factor
+    if len(panel) > 1 and (trajectories_px.ndim != 4 or trajectories_px.shape[0] % len(panel)):
+        raise ValueError(f"render_widefield_panel: {len(panel)} members need (N, K, T, 2) trajectories with N a "
+                         f"multiple of {len(panel)}, got {tuple(trajectories_px.shape)}")
     x_hr, y_hr = widefield_subpositions(trajectories_px, p, s, u)
-    intensities = part_mean / p + (part_std / p) * torch.randn(
-        x_hr.shape, generator=generator, device=x_hr.device
-    )
-    frames = render_frames_core(x_hr, y_hr, intensities, optics.gaussian_sigma_hr, s, u)
-    frames = frames + _clipped_background(generator, frames.shape, bg_mean, bg_std)
-    if optics.poisson_noise != -1:
-        kk = float(optics.poisson_noise)
-        lam = torch.full(frames.shape, kk, dtype=torch.float32, device=frames.device)
-        frames = frames * _poisson(generator, lam) / kk
+    z = torch.randn(x_hr.shape, generator=generator, device=x_hr.device)
+    intensities = _per_member(panel, lambda o, z: o.particle_intensity[0] / p + (o.particle_intensity[1] / p) * z, z)
+    sigmas = tuple(o.gaussian_sigma_hr for o in panel)
+    frames = render_frames_core(x_hr, y_hr, intensities, sigmas if len(set(sigmas)) > 1 else sigmas[0], s, u)
+    z = torch.randn(frames.shape, generator=generator, device=frames.device)
+    frames = frames + _per_member(panel, lambda o, z: _clip_background(z, *o.background_intensity), z)
+    if any(o.poisson_noise != -1 for o in panel):
+        # members without shot noise draw at rate 1 and leave their frames as they are
+        rate = lambda o: 1.0 if o.poisson_noise == -1 else float(o.poisson_noise)  # noqa: E731
+        lam = _per_member(panel, lambda o, f: torch.full(f.shape, rate(o), dtype=torch.float32, device=f.device),
+                          frames)
+        counts = _poisson(generator, lam)
+        frames = _per_member(panel, lambda o, f, c: f if o.poisson_noise == -1 else f * c / rate(o), frames, counts)
     return frames
 
 
