@@ -83,19 +83,15 @@ def _launch_constants(sigma, p: int, s: int, u: int):
     """``(frames_per_block, -log2(e)/(2 sigma^2), grid step)`` for a launch,
     after the checks that depend on the shape alone. The kernel takes a
     Gaussian as ``2 ** (d*d * factor)``. ``sigma`` is a float, or a tuple of
-    one per PSF setting, and then the factor is the tuple of theirs."""
+    one per PSF setting (its count checked by ``_kernel_sigma``), and then
+    the factor is the tuple of theirs."""
     if not (1 <= s <= MAX_OUTPUT and 1 <= u and s * u <= MAX_GRID):
         raise ValueError(
             f"render_frames: S={s}, S*u={s * u} outside the kernel's S <= {MAX_OUTPUT}, S*u <= {MAX_GRID}"
         )
     if shared_memory_bytes(p, s) > _SMEM_LIMIT:
         raise ValueError(f"render_frames: P={p}, S={s}, u={u} needs more than 227 KB of shared memory")
-    if isinstance(sigma, tuple):
-        if not 1 <= len(sigma) <= MAX_SETTINGS:
-            raise ValueError(f"render_frames: {len(sigma)} PSF settings outside the kernel's 1..{MAX_SETTINGS}")
-        factor = tuple(_exp2_factor(v) for v in sigma)
-    else:
-        factor = _exp2_factor(sigma)
+    factor = tuple(_exp2_factor(v) for v in sigma) if isinstance(sigma, tuple) else _exp2_factor(sigma)
     return block_layout(p, s)[2], factor, float(grid_step(s * u))
 
 

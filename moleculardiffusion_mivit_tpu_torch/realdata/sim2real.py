@@ -153,17 +153,19 @@ def make_movies(generator: torch.Generator, optics, n_movies: int) -> np.ndarray
     return render_widefield(generator, trajs, N_POS, FIELD, optics).cpu().numpy()
 
 
-def analyze_movie(stack: np.ndarray, predictors: dict, device, stage: Optional[dict] = None):
-    """The full pipeline on one stack, as the example's ``score_movie``:
-    ``(tracks, refined, {arm: estimate_d_for_tracks(...)})``, or ``None``
-    when no track of 10 frames is found. Adds each stage's seconds to
-    ``stage``."""
+def score_movie(path: str, predictors: dict, device, stage: Optional[dict] = None) -> Optional[dict]:
+    """The example's ``score_movie``, unrounded: read the TIFF, run the full
+    pipeline, and return ``{"n_tracks", <arm>: mean |D̂ − D_TRUE|, ...,
+    "msd": the MSD baseline's}`` with each arm's and the baseline's
+    per-track estimates, or ``None`` when no track of 10 frames is found.
+    Adds each stage's seconds to ``stage``."""
     dev = resolve_device(device)
     stage = {} if stage is None else stage
 
     def add(name, t0):
         stage[name] = stage.get(name, 0.0) + time.perf_counter() - t0
 
+    stack = read_tiff_stack(path)
     tracks, _, _ = analyze_microscopy_sequence(stack, device=dev, **demo.TRACKING)
     stage["detect"] = stage.get("detect", 0.0) + track_particles.seconds["detect"]
     stage["track"] = stage.get("track", 0.0) + track_particles.seconds["link"]
@@ -183,18 +185,6 @@ def analyze_movie(stack: np.ndarray, predictors: dict, device, stage: Optional[d
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     add("predict", t0)
-    return tracks, refined, results
-
-
-def score_movie(path: str, predictors: dict, device, stage: Optional[dict] = None) -> Optional[dict]:
-    """The example's ``score_movie``, unrounded: read the TIFF, run the
-    pipeline, and return ``{"n_tracks", <arm>: mean |D̂ − D_TRUE|, ...,
-    "msd": the MSD baseline's}`` with each arm's and the baseline's
-    per-track estimates, or ``None`` without a track."""
-    found = analyze_movie(read_tiff_stack(path), predictors, device, stage)
-    if found is None:
-        return None
-    tracks, _, results = found
     row = {"n_tracks": len(tracks)}
     for arm, res in results.items():
         d_model = np.asarray([r["d_model"] for r in res.values()])

@@ -347,13 +347,16 @@ def render_widefield_panel(
     ``render_widefield`` per member): ``trajectories_px (N, K, T, 2)`` →
     ``(N, F, S, S)``, the N movies split into ``len(panel)`` equal runs,
     run m rendered with ``panel[m]``'s PSF sigma, intensity, clipped
-    background and Poisson level. All ``N·F`` frames render in one K1
+    background and Poisson level (every member with shot noise, or none).
+    All ``N·F`` frames render in one K1
     launch on the card, with a sigma per member (at most ``ops.render.
     MAX_SETTINGS``). Each draw (intensities, background, shot noise) is one
     call for the whole panel, so a one-member panel is ``render_widefield``
     draw for draw. ``generator`` lies on the trajectories' device."""
     if len({o.upsampling_factor for o in panel}) != 1:
         raise ValueError("render_widefield_panel: the panel's members differ in upsampling factor")
+    if len({o.poisson_noise == -1 for o in panel}) != 1:
+        raise ValueError("render_widefield_panel: the panel mixes members with and without shot noise")
     p, s, u = n_pos_per_frame, field_size, panel[0].upsampling_factor
     if len(panel) > 1 and (trajectories_px.ndim != 4 or trajectories_px.shape[0] % len(panel)):
         raise ValueError(f"render_widefield_panel: {len(panel)} members need (N, K, T, 2) trajectories with N a "
@@ -365,13 +368,10 @@ def render_widefield_panel(
     frames = render_frames_core(x_hr, y_hr, intensities, sigmas if len(set(sigmas)) > 1 else sigmas[0], s, u)
     z = torch.randn(frames.shape, generator=generator, device=frames.device)
     frames = frames + _per_member(panel, lambda o, z: _clip_background(z, *o.background_intensity), z)
-    if any(o.poisson_noise != -1 for o in panel):
-        # members without shot noise draw at rate 1 and leave their frames as they are
-        rate = lambda o: 1.0 if o.poisson_noise == -1 else float(o.poisson_noise)  # noqa: E731
-        lam = _per_member(panel, lambda o, f: torch.full(f.shape, rate(o), dtype=torch.float32, device=f.device),
-                          frames)
-        counts = _poisson(generator, lam)
-        frames = _per_member(panel, lambda o, f, c: f if o.poisson_noise == -1 else f * c / rate(o), frames, counts)
+    if panel[0].poisson_noise != -1:
+        lam = _per_member(panel, lambda o, f: torch.full(f.shape, float(o.poisson_noise), dtype=torch.float32,
+                                                         device=f.device), frames)
+        frames = _per_member(panel, lambda o, f, c: f * c / float(o.poisson_noise), frames, _poisson(generator, lam))
     return frames
 
 

@@ -12,9 +12,9 @@ the runs).
   constant predictor: the MSD column, no training. Writes ``jax_msd.json``.
 - ``--jax-seeds K``: the example's whole study (both arms, 60 cycles each,
   its ``train_patch_model`` at ``seed = 42 + k``, then its ``score_movie``
-  on the key-0 movies), JAX on the CPU, each seed stopped after
-  ``--jax-seed-limit`` seconds (the rule's 30 min; the stop takes effect
-  when the running compiled cycle returns). Writes ``jax_seeds.json`` with
+  on the key-0 movies), JAX on the CPU, each seed stopped after the rule's
+  30 min (``JAX_SEED_LIMIT_S``; the stop takes effect when the running
+  compiled cycle returns). Writes ``jax_seeds.json`` with
   each seed's seconds, whether it finished, and the progress lines the
   example printed (one every 20 cycles) with their times.
 - Without either it judges the written files against the port's seeds
@@ -217,7 +217,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jax-msd", type=int, default=0, help="JAX's MSD column over this many render keys")
     ap.add_argument("--jax-seeds", type=int, default=0, help="the example's whole study at this many seeds")
-    ap.add_argument("--jax-seed-limit", type=float, default=JAX_SEED_LIMIT_S, help="seconds before a seed stops")
     ap.add_argument("--out", default=str(OUT))
     ap.add_argument("port_dirs", nargs="*", default=[str(p) for p in PORT_DIRS])
     args = ap.parse_args(argv)
@@ -237,7 +236,7 @@ def main(argv=None) -> int:
             {"keys": keys, "seconds": time.perf_counter() - t0,
              "command": f"python3 sim2real_outcome.py --jax-msd {args.jax_msd}"}, indent=1) + "\n")
     if args.jax_seeds:
-        seeds = [jax_seed(ex, k, args.jax_seed_limit) for k in range(args.jax_seeds)]
+        seeds = [jax_seed(ex, k, JAX_SEED_LIMIT_S) for k in range(args.jax_seeds)]
         (out / "jax_seeds.json").write_text(json.dumps(
             {"seeds": seeds, "command": f"python3 sim2real_outcome.py --jax-seeds {args.jax_seeds}"},
             indent=1) + "\n")

@@ -151,7 +151,7 @@ def test_k1_launch_constants_for_a_sigma_per_setting_need_no_card():
     np.testing.assert_allclose(factors, [-np.log2(np.e) / (2 * s * s) for s in sigmas], rtol=1e-6)
     assert factors == tuple(trender_ops._launch_constants(s, 10, 9, 5)[1] for s in sigmas)
     with pytest.raises(ValueError, match="PSF settings outside"):
-        trender_ops._launch_constants((5.0,) * 9, 10, 9, 5)
+        trender_ops._kernel_sigma((5.0,) * 9, 18)
     with pytest.raises(ValueError, match="do not divide"):
         trender_ops._kernel_sigma((5.0, 4.0, 3.0), 10)
     with pytest.raises(ValueError, match="scalar sigma"):

@@ -260,6 +260,19 @@ def test_k1_refuses_more_than_eight_settings_on_both_devices():
                                sim2real.RAND_PANEL)
 
 
+def test_panel_refuses_members_with_and_without_shot_noise():
+    """A panel's members all draw shot noise, or none does; a panel that
+    mixes them raises, and a panel without shot noise keeps its clipped
+    background only (no frame value below zero)."""
+    pos = _patch_positions(2, 1, seed=0)
+    with pytest.raises(ValueError, match="mixes members with and without shot noise"):
+        render_widefield_panel(torch.Generator(), pos, demo.N_POS, demo.PATCH,
+                               (demo.OPTICS, demo.OPTICS.replace(poisson_noise=-1)))
+    quiet = (demo.OPTICS.replace(poisson_noise=-1), demo.OPTICS.replace(poisson_noise=-1, psf_division_factor=1.0))
+    frames = render_widefield_panel(torch.Generator().manual_seed(0), pos, demo.N_POS, demo.PATCH, quiet)
+    assert frames.shape == (2, pos.shape[2] // demo.N_POS, demo.PATCH, demo.PATCH) and bool((frames >= 0).all())
+
+
 # --- the outcome rule (sim2real_outcome.py) ---
 
 
