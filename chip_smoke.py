@@ -142,6 +142,13 @@ processes of their own, each started while the one before runs:
    --movies-per-optics 1`` at full width (K2/K3 16 launches a cycle of each
    arm, K1 one a cycle and one a test row); the nominal row's movie through
    the pipeline on the card against the CPU with both arms' trained weights.
+17. changepoint_study (``phase_changepoint_study``): the change-point
+   studies. The modular study's three sequence-mode arms (images only,
+   per-frame tokens, the hybrid) captured against eager at batch 16; the
+   held-out planted, control and calibration sets scored by
+   ``score_planted`` on the card against the CPU; one ``main()`` of each
+   subcommand (``modular --with-hybrid --cycles 2``, ``demo --cycles 1``);
+   K1/K2/K3 launches against the counts the phase computes.
 
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
@@ -154,7 +161,7 @@ protocol-size framerate cycle. Each runner call (``run_experiment.main``)
 trains its one cycle, and the captured-against-eager cycles of phases 5-11
 run, at that cut size too (phases 13 and 15 compare at the protocol's 64).
 Phase 13 counts the baseline cycle's FLOPs once (they depend neither on the
-batch size nor on the dtype), phases 14-16 share phase 12's process, and
+batch size nor on the dtype), phases 14-17 share phase 12's process, and
 each group's process starts up while the group before it runs.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's (K1,
@@ -216,14 +223,6 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True, file=sys.__stdout__)  # also where a phase sends prose to stderr
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3, device_only: bool = False) -> float:
@@ -2868,6 +2867,125 @@ def phase_changepoint(torch, card):
     return launches
 
 
+def phase_changepoint_study(torch, card):
+    """The change-point studies (``evaluation/changepoint_study.py``) at full
+    width, cut in size.
+
+    (a) The modular study with the hybrid arm (``build_modular``, three
+    arms: images only, per-frame tokens concatenated, the hybrid) at batch
+    16, ``CUT_SEQS_PER_D`` a class: two cycles captured and two eager from
+    one seed agree (losses and every parameter and buffer, 1e-4 relative).
+    (b) The held-out sets (planted transitions, controls, calibration;
+    ``CUT_SEQS_PER_D`` a class) predicted per frame by each trained arm on
+    the card, then ``score_planted`` on the card's predictions on the card
+    and on the CPU: every report field equal, the scores' largest relative
+    difference printed. (c) One ``main()`` call of each subcommand
+    (``modular --with-hybrid --cycles 2``, ``demo --cycles 1``, 16 sequences
+    a class): finite losses, the examples' report keys. K1 launches once a
+    class a cycle, once a class for each held-out set and once for each
+    validation set of the demo; K2/K3 once a step of each of the three
+    modular arms and of the demo's two deepcnn arms: the phase computes
+    these counts and holds the launches to them."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch.evaluation import changepoint_study as study
+    from moleculardiffusion_mivit_tpu_torch.evaluation.changepoint import score_planted
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+
+    t_phase = time.perf_counter()
+    engines = []
+    n_classes = len(study.TRAINING_DS)
+
+    def build(batch, fused, sequences_per_d):
+        exp = study.build_modular(0, sequences_per_d, True, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    cap = _captured_against_eager(torch, build, "changepoint_study", card)
+    n_seq = _sequences(cap)
+    k1_want = 2 * 2 * n_classes
+    k23_want = 2 * 2 * len(cap.arms) * (n_seq // 16)
+
+    # (b) the held-out sets, scored on the card and on the CPU
+    t0 = time.perf_counter()
+    sets = study.planted_sets(cap.train_cfg, cap.optics, CUT_SEQS_PER_D, "cuda", with_hybrid=True)
+    k1_want += 2 * n_classes
+    labels = sets["planted"]["labels"] * cap.train_cfg.d_max_normalization
+    scored = {}
+    for name in cap.arms:
+        preds = [study.predict_per_frame(cap, name, sets[k]) for k in ("planted", "control", "calibration")]
+        check(all(p.shape == (n_classes * CUT_SEQS_PER_D, cap.train_cfg.n_frames) and bool(torch.isfinite(p).all())
+                  for p in preds), f"changepoint_study: {name}: per-frame predictions {[tuple(p.shape) for p in preds]}")
+        on_card = score_planted(*preds, labels)
+        on_cpu = score_planted(*(p.cpu() for p in preds), labels.cpu())
+        check(on_card == on_cpu, f"changepoint_study: {name}: score_planted on the card {on_card} != CPU {on_cpu}")
+        scores = [detect_pair(torch, p) for p in preds]
+        scored[name] = {"roc_auc": on_card["roc_auc"], "detection_rate": on_card["detection_rate"],
+                        "max_rel_score_diff": max(scores)}
+    torch.cuda.synchronize()
+    emit({"phase": "changepoint_study", "part": "b_scored", "card": card, "sequences": n_classes * CUT_SEQS_PER_D,
+          "by_arm": scored,
+          "seconds": time.perf_counter() - t0})
+
+    # (c) each subcommand through its entry point
+    runs = {}
+    for cmd, args in (("modular", ["--with-hybrid", "--cycles", "2", "--eval-per-class", str(CUT_SEQS_PER_D)]),
+                      ("demo", ["--cycles", "1"])):
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                ran = study.main([cmd, *args, "--seqs-per-d", str(CUT_SEQS_PER_D), "--out", out, "--device", "cuda"])
+            seconds = time.perf_counter() - t0
+            name = "changepoint_modular.json" if cmd == "modular" else "changepoint_metrics.json"
+            written = json.loads(Path(out, name).read_text())
+        exp = ran.pop("experiment")
+        engines.append(exp.engine)
+        check(written == ran["report"], f"changepoint_study: {cmd}: the written report differs from main's")
+        check(all(math.isfinite(v) for ls in ran["train_loss"].values() for v in ls),
+              f"changepoint_study: {cmd}: non-finite training loss {ran['train_loss']}")
+        cycles = len(next(iter(ran["train_loss"].values())))
+        steps = sum(n_classes * CUT_SEQS_PER_D // exp.train_cfg.batch_size_for_cycle(c) for c in range(cycles))
+        if cmd == "modular":
+            check(set(written) >= {"mod_images", "mod_both_concat", "mod_hybrid"}, f"changepoint_study: {written}")
+            k1_want += cycles * n_classes + 2 * n_classes
+            k23_want += len(exp.arms) * steps
+        else:
+            check(written["n_controls"] == n_classes * study.DEMO_EVAL_PER_CLASS, f"changepoint_study: {written}")
+            # the baseline renders its six validation sets (D = 1, 3, 5, 7, 9, the in-order grid) once
+            k1_want += 6 + cycles * n_classes + 2 * n_classes
+            k23_want += 2 * steps
+        runs[cmd] = {"seconds": seconds, "report_seconds": ran["seconds"], "train_s": ran["train_s"],
+                     "eval_s": ran["eval_s"], "train_loss": ran["train_loss"]}
+        emit({"phase": "changepoint_study", "part": f"c_{cmd}", "card": card, **runs[cmd],
+              "roc_auc": {k: v["roc_auc"] for k, v in written.items() if isinstance(v, dict) and "roc_auc" in v}
+              or written.get("roc_auc")})
+
+    launches = kernel_launches(counts0, engines)
+    check(launches["render_frames"] == k1_want,
+          f"changepoint_study: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"changepoint_study: {k} launches {launches[k]} != {k23_want}")
+    emit({"phase": "changepoint_study", "part": "summary", "card": card, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def detect_pair(torch, preds) -> float:
+    """The largest relative difference between ``detect_change_points``'
+    scores of ``preds`` on the card and on the CPU (the split indices must
+    be equal)."""
+    from moleculardiffusion_mivit_tpu_torch.evaluation import detect_change_points
+
+    split_card, score_card = detect_change_points(preds)
+    split_cpu, score_cpu = detect_change_points(preds.cpu())
+    check(torch.equal(split_card.cpu(), split_cpu), "changepoint_study: split indices differ card vs CPU")
+    return float(((score_card.cpu() - score_cpu).abs() / score_cpu.abs().clamp_min(1e-12)).max())
+
+
 # The main paths, each driven by its phase, in groups that each run in a
 # process of their own: in one long process torch.profiler came to lose
 # single K1 records (one of 36 in a framerate cycle, one of 5 in a modular
@@ -2876,9 +2994,11 @@ def phase_changepoint(torch, card):
 PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features": phase_images_features,
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
          "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16,
-         "constrained": phase_constrained, "changepoint": phase_changepoint, "sim2real": phase_sim2real}
+         "constrained": phase_constrained, "changepoint": phase_changepoint, "sim2real": phase_sim2real,
+         "changepoint_study": phase_changepoint_study}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
-               ("psfnoise",), ("denoising",), ("realdata", "constrained", "changepoint", "sim2real"),
+               ("psfnoise",), ("denoising",),
+               ("realdata", "constrained", "changepoint", "sim2real", "changepoint_study"),
                ("bf16",))
 GROUP_TIMEOUT_S = 600
 
@@ -2922,10 +3042,11 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from moleculardiffusion_mivit_tpu_torch.ops._build import build_all, load_library
+    from moleculardiffusion_mivit_tpu_torch.utils.card import card_line
 
     if sys.argv[1:2] == ["--paths"]:  # a group of paths: alone, or in a process start_paths started
         on_go = sys.argv[2:3] == ["--on-go"]
-        card, out = card_line(), {}
+        card, out = card_line(torch.device("cuda")), {}
         torch.empty(1, device="cuda")  # the CUDA context
         from moleculardiffusion_mivit_tpu_torch import run_experiment  # noqa: F401  (most of the package)
 
@@ -2938,7 +3059,7 @@ def main() -> None:
         emit({"paths": out})
         return
 
-    card = card_line()
+    card = card_line(torch.device("cuda"))
     t0 = time.perf_counter()
     reports = build_all()
     for lib in ("render", "fused_embedding"):
@@ -3007,7 +3128,7 @@ def main() -> None:
         if detail:
             k["bound_operations"] = detail.strip("()")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase_s": phase_s})
-    print(card_line(), flush=True)
+    print(card_line(torch.device("cuda")), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,4 +10,8 @@ from moleculardiffusion_mivit_tpu_torch.evaluation.validation import (  # noqa: 
     render_validation_videos,
     save_error_table_csv,
 )
-from moleculardiffusion_mivit_tpu_torch.evaluation.changepoint import detect_change_points  # noqa: F401
+from moleculardiffusion_mivit_tpu_torch.evaluation.changepoint import (  # noqa: F401
+    detect_change_points,
+    score_planted,
+    wilson_ci,
+)

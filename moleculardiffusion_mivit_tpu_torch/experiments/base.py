@@ -369,7 +369,10 @@ class Experiment:
         """Per-cycle validation MSEs for every model: each arm predicts the
         combined set once (a model's ``(N, 1)``, an MSD arm's ``(N,)``), the
         per-D means of (pred − D)² over every axis are reduced on the
-        device, and all arms' results come to the host in one transfer."""
+        device, and all arms' results come to the host in one transfer. An
+        experiment without validation sets returns ``{}``."""
+        if not self.val_data:
+            return {}
         combined, ds, sizes = self._combined_val()
         bounds = np.cumsum([0] + sizes)
         pieces, names = [], []

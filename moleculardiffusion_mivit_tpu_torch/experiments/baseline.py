@@ -93,7 +93,7 @@ def build(
             else:
                 labels = dn[:, None]
             if train_cfg.mix_trajectories:
-                videos, labels = mix_tails_uniform(fold_in(generator, 1), videos, labels, train_cfg.n_frames)
+                videos, labels = mix_tails_uniform(fold_in(generator, 1), (videos, labels), train_cfg.n_frames)
             return {"videos": videos, "labels": labels}
 
     else:

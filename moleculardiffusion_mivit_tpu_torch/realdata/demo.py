@@ -154,13 +154,19 @@ class PatchModel(NamedTuple):
     seconds: List[float]
 
 
+def patch_train_config(n_frames: int) -> TrainConfig:
+    """The patch model's training configuration, as the JAX examples'
+    ``train_patch_model``: lr 1e-4 and labels in px²/frame."""
+    return TrainConfig(d_max_normalization=1.0, n_frames=n_frames, n_pos_per_frame=N_POS, lr=1e-4)
+
+
 def train_patch_model(n_frames: int, cycles: int, seed: int, device, seqs_per_cycle: int = SEQS_PER_CYCLE,
                       batch_size: int = BATCH, optics_panel: Tuple[OpticsConfig, ...] = (OPTICS,)) -> PatchModel:
     """Train the patch model (``MODEL_CONFIG``) for ``cycles`` cycles of
     fresh sequences (``patch_sequences`` over ``optics_panel``, one AdamW
     epoch each at lr 1e-4)."""
     dev = resolve_device(device)
-    cfg = TrainConfig(d_max_normalization=1.0, n_frames=n_frames, n_pos_per_frame=N_POS, lr=1e-4)
+    cfg = patch_train_config(n_frames)
     impls = make_train_impls(GeneralTransformer(MODEL_CONFIG, embedding="deep_resnet"), cfg, dev)
     state = impls.init_state(seeded_generator("cpu", seed, 0))
     losses, seconds = [], []

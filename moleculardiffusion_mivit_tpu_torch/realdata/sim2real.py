@@ -21,8 +21,11 @@ back, then detect → track → patches → refine → ``estimate_d_for_tracks``
 (calibration 0.375), beside the MSD(τ=1) baseline.
 
 Run: python -m moleculardiffusion_mivit_tpu_torch.realdata.sim2real
-     [--train-cycles 60] [--movies-per-optics 3] [--seed 0]
-     [--out results/torch_sim2real] [--device cuda|cpu]
+     [--train-cycles 60] [--movies-per-optics 3] [--arms fixed randomized]
+     [--seed 0] [--out results/torch_sim2real] [--device cuda|cpu]
+
+``--arms`` trains and scores only the arms named (both by default); the
+report then has only their columns.
 
 It writes ``<out>/sim2real.json`` with the example's keys and rounding and
 ``<out>/sim2real_report.json``, unrounded: each movie's row, tracks and
@@ -57,6 +60,15 @@ at the repository's root applies it.
 - A miss is logged as F7 in ROADMAP.md section 3, with its run and the
   file:line on both sides. It is not tuned away, and no seed is added or
   swapped.
+
+F7's second witness, a cut protocol on both sides (rule set before its
+runs; ``sim2real_outcome.py --cycles 10`` applies it): ``--train-cycles 10
+--arms fixed --seed S --out results/torch_sim2real_cut10_seedS``, S = 0…7,
+on the H100, against the example's fixed arm at 10 cycles for seeds 42, 43
+and 44 under JAX on the CPU, each row scored on the example's movies. On
+every row, ``fixed_mae`` is held when |mean P − mean J| ≤ max(0.03,
+3·sqrt(sd_P²/8 + sd_J²/3)); each seed's mean D̂ a row (dim and bright
+among them) is reported on both sides.
 """
 
 from __future__ import annotations
@@ -64,7 +76,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import tempfile
 import time
 from typing import Dict, NamedTuple, Optional
@@ -84,6 +95,7 @@ from moleculardiffusion_mivit_tpu_torch.realdata import (
     write_tiff_stack,
 )
 from moleculardiffusion_mivit_tpu_torch.sim import render_widefield
+from moleculardiffusion_mivit_tpu_torch.utils.card import card_line
 from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
 
 D_TRUE = 0.3  # px²/frame of every test movie
@@ -215,24 +227,12 @@ def summarize(movies: list, arms) -> dict:
     return {"rounded": rounded, "exact": exact}
 
 
-def card_line(dev: torch.device) -> str:
-    """The card's name and power limit as ``nvidia-smi`` reports them (the
-    device's name where it cannot be asked; ``cpu`` on the CPU)."""
-    if dev.type != "cuda":
-        return str(dev)
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60, check=True)
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return torch.cuda.get_device_name(dev)
-
-
 def main(argv=None) -> Study:
     """Run the study; returns its unrounded report and the trained arms."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-cycles", type=int, default=60)
     ap.add_argument("--movies-per-optics", type=int, default=3)
+    ap.add_argument("--arms", nargs="+", choices=list(ARM_PANELS), default=list(ARM_PANELS))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, default="results/torch_sim2real")
     ap.add_argument("--device", type=str, default=None, help="cuda (the default) or cpu")
@@ -242,7 +242,8 @@ def main(argv=None) -> Study:
     stage: Dict[str, float] = {}
 
     arms = {}
-    for arm, panel in ARM_PANELS.items():
+    for arm in args.arms:
+        panel = ARM_PANELS[arm]
         print(f"training {arm} arm ({args.train_cycles} cycles, {len(panel)}-member optics panel)…", flush=True)
         t0 = time.perf_counter()
         arms[arm] = demo.train_patch_model(N_FRAMES, args.train_cycles, args.seed, dev, demo.SEQS_PER_CYCLE,

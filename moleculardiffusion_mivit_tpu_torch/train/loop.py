@@ -123,18 +123,19 @@ def _loss(pred: torch.Tensor, y: torch.Tensor, kind: str) -> torch.Tensor:
     return torch.mean((pred - y) ** 2)
 
 
-def _swap_tails(videos, labels, ia, ib, splits) -> Tuple[torch.Tensor, torch.Tensor]:
+def swap_tails(arrays, ia, ib, splits) -> Tuple[torch.Tensor, ...]:
     """Swap the frames at and after ``splits[k]`` of sequence ``ia[k]`` with
-    those of ``ib[k]``, in the videos ``(N, F, S, S)`` and the per-frame
-    labels ``(N, F)``. Returns new tensors."""
-    frame = torch.arange(videos.shape[1], device=videos.device)
+    those of ``ib[k]`` in every frame-major array of ``arrays`` (``(N, F,
+    ...)``: videos, per-frame labels, tokens, trajectories), at the same
+    splits. Returns new tensors."""
+    frame = torch.arange(arrays[0].shape[1], device=arrays[0].device)
     tail = frame[None, :] >= splits[:, None]
-    va, vb = videos[ia], videos[ib]
-    la, lb = labels[ia], labels[ib]
-    mask_v = tail[..., None, None]
-    videos = videos.index_copy(0, ia, torch.where(mask_v, vb, va)).index_copy(0, ib, torch.where(mask_v, va, vb))
-    labels = labels.index_copy(0, ia, torch.where(tail, lb, la)).index_copy(0, ib, torch.where(tail, la, lb))
-    return videos, labels
+    out = []
+    for arr in arrays:
+        mask = tail.reshape(tail.shape + (1,) * (arr.ndim - 2))
+        a, b = arr[ia], arr[ib]
+        out.append(arr.index_copy(0, ia, torch.where(mask, b, a)).index_copy(0, ib, torch.where(mask, a, b)))
+    return tuple(out)
 
 
 def _tail_splits(generator: torch.Generator, count: int, n_frames: int) -> torch.Tensor:
@@ -157,31 +158,42 @@ def mix_trajectory_tails(
     two partner classes: 0↔3 and 1↔2 on the first quarter, 0↔2 and 1↔3 on
     the second), swap video and label tails at a split drawn per pair from
     ``generator`` (one draw of ``quarter`` splits per pair, in this order)."""
-    n_per = videos.shape[0] // n_classes
+    return mix_tails_multi(generator, (videos, labels), n_classes, n_frames)
+
+
+def mix_tails_multi(generator: torch.Generator, arrays, n_classes: int, n_frames: int) -> Tuple[torch.Tensor, ...]:
+    """``mix_trajectory_tails``'s pairs and split draws applied to any number
+    of frame-major arrays ``(N, F, ...)`` at the same splits (videos,
+    labels, per-frame tokens, frame-averaged trajectories), as the JAX
+    example ``sequence_changepoint_modular.py``'s ``mix_tails_multi``."""
+    arrays = tuple(arrays)
+    n_per = arrays[0].shape[0] // n_classes
     quarter = n_per // 4
     if quarter == 0 or n_classes < 4:
-        return videos, labels
-    ar = torch.arange(quarter, device=videos.device)
+        return arrays
+    ar = torch.arange(quarter, device=arrays[0].device)
     for ca, cb, start in _TAIL_PAIRS:
-        splits = _tail_splits(generator, quarter, n_frames).to(videos.device)
+        splits = _tail_splits(generator, quarter, n_frames).to(arrays[0].device)
         first = start * quarter + ar
-        videos, labels = _swap_tails(videos, labels, ca * n_per + first, cb * n_per + first, splits)
-    return videos, labels
+        arrays = swap_tails(arrays, ca * n_per + first, cb * n_per + first, splits)
+    return arrays
 
 
 def mix_tails_uniform(
-    generator: torch.Generator, videos, labels, n_frames: int, fraction: float = 0.5
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Continuous-curriculum tail swap, as the JAX package's: sequence ``i``
-    pairs with ``n-1-i`` for the first ``int(n·fraction) // 2`` of them, at
-    splits drawn from ``generator`` in the same window."""
-    n = videos.shape[0]
+    generator: torch.Generator, arrays, n_frames: int, fraction: float = 0.5
+) -> Tuple[torch.Tensor, ...]:
+    """Continuous-curriculum tail swap, as the JAX package's, applied to any
+    number of frame-major arrays ``(N, F, ...)`` at the same splits: sequence
+    ``i`` pairs with ``n-1-i`` for the first ``int(n·fraction) // 2`` of
+    them, at splits drawn from ``generator`` in the same window."""
+    arrays = tuple(arrays)
+    n = arrays[0].shape[0]
     half = int(n * fraction) // 2
     if half == 0:
-        return videos, labels
-    ia = torch.arange(half, device=videos.device)
-    splits = _tail_splits(generator, half, n_frames).to(videos.device)
-    return _swap_tails(videos, labels, ia, (n - 1) - ia, splits)
+        return arrays
+    ia = torch.arange(half, device=arrays[0].device)
+    splits = _tail_splits(generator, half, n_frames).to(arrays[0].device)
+    return swap_tails(arrays, ia, (n - 1) - ia, splits)
 
 
 def epoch_permutation(generator: torch.Generator, n: int, batch_size: int, device) -> torch.Tensor:

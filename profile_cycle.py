@@ -56,7 +56,6 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -298,9 +297,9 @@ def main() -> None:
         generate_frozen_validation,
         render_validation_videos,
     )
+    from moleculardiffusion_mivit_tpu_torch.utils.card import card_line
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = card_line(torch.device("cuda"))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("")

@@ -23,8 +23,25 @@ the runs).
   --train-cycles 60 --seed S``), writes ``verdict.json`` and exits 1 when a
   held rule misses.
 
+The cut protocol (F7's second witness): ``--cycles C`` trains the fixed
+arm alone for C cycles, with no time limit.
+``--jax-seeds K [--first-jax-seed k0]`` then runs seeds ``42 + k0`` …
+``42 + k0 + K − 1`` and writes each to ``jax_cut{C}_seed{S}.json`` (so
+seeds can run side by side as separate processes), every row scored on
+the key-0 movies as above and each movie's per-track D̂ kept. Without a
+``--jax-*`` flag, ``--cycles C`` judges the port's
+``results/torch_sim2real_cut{C}_seed{0..7}`` (``--train-cycles C --arms
+fixed --seed S``) against those files by the cut rule, writes
+``cut{C}_verdict.json`` and exits 1 on a miss. The cut rule, set before
+the runs: on every test row, the fixed arm's ``fixed_mae`` is held when
+|mean P − mean J| ≤ max(0.03, 3·sqrt(sd_P²/n_P + sd_J²/n_J)) (8 port seeds,
+3 JAX seeds; three standard errors because 7 rows are tested at once).
+Each seed's mean D̂ on every row, dim and bright among them, is reported
+on both sides.
+
 Usage: ``python3 sim2real_outcome.py [--jax-msd 32] [--jax-seeds 1]
-[--out results/sim2real_outcome] [PORT_DIR ...]``.
+[--cycles 10 [--first-jax-seed 0]] [--out
+results/sim2real_outcome] [PORT_DIR ...]``.
 """
 
 from __future__ import annotations
@@ -51,6 +68,9 @@ MOVIES = 3
 FIRST_MODEL_KEY = 42
 JAX_SEED_LIMIT_S = 30 * 60
 MIN_MODEL_LIMIT = 0.03
+PROTOCOL_CYCLES = 60
+CUT_PORT_SEEDS = 8
+CUT_ARMS = ("fixed",)
 
 
 def _example():
@@ -106,10 +126,13 @@ class _Stopped(Exception):
     pass
 
 
-def jax_seed(ex, k: int, limit_s: float) -> dict:
+def jax_seed(ex, k: int, limit_s, cycles: int = PROTOCOL_CYCLES, arms=ARMS) -> dict:
     """The example's study at training seed ``42 + k``, stopped after
-    ``limit_s`` seconds: both arms' ``train_patch_model`` (60 cycles) and
-    its ``score_movie`` on the three key-0 movies of each row."""
+    ``limit_s`` seconds (``None``: no limit): each arm of ``arms`` trained
+    by its ``train_patch_model`` for ``cycles`` cycles, then its
+    ``score_movie`` on the three key-0 movies of each row. Each row also
+    keeps every arm's per-track D̂ (``d_<arm>``: the predictor's outputs,
+    which ``estimate_d_for_tracks`` takes as D̂ one track each)."""
     seed = FIRST_MODEL_KEY + k
     marks = []
 
@@ -125,28 +148,40 @@ def jax_seed(ex, k: int, limit_s: float) -> dict:
     def stop(*_):
         raise _Stopped
 
+    panels = {"fixed": [ex.NOMINAL], "randomized": ex.RAND_PANEL}
     old = signal.signal(signal.SIGALRM, stop)
-    signal.alarm(int(limit_s))
+    if limit_s is not None:
+        signal.alarm(int(limit_s))
     t0 = time.perf_counter()
-    out = {"seed": seed, "limit_s": limit_s}
+    out = {"seed": seed, "limit_s": limit_s, "cycles": cycles, "arms": list(arms)}
     stdout, sys.stdout = sys.stdout, _Marks()
     try:
-        fixed = ex.train_patch_model(25, 60, [ex.NOMINAL], seed=seed)
-        out["fixed_trained_s"] = time.perf_counter() - t0
-        randomized = ex.train_patch_model(25, 60, ex.RAND_PANEL, seed=seed)
-        out["randomized_trained_s"] = time.perf_counter() - t0
+        trained, seen = {}, {a: [] for a in arms}
+        for arm in arms:
+            predict = ex.train_patch_model(25, cycles, panels[arm], seed=seed)
+            out[f"{arm}_trained_s"] = time.perf_counter() - t0
+
+            def recording(videos, predict=predict, arm=arm):
+                pred = predict(videos)
+                seen[arm].extend(np.asarray(pred, dtype=np.float64).reshape(-1).tolist())
+                return pred
+
+            trained[arm] = recording
         rows = {}
         with tempfile.TemporaryDirectory() as tmp:
             for name in ROWS:
                 movies = []
+                for a in arms:
+                    seen[a].clear()
                 for m in range(MOVIES):
                     path = os.path.join(tmp, f"{name}_{m}.tif")
                     _jax_movie(ex, path, ex.TEST_OPTICS[name], m, 0)
-                    movies.append(ex.score_movie(path, {"fixed": fixed, "randomized": randomized}))
+                    movies.append(ex.score_movie(path, trained))
                 found = [r for r in movies if r]
                 rows[name] = {f"{a}_mae": float(np.mean([r[a] for r in found])) if found else None
-                              for a in (*ARMS, "msd")}
+                              for a in (*arms, "msd")}
                 rows[name]["n_tracks"] = sum(r["n_tracks"] for r in found)
+                rows[name].update({f"d_{a}": list(seen[a]) for a in arms})
         out.update(rows=rows, seconds=time.perf_counter() - t0, finished=True)
     except _Stopped:
         out.update(seconds=time.perf_counter() - t0, finished=False)
@@ -213,15 +248,55 @@ def judge(msd_keys: list, jax_seeds: list, port: list, record: dict) -> dict:
     return out
 
 
+def _mean_d_hat(values) -> float:
+    return float(np.mean(values)) if len(values) else float("nan")
+
+
+def judge_cut(jax_seeds: list, port: list, cycles: int) -> dict:
+    """The cut rule of this module's docstring: the fixed arm's
+    ``fixed_mae`` on every row, the port's seeds against JAX's at the same
+    cut; each seed's mean D̂ a row reported on both sides."""
+    n_p, n_j = len(port), len(jax_seeds)
+    out = {"cycles": cycles, "port_seeds": [p["seed"] for p in port], "jax_seeds": [s["seed"] for s in jax_seeds],
+           "jax_seed_seconds": [s["seconds"] for s in jax_seeds],
+           "port_seed_seconds": [p["seconds"] for p in port], "held": {}, "rows": {}}
+    for name in ROWS:
+        rows = [p["rows"][name] for p in port]
+        jrows = [s["rows"][name] for s in jax_seeds]
+        if any(r is None or r.get("fixed_mae") is None for r in rows + jrows):
+            out["held"][f"{name}_rows_present"] = False
+            out["rows"][name] = None
+            continue
+        p = np.asarray([r["fixed_mae"] for r in rows], dtype=np.float64)
+        j = np.asarray([r["fixed_mae"] for r in jrows], dtype=np.float64)
+        limit = max(MIN_MODEL_LIMIT, 3 * np.sqrt(p.var(ddof=1) / n_p + j.var(ddof=1) / n_j))
+        delta = abs(p.mean() - j.mean())
+        out["rows"][name] = {
+            "port": p.tolist(), "port_mean": float(p.mean()), "port_sd": float(p.std(ddof=1)),
+            "jax": j.tolist(), "jax_mean": float(j.mean()), "jax_sd": float(j.std(ddof=1)),
+            "limit": float(limit), "delta": float(delta),
+            "port_mean_d_hat": [_mean_d_hat([d for m in r["movies"] if m["row"] == name for d in m.get("d_fixed", [])])
+                                for r in port],
+            "jax_mean_d_hat": [_mean_d_hat(r["d_fixed"]) for r in jrows],
+            "n_tracks": {"port": [r["n_tracks"] for r in rows], "jax": [r["n_tracks"] for r in jrows]},
+        }
+        out["held"][f"{name}_fixed_within_limit"] = bool(delta <= limit)
+    out["ok"] = bool(out["held"]) and all(out["held"].values())
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--jax-msd", type=int, default=0, help="JAX's MSD column over this many render keys")
     ap.add_argument("--jax-seeds", type=int, default=0, help="the example's whole study at this many seeds")
+    ap.add_argument("--first-jax-seed", type=int, default=0, help="the first seed's offset from 42")
+    ap.add_argument("--cycles", type=int, default=PROTOCOL_CYCLES, help="training cycles (other than 60: the cut)")
     ap.add_argument("--out", default=str(OUT))
-    ap.add_argument("port_dirs", nargs="*", default=[str(p) for p in PORT_DIRS])
+    ap.add_argument("port_dirs", nargs="*")
     args = ap.parse_args(argv)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    cut = args.cycles != PROTOCOL_CYCLES
     if args.jax_msd or args.jax_seeds:
         os.environ.setdefault("JAX_PLATFORMS", "cpu")
         ex = _example()
@@ -235,19 +310,33 @@ def main(argv=None) -> int:
         (out / "jax_msd.json").write_text(json.dumps(
             {"keys": keys, "seconds": time.perf_counter() - t0,
              "command": f"python3 sim2real_outcome.py --jax-msd {args.jax_msd}"}, indent=1) + "\n")
-    if args.jax_seeds:
+    if args.jax_seeds and cut:
+        for k in range(args.first_jax_seed, args.first_jax_seed + args.jax_seeds):
+            seed = jax_seed(ex, k, None, args.cycles, CUT_ARMS)
+            command = f"python3 sim2real_outcome.py --jax-seeds 1 --first-jax-seed {k} --cycles {args.cycles}"
+            (out / f"jax_cut{args.cycles}_seed{seed['seed']}.json").write_text(
+                json.dumps({**seed, "command": command}, indent=1) + "\n")
+    elif args.jax_seeds:
         seeds = [jax_seed(ex, k, JAX_SEED_LIMIT_S) for k in range(args.jax_seeds)]
         (out / "jax_seeds.json").write_text(json.dumps(
             {"seeds": seeds, "command": f"python3 sim2real_outcome.py --jax-seeds {args.jax_seeds}"},
             indent=1) + "\n")
     if args.jax_msd or args.jax_seeds:
         return 0
-    msd = json.loads((out / "jax_msd.json").read_text())["keys"]
-    seeds_path = out / "jax_seeds.json"
-    seeds = json.loads(seeds_path.read_text())["seeds"] if seeds_path.exists() else []
-    port = [json.loads((Path(d) / "sim2real_report.json").read_text()) for d in args.port_dirs]
-    verdict = judge(msd, seeds, port, json.loads(RECORD.read_text()))
-    (out / "verdict.json").write_text(json.dumps(verdict, indent=1) + "\n")
+    if cut:
+        dirs = args.port_dirs or [ROOT / "results" / f"torch_sim2real_cut{args.cycles}_seed{s}"
+                                  for s in range(CUT_PORT_SEEDS)]
+        port = [json.loads((Path(d) / "sim2real_report.json").read_text()) for d in dirs]
+        jax_seeds = [json.loads(f.read_text()) for f in sorted(out.glob(f"jax_cut{args.cycles}_seed*.json"))]
+        verdict = judge_cut(jax_seeds, port, args.cycles)
+        (out / f"cut{args.cycles}_verdict.json").write_text(json.dumps(verdict, indent=1) + "\n")
+    else:
+        msd = json.loads((out / "jax_msd.json").read_text())["keys"]
+        seeds_path = out / "jax_seeds.json"
+        seeds = json.loads(seeds_path.read_text())["seeds"] if seeds_path.exists() else []
+        port = [json.loads((Path(d) / "sim2real_report.json").read_text()) for d in args.port_dirs or PORT_DIRS]
+        verdict = judge(msd, seeds, port, json.loads(RECORD.read_text()))
+        (out / "verdict.json").write_text(json.dumps(verdict, indent=1) + "\n")
     print(json.dumps(verdict, indent=1))
     return 0 if verdict["ok"] else 1
 

@@ -338,3 +338,235 @@ def test_study_on_the_card_judged_by_the_rule():
     assert all(p["card"].startswith("NVIDIA H100") for p in port)
     verdict = outcome.judge(msd, seeds, port, record)
     assert json.loads(json.dumps(verdict)) == json.loads((outcome.OUT / "verdict.json").read_text())
+
+
+# F7's first witness: the patch trainer of the study, step by step against
+# JAX's. Depth and width shrink alike on both sides; everything else is the
+# example's configuration.
+SHRUNK = dict(embed_dim=16, num_heads=2, hidden_dim=32, num_layers=2)
+
+
+def _flax_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def jax_patch_cycle(example):
+    """JAX's side of F7's first witness: the videos and labels of one cycle,
+    JAX's minibatches, the flax weights it starts from, its per-step losses
+    and state after the cycle, and how far JAX moves from itself when its
+    videos move by one ulp (see the test below)."""
+    from moleculardiffusion_mivit_tpu.models import GeneralTransformer as JGeneral
+    from moleculardiffusion_mivit_tpu.train import loop as jloop
+    from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
+
+    n_frames, batch = sim2real.N_FRAMES, demo.BATCH
+    videos, labels = demo.patch_sequences(torch.Generator().manual_seed(11), demo.SEQS_PER_CYCLE, n_frames)
+    videos, labels = videos.numpy(), labels.numpy()
+    n = videos.shape[0]
+    steps = n // batch
+
+    jcfg = example.TrainConfig(d_max_normalization=1.0, n_frames=n_frames, n_pos_per_frame=example.N_POS, lr=1e-4)
+    jmodel = JGeneral(example.ModelConfig(patch_size=example.PATCH, use_pos_encoding=True).replace(**SHRUNK),
+                      embedding="deep_resnet")
+    impls = jloop.make_train_impls(jmodel, jcfg)
+    state0 = impls.init_state(jax.random.key(3), jnp.asarray(videos[:1]))
+    k_perm, k_drop = jax.random.split(jax.random.key(5))  # train_cycle's split of its key
+    perm = np.asarray(jax.random.permutation(k_perm, n)[: steps * batch].reshape(steps, batch))
+    step = jax.jit(impls.train_step)
+
+    def jax_cycle(v):
+        """JAX's cycle on videos ``v``: per-step losses and the state after
+        it as a port ``state_dict`` and AdamW moments."""
+        state = state0.replace(opt_state=jloop._set_lr(state0.opt_state, jnp.float32(jcfg.lr)))
+        losses = []
+        for idx in perm:
+            state, loss = step(state, jnp.asarray(v), jnp.asarray(labels), None, jnp.asarray(idx), k_drop)
+            losses.append(float(loss))
+        adam = next(s for s in jax.tree.leaves(state.opt_state, is_leaf=lambda x: hasattr(x, "mu"))
+                    if hasattr(s, "mu"))
+        return np.array(losses), {"state": torch_state_from_flax(_flax_tree(state.params),
+                                                                 _flax_tree(state.batch_stats)),
+                                  "exp_avg": torch_state_from_flax(_flax_tree(adam.mu)),
+                                  "exp_avg_sq": torch_state_from_flax(_flax_tree(adam.nu))}
+
+    jax_losses, want = jax_cycle(videos)
+    spread_losses, spread = np.zeros(steps), {k: {name: 0.0 for name in v} for k, v in want.items()}
+    for direction in (np.inf, -np.inf):
+        ulp_losses, moved = jax_cycle(np.nextafter(videos, np.float32(direction)))
+        spread_losses = np.maximum(spread_losses, np.maximum.accumulate(np.abs(ulp_losses - jax_losses)))
+        for kind, ref in want.items():
+            for name, w in ref.items():
+                spread[kind][name] = max(spread[kind][name], float((moved[kind][name] - w).abs().max()))
+    start = torch_state_from_flax(_flax_tree(state0.params), _flax_tree(state0.batch_stats))
+    return dict(videos=videos, labels=labels, perm=perm, jcfg=jcfg, start=start, losses=jax_losses, want=want,
+                spread_losses=spread_losses, spread=spread)
+
+
+def _port_cycle_misses(ref, betas=(0.9, 0.999)):
+    """The port's side of F7's first witness: its trainer through JAX's
+    minibatches from JAX's starting weights, AdamW with ``betas``. Returns
+    the steps whose loss misses and the tensors that miss, by the bounds of
+    ``test_patch_trainer_cycle_matches_jax_step_by_step``."""
+    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer
+    from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
+
+    cfg, jcfg = demo.patch_train_config(sim2real.N_FRAMES), ref["jcfg"]
+    assert (cfg.lr, cfg.d_max_normalization, cfg.n_frames, cfg.n_pos_per_frame, cfg.weight_decay, cfg.loss) == (
+        jcfg.lr, jcfg.d_max_normalization, jcfg.n_frames, jcfg.n_pos_per_frame, jcfg.weight_decay, jcfg.loss)
+    model = GeneralTransformer(demo.MODEL_CONFIG.replace(**SHRUNK), embedding="deep_resnet")
+    timpls = tloop.make_train_impls(model, cfg, "cpu")
+    model.load_state_dict(ref["start"])
+    tstate = tloop.TrainState(model.train(), tloop.make_optimizer(model, cfg))
+    for group in tstate.optimizer.param_groups:
+        group["betas"] = betas
+    tloop._set_lr(tstate.optimizer, cfg.lr)
+    tv, tl = torch.from_numpy(ref["videos"]), torch.from_numpy(ref["labels"])
+    port_losses = np.array([float(timpls.train_step(tstate, tv, tl, torch.from_numpy(idx.copy())))
+                            for idx in ref["perm"]])
+    jax_losses = ref["losses"]
+    loss_misses = np.flatnonzero(np.abs(port_losses - jax_losses) > 1e-5 * jax_losses + 3 * ref["spread_losses"])
+
+    got = {"state": model.state_dict(),
+           **{k: {name: tstate.optimizer.state[p][k] for name, p in model.named_parameters()}
+              for k in ("exp_avg", "exp_avg_sq")}}
+    off = {}
+    for kind, want in ref["want"].items():
+        for name, w in want.items():
+            diff = float((got[kind][name] - w).abs().max())
+            if diff > 1e-4 * float(w.abs().max()) + 3 * ref["spread"][kind][name]:
+                off[f"{kind}:{name}"] = (diff, ref["spread"][kind][name])
+    return loss_misses.tolist(), off
+
+
+def test_patch_trainer_cycle_matches_jax_step_by_step(jax_patch_cycle):
+    """One full cycle of the study's trainer (``demo.train_patch_model``'s
+    configuration and ``make_train_impls``, batch 16, 256 sequences: 16
+    steps) against the example's ``make_train_impls``, from the same flax
+    weights (converted by ``utils.convert``) on the same numpy videos and
+    labels. JAX's ``train_cycle`` is its ``train_step`` scanned over
+    ``permutation(split(key)[0], n)`` after setting the rate; the test runs
+    those steps in that order, one jitted call each (XLA's CPU scan of this
+    step takes ~18 s a step), and the port steps through the same
+    minibatches with its ``train_step``. The learning rate, AdamW's
+    settings, the BN momentum and when the statistics move, the loss and
+    the learned positional encoding at 25 frames are all inside this.
+
+    Held: each step's loss at 1e-5 relative, and after the cycle every
+    parameter, AdamW moment and BatchNorm statistic at 1e-4 of its
+    tensor's largest entry, each widened by 3 × JAX's own distance from
+    itself when its videos move by one ulp up or down (the larger of the
+    two; the running maximum over steps for the losses). Measured in f32:
+    the port and JAX part by 0.2-2.7e-5 in the losses after step 7 and
+    2.5-4.9e-3 in BN biases after 16 steps, JAX from itself by 0.04-3.2e-5
+    and 2-3.4e-3; the attention key biases, whose gradient is 0 in exact
+    arithmetic, end ~2 apart on both counts, AdamW making float noise into
+    steps of the rate's size. A trainer that differs in any of the above
+    moves these by orders of magnitude more."""
+    loss_misses, off = _port_cycle_misses(jax_patch_cycle)
+    assert not loss_misses, loss_misses
+    assert not off, off
+
+
+@pytest.mark.parametrize("mutation", ["bn_momentum_0.91", "adamw_beta2_0.998"])
+def test_patch_trainer_witness_fails_on_a_mutated_trainer(jax_patch_cycle, monkeypatch, mutation):
+    """F7's first witness has the power to see a trainer that differs: with
+    the running statistics' momentum at 0.91 in place of flax's 0.9, or
+    AdamW's second-moment decay at 0.998 in place of optax's 0.999, the
+    port's cycle misses JAX's by the same bounds."""
+    from moleculardiffusion_mivit_tpu_torch.models import embeddings
+
+    betas = (0.9, 0.999)
+    if mutation.startswith("bn_momentum"):
+        monkeypatch.setattr(embeddings, "BN_MOMENTUM", 0.91)
+    else:
+        betas = (0.9, 0.998)
+    loss_misses, off = _port_cycle_misses(jax_patch_cycle, betas)
+    assert off, mutation
+    if mutation.startswith("bn_momentum"):
+        assert any(k.startswith("state:") and "running_" in k for k in off), off
+    else:
+        assert any(k.startswith("exp_avg_sq:") for k in off), off
+
+
+def test_patch_model_init_matches_flax_in_distribution(example):
+    """The study's patch model at full width initialised by the port's
+    ``models.init_model`` (four CPU generators) against flax's init of the
+    example's model (four keys), leaf by leaf: leaves flax makes constant
+    (zero biases, unit norms, the BN statistics) equal exactly, and every
+    other leaf's mean within 5 standard errors and its sd within 5 of its
+    own standard errors (sd/sqrt(2N) over the N values of four draws)."""
+    from moleculardiffusion_mivit_tpu.models import GeneralTransformer as JGeneral
+    from moleculardiffusion_mivit_tpu.models import init_model as j_init
+    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, init_model
+    from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    jmodel = JGeneral(example.ModelConfig(patch_size=example.PATCH, use_pos_encoding=True), embedding="deep_resnet")
+    x = jnp.zeros((1, sim2real.N_FRAMES, demo.PATCH, demo.PATCH), jnp.float32)
+    init = jax.jit(lambda k: j_init(jmodel, k, x))
+    flax = [torch_state_from_flax(*(_flax_tree(t) for t in init(jax.random.key(k)))) for k in range(4)]
+    port = []
+    for k in range(4):
+        model = init_model(GeneralTransformer(demo.MODEL_CONFIG, embedding="deep_resnet"),
+                           seeded_generator("cpu", k, 0))
+        port.append({name: v.detach() for name, v in model.state_dict().items()})
+    assert set(port[0]) == set(flax[0])
+    for name in flax[0]:
+        j = torch.stack([f[name] for f in flax]).double().flatten()
+        p = torch.stack([s[name] for s in port]).double().flatten()
+        if torch.all(j == j[0]):
+            assert torch.all(p == j[0]), name
+            continue
+        n, sd = j.numel(), float(j.std())
+        assert abs(float(p.mean() - j.mean())) <= 5 * sd / np.sqrt(n), (name, float(p.mean()), float(j.mean()))
+        assert abs(float(p.std()) - sd) <= 5 * sd / np.sqrt(2 * n), (name, float(p.std()), sd)
+
+
+def _cut_rows(base, step, k, with_movies):
+    rows = {n: {"n_tracks": 20, "fixed_mae": base + step * k, "msd_mae": 0.1} for n in sim2real.TEST_OPTICS}
+    out = {"rows": rows, "seconds": 30.0}
+    if with_movies:
+        out["movies"] = [{"row": n, "movie": 0, "d_fixed": [0.3 + 0.01 * k, 0.4]} for n in sim2real.TEST_OPTICS]
+    else:
+        for r in rows.values():
+            r["d_fixed"] = [0.3 + 0.01 * k, 0.5]
+    return out
+
+
+def test_cut_rule_holds_and_misses_on_synthetic_numbers():
+    """F7's cut rule (``sim2real.py``'s docstring, ``judge_cut``): every
+    row's ``fixed_mae`` within max(0.03, 3 pooled standard errors) of JAX's
+    three seeds holds; one row 0.1 off misses, alone; each seed's mean D̂ a
+    row is reported on both sides."""
+    outcome = _load(ROOT / "sim2real_outcome.py", "sim2real_outcome")
+    port = [{"seed": s, **_cut_rows(0.4, 0.01, s - 3.5, True)} for s in range(8)]
+    jax_seeds = [{"seed": 42 + k, **_cut_rows(0.41, 0.02, k - 1, False)} for k in range(3)]
+    verdict = outcome.judge_cut(jax_seeds, port, 10)
+    assert verdict["ok"] and len(verdict["held"]) == 7
+    row = verdict["rows"]["dim_2000"]
+    assert row["port_mean_d_hat"][0] == pytest.approx(np.mean([0.3 - 0.035, 0.4]))
+    assert row["jax_mean_d_hat"] == pytest.approx([0.395, 0.4, 0.405])
+    for p in port:
+        p["rows"]["dim_2000"]["fixed_mae"] += 0.1
+    verdict = outcome.judge_cut(jax_seeds, port, 10)
+    assert [k for k, v in verdict["held"].items() if not v] == ["dim_2000_fixed_within_limit"]
+
+
+def test_cut_protocol_judged_by_the_rule():
+    """F7's second witness as committed: the port's eight card seeds at the
+    cut (``results/torch_sim2real_cut10_seed0-7``: ``--train-cycles 10
+    --arms fixed``, the fixed arm only) against JAX's three CPU seeds of the
+    example's fixed arm at 10 cycles (``results/sim2real_outcome/
+    jax_cut10_seed42-44.json``), judged again here, give the committed
+    ``cut10_verdict.json``."""
+    outcome = _load(ROOT / "sim2real_outcome.py", "sim2real_outcome")
+    port = [json.loads((ROOT / "results" / f"torch_sim2real_cut10_seed{s}" / "sim2real_report.json").read_text())
+            for s in range(8)]
+    jax_seeds = [json.loads((outcome.OUT / f"jax_cut10_seed{42 + k}.json").read_text()) for k in range(3)]
+    assert [p["seed"] for p in port] == list(range(8))
+    assert all(p["train_cycles"] == 10 and list(p["arms"]) == ["fixed"] and p["card"].startswith("NVIDIA H100")
+               for p in port)
+    assert all(s["cycles"] == 10 and s["arms"] == ["fixed"] and s["finished"] for s in jax_seeds)
+    verdict = outcome.judge_cut(jax_seeds, port, 10)
+    assert json.loads(json.dumps(verdict)) == json.loads((outcome.OUT / "cut10_verdict.json").read_text())

@@ -96,14 +96,17 @@ def test_one_train_step_with_features_matches_jax(kind):
     _step_matches_jax(*models, "mse", with_features=True)
 
 
-def _step_matches_jax(jmodel, tmodel, loss, with_features=False, feature_shape=(25,), frame_size=9):
+def _step_matches_jax(jmodel, tmodel, loss, with_features=False, feature_shape=(25,), frame_size=9,
+                      per_frame_labels=False):
     """One step of each side from the same weights on 6 sequences of 6
     frames of ``frame_size``², ``feature_shape`` features per sequence with
-    ``with_features``, held as ``test_one_train_step_matches_jax`` says."""
+    ``with_features``, a label per sequence (a label per frame with
+    ``per_frame_labels``, sequence mode), held as
+    ``test_one_train_step_matches_jax`` says."""
     rng = np.random.default_rng(0)
     n, lr = 6, 1e-3
     videos = (0.3 * rng.normal(size=(n, 6, frame_size, frame_size)) + 0.1).astype(np.float32)
-    labels = rng.uniform(0.1, 0.7, size=(n, 1)).astype(np.float32)
+    labels = rng.uniform(0.1, 0.7, size=(n, 6 if per_frame_labels else 1)).astype(np.float32)
     feats = rng.normal(size=(n, *feature_shape)).astype(np.float32) if with_features else None
     idx = np.array([4, 1, 2])
 
@@ -255,7 +258,8 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_cycle.py", ROOT / "feature_outliers.py",
-        ROOT / "denoising_outcome.py", ROOT / "realdata_outcome.py", ROOT / "images_features_bf16_outcome.py"]
+        ROOT / "denoising_outcome.py", ROOT / "realdata_outcome.py", ROOT / "images_features_bf16_outcome.py",
+        ROOT / "changepoint_outcome.py"]
     scanned = {path.relative_to(ROOT).as_posix() for path in files}
     assert {f"moleculardiffusion_mivit_tpu_torch/{m}.py" for m in (
         "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features",
@@ -263,7 +267,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "experiments/denoising", "realdata/__init__", "realdata/tiff", "realdata/detect", "realdata/link",
         "realdata/track", "realdata/patches", "realdata/localize", "realdata/stats", "realdata/pipeline",
         "realdata/demo", "realdata/viz", "sim/constrained", "sim/mitochondria_demo", "evaluation/changepoint",
-        "evaluation/analysis", "evaluation/plots")} <= scanned
+        "evaluation/analysis", "evaluation/plots", "evaluation/changepoint_study", "realdata/sim2real")} <= scanned
     banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu", "PIL")
     for path in files:
         for mod in _imports(path):
@@ -300,7 +304,7 @@ def test_mix_trajectory_tails_matches_jax_given_its_splits():
     for pair_i, (ca, cb, start) in enumerate(tloop._TAIL_PAIRS):
         splits = jax.random.randint(jax.random.fold_in(key, pair_i), (quarter,), f // 2 - 5, f // 2 + 5)
         first = start * quarter + torch.arange(quarter)
-        tv, tl = tloop._swap_tails(tv, tl, ca * n_per + first, cb * n_per + first,
+        tv, tl = tloop.swap_tails((tv, tl), ca * n_per + first, cb * n_per + first,
                                    torch.from_numpy(np.array(splits)))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
@@ -338,13 +342,13 @@ def test_mix_tails_uniform_matches_jax_given_its_splits():
     half = n // 4
     splits = jax.random.randint(key, (half,), f // 2 - 5, f // 2 + 5)
     ia = torch.arange(half)
-    tv, tl = tloop._swap_tails(torch.from_numpy(videos), torch.from_numpy(labels), ia, (n - 1) - ia,
+    tv, tl = tloop.swap_tails((torch.from_numpy(videos), torch.from_numpy(labels)), ia, (n - 1) - ia,
                                torch.from_numpy(np.array(splits)))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
 
-    _, ml = tloop.mix_tails_uniform(torch.Generator().manual_seed(1), torch.from_numpy(videos),
-                                    torch.from_numpy(labels), f)
+    _, ml = tloop.mix_tails_uniform(torch.Generator().manual_seed(1),
+                                    (torch.from_numpy(videos), torch.from_numpy(labels)), f)
     origin = (ml.numpy() // 100).astype(int)
     for i in range(n):
         j = n - 1 - i
