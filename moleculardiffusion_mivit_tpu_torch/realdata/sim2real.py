@@ -69,6 +69,21 @@ and 44 under JAX on the CPU, each row scored on the example's movies. On
 every row, ``fixed_mae`` is held when |mean P − mean J| ≤ max(0.03,
 3·sqrt(sd_P²/8 + sd_J²/3)); each seed's mean D̂ a row (dim and bright
 among them) is reported on both sides.
+
+F7's open part, the cut judged on seven JAX seeds (rules set before the
+runs of seeds 45-48; ``sim2real_outcome.py --cycles 10`` applies both):
+the example's fixed arm at 10 cycles for seeds 42 … 48 under JAX on the
+CPU (J, 7 seeds) against the same 8 port seeds (P).
+
+- Mean, held per row: |mean P − mean J| ≤ max(0.03, 3·sqrt(sd_P²/8 +
+  sd_J²/7)).
+- Spread, held per row: the variance ratio F = sd_P²/sd_J² (7 and 6 degrees
+  of freedom) inside the two-sided F test's acceptance band at level
+  0.05/7 (Bonferroni over the 7 rows), F_{0.05/14}(7, 6) ≤ F ≤
+  F_{1−0.05/14}(7, 6), i.e. 0.0975 ≤ F ≤ 12.24. ``bright_5500`` (port sd
+  0.241 against JAX's 0.042 on three seeds) is one of the rows.
+- F7 is closed only if both rules hold on every row; a miss opens F8 in
+  ROADMAP.md section 3. No seed is added or swapped.
 """
 
 from __future__ import annotations
