@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
 line each on stdout (a phase's line also carries ``t``, its process's
-seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-16 and 13 in eight
+seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-18 and 13 in eight
 processes of their own, each started while the one before runs:
 
 1. device: the card's name and power limit; build every kernel under
@@ -149,6 +149,14 @@ processes of their own, each started while the one before runs:
    ``score_planted`` on the card against the CPU; one ``main()`` of each
    subcommand (``modular --with-hybrid --cycles 2``, ``demo --cycles 1``);
    K1/K2/K3 launches against the counts the phase computes.
+18. ensemble (``phase_ensemble``): the 8-member early-fusion MiViT grid
+   with the 25 features, 80 sequences a member (the cut's 16 a class × 5):
+   one cycle at batch 16 captured against eager (bitwise), one generation
+   call of all members in one K1 launch; ``experiments.ensemble.main
+   --members 8 --cycles 2`` and ``experiments.continuous_d.main --cycles
+   1`` with the full in-order suites (the ensemble's with the rotation
+   TTA): finite losses and tables, K1 once a cycle and once a suite, K2/K3
+   once a (grid) step, as the phase computes them.
 
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
@@ -161,7 +169,7 @@ protocol-size framerate cycle. Each runner call (``run_experiment.main``)
 trains its one cycle, and the captured-against-eager cycles of phases 5-11
 run, at that cut size too (phases 13 and 15 compare at the protocol's 64).
 Phase 13 counts the baseline cycle's FLOPs once (they depend neither on the
-batch size nor on the dtype), phases 14-17 share phase 12's process, and
+batch size nor on the dtype), phases 14-18 share phase 12's process, and
 each group's process starts up while the group before it runs.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's (K1,
@@ -204,6 +212,8 @@ FRAMERATE_RATES = (5, 10, 15, 20, 30, 50)
 # (the profiler's host cost grows with the kernels it records) and the one
 # cycle through run_experiment.main (whose files and events are its checks)
 CUT_SEQS_PER_D = 16
+# sequences a member a cycle of the ensemble phase: the cut's 16 a class × 5
+ENSEMBLE_N = 5 * CUT_SEQS_PER_D
 T_START = time.perf_counter()
 
 
@@ -2974,6 +2984,104 @@ def phase_changepoint_study(torch, card):
     return launches
 
 
+def phase_ensemble(torch, card):
+    """The 8-member MiViT ensemble and the continuous-D curriculum
+    (``experiments/ensemble.py``, ``experiments/continuous_d.py``) at full
+    width, cut in size: ``ENSEMBLE_N`` = 80 sequences a member a cycle (the
+    cut's 16 a class × 5).
+
+    (a) One grid of 8 early-fusion MiViTs with the 25 features, one cycle
+    at batch 16, captured and eager from one seed: every member's loss,
+    parameters and buffers bitwise equal. One generation call of all 8
+    members alone: one K1 launch. (b) ``ensemble.main --members 8 --cycles
+    2`` (batch 1 by the schedule): finite losses, the example's four tables
+    (``imft``, ``committed`` and both with the rotation TTA) finite on the
+    full suites, K1 once a cycle for all members and once a suite, K2/K3
+    once a grid step for all members and never in evaluation. (c)
+    ``continuous_d.main --cycles 1``: the same for one model. The phase
+    computes its K1/K2/K3 launches and holds them to these counts."""
+    import tempfile
+
+    import numpy as np
+
+    from moleculardiffusion_mivit_tpu_torch.experiments import continuous_d, ensemble
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    t_phase = time.perf_counter()
+    m, n = 8, ENSEMBLE_N
+    engines = []
+    counts0 = launch_counts()
+
+    # (a) captured against eager, one cycle at batch 16
+    runs = {}
+    for fused in (True, False):
+        exp = ensemble.build(0, m, n, device="cuda")
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=16)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        t0 = time.perf_counter()
+        exp.run(1)
+        torch.cuda.synchronize()
+        runs[fused] = (exp, time.perf_counter() - t0)
+    diffs = _compare_experiments(torch, runs[True][0], runs[False][0])
+    check(len(diffs) == m and all(d["bitwise"] for d in diffs.values()),
+          f"ensemble: captured and eager differ: {diffs}")
+    cap = runs[True][0]
+    before = launch_counts()
+    data = cap.generate_fn(seeded_generator("cuda", 7, 0))
+    torch.cuda.synchronize()
+    gen_k1 = launch_counts()["render_frames"] - before["render_frames"]
+    check(gen_k1 == 1, f"ensemble: one generation call of {m} members launched K1 {gen_k1} times")
+    check(tuple(data["videos"].shape) == (m, n, 30, 9, 9) and tuple(data["features"].shape) == (m, n, 25)
+          and tuple(data["labels"].shape) == (m, n, 1), f"ensemble: data {[tuple(v.shape) for v in data.values()]}")
+    emit({"phase": "ensemble", "part": "a", "card": card, "batch": 16, "members": m, "sequences_a_member": n,
+          "bitwise_equal": True, "s_cycle": {"captured": runs[True][1], "eager": runs[False][1]},
+          "launches_per_replay": {"+".join(u.names): u.launches_per_replay for u in cap.engine.units.values()}})
+    del runs, cap, exp, data
+
+    # (b) and (c): the entry points
+    ran = {}
+    for name, mod, argv in (("ensemble", ensemble, ["--members", str(m), "--cycles", "2"]),
+                            ("continuous_d", continuous_d, ["--cycles", "1"])):
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                got = mod.main([*argv, "--n", str(n), "--out", out, "--device", "cuda"])
+            seconds = time.perf_counter() - t0
+            written = json.loads(Path(out, f"{name}_report.json").read_text())
+        engines.append(got.pop("experiment").engine)
+        check(written == got["report"], f"ensemble: {name}: the written report differs from main's")
+        losses = np.asarray(got["train_loss"], dtype=np.float64)
+        check(bool(np.isfinite(losses).all()), f"ensemble: {name}: non-finite training loss {got['train_loss']}")
+        tables = ("imft", "imft_tta", "committed", "committed_tta") if name == "ensemble" else ("imft", "committed")
+        for tag in tables:
+            t = written[tag]
+            vals = [v for k, v in t.items() if k not in ("per_d_mse", "d_values")] + t["per_d_mse"]
+            check(all(math.isfinite(v) for v in vals), f"ensemble: {name}: {tag} {t}")
+            check(len(t["per_d_mse"]) == (100 if tag.startswith("imft") else 70), f"ensemble: {name}: {tag} per-D")
+        cycles = len(got["train_loss"])
+        steps = sum(n // ensemble.train_config().batch_size_for_cycle(c) for c in range(cycles))
+        want = {"train": {"k1": cycles, "k2": steps, "k3": steps}, "eval": {"k1": 2, "k2": 0, "k3": 0}}
+        check(written["launches"] == want, f"ensemble: {name}: launches {written['launches']} != {want}")
+        ran[name] = {"seconds": seconds, "train_s": got["train_s"], "eval_s": got["eval_s"],
+                     "cycle_end_s": got["cycle_end_s"], "launches": written["launches"],
+                     "imft": {k: written["imft"].get(k) for k in ("member_mse_mean", "ensemble_mse", "mse")
+                              if k in written["imft"]}}
+        emit({"phase": "ensemble", "part": f"b_{name}", "card": card, **ran[name]})
+
+    launches = kernel_launches(counts0, engines)
+    k1_want = 2 + 1 + sum(r["launches"]["train"]["k1"] + 2 for r in ran.values())
+    k23_want = 2 * (n // 16) + sum(r["launches"]["train"]["k2"] for r in ran.values())
+    check(launches["render_frames"] == k1_want, f"ensemble: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"ensemble: {k} launches {launches[k]} != {k23_want}")
+    emit({"phase": "ensemble", "part": "summary", "card": card, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def detect_pair(torch, preds) -> float:
     """The largest relative difference between ``detect_change_points``'
     scores of ``preds`` on the card and on the CPU (the split indices must
@@ -2995,10 +3103,10 @@ PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features"
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
          "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16,
          "constrained": phase_constrained, "changepoint": phase_changepoint, "sim2real": phase_sim2real,
-         "changepoint_study": phase_changepoint_study}
+         "changepoint_study": phase_changepoint_study, "ensemble": phase_ensemble}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
                ("psfnoise",), ("denoising",),
-               ("realdata", "constrained", "changepoint", "sim2real", "changepoint_study"),
+               ("realdata", "constrained", "changepoint", "sim2real", "changepoint_study", "ensemble"),
                ("bf16",))
 GROUP_TIMEOUT_S = 600
 
