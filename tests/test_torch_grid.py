@@ -24,6 +24,7 @@ from moleculardiffusion_mivit_tpu.models import MultiImageResNet as JResNet
 from moleculardiffusion_mivit_tpu.ops import fused_embedding as jfe
 from moleculardiffusion_mivit_tpu.train.grid import make_grid_impls as j_make_grid_impls
 from moleculardiffusion_mivit_tpu_torch.config import ModelConfig, TrainConfig
+from moleculardiffusion_mivit_tpu_torch.features import N_FEATURES
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
 from moleculardiffusion_mivit_tpu_torch.models import embeddings as tembeddings
 from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as tfe
@@ -50,10 +51,17 @@ def _np(tree):
 
 
 def _models(kind, **cfg):
+    """``kind``: ``resnet``, ``deep_resnet`` (the transformer) or ``early``
+    (the early-fusion MiViT of the ensemble: the transformer with 25
+    features added to its regression token)."""
     if kind == "resnet":
         return JResNet(single_prediction=True), MultiImageResNet(single_prediction=True)
     small = {**SMALL, **cfg}
-    return JGeneral(JModelConfig(**small), embedding="deep_resnet"), GeneralTransformer(ModelConfig(**small))
+    fusion = {}
+    if kind == "early":
+        fusion = dict(use_global_features=True, fusion_type="early", global_feature_dim=N_FEATURES)
+    return (JGeneral(JModelConfig(**small), embedding="deep_resnet", **fusion),
+            GeneralTransformer(ModelConfig(**small), **fusion))
 
 
 def _data(seed, n=6, frames=4):
@@ -63,9 +71,15 @@ def _data(seed, n=6, frames=4):
     return videos, labels
 
 
-def _jax_grid(jmodel, jcfg, videos):
-    impls = j_make_grid_impls(jmodel, jcfg)
-    grid = jax.jit(impls.init_grid, static_argnums=(1,))(jax.random.key(0), M, jnp.asarray(videos[0, :1]))
+def _features(seed, n=6):
+    """Member-major ``(M, n, 25)`` features, as the ensemble feeds them."""
+    return np.random.default_rng(seed).normal(size=(M, n, N_FEATURES)).astype(np.float32)
+
+
+def _jax_grid(jmodel, jcfg, videos, features=None):
+    impls = j_make_grid_impls(jmodel, jcfg, with_features=features is not None)
+    example = (jnp.asarray(videos[0, :1]),) + (() if features is None else (jnp.asarray(features[0, :1]),))
+    grid = jax.jit(impls.init_grid, static_argnums=(1,))(jax.random.key(0), M, *example)
     return impls, grid
 
 
@@ -100,11 +114,14 @@ def _torch_grid(tmodel, jgrid, cfg):
     pytest.param("resnet", "mse", False, id="resnet"),
     pytest.param("deep_resnet", "l1", True, id="deep_resnet-l1-pos_embedding"),
     pytest.param("resnet", "l1", False, id="resnet-l1"),
+    pytest.param("early", "mse", False, id="deep_resnet-early_fusion-features"),
 ])
 def test_grid_train_step_matches_jax(kind, loss, pos):
     """From the same stacked weights, minibatch index ``(M, B)`` and LR, one
     grid step with ``loss`` (MSE, or the denoising experiment's L1; the
-    transformer with ``pos``, its learned positional embedding) gives every
+    transformer with ``pos``, its learned positional embedding; the
+    ensemble's early-fusion MiViT with member-major features ``(M, N, 25)``,
+    JAX's ``make_grid_impls(..., with_features=True)``) gives every
     member the JAX grid step's loss (1e-5 relative),
     parameters and BN running statistics (1e-5 relative plus 1e-7; where
     Adam's first step lr·g/(|g| + eps) meets a gradient within 1000·eps of
@@ -114,17 +131,20 @@ def test_grid_train_step_matches_jax(kind, loss, pos):
     jmodel, tmodel = _models(kind, use_pos_encoding=pos)
     lr = 1e-3
     videos, labels = _data(1)
+    feats = _features(1) if kind == "early" else None
     idx = np.array([[4, 1], [0, 5], [2, 2]])
     jcfg = JTrainConfig(lr=lr, loss=loss)
-    impls, jgrid = _jax_grid(jmodel, jcfg, videos)
+    impls, jgrid = _jax_grid(jmodel, jcfg, videos, feats)
     state = _torch_grid(tmodel, jgrid, TrainConfig(lr=lr, loss=loss))
     with jax.default_matmul_precision("highest"):
         new, jl = jax.jit(impls.train_step)(
-            jgrid, jnp.asarray(videos), jnp.asarray(labels), None, jnp.asarray(idx),
-            jax.random.split(jax.random.key(1), M), jnp.float32(lr),
+            jgrid, jnp.asarray(videos), jnp.asarray(labels), None if feats is None else jnp.asarray(feats),
+            jnp.asarray(idx), jax.random.split(jax.random.key(1), M), jnp.float32(lr),
         )
-    tl = make_grid_impls(tmodel, TrainConfig(lr=lr, loss=loss), device="cpu").train_step(
-        state, torch.from_numpy(videos), torch.from_numpy(labels), torch.from_numpy(idx)
+    step = make_grid_impls(tmodel, TrainConfig(lr=lr, loss=loss), device="cpu", with_features=feats is not None)
+    tl = step.train_step(
+        state, torch.from_numpy(videos), torch.from_numpy(labels), torch.from_numpy(idx),
+        features=None if feats is None else torch.from_numpy(feats),
     )
     assert tl.shape == (M,)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
