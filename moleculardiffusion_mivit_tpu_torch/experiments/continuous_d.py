@@ -94,7 +94,7 @@ def main(argv=None) -> dict:
     full = {"seed": args.seed, "per_d_mse": per_d, "train_loss": [float(v) for v in exp.train_loss["mivit"]],
             "cycle_end_s": marks, "train_s": train_s, "eval_s": eval_s, "seconds": time.perf_counter() - t_start,
             "argv": list(sys.argv[1:] if argv is None else argv)}
-    ensemble.write(args.out, "continuous_d_report", report, full)
+    ensemble.write(args.out, "continuous_d", report, full)
     return {"report": report, **full, "experiment": exp}
 
 

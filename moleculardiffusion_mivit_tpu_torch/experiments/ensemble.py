@@ -55,7 +55,7 @@ draws).
   after another in one call on the H100, against ``results/ensemble_150``
   (JAX on a TPU, one draw of 8 members).
 - E1, members: the port's 32 ``imft`` member MSEs pooled (P) against the
-  record's 8 (mean 0.5051, range 0.4965-0.5134, sd_J 0.00596). Held when
+  record's 8 (mean 0.5051, range 0.4965-0.5134, sd_J 0.00595). Held when
   |mean P − 0.5051| ≤ max(0.02, 3·sqrt(sd_P²/32 + sd_J²/8)). The members of
   a seed share one evaluation render and one run, so they are not
   independent draws and the pooled standard error is optimistic: the rule
@@ -280,12 +280,14 @@ def launches_since(counts0: dict, engines=()) -> dict:
 
 
 def write(out: str, stem: str, report: dict, full: dict) -> None:
+    """``<out>/<stem>_report.json`` and, unrounded beside it,
+    ``<out>/<stem>_full_report.json``."""
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, f"{stem}.json"), "w") as f:
+    with open(os.path.join(out, f"{stem}_report.json"), "w") as f:
         json.dump(report, f, indent=2)
-    with open(os.path.join(out, f"{stem.rsplit('_report', 1)[0]}_full_report.json"), "w") as f:
+    with open(os.path.join(out, f"{stem}_full_report.json"), "w") as f:
         json.dump({"report": report, **full}, f, indent=1)
-    print(f"report -> {out}/{stem}.json", flush=True)
+    print(f"report -> {out}/{stem}_report.json", flush=True)
 
 
 def main(argv=None) -> dict:
@@ -338,7 +340,7 @@ def main(argv=None) -> dict:
     full = {"seed": args.seed, "suites": members, "train_loss": [v.tolist() for v in exp.train_loss["ensemble"]],
             "cycle_end_s": marks, "train_s": train_s, "eval_s": eval_s,
             "seconds": time.perf_counter() - t_start, "argv": list(sys.argv[1:] if argv is None else argv)}
-    write(args.out, "ensemble_report", report, full)
+    write(args.out, "ensemble", report, full)
     return {"report": report, **full, "experiment": exp}
 
 

@@ -32,12 +32,14 @@ the key-0 movies as above and each movie's per-track D̂ kept. Without a
 ``--jax-*`` flag, ``--cycles C`` judges the port's
 ``results/torch_sim2real_cut{C}_seed{0..7}`` (``--train-cycles C --arms
 fixed --seed S``) against those files by the cut rule, writes
-``cut{C}_verdict.json`` and exits 1 on a miss. The cut rule, set before
+``cut{C}_verdict.json`` and exits 1 on a miss. The cut rules, set before
 the runs: on every test row, the fixed arm's ``fixed_mae`` is held when
 |mean P − mean J| ≤ max(0.03, 3·sqrt(sd_P²/n_P + sd_J²/n_J)) (8 port seeds,
-3 JAX seeds; three standard errors because 7 rows are tested at once).
-Each seed's mean D̂ on every row, dim and bright among them, is reported
-on both sides.
+first 3 and then 7 JAX seeds; three standard errors because 7 rows are
+tested at once), and its spread when sd_P²/sd_J² lies inside the two-sided
+F test's band at level 0.05/7 with n_P − 1 and n_J − 1 degrees of freedom
+(``spread_band``; set before JAX seeds 45-48 ran). Each seed's mean D̂ on
+every row, dim and bright among them, is reported on both sides.
 
 Usage: ``python3 sim2real_outcome.py [--jax-msd 32] [--jax-seeds 1]
 [--cycles 10 [--first-jax-seed 0]] [--out
@@ -71,6 +73,7 @@ MIN_MODEL_LIMIT = 0.03
 PROTOCOL_CYCLES = 60
 CUT_PORT_SEEDS = 8
 CUT_ARMS = ("fixed",)
+SPREAD_LEVEL = 0.05 / len(ROWS)  # the spread rule's two-sided level, Bonferroni over the rows
 
 
 def _example():
@@ -252,14 +255,26 @@ def _mean_d_hat(values) -> float:
     return float(np.mean(values)) if len(values) else float("nan")
 
 
+def spread_band(n_p: int, n_j: int) -> tuple:
+    """The spread rule's acceptance band for sd_P²/sd_J²: the two-sided F
+    test at level ``SPREAD_LEVEL`` with n_p − 1 and n_j − 1 degrees of
+    freedom."""
+    from scipy.stats import f
+
+    return (float(f.ppf(SPREAD_LEVEL / 2, n_p - 1, n_j - 1)), float(f.ppf(1 - SPREAD_LEVEL / 2, n_p - 1, n_j - 1)))
+
+
 def judge_cut(jax_seeds: list, port: list, cycles: int) -> dict:
-    """The cut rule of this module's docstring: the fixed arm's
-    ``fixed_mae`` on every row, the port's seeds against JAX's at the same
-    cut; each seed's mean D̂ a row reported on both sides."""
+    """The cut rules of this module's docstring: on every row the fixed
+    arm's ``fixed_mae``, the port's seeds against JAX's at the same cut, by
+    its mean and by its spread (the variance ratio inside ``spread_band``);
+    each seed's mean D̂ a row reported on both sides."""
     n_p, n_j = len(port), len(jax_seeds)
+    band = spread_band(n_p, n_j)
     out = {"cycles": cycles, "port_seeds": [p["seed"] for p in port], "jax_seeds": [s["seed"] for s in jax_seeds],
            "jax_seed_seconds": [s["seconds"] for s in jax_seeds],
-           "port_seed_seconds": [p["seconds"] for p in port], "held": {}, "rows": {}}
+           "port_seed_seconds": [p["seconds"] for p in port], "spread_level": SPREAD_LEVEL,
+           "spread_band": list(band), "held": {}, "rows": {}}
     for name in ROWS:
         rows = [p["rows"][name] for p in port]
         jrows = [s["rows"][name] for s in jax_seeds]
@@ -271,16 +286,18 @@ def judge_cut(jax_seeds: list, port: list, cycles: int) -> dict:
         j = np.asarray([r["fixed_mae"] for r in jrows], dtype=np.float64)
         limit = max(MIN_MODEL_LIMIT, 3 * np.sqrt(p.var(ddof=1) / n_p + j.var(ddof=1) / n_j))
         delta = abs(p.mean() - j.mean())
+        ratio = p.var(ddof=1) / j.var(ddof=1)
         out["rows"][name] = {
             "port": p.tolist(), "port_mean": float(p.mean()), "port_sd": float(p.std(ddof=1)),
             "jax": j.tolist(), "jax_mean": float(j.mean()), "jax_sd": float(j.std(ddof=1)),
-            "limit": float(limit), "delta": float(delta),
+            "limit": float(limit), "delta": float(delta), "variance_ratio": float(ratio),
             "port_mean_d_hat": [_mean_d_hat([d for m in r["movies"] if m["row"] == name for d in m.get("d_fixed", [])])
                                 for r in port],
             "jax_mean_d_hat": [_mean_d_hat(r["d_fixed"]) for r in jrows],
             "n_tracks": {"port": [r["n_tracks"] for r in rows], "jax": [r["n_tracks"] for r in jrows]},
         }
         out["held"][f"{name}_fixed_within_limit"] = bool(delta <= limit)
+        out["held"][f"{name}_fixed_spread_within_band"] = bool(band[0] <= ratio <= band[1])
     out["ok"] = bool(out["held"]) and all(out["held"].values())
     return out
 

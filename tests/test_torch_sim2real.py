@@ -535,38 +535,50 @@ def _cut_rows(base, step, k, with_movies):
 
 
 def test_cut_rule_holds_and_misses_on_synthetic_numbers():
-    """F7's cut rule (``sim2real.py``'s docstring, ``judge_cut``): every
-    row's ``fixed_mae`` within max(0.03, 3 pooled standard errors) of JAX's
-    three seeds holds; one row 0.1 off misses, alone; each seed's mean D̂ a
-    row is reported on both sides."""
+    """F7's cut rules (``sim2real.py``'s docstring, ``judge_cut``) on 8
+    port and 7 JAX seeds: every row's ``fixed_mae`` within max(0.03, 3
+    pooled standard errors) of JAX's and its variance ratio inside the F
+    band at level 0.05/7 (0.0975-12.24 for 7 and 6 degrees of freedom)
+    holds; one row 0.1 off misses the mean rule alone; one row's port seeds
+    spread 20× wider about the same mean miss the spread rule alone; each
+    seed's mean D̂ a row is reported on both sides."""
     outcome = _load(ROOT / "sim2real_outcome.py", "sim2real_outcome")
     port = [{"seed": s, **_cut_rows(0.4, 0.01, s - 3.5, True)} for s in range(8)]
-    jax_seeds = [{"seed": 42 + k, **_cut_rows(0.41, 0.02, k - 1, False)} for k in range(3)]
+    jax_seeds = [{"seed": 42 + k, **_cut_rows(0.41, 0.02, k - 3, False)} for k in range(7)]
     verdict = outcome.judge_cut(jax_seeds, port, 10)
-    assert verdict["ok"] and len(verdict["held"]) == 7
+    assert verdict["ok"] and len(verdict["held"]) == 14
+    assert verdict["spread_band"] == pytest.approx([0.0975, 12.24], rel=1e-3)
     row = verdict["rows"]["dim_2000"]
     assert row["port_mean_d_hat"][0] == pytest.approx(np.mean([0.3 - 0.035, 0.4]))
-    assert row["jax_mean_d_hat"] == pytest.approx([0.395, 0.4, 0.405])
+    assert row["jax_mean_d_hat"] == pytest.approx([0.385, 0.39, 0.395, 0.4, 0.405, 0.41, 0.415])
+    assert row["variance_ratio"] == pytest.approx((0.01 ** 2 * 6) / (0.02 ** 2 * 28 / 6))
     for p in port:
         p["rows"]["dim_2000"]["fixed_mae"] += 0.1
     verdict = outcome.judge_cut(jax_seeds, port, 10)
     assert [k for k, v in verdict["held"].items() if not v] == ["dim_2000_fixed_within_limit"]
+    for s, p in enumerate(port):
+        p["rows"]["dim_2000"]["fixed_mae"] -= 0.1
+        p["rows"]["bright_5500"]["fixed_mae"] = 0.4 + 0.2 * (s - 3.5)
+    verdict = outcome.judge_cut(jax_seeds, port, 10)
+    assert [k for k, v in verdict["held"].items() if not v] == ["bright_5500_fixed_spread_within_band"]
 
 
 def test_cut_protocol_judged_by_the_rule():
     """F7's second witness as committed: the port's eight card seeds at the
     cut (``results/torch_sim2real_cut10_seed0-7``: ``--train-cycles 10
-    --arms fixed``, the fixed arm only) against JAX's three CPU seeds of the
+    --arms fixed``, the fixed arm only) against JAX's seven CPU seeds of the
     example's fixed arm at 10 cycles (``results/sim2real_outcome/
-    jax_cut10_seed42-44.json``), judged again here, give the committed
-    ``cut10_verdict.json``."""
+    jax_cut10_seed42-48.json``), judged again here by the mean and the
+    spread rules, give the committed ``cut10_verdict.json``, which holds
+    both on every row."""
     outcome = _load(ROOT / "sim2real_outcome.py", "sim2real_outcome")
     port = [json.loads((ROOT / "results" / f"torch_sim2real_cut10_seed{s}" / "sim2real_report.json").read_text())
             for s in range(8)]
-    jax_seeds = [json.loads((outcome.OUT / f"jax_cut10_seed{42 + k}.json").read_text()) for k in range(3)]
+    jax_seeds = [json.loads((outcome.OUT / f"jax_cut10_seed{42 + k}.json").read_text()) for k in range(7)]
     assert [p["seed"] for p in port] == list(range(8))
     assert all(p["train_cycles"] == 10 and list(p["arms"]) == ["fixed"] and p["card"].startswith("NVIDIA H100")
                for p in port)
     assert all(s["cycles"] == 10 and s["arms"] == ["fixed"] and s["finished"] for s in jax_seeds)
     verdict = outcome.judge_cut(jax_seeds, port, 10)
     assert json.loads(json.dumps(verdict)) == json.loads((outcome.OUT / "cut10_verdict.json").read_text())
+    assert len(verdict["held"]) == 14 and verdict["ok"]
