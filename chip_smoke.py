@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
 line each on stdout (a phase's line also carries ``t``, its process's
-seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-18 and 13 in eight
+seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-19 and 13 in eight
 processes of their own, each started while the one before runs:
 
 1. device: the card's name and power limit; build every kernel under
@@ -157,6 +157,15 @@ processes of their own, each started while the one before runs:
    1`` with the full in-order suites (the ensemble's with the rotation
    TTA): finite losses and tables, K1 once a cycle and once a suite, K2/K3
    once a (grid) step, as the phase computes them.
+19. rescore (``phase_rescore``): a 2-cycle images-features run at the cut
+   size saved after each cycle as two members; ``tta_rescore``,
+   ``seed_ensemble`` at two render seeds and ``render_noise --renders 2``
+   over them on the full suite (both renders in one K1 launch); the seed
+   ensemble's tables and the render-noise matrix on the card against the
+   CPU at 1e-4 on the same checkpoints and data; ``msd_protocol`` (the
+   published suite's MSD rows against ``MSD_ROWS``, the closest protocol)
+   and ``simulator_validation`` (the 2:1 pixel shift); K1/K2/K3 launches
+   against the counts the phase computes.
 
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
@@ -169,7 +178,7 @@ protocol-size framerate cycle. Each runner call (``run_experiment.main``)
 trains its one cycle, and the captured-against-eager cycles of phases 5-11
 run, at that cut size too (phases 13 and 15 compare at the protocol's 64).
 Phase 13 counts the baseline cycle's FLOPs once (they depend neither on the
-batch size nor on the dtype), phases 14-18 share phase 12's process, and
+batch size nor on the dtype), phases 14-19 share phase 12's process, and
 each group's process starts up while the group before it runs.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's (K1,
@@ -3082,6 +3091,148 @@ def phase_ensemble(torch, card):
     return launches
 
 
+def _cut_suite(data: dict, n: int) -> dict:
+    """The first ``n`` sequences of an in-order suite's videos and features
+    (the first ``n`` / 10 D values), on the CPU."""
+    return {"videos": data["videos"][:n].cpu(), "features": data["features"][:n].cpu(), "labels": None}
+
+
+def phase_rescore(torch, card):
+    """The rescoring studies over trained images-features runs and the
+    CPU-sized examples (``experiments/tta_rescore.py``, ``seed_ensemble.py``,
+    ``render_noise.py``, ``evaluation/msd_protocol.py``,
+    ``sim/simulator_validation.py``).
+
+    (a) A 2-cycle images-features run at the cut size (16 sequences a class,
+    batch 1, captured), saved after cycles 1 and 2 as two members. (b)
+    ``tta_rescore.main`` on the second, ``seed_ensemble.main`` over both at
+    render seeds 0 and 1, ``render_noise.main --renders 2``: the example's
+    keys, finite values, K1 six launches a build (five validation sets and
+    the suite) and one for both renders. (c) The same checkpoints and data
+    (the first 20 sequences of the suite and of two renders) on the card
+    and on the CPU: the seed ensemble's tables and the render-noise matrix
+    and σs equal to 1e-4. (d) ``msd_protocol.main``: the 300-step 100-value
+    suite's MSD_Perfect and MSD_Frame rows equal ``MSD_ROWS`` at
+    ``MSD_RTOL``, and that suite is the closest for every arm;
+    ``simulator_validation.main``: the 2:1 pixel shift, finite checks, K1
+    six launches. The phase computes its K1/K2/K3 launches and holds them
+    to these counts."""
+    import tempfile
+
+    import numpy as np
+
+    from moleculardiffusion_mivit_tpu_torch.evaluation import msd_protocol
+    from moleculardiffusion_mivit_tpu_torch.experiments import images_features, render_noise, seed_ensemble, tta_rescore
+    from moleculardiffusion_mivit_tpu_torch.sim import simulator_validation
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils import restore_experiment, save_experiment
+
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    n = 5 * CUT_SEQS_PER_D
+    deep_arms = 3  # im_tr, im_ft_early_tr, im_ft_late_tr
+    with tempfile.TemporaryDirectory() as root:
+        runs = [str(Path(root, f"member{m}")) for m in range(2)]
+        # (a) two members from one 2-cycle run
+        exp = images_features.build(seed=0, sequences_per_d=CUT_SEQS_PER_D, device="cuda")
+        exp.build()
+        for c, run in enumerate(runs):
+            exp.run(1, start_cycle=c)
+            save_experiment(exp, str(Path(run, "final")))
+        torch.cuda.synchronize()
+        engine, losses = exp.engine, {k: [float(x) for x in v] for k, v in exp.train_loss.items()}
+        steps = sum(n // exp.train_cfg.batch_size_for_cycle(c) for c in range(2))
+        check(all(math.isfinite(x) for v in losses.values() for x in v), f"rescore: training losses {losses}")
+        t_train = time.perf_counter() - t_phase
+        del exp
+
+        # (b) the entry points on the card
+        with contextlib.redirect_stdout(sys.stderr):
+            tta = tta_rescore.main([runs[1], "--device", "cuda"])
+            ens = [seed_ensemble.main([*runs, "--seed", str(r), "--out", str(Path(root, f"ens{r}")), "--device",
+                                       "cuda"]) for r in (0, 1)]
+            rn = render_noise.main([*runs, "--renders", "2", "--out", str(Path(root, "rn")), "--device", "cuda"])
+        rows = list(tta["tta"].values()) + list(tta["plain"].values())
+        check(len(rows) == 8 and all(math.isfinite(v) for t in rows for v in t.values()), f"rescore: tta {tta}")
+        check(Path(runs[1], "tta_errors.csv").read_text().splitlines()[0] == "model,mse,std", "rescore: tta csv")
+        for e in ens:
+            check(list(e["report"])[:4] == ["members", "run_dirs", "seqs_per_d", "suite"]
+                  and all(math.isfinite(v) for arm in seed_ensemble.ARMS for kind in ("plain", "tta")
+                          for v in [*e["arms"][arm][kind]["member_mses"], e["arms"][arm][kind]["ensemble_mse"]]),
+                  f"rescore: seed ensemble {e['report']}")
+        check(np.isfinite(rn["mse_matrix_seed_x_render"]).all() and np.asarray(rn["mse_matrix_seed_x_render"]).shape
+              == (2, 2) and math.isfinite(rn["ensemble_render_mean"]), f"rescore: render noise {rn['report']}")
+        k1_builds = {"tta": tta["k1_launches"], "ens": [e["k1_launches"] for e in ens],
+                     "renders": rn["k1_launches_renders"]}
+        check(k1_builds == {"tta": 6, "ens": [6, 6], "renders": 1}, f"rescore: K1 launches {k1_builds}")
+        emit({"phase": "rescore", "part": "b", "card": card, "train_s": t_train,
+              "seconds": {"tta": tta["seconds"], "seed_ensemble": [e["seconds"] for e in ens],
+                          "render_noise": rn["seconds"]}, "k1": k1_builds,
+              "tta_im_ft_tr_rot": tta["tta"]["im_ft_tr_rot"]["mse"], "render_noise_grand_mean": rn["grand_mean"]})
+
+        # (c) card against CPU on the same checkpoints and data
+        diffs, built, got = {}, {}, {}
+        for dev in ("cuda", "cpu"):  # the suite and the renders are the card's
+            built[dev] = images_features.build(seed=0, sequences_per_d=CUT_SEQS_PER_D, val_d_values=(),
+                                               with_in_order=dev == "cuda", device=dev)
+            built[dev].build()
+        cut, d_cut = 20, built["cuda"].in_order_data["d_values"][:2]
+        suite = _cut_suite(built["cuda"].in_order_data, cut)
+        renders = [_cut_suite(r, cut) for r in render_noise.make_renders(built["cuda"], 2)]
+        with contextlib.redirect_stdout(sys.stderr):
+            for dev, e in built.items():
+                on = lambda d: {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in d.items()}  # noqa: E731
+                _, tables = seed_ensemble.tables(seed_ensemble.member_predictions(e, on(suite), runs), d_cut)
+                got[dev] = {"ens": tables, "rn": render_noise.score(e, [on(r) for r in renders], runs,
+                                                                     "im_ft_early_tr", d_cut)}
+        for arm in seed_ensemble.ARMS:
+            for kind in ("plain", "tta"):
+                a, b = got["cuda"]["ens"][arm][kind], got["cpu"]["ens"][arm][kind]
+                diffs[f"{arm}/{kind}"] = max(abs(x - y) for x, y in zip([*a["member_mses"], a["ensemble_mse"],
+                                                                          a["ensemble_std"]],
+                                                                         [*b["member_mses"], b["ensemble_mse"],
+                                                                          b["ensemble_std"]]))
+        a, b = got["cuda"]["rn"], got["cpu"]["rn"]
+        diffs["render_noise"] = max(
+            float(np.abs(np.subtract(a["mse_matrix_seed_x_render"], b["mse_matrix_seed_x_render"])).max()),
+            *(abs(a[k] - b[k]) for k in ("seed_sigma_at_fixed_render", "render_sigma_of_seed_mean",
+                                         "grand_mean", "ensemble_render_mean", "ensemble_render_std")))
+        check(all(v <= 1e-4 for v in diffs.values()), f"rescore: card against CPU {diffs}")
+        emit({"phase": "rescore", "part": "c", "card": card, "sequences": cut, "max_abs_diff": max(diffs.values())})
+        del built
+
+    # (d) the CPU-sized examples on the card
+    with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(sys.stderr):
+        msd = msd_protocol.main(["--out", out, "--device", "cuda"])
+        k1 = launch_counts()["render_frames"]
+        sim = simulator_validation.main(["--out", out, "--device", "cuda"])
+        sim_k1 = launch_counts()["render_frames"] - k1
+    main_suite = msd["suites"][2]
+    check("100 D (0.1-10.0), 300 steps" in main_suite["suite"],
+          f"rescore: suite order {[s['suite'] for s in msd['suites']]}")
+    for name, want in MSD_ROWS.items():
+        got_mse = main_suite["tables"][name]["mse"]
+        check(abs(got_mse / want - 1.0) <= MSD_RTOL, f"rescore: msd_protocol {name} {got_mse} != {want}")
+    check(all(b["suite"] == main_suite["suite"] for b in msd["closest"].values()) and len(msd["closest"]) == 3,
+          f"rescore: closest protocol {msd['closest']}")
+    check(sim["check5_pixel_shift"] == {"at_100nm": 2, "at_200nm": 1}, f"rescore: pixel shift {sim}")
+    check(all(math.isfinite(sim[k][s]) for k in ("check2_loop_closure", "check3_coarse_sampling",
+                                                "check4_localization_noise") for s in ("mean", "se"))
+          and all(math.isfinite(r["contrast"]) for r in sim["check6_snr"]), f"rescore: simulator checks {sim}")
+    check(sim_k1 == 6, f"rescore: simulator validation launched K1 {sim_k1} times")
+
+    launches = kernel_launches(counts0, [engine])
+    # (a) 5 validation sets and 5 classes a cycle; (b) 6 a build, one for
+    # both renders; (c) the card's suite and its two renders; (d) 6
+    k1_want = 5 + 2 * 5 + 6 + 2 * 6 + (5 + 1) + (1 + 1) + 6
+    check(launches["render_frames"] == k1_want, f"rescore: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == deep_arms * steps, f"rescore: {k} launches {launches[k]} != {deep_arms * steps}")
+    emit({"phase": "rescore", "part": "summary", "card": card, "launches": launches,
+          "msd_seconds": msd["seconds"], "simulator_seconds": sim["seconds"], "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def detect_pair(torch, preds) -> float:
     """The largest relative difference between ``detect_change_points``'
     scores of ``preds`` on the card and on the CPU (the split indices must
@@ -3103,10 +3254,10 @@ PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features"
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
          "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16,
          "constrained": phase_constrained, "changepoint": phase_changepoint, "sim2real": phase_sim2real,
-         "changepoint_study": phase_changepoint_study, "ensemble": phase_ensemble}
+         "changepoint_study": phase_changepoint_study, "ensemble": phase_ensemble, "rescore": phase_rescore}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
                ("psfnoise",), ("denoising",),
-               ("realdata", "constrained", "changepoint", "sim2real", "changepoint_study", "ensemble"),
+               ("realdata", "constrained", "changepoint", "sim2real", "changepoint_study", "ensemble", "rescore"),
                ("bf16",))
 GROUP_TIMEOUT_S = 600
 

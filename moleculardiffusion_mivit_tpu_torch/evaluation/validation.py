@@ -37,23 +37,29 @@ IN_ORDER_D_VALUES = np.round(np.arange(0.1, 7.01, 0.1), 10)
 # seed 2026, the suite its published scores were taken on.
 IN_ORDER_IMFT_D_VALUES = np.round(np.arange(0.1, 10.01, 0.1), 10)
 # That suite exactly: the JAX package's ``generate_in_order_imft()`` at its
-# defaults, stored as float32 (lossless: every value is an f32 cast).
-IN_ORDER_IMFT_PATH = Path(__file__).resolve().parents[1] / "data" / "in_order_imft_seed2026.npy"
+# defaults, and its 200-step (20-frame) variant ``t_steps=200``, which is a
+# draw of its own and not the first 200 steps of the other; each stored as
+# float32 (lossless: every value is an f32 cast).
+IN_ORDER_IMFT_PATHS = {
+    300: Path(__file__).resolve().parents[1] / "data" / "in_order_imft_seed2026.npy",
+    200: Path(__file__).resolve().parents[1] / "data" / "in_order_imft_seed2026_t200.npy",
+}
 
 
 def generate_in_order_imft(seed: int = 2026, t_steps: int = 300, n_particles: int = 10) -> np.ndarray:
-    """The published in-order suite: trajectories ``(100, 10, 300, 2)`` in
-    float64 over D = 0.1..10.0 in steps of 0.1, fixed D per slice, in
+    """The published in-order suite: trajectories ``(100, 10, t_steps, 2)``
+    in float64 over D = 0.1..10.0 in steps of 0.1, fixed D per slice, in
     trajectory units before the ``traj_div_factor`` scaling. These are the
-    JAX package's values bit for bit (``IN_ORDER_IMFT_PATH``); a torch draw
-    would put the scores off the published protocol. Only that suite is
-    shipped, so any other ``seed``, ``t_steps`` or ``n_particles`` raises."""
-    if (seed, t_steps, n_particles) != (2026, 300, 10):
+    JAX package's values bit for bit (``IN_ORDER_IMFT_PATHS``); a torch draw
+    would put the scores off the published protocol. Only seed 2026 with 10
+    particles at 300 or 200 steps is shipped, so any other ``seed``,
+    ``t_steps`` or ``n_particles`` raises."""
+    if (seed, n_particles) != (2026, 10) or t_steps not in IN_ORDER_IMFT_PATHS:
         raise ValueError(
-            f"only the published in-order suite (seed 2026, t_steps 300, n_particles 10) is shipped; "
+            f"only the published in-order suites (seed 2026, t_steps 300 or 200, n_particles 10) are shipped; "
             f"got seed {seed}, t_steps {t_steps}, n_particles {n_particles}"
         )
-    return np.load(IN_ORDER_IMFT_PATH).astype(np.float64)
+    return np.load(IN_ORDER_IMFT_PATHS[t_steps]).astype(np.float64)
 
 
 def build_in_order_data(

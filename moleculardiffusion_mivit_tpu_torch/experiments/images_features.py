@@ -12,8 +12,10 @@ MSD(τ=1) of the frame-averaged trajectory (± localisation noise N(0, 0.01))
 
 Each cycle makes, per D class, trajectories, normalised videos and the
 trajectory variants, and the 25 features of the frame-averaged
-trajectories (``make_dataset``). Rotation test-time augmentation is in
-``tta_error_tables``.
+trajectories (``make_dataset``; ``make_datasets`` renders one set of
+trajectories under several generators in one K1 launch). An arm's plain or
+rotation-TTA predictions: ``arm_predictions``; the TTA tables of the image
+arms: ``tta_error_tables``.
 
 Random streams (``utils.rng``), mirroring the JAX package's ``fold_in``
 layout:
@@ -61,6 +63,7 @@ from moleculardiffusion_mivit_tpu_torch.models import (
 from moleculardiffusion_mivit_tpu_torch.sim import (
     average_trajectories_frames,
     render_videos,
+    render_videos_many,
     single_state,
 )
 from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
@@ -81,14 +84,19 @@ class FeatureMLP(nn.Module):
         return self.head(features)
 
 
+def _trajectory_variants(generator: torch.Generator, trajs, videos, train_cfg: TrainConfig) -> Dict[str, Any]:
+    """The videos beside the raw, frame-averaged and averaged + localisation
+    noise (from ``generator``) trajectories."""
+    trajs_avg = average_trajectories_frames(trajs, train_cfg.n_pos_per_frame)
+    err_mean, err_sigma = LOCALIZATION_UNCERTAINTY
+    noise = err_mean + err_sigma * torch.randn(trajs_avg.shape, generator=generator, device=generator.device)
+    return {"videos": videos, "trajs_raw": trajs, "trajs_avg": trajs_avg, "trajs_avg_err": trajs_avg + noise}
+
+
 def _render_dataset(generator: torch.Generator, trajs, train_cfg: TrainConfig, optics) -> Dict[str, Any]:
     """``make_dataset`` without the features."""
     videos = render_videos(fold_in(generator, 0), trajs, train_cfg, optics)
-    trajs_avg = average_trajectories_frames(trajs, train_cfg.n_pos_per_frame)
-    err_mean, err_sigma = LOCALIZATION_UNCERTAINTY
-    g_err = fold_in(generator, 1)
-    noise = err_mean + err_sigma * torch.randn(trajs_avg.shape, generator=g_err, device=g_err.device)
-    return {"videos": videos, "trajs_raw": trajs, "trajs_avg": trajs_avg, "trajs_avg_err": trajs_avg + noise}
+    return _trajectory_variants(fold_in(generator, 1), trajs, videos, train_cfg)
 
 
 def make_dataset(generator: torch.Generator, trajs, train_cfg: TrainConfig, optics, dt: float = 1.0) -> Dict[str, Any]:
@@ -98,6 +106,19 @@ def make_dataset(generator: torch.Generator, trajs, train_cfg: TrainConfig, opti
     data = _render_dataset(generator, trajs, train_cfg, optics)
     data["features"] = compute_features_for_multiple_trajectories(data["trajs_avg"], dt=dt)
     return data
+
+
+def make_datasets(generators, trajs, train_cfg: TrainConfig, optics, dt: float = 1.0):
+    """``make_dataset(g, trajs, ...)`` for each of ``generators``, as a list:
+    every render in one K1 launch (``sim.render_videos_many``), each from its
+    own generator's streams; the features, which depend on the trajectories
+    alone, computed once and shared."""
+    videos = render_videos_many([fold_in(g, 0) for g in generators], trajs, train_cfg, optics)
+    out = [_trajectory_variants(fold_in(g, 1), trajs, v, train_cfg) for g, v in zip(generators, videos)]
+    features = compute_features_for_multiple_trajectories(out[0]["trajs_avg"], dt=dt)
+    for data in out:
+        data["features"] = features
+    return out
 
 
 def build(
@@ -202,22 +223,29 @@ def build(
     return Experiment("images_features", train_cfg, optics, arms, generate_fn, val_data, in_order, device=dev)
 
 
+# the image arms and their TTA rows' names in the reference's tables
+TTA_ARMS = (("im_tr", "im_tr_rot"), ("im_resnet", "im_res_rot"), ("im_ft_resnet", "im_ft_res_rot"),
+            ("im_ft_early_tr", "im_ft_tr_rot"))
+
+
+def arm_predictions(exp: Experiment, data, arm: str, tta: bool) -> torch.Tensor:
+    """One learned arm's predictions ``(N,)`` in D units on ``data``: plain,
+    or with ``tta`` the mean over the videos rotated by 0, 90, 180 and 270°
+    (the features unrotated). An arm without images (``ft_mlp``) gives its
+    plain prediction either way."""
+    entry = exp.arms[arm]
+    evaluate, state = exp._impls[arm].evaluate, exp.states[arm]
+    inputs, feats, _ = entry.slice_fn(data)
+    inputs = inputs.to(exp.device)
+    feats = feats.to(exp.device) if entry.with_features else None
+    if not tta or inputs.ndim != 4:
+        return evaluate(state, inputs, feats)[..., 0]
+    return torch.stack([evaluate(state, rotate_videos(inputs, k), feats) for k in range(4)]).mean(dim=0)[..., 0]
+
+
 def tta_error_tables(exp: Experiment, data, d_values) -> Dict[str, Dict[str, float]]:
-    """Rotation test-time augmentation of the trained image arms: the mean
-    prediction over 0/90/180/270° (features unrotated), scored as poster
-    error tables under the reference's ``*_rot`` names."""
-    out = {}
-    for name, rot_name in [
-        ("im_tr", "im_tr_rot"),
-        ("im_resnet", "im_res_rot"),
-        ("im_ft_resnet", "im_ft_res_rot"),
-        ("im_ft_early_tr", "im_ft_tr_rot"),
-    ]:
-        arm = exp.arms[name]
-        evaluate = exp._impls[name].evaluate
-        videos, feats, _ = arm.slice_fn(data)
-        feats = feats if arm.with_features else None
-        preds = [evaluate(exp.states[name], rotate_videos(videos, k), feats) for k in range(4)]
-        mean_pred = torch.stack(preds).mean(dim=0)
-        out[rot_name] = error_table(mean_pred[..., 0].reshape(len(d_values), -1).cpu().numpy(), d_values)
-    return out
+    """Rotation test-time augmentation of the trained image arms
+    (``arm_predictions`` with ``tta``), scored as poster error tables under
+    the reference's ``*_rot`` names."""
+    return {rot: error_table(arm_predictions(exp, data, name, True).reshape(len(d_values), -1).cpu().numpy(), d_values)
+            for name, rot in TTA_ARMS}

@@ -34,3 +34,59 @@ tta_errors.csv`` (JAX, one run): 0.5678 / 0.6406 / 0.4966 / 0.4554 for
 - A miss is logged as F8 or later in ROADMAP.md section 3, with its test. It
   is not tuned away, and no seed or render is added or swapped.
 """
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+from moleculardiffusion_mivit_tpu_torch import resolve_device
+from moleculardiffusion_mivit_tpu_torch.evaluation import error_table, save_error_table_csv
+from moleculardiffusion_mivit_tpu_torch.experiments import images_features
+from moleculardiffusion_mivit_tpu_torch.train.capture import launch_counts
+from moleculardiffusion_mivit_tpu_torch.utils import restore_experiment
+from moleculardiffusion_mivit_tpu_torch.utils.card import card_line
+
+
+def main(argv=None) -> dict:
+    """Restore and rescore; returns ``tta_report.json``'s content."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("result_dir", help="run directory containing final/")
+    ap.add_argument("--seed", type=int, default=0, help="the experiment's seed: its in-order render")
+    ap.add_argument("--seqs-per-d", type=int, default=64)
+    ap.add_argument("--device", type=str, default=None, help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    k1 = launch_counts()["render_frames"]
+    exp = images_features.build(seed=args.seed, sequences_per_d=args.seqs_per_d, with_in_order=True, device=dev)
+    exp.build()
+    restore_experiment(exp, os.path.join(args.result_dir, "final"))
+
+    data = exp.in_order_data
+    d_values = data["d_values"]
+    tables = images_features.tta_error_tables(exp, data, d_values)
+    plain = {name: error_table(images_features.arm_predictions(exp, data, name, False)
+                               .reshape(len(d_values), -1).cpu().numpy(), d_values)
+             for name, _ in images_features.TTA_ARMS}
+    csv_path = os.path.join(args.result_dir, "tta_errors.csv")
+    save_error_table_csv(tables, csv_path)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    report = {"tta": tables, "plain": plain, "seed": args.seed, "result_dir": args.result_dir,
+              "seconds": time.perf_counter() - t0, "card": card_line(dev),
+              "k1_launches": launch_counts()["render_frames"] - k1}
+    with open(os.path.join(args.result_dir, "tta_report.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps(tables, indent=2))
+    print(f"TTA tables written to {csv_path}", file=sys.stderr)
+    return report
+
+
+if __name__ == "__main__":
+    main()

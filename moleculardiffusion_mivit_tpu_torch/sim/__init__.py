@@ -19,9 +19,11 @@ from moleculardiffusion_mivit_tpu_torch.sim.render import (  # noqa: F401
     normalize_images,
     render_frames_core,
     render_videos,
+    render_videos_many,
     render_widefield,
     render_widefield_panel,
     trajectories_to_video,
+    trajectories_to_videos,
     trajectories_to_video_multiple_settings,
     trajectories_to_video_psf_noise_grid,
 )

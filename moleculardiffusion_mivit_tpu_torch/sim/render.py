@@ -16,7 +16,7 @@ data's device.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,9 +125,24 @@ def trajectories_to_video(
     ~ N(μ/P, σ/P), peak renormalisation, u×u pooling, clipped Gaussian
     background, multiplicative Poisson noise ``Pois(k)/k`` when k != -1.
     ``generator`` must lie on the trajectories' device."""
+    return trajectories_to_videos([generator], trajectories, n_pos_per_frame, center, optics)[0]
+
+
+def trajectories_to_videos(
+    generators: Sequence[torch.Generator],
+    trajectories: torch.Tensor,
+    n_pos_per_frame: int,
+    center: bool = False,
+    optics: OpticsConfig = OpticsConfig(),
+) -> torch.Tensor:
+    """``trajectories_to_video`` of the same trajectories once per generator,
+    ``(R, N, F, S, S)``: render ``r`` draws from ``generators[r]`` alone, as
+    ``trajectories_to_video(generators[r], ...)`` does, and all R render in
+    one call of the frame core (one K1 launch on the card)."""
     n, t, _ = trajectories.shape
     p = n_pos_per_frame
     n_frames = t // p
+    r = len(generators)
     s, u = optics.output_size, optics.upsampling_factor
     part_mean, part_std = optics.particle_intensity
     bg_mean, bg_std = optics.background_intensity
@@ -135,18 +150,20 @@ def trajectories_to_video(
 
     x_hr, y_hr = _prepare_subpositions(trajectories, p, center, optics)
     if part_mean > 1e-4 and part_std > 1e-4:
-        intensities = part_mean / p + (part_std / p) * torch.randn(
-            (n, n_frames, p), generator=generator, device=dev
-        )
-        frames = render_frames_core(x_hr, y_hr, intensities, optics.gaussian_sigma_hr, s, u)
+        intensities = torch.stack([
+            part_mean / p + (part_std / p) * torch.randn((n, n_frames, p), generator=g, device=dev)
+            for g in generators
+        ])
+        frames = render_frames_core(x_hr.expand((r,) + x_hr.shape), y_hr.expand((r,) + y_hr.shape), intensities,
+                                    optics.gaussian_sigma_hr, s, u)
     else:
-        frames = torch.zeros((n, n_frames, s, s), dtype=torch.float32, device=dev)
+        frames = torch.zeros((r, n, n_frames, s, s), dtype=torch.float32, device=dev)
 
-    frames = frames + _clipped_background(generator, frames.shape, bg_mean, bg_std)
+    frames = frames + torch.stack([_clipped_background(g, frames.shape[1:], bg_mean, bg_std) for g in generators])
     if optics.poisson_noise != -1:
         k = float(optics.poisson_noise)
-        lam = torch.full(frames.shape, k, dtype=torch.float32, device=dev)
-        frames = frames * (_poisson(generator, lam) / k)
+        lam = torch.full(frames.shape[1:], k, dtype=torch.float32, device=dev)
+        frames = frames * torch.stack([_poisson(g, lam) / k for g in generators])
     return frames
 
 
@@ -461,7 +478,15 @@ def render_videos(
     ``trajectories_to_video`` with ``train_cfg``'s sub-positions per frame
     and centering, normalised against ``(bg_mean, bg_sigma, part_mean +
     bg_mean)``."""
+    return render_videos_many([generator], trajectories, train_cfg, optics)[0]
+
+
+def render_videos_many(
+    generators: Sequence[torch.Generator], trajectories: torch.Tensor, train_cfg: TrainConfig, optics: OpticsConfig
+) -> torch.Tensor:
+    """``render_videos`` of the same trajectories once per generator, ``(R,
+    N, F, S, S)``, every render in one K1 launch (``trajectories_to_videos``)."""
     bg_mean, bg_sigma = optics.background_intensity
     part_mean = optics.particle_intensity[0]
-    videos = trajectories_to_video(generator, trajectories, train_cfg.n_pos_per_frame, train_cfg.center, optics)
+    videos = trajectories_to_videos(generators, trajectories, train_cfg.n_pos_per_frame, train_cfg.center, optics)
     return normalize_images(videos, bg_mean, bg_sigma, part_mean + bg_mean)[0]

@@ -36,15 +36,29 @@ def save_experiment(exp, path: str) -> None:
 def restore_experiment(exp, path: str) -> None:
     """Restore a saved experiment into ``exp`` (built first if it is not:
     the same arms and configurations as the saved one), onto its device.
-    Its captured graphs are dropped: the optimizers' restored state is in
-    new tensors."""
+    A checkpoint whose models, arms or tensors do not match ``exp``'s raises
+    before anything is loaded. Its captured graphs are dropped: the
+    optimizers' restored state is in new tensors."""
     path = os.path.abspath(path)
     if not exp._built:
         exp.build()
-    for arm_name, st in exp.states.items():
-        saved = torch.load(os.path.join(path, "states", f"{arm_name}.pt"), map_location=exp.device)
-        st.model.load_state_dict(saved["model"])
-        st.optimizer.load_state_dict(saved["optimizer"])
+    with open(os.path.join(path, "meta.json")) as f:
+        saved_names = json.load(f)["model_names"]
+    files = sorted(n[:-3] for n in os.listdir(os.path.join(path, "states")) if n.endswith(".pt"))
+    if saved_names != exp.model_names or files != sorted(exp.states):
+        raise ValueError(f"checkpoint {path} holds models {saved_names} (arms {files}); the experiment has "
+                         f"{exp.model_names} (arms {sorted(exp.states)})")
+    saved = {arm: torch.load(os.path.join(path, "states", f"{arm}.pt"), map_location=exp.device)
+             for arm in exp.states}
+    for arm, st in exp.states.items():
+        want = {k: tuple(v.shape) for k, v in st.model.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in saved[arm]["model"].items()}
+        if got != want:
+            raise ValueError(f"checkpoint {path}: arm {arm!r} does not match the experiment's model "
+                             f"({sorted(set(got.items()) ^ set(want.items()))[:4]} ...)")
+    for arm, st in exp.states.items():
+        st.model.load_state_dict(saved[arm]["model"])
+        st.optimizer.load_state_dict(saved[arm]["optimizer"])
     with open(os.path.join(path, "history.json")) as f:
         exp.history = json.load(f)
     exp.release_graphs()

@@ -43,3 +43,16 @@ def torch_state_from_flax(params: Mapping, batch_stats: Mapping | None = None) -
         leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
         out[f"{module}.{leaf}"] = torch.tensor(v)
     return out
+
+
+def load_flax_states(exp, trees: Mapping[str, Mapping]) -> None:
+    """Carry a JAX experiment's trained weights into the port's built
+    ``exp``: ``trees[arm]`` is that arm's ``{"params": ..., "batch_stats":
+    ...}`` (nested dicts of numpy arrays), converted by
+    ``torch_state_from_flax`` and loaded strictly, for every learned arm of
+    ``exp`` and no other. The optimizers keep their own (fresh) state."""
+    if set(trees) != set(exp.states):
+        raise ValueError(f"trees for arms {sorted(trees)}; the experiment's learned arms are {sorted(exp.states)}")
+    for arm, st in exp.states.items():
+        state = torch_state_from_flax(trees[arm]["params"], trees[arm].get("batch_stats"))
+        st.model.load_state_dict({k: v.to(exp.device) for k, v in state.items()})

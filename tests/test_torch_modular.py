@@ -275,7 +275,8 @@ def test_shipped_in_order_suite_is_the_jax_array_and_gives_the_published_msd_row
     a TPU, whose f32 arithmetic puts its MSD_Perfect 1.39e-6 relative from
     JAX's own CPU value and 1.41e-6 from the exact (float64) one: the port
     is held to that record at 1e-6 in MSD_Frame and at 2e-6 in MSD_Perfect.
-    Any other suite raises: only the published one is shipped."""
+    Any other suite raises: only the published one and its 200-step variant
+    (``tests/test_torch_rescore.py``) are shipped."""
     from moleculardiffusion_mivit_tpu.evaluation import generate_in_order_imft as j_imft
     from moleculardiffusion_mivit_tpu.features import d_from_msd_tau1 as j_msd
     from moleculardiffusion_mivit_tpu.sim.trajectory import average_trajectories_frames as j_avg
@@ -303,6 +304,6 @@ def test_shipped_in_order_suite_is_the_jax_array_and_gives_the_published_msd_row
         np.testing.assert_allclose(score(port.numpy()), record[name]["mse"], rtol=rtol, err_msg=name)
         if rtol > 1e-6:  # the looser limit is JAX's own CPU scoring's distance to the record
             assert 1e-6 < abs(score(jax_cpu) / record[name]["mse"] - 1.0) < rtol, name
-    for kw in (dict(seed=2027), dict(t_steps=200), dict(n_particles=1)):
+    for kw in (dict(seed=2027), dict(t_steps=250), dict(n_particles=1)):
         with pytest.raises(ValueError, match="only the published in-order suite"):
             tval.generate_in_order_imft(**kw)

@@ -259,7 +259,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_cycle.py", ROOT / "feature_outliers.py",
         ROOT / "denoising_outcome.py", ROOT / "realdata_outcome.py", ROOT / "images_features_bf16_outcome.py",
-        ROOT / "changepoint_outcome.py", ROOT / "ensemble_outcome.py"]
+        ROOT / "changepoint_outcome.py", ROOT / "ensemble_outcome.py", ROOT / "rescore_outcome.py"]
     scanned = {path.relative_to(ROOT).as_posix() for path in files}
     assert {f"moleculardiffusion_mivit_tpu_torch/{m}.py" for m in (
         "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features",
@@ -268,7 +268,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "realdata/track", "realdata/patches", "realdata/localize", "realdata/stats", "realdata/pipeline",
         "realdata/demo", "realdata/viz", "sim/constrained", "sim/mitochondria_demo", "evaluation/changepoint",
         "evaluation/analysis", "evaluation/plots", "evaluation/changepoint_study", "realdata/sim2real",
-        "experiments/ensemble", "experiments/continuous_d")} <= scanned
+        "experiments/ensemble", "experiments/continuous_d", "experiments/tta_rescore",
+        "experiments/seed_ensemble", "experiments/render_noise", "evaluation/msd_protocol",
+        "sim/simulator_validation", "evaluation/poster_gallery")} <= scanned
     banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu", "PIL")
     for path in files:
         for mod in _imports(path):
