@@ -10,7 +10,9 @@ before the runs.
 - R1-R2: ``results/torch_render_noise`` (four seeds × five renders) against
   ``results/render_noise``.
 - S1-S2: ``results/torch_seed_ensemble/seed{0..4}`` (five shared renders)
-  against ``results/seed_ensemble``.
+  against ``results/seed_ensemble``. Reported beside them, not judged: the
+  ``ft_mlp`` members, port against JAX, in pooled standard errors (that arm
+  reads no image, so its spread over renders is 0).
 - T1-T2: ``results/torch_images_features_seed{0..3}/tta_report.json``
   against ``results/images_features_reconciled_scaled/tta_errors.csv``.
 - M1: ``results/torch_msd_protocol`` against JAX's rows on the same arrays
@@ -126,8 +128,16 @@ def judge_seed_ensemble(renders: list, jax: dict) -> dict:
             s2.append({"seed": r["seed"], "kind": kind, "ensemble": ens, "ensemble_below_members": below,
                        "fusion_ranked_above": ranked, "ft_mlp_last": last,
                        "held": all(below.values()) and ranked and last})
+    # reported, not judged: ft_mlp reads no image, so only its members
+    # (the training seeds) vary; its spread over renders is 0
+    port_m = np.asarray(renders[0]["arms"]["ft_mlp"]["plain"]["member_mses"])
+    jax_m = np.asarray(jax["ft_mlp"]["plain"]["member_mses"])
+    se = math.sqrt(port_m.var(ddof=1) / len(port_m) + jax_m.var(ddof=1) / len(jax_m))
+    members = {"port": port_m.tolist(), "jax": jax_m.tolist(), "mean_p": float(port_m.mean()),
+               "mean_j": float(jax_m.mean()), "pooled_se": se, "delta_in_se": float(port_m.mean() - jax_m.mean()) / se}
     return {"S1": {"rows": s1, "held": all(v["held"] for v in s1.values())},
-            "S2": {"renders": s2, "held": all(v["held"] for v in s2)}}
+            "S2": {"renders": s2, "held": all(v["held"] for v in s2)},
+            "ft_mlp_members_reported": members}
 
 
 def judge_tta(seeds: list, jax: dict) -> dict:
