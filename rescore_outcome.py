@@ -19,6 +19,19 @@ before the runs.
   (``results/torch_msd_protocol/jax_rows.json``).
 - V1: ``results/torch_simulator_validation`` against JAX's example on the
   CPU (``results/simulator_validation/jax_report.json``).
+- F8-M and F8-V, written here before the port's seeds 4-7 ran: the
+  ``ft_mlp`` arm over training seeds. P is the port's eight f32 members,
+  the ``ft_mlp`` row of ``results/torch_images_features_seed{0..7}/
+  images_features_errors.csv`` (``run_experiment images_features --cycles
+  150 --seqs-per-d 256 --in-order --checkpoint-last 0 --seed S`` on the
+  card, one seed at a time); J is JAX's four, the same row of
+  ``results/images_features_seed{0..3}/images_features_errors.csv``. The
+  render does not reach this arm, so each row is that seed's member of the
+  seed ensemble. No seed is added or swapped after the runs.
+
+  - F8-M: |mean_P − mean_J| ≤ max(0.02, 3·sqrt(sd_P²/8 + sd_J²/4)).
+  - F8-V: sd_P²/sd_J² inside the two-sided F(7, 3) band at level 0.05,
+    [0.170, 14.62].
 
 It reads only the JSON and CSV reports. Writes
 ``results/rescore_outcome/verdict.json`` and exits 1 when a rule misses.
@@ -51,6 +64,10 @@ TTA_ROWS = {"im_tr_rot": "im_tr", "im_res_rot": "im_resnet", "im_ft_res_rot": "i
 # sim2real_outcome.spread_band): (4, 4) for the render σ, (3, 3) for the seed σ
 F_BAND_4_4 = (0.10411753745392764, 9.604529884722858)
 F_BAND_3_3 = (0.06477026927128882, 15.43918237874729)
+# (7, 3) for F8-V: the port's eight ft_mlp members against JAX's four
+F_BAND_7_3 = (0.16978449959353228, 14.624395022241258)
+F8_PORT_SEEDS = range(8)
+F8_JAX_SEEDS = range(4)
 MSD_RTOL = 1e-5
 CLOSEST_SUITE = "regenerated,    100 D (0.1-10.0), 300 steps [reference val_d_in_order]"
 CONTRAST_RTOL = 0.05
@@ -138,6 +155,20 @@ def judge_seed_ensemble(renders: list, jax: dict) -> dict:
     return {"S1": {"rows": s1, "held": all(v["held"] for v in s1.values())},
             "S2": {"renders": s2, "held": all(v["held"] for v in s2)},
             "ft_mlp_members_reported": members}
+
+
+def judge_f8(port: list, jax: list) -> dict:
+    """F8-M and F8-V on the ``ft_mlp`` members: ``port`` the port's eight
+    in-order MSEs, ``jax`` JAX's four."""
+    p, j = np.asarray(port, dtype=np.float64), np.asarray(jax, dtype=np.float64)
+    sd_p, sd_j = float(p.std(ddof=1)), float(j.std(ddof=1))
+    limit = max(0.02, 3.0 * math.sqrt(sd_p**2 / len(p) + sd_j**2 / len(j)))
+    delta = float(p.mean() - j.mean())
+    ratio = sd_p**2 / sd_j**2
+    return {"f8_M": {"port": p.tolist(), "jax": j.tolist(), "mean_p": float(p.mean()), "mean_j": float(j.mean()),
+                     "sd_p": sd_p, "sd_j": sd_j, "delta": delta, "limit": limit, "held": abs(delta) <= limit},
+            "f8_V": {"sd_p": sd_p, "sd_j": sd_j, "variance_ratio": ratio, "band": list(F_BAND_7_3),
+                     "held": F_BAND_7_3[0] <= ratio <= F_BAND_7_3[1]}}
 
 
 def judge_tta(seeds: list, jax: dict) -> dict:
