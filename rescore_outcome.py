@@ -77,6 +77,12 @@ def _load(path: Path):
     return json.loads(path.read_text())
 
 
+def ft_mlp_row(run: Path) -> float:
+    """The ``ft_mlp`` in-order MSE of a run's ``images_features_errors.csv``."""
+    with open(run / "images_features_errors.csv") as f:
+        return next(float(row["mse"]) for row in csv.DictReader(f) if row["model"] == "ft_mlp")
+
+
 def load() -> dict:
     """Every report the rules read, the port's and JAX's."""
     with open(RESULTS / "images_features_reconciled_scaled" / "tta_errors.csv") as f:
@@ -93,6 +99,8 @@ def load() -> dict:
         "jax_msd": _load(RESULTS / "torch_msd_protocol" / "jax_rows.json"),
         "simval": _load(RESULTS / "torch_simulator_validation" / "simulator_validation.json"),
         "jax_simval": _load(RESULTS / "simulator_validation" / "jax_report.json"),
+        "f8_port": [ft_mlp_row(RESULTS / f"torch_images_features_seed{s}") for s in F8_PORT_SEEDS],
+        "f8_jax": [ft_mlp_row(RESULTS / f"images_features_seed{s}") for s in F8_JAX_SEEDS],
     }
 
 
@@ -229,8 +237,9 @@ def judge(reports: dict) -> dict:
         **judge_tta(reports["tta"], reports["jax_tta"]),
         **judge_msd(reports["msd"], reports["jax_msd"]),
         **judge_simval(reports["simval"], reports["jax_simval"]),
+        **judge_f8(reports["f8_port"], reports["f8_jax"]),
     }
-    rules = ("R1_grand_mean", "R1_ensemble", "R2", "S1", "S2", "T1", "T2", "M1", "V1")
+    rules = ("R1_grand_mean", "R1_ensemble", "R2", "S1", "S2", "T1", "T2", "M1", "V1", "f8_M", "f8_V")
     verdict["held"] = {k: bool(verdict[k]["held"]) for k in rules}
     verdict["ok"] = all(verdict["held"].values())
     verdict["cards"] = sorted({r["card"] for r in [reports["render_noise"], *reports["seed_ensemble"],

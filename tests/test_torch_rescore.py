@@ -564,14 +564,16 @@ def outcome():
 def test_rescore_studies_on_the_card_judged_by_the_rule(outcome):
     """The committed card reports (four f32 seeds of ``run_experiment
     images_features --cycles 150 --seqs-per-d 256 --in-order`` and the
-    studies over them, NVIDIA H100) judged by R1-R2, S1-S2, T1-T2, M1 and V1
-    give the committed verdict; a copy with ``ensemble_render_mean`` moved by
-    0.05 misses R1."""
+    studies over them, NVIDIA H100) judged by R1-R2, S1-S2, T1-T2, M1, V1
+    and F8-M/F8-V (over the port's eight ``ft_mlp`` members) give the
+    committed verdict; a copy with ``ensemble_render_mean`` moved by 0.05
+    misses R1."""
     reports = outcome.load()
     verdict = outcome.judge(reports)
     committed = json.loads((ROOT / "results" / "rescore_outcome" / "verdict.json").read_text())
     assert json.loads(json.dumps(verdict)) == committed
-    assert set(verdict["held"]) == {"R1_grand_mean", "R1_ensemble", "R2", "S1", "S2", "T1", "T2", "M1", "V1"}
+    assert set(verdict["held"]) == {"R1_grand_mean", "R1_ensemble", "R2", "S1", "S2", "T1", "T2", "M1", "V1",
+                                    "f8_M", "f8_V"}
     assert all("H100" in c for c in verdict["cards"])
     moved = copy.deepcopy(reports)
     moved["render_noise"]["ensemble_render_mean"] += 0.05
@@ -598,3 +600,41 @@ def test_outcome_rules_hold_and_miss_on_synthetic_numbers(outcome):
         off = dict(port, **{key: port[key] * factor})
         assert not outcome.judge_render_noise(off, jax_rn)["R2"]["held"], key
     assert re.match(r"regenerated, +100 D", outcome.CLOSEST_SUITE)
+
+
+def test_f8_rules_hold_and_miss_on_synthetic_numbers(outcome):
+    """F8-M and F8-V (``rescore_outcome.py``'s docstring) on eight port and
+    four JAX members: a port spread like JAX's about a mean 0.01 higher
+    holds both; the same members 0.1 higher miss F8-M alone; the port's
+    members spread 5× wider about the same mean miss F8-V alone."""
+    jax_m = [0.8404, 0.8385, 0.8857, 0.8261]
+    base = np.array([0.83, 0.85, 0.87, 0.89, 0.84, 0.86, 0.88, 0.82])
+    held = outcome.judge_f8((base + 0.01).tolist(), jax_m)
+    assert held["f8_M"]["held"] and held["f8_V"]["held"]
+    sd_p, sd_j = np.std(base, ddof=1), np.std(jax_m, ddof=1)
+    assert held["f8_M"]["limit"] == pytest.approx(max(0.02, 3 * np.sqrt(sd_p**2 / 8 + sd_j**2 / 4)))
+    assert held["f8_V"]["variance_ratio"] == pytest.approx(sd_p**2 / sd_j**2)
+    from scipy.stats import f as f_dist
+
+    assert held["f8_V"]["band"] == pytest.approx([f_dist.ppf(0.025, 7, 3), f_dist.ppf(0.975, 7, 3)], rel=1e-12)
+    far = outcome.judge_f8((base + 0.1).tolist(), jax_m)
+    assert not far["f8_M"]["held"] and far["f8_V"]["held"]
+    wide = outcome.judge_f8((base.mean() + 5 * (base - base.mean())).tolist(), jax_m)
+    assert wide["f8_M"]["held"] and not wide["f8_V"]["held"]
+
+
+def test_f8_verdict_on_the_card_seeds(outcome):
+    """The committed verdict's ``f8_*`` keys, read as the test above reads
+    the others: the ``ft_mlp`` rows of the port's eight f32 card seeds
+    (``results/torch_images_features_seed0-7``) and JAX's four, as the
+    committed CSVs give them, judged by F8-M and F8-V."""
+    reports = outcome.load()
+    committed = json.loads((ROOT / "results" / "rescore_outcome" / "verdict.json").read_text())
+    assert len(reports["f8_port"]) == 8 and len(reports["f8_jax"]) == 4
+    assert committed["f8_M"]["port"] == reports["f8_port"] and committed["f8_M"]["jax"] == reports["f8_jax"]
+    assert reports["f8_jax"] == [0.840386, 0.838508, 0.885699, 0.826104]
+    assert reports["f8_port"][:4] == [0.853975, 0.84469, 0.9289, 0.869101]
+    judged = outcome.judge_f8(reports["f8_port"], reports["f8_jax"])
+    assert json.loads(json.dumps(judged)) == {k: committed[k] for k in ("f8_M", "f8_V")}
+    assert {k: committed["held"][k] for k in ("f8_M", "f8_V")} == {k: judged[k]["held"] for k in judged}
+    assert not committed["held"]["S1"]  # S1's miss stands; nothing is re-judged
