@@ -4,8 +4,8 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
 line each on stdout (a phase's line also carries ``t``, its process's
-seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-19 and 13 in eight
-processes of their own, each started while the one before runs:
+seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-19 and 13 + 20 in
+eight processes of their own, each started while the one before runs:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
@@ -166,6 +166,13 @@ processes of their own, each started while the one before runs:
    published suite's MSD rows against ``MSD_ROWS``, the closest protocol)
    and ``simulator_validation`` (the 2:1 pixel shift); K1/K2/K3 launches
    against the counts the phase computes.
+20. serving (``phase_serving``): ``evaluation.serving.main`` at batches
+   256, 1024 and 4096 with the rotation TTA and the bf16 cast, every
+   forward captured in a CUDA graph and held bitwise against its eager
+   call, and ``--per-arm`` into a temporary file (the five poster arms,
+   each ≥ 0); the bf16 prediction delta under
+   ``SERVING_BF16_DELTA_LIMIT``; the f32 flagship on the card against the
+   CPU (64 sequences, 1e-4 relative); no K1/K2/K3 launch on this path.
 
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
@@ -178,8 +185,9 @@ protocol-size framerate cycle. Each runner call (``run_experiment.main``)
 trains its one cycle, and the captured-against-eager cycles of phases 5-11
 run, at that cut size too (phases 13 and 15 compare at the protocol's 64).
 Phase 13 counts the baseline cycle's FLOPs once (they depend neither on the
-batch size nor on the dtype), phases 14-19 share phase 12's process, and
-each group's process starts up while the group before it runs.
+batch size nor on the dtype), phases 14-19 share phase 12's process and
+phase 20 phase 13's, and each group's process starts up while the group
+before it runs.
 
 Then the smoke's total seconds, a ``kernels`` line with each kernel's (K1,
 K2, K3, K2-bf16, K3-bf16)
@@ -223,6 +231,11 @@ FRAMERATE_RATES = (5, 10, 15, 20, 30, 50)
 CUT_SEQS_PER_D = 16
 # sequences a member a cycle of the ensemble phase: the cut's 16 a class × 5
 ENSEMBLE_N = 5 * CUT_SEQS_PER_D
+# max |bf16 − f32| × 10 of the served flagship (random weights from seed 0)
+# at batches 256-4096, set before the first card run at ~3× the CPU's
+# largest reading of the same cast (0.17 at batch 8-16, 0.30 at 256, 0.26 at
+# 1024): about 13 bf16 ulps of its ~1.3 predictions
+SERVING_BF16_DELTA_LIMIT = 1.0
 T_START = time.perf_counter()
 
 
@@ -3236,6 +3249,62 @@ def phase_rescore(torch, card):
     return launches
 
 
+def phase_serving(torch, card):
+    """The serving path (``evaluation/serving.py``, the port of
+    ``examples/serving_benchmark.py``): ``serving.main`` at ``--batches 256
+    1024 4096 --iters 5 --tta --bf16`` (the bf16-cast flagship and its
+    4-rotation TTA, each captured in a CUDA graph and held bitwise against
+    its eager call at every batch), then ``--per-arm`` into a temporary
+    file. Checked: finite rows with the example's keys, every capture equal
+    to its eager call, ``max_pred_delta_d_units`` finite and at most
+    ``SERVING_BF16_DELTA_LIMIT``, the five arms each ≥ 0 in the file, the
+    f32 flagship's predictions (eager and captured) on the card against the
+    CPU's on the same weights and a 64-sequence batch at 1e-4 relative, and
+    no launch of K1, K2 or K3: at ``train=False`` the deep-ResNet embedding
+    runs cuDNN convolutions, as the JAX package routes it to XLA."""
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch.evaluation import serving
+    from moleculardiffusion_mivit_tpu_torch.train.capture import launch_counts
+
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    with tempfile.TemporaryDirectory() as root, contextlib.redirect_stdout(sys.stderr):
+        report = serving.main(["--batches", "256", "1024", "4096", "--iters", "5", "--tta", "--bf16"])
+        times_path = Path(root, "inference_times.json")
+        per_arm = serving.main(["--batches", "256", "--iters", "5", "--per-arm", str(times_path)])["per_arm"]
+        written = json.loads(times_path.read_text())
+    rows = report["rows"]
+    keys = ["batch", "latency_ms", "seqs_per_sec", "max_pred_delta_d_units", "tta_latency_ms", "tta_cost_factor"]
+    check([r["batch"] for r in rows] == [256, 1024, 4096] and all(list(r) == keys for r in rows)
+          and all(math.isfinite(v) and v > 0 for r in rows for v in r.values()), f"serving: rows {rows}")
+    held = report["captured_equals_eager"]
+    check(len(held) == 6 and all(h["captured"] for h in held), f"serving: captured against eager {held}")
+    deltas = [r["max_pred_delta_d_units"] for r in rows]
+    check(all(d <= SERVING_BF16_DELTA_LIMIT for d in deltas),
+          f"serving: bf16 prediction delta {deltas} above {SERVING_BF16_DELTA_LIMIT}")
+    check(written == per_arm and list(written) == list(serving.ARMS)
+          and all(len(v) == 2 and v[0] >= 0 and math.isfinite(v[0]) for v in written.values()),
+          f"serving: per-arm file {written}")
+
+    # the f32 flagship on the card against the CPU, on the same weights
+    with torch.inference_mode():
+        videos = serving.make_videos(0, 64, "cpu")
+        want = serving.initialised(serving.flagship(), 0, "cpu")(videos)
+        model = serving.initialised(serving.flagship(), 0, "cuda")
+        eager = model(videos.cuda()).cpu()
+        captured = serving.served(model, (videos.cuda(),))().cpu()
+    rel = {k: float((v - want).abs().max() / want.abs().max()) for k, v in (("eager", eager), ("captured", captured))}
+    check(all(v <= 1e-4 for v in rel.values()), f"serving: card against CPU {rel}")
+
+    counts = launch_counts()
+    launches = {k: counts[k] - counts0[k] for k in counts}
+    check(not any(launches.values()), f"serving: kernels launched on the serving path {launches}")
+    emit({"phase": "serving", "card": card, "rows": rows, "peak": report["peak"], "per_arm_ms_per_10k": per_arm,
+          "card_against_cpu": rel, "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def detect_pair(torch, preds) -> float:
     """The largest relative difference between ``detect_change_points``'
     scores of ``preds`` on the card and on the CPU (the split indices must
@@ -3257,11 +3326,12 @@ PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features"
          "modular": phase_modular, "embeddings": phase_embeddings, "framerate": phase_framerate,
          "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16,
          "constrained": phase_constrained, "changepoint": phase_changepoint, "sim2real": phase_sim2real,
-         "changepoint_study": phase_changepoint_study, "ensemble": phase_ensemble, "rescore": phase_rescore}
+         "changepoint_study": phase_changepoint_study, "ensemble": phase_ensemble, "rescore": phase_rescore,
+         "serving": phase_serving}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
                ("psfnoise",), ("denoising",),
                ("realdata", "constrained", "changepoint", "sim2real", "changepoint_study", "ensemble", "rescore"),
-               ("bf16",))
+               ("bf16", "serving"))
 GROUP_TIMEOUT_S = 600
 
 

@@ -813,3 +813,32 @@ def test_bf16_embedding_kernels_repeat_and_members_equal_single_launches_at_ever
         for g_m, g1 in zip(grads[1], gw1):
             assert torch.equal(g_m[i], g1)
         assert torch.equal(grads[4][i], gwfc1) and torch.equal(grads[5][i], gbfc1)
+
+
+def test_serving_captured_forwards_equal_eager_on_card(cuda_device):
+    """The served flagship (``evaluation.serving``), f32 and bf16-cast,
+    plain and with the 4-rotation TTA, captured in a CUDA graph equals its
+    eager call bitwise at batch 64, and the f32 one is finite."""
+    from moleculardiffusion_mivit_tpu_torch.evaluation import serving
+
+    with torch.inference_mode():
+        model = serving.initialised(serving.flagship(), 0, cuda_device)
+        videos = serving.make_videos(0, 64, cuda_device)
+        for fwd in (model, serving.tta(model), serving.bf16_forward(model), serving.tta(serving.bf16_forward(model))):
+            s = serving.Served(fwd, (videos,))
+            assert s.graph is not None
+            assert torch.equal(s(), fwd(videos))
+        assert bool(torch.isfinite(model(videos)).all())
+
+
+def test_serving_path_launches_no_kernel_of_the_port(cuda_device, tmp_path):
+    """Eval-mode forwards run cuDNN convolutions, not K2/K3 (nor K1): the
+    serving entry point's sweep, TTA, bf16 cast and per-arm modes leave
+    every launch counter as it was."""
+    from moleculardiffusion_mivit_tpu_torch.evaluation import serving
+    from moleculardiffusion_mivit_tpu_torch.train.capture import launch_counts
+
+    before = launch_counts()
+    serving.main(["--batches", "16", "--iters", "2", "--tta", "--bf16"])
+    serving.main(["--batches", "16", "--iters", "2", "--per-arm", str(tmp_path / "t.json")])
+    assert launch_counts() == before

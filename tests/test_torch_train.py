@@ -270,7 +270,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "evaluation/analysis", "evaluation/plots", "evaluation/changepoint_study", "realdata/sim2real",
         "experiments/ensemble", "experiments/continuous_d", "experiments/tta_rescore",
         "experiments/seed_ensemble", "experiments/render_noise", "evaluation/msd_protocol",
-        "sim/simulator_validation", "evaluation/poster_gallery")} <= scanned
+        "sim/simulator_validation", "evaluation/poster_gallery", "evaluation/serving")} <= scanned
     banned = ("jax", "flax", "optax", "moleculardiffusion_mivit_tpu", "PIL")
     for path in files:
         for mod in _imports(path):
