@@ -206,6 +206,7 @@ def test_main_prints_the_example_keys_on_the_cpu(small_serving, capsys):
     assert all(math.isfinite(v) and v > 0 for r in rows[:2] for v in r.values())
     assert json.loads(err.strip().splitlines()[0]) == {"card": "cpu"}
     assert report["rows"] == rows[:2] and report["peak"] == rows[2] and report["card"] == "cpu"
+    assert report["captured_equals_eager"] == []  # no graph on the CPU
 
     serving.main(["--device", "cpu", "--batches", "2", "--iters", "1"])
     rows = _json_lines(capsys.readouterr().out)
