@@ -3414,6 +3414,10 @@ def main() -> None:
     k1 = timed("k1", phase_k1, torch)
     k2, k3 = timed("k2_k3", phase_k2_k3, torch)
     k2_bf16, k3_bf16 = timed("bf16_kernels", _bf16_kernels, torch)
+    # the groups' processes get the card's memory: this one keeps no cache
+    # (phase serving's graphs at batch 4096 hold ~33-39 GB)
+    torch.cuda.empty_cache()
+    main_reserved_gb = torch.cuda.memory_reserved() / 1e9
     by_path = {}
     proc = start_paths(PATH_GROUPS[0])
     for i, group in enumerate(PATH_GROUPS):
@@ -3460,7 +3464,8 @@ def main() -> None:
         k["bound_by"] = what
         if detail:
             k["bound_operations"] = detail.strip("()")
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase_s": phase_s})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase_s": phase_s,
+          "main_reserved_gb": main_reserved_gb})
     print(card_line(torch.device("cuda")), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
