@@ -4,8 +4,8 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
 line each on stdout (a phase's line also carries ``t``, its process's
-seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-19 and 13 + 20 in
-eight processes of their own, each started while the one before runs:
+seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-19, 13 + 20 and 21
+in nine processes of their own, each started while the one before runs:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
@@ -173,6 +173,17 @@ eight processes of their own, each started while the one before runs:
    each ≥ 0); the bf16 prediction delta under
    ``SERVING_BF16_DELTA_LIMIT``; the f32 flagship on the card against the
    CPU (64 sequences, 1e-4 relative); no K1/K2/K3 launch on this path.
+21. mesh (``phase_mesh``): ``parallel`` and ``Experiment.use_mesh`` at
+   full width and the cut size, batch 16. (a) NCCL at world size 1: the
+   baseline meshed captured, meshed eager and unmeshed captured, bitwise
+   equal, each second cycle timed. (b) Two ranks on this card over gloo in
+   processes of their own (``--mesh-rank``), eager: psfnoise at ``model=2``
+   (15 members a rank, K2/K3 over them) and the baseline at ``data=2``
+   (the deep arms' K2/K3 on the gathered rows, global BatchNorm), each
+   against its unsharded cycle on the card (parameters at 20·lr, BatchNorm
+   statistics at 1e-3 of their largest, ``val_avg`` at 5 % or 1e-3,
+   replicated arms bitwise equal across ranks), a captured cycle over gloo
+   raising. (c) With two or more cards: NCCL across two or four, captured.
 
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
@@ -3318,6 +3329,314 @@ def detect_pair(torch, preds) -> float:
     return float(((score_card.cpu() - score_cpu).abs() / score_cpu.abs().clamp_min(1e-12)).max())
 
 
+MESH_LR_ATOL = 20  # parameters after a sharded cycle within 20·lr of the unsharded (tests/test_torch_parallel.py)
+# BatchNorm running statistics after a sharded cycle, of the tensor's
+# largest. Over a split batch BatchNorm sums in another order, and its
+# statistics follow the parameters' drift (the Adam sign flips that 20·lr
+# allows): psfnoise's res_grid at data=2 on four cards read 1.9e-3 in
+# layer3's shortcut BN, over the first limit of 1e-3; the sums themselves
+# are exact up to their order (tests/test_torch_parallel.py holds a float64
+# deep-ResNet grid at data=2 to its unsharded step at 1e-10)
+MESH_BUFFER_RTOL = 1e-2
+MESH_RANK_TIMEOUT_S = 120
+
+
+def _mesh_build(name, batch=16, fused=False):
+    """Phase mesh's experiment ``name`` (``baseline`` or ``psfnoise``) at
+    full width and the cut size, seed 0, ``batch`` every cycle, built on the
+    current card."""
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline, psfnoise
+
+    exp = {"baseline": baseline, "psfnoise": psfnoise}[name].build(
+        seed=0, device="cuda", sequences_per_d=CUT_SEQS_PER_D)
+    exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+    exp.fused_cycles = fused
+    return exp
+
+
+def _mesh_record(torch, exp) -> dict:
+    """What phase mesh compares of an experiment after its cycle, on the
+    CPU: each model's losses and ``val_avg``, each arm's parameters and
+    buffers, the last step's gradients, every arm's validation predictions
+    (a collective on a mesh: every rank calls it in one order)."""
+    from moleculardiffusion_mivit_tpu_torch.experiments.base import GridArm
+
+    combined = exp._combined_val()[0]
+    preds = {arm_name: (exp._grid_predictions(arm_name, arm, combined) if isinstance(arm, GridArm)
+                        else exp.predict(arm_name, combined)).cpu()
+             for arm_name, arm in exp.arms.items() if arm.model is not None}
+    return {"losses": _member_losses(exp), "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
+            "states": {a: {k: v.cpu() for k, v in st.model.state_dict().items()} for a, st in exp.states.items()},
+            "buffers": {a: {n for n, _ in st.model.named_buffers()} for a, st in exp.states.items()},
+            "grads": {a: {n: p.grad.cpu() for n, p in st.model.named_parameters() if p.grad is not None}
+                      for a, st in exp.states.items()},
+            "preds": preds, "members": {a: (sl.start, sl.stop) for a, sl in exp._members.items()}}
+
+
+def mesh_rank(torch, backend: str, world: int, rank: int, port: int, out: str) -> None:
+    """One rank of phase mesh's parts (b) and (c), started by ``phase_mesh``
+    (``chip_smoke.py --mesh-rank``): after ``go`` on stdin, join the world
+    over ``backend`` (``gloo``: every rank on card 0; ``nccl``: rank ``r``
+    on card ``r``), then per experiment of ``MESH_SHAPES[world]`` build it
+    on its mesh, run one cycle (eager over gloo, captured over NCCL) with
+    the launch counters read around it, and write ``_mesh_record`` to
+    ``out/rank<r>.pt``. Over gloo a captured cycle must raise."""
+    from moleculardiffusion_mivit_tpu_torch import parallel
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+
+    import faulthandler
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.empty(1, device=device)
+    if sys.stdin.readline().strip() != "go":
+        return
+    faulthandler.dump_traceback_later(MESH_RANK_TIMEOUT_S - 10, exit=True)  # where a rank hangs, before its kill
+    parallel.initialize_distributed(backend, init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+                                    timeout_s=MESH_RANK_TIMEOUT_S)
+    res = {}
+    for name, shape in MESH_SHAPES[backend, world]:
+        mesh = parallel.make_mesh(**shape)
+        exp = _mesh_build(name, fused=backend == "nccl").use_mesh(mesh)
+        exp.build()
+        print(f"mesh rank {rank}: {name} built at {time.perf_counter() - T_START:.1f} s", file=sys.stderr, flush=True)
+        torch.cuda.synchronize()
+        counts0 = launch_counts()
+        t0 = time.perf_counter()
+        exp.run(1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernel_launches(counts0, [exp.engine])
+        print(f"mesh rank {rank}: {name} cycle {seconds:.2f} s", file=sys.stderr, flush=True)
+        res[name] = {**_mesh_record(torch, exp), "s_per_cycle": seconds, "launches": launches, "mesh": shape}
+        if backend == "gloo":  # a CUDA graph cannot hold gloo's collectives
+            exp.fused_cycles = True
+            try:
+                exp.run(1, start_cycle=1)
+                res[name]["gloo_fused_raised"] = False
+            except ValueError:
+                res[name]["gloo_fused_raised"] = True
+        del exp
+        torch.cuda.empty_cache()
+    torch.save(res, Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+# (backend, ranks) -> the experiments of phase mesh's rank processes and
+# their meshes: over gloo on one card, psfnoise's grids over model and the
+# baseline's batch over data; over NCCL, on two or four cards, the same
+# with data over the rest
+MESH_SHAPES = {
+    ("gloo", 2): (("psfnoise", dict(data=1, model=2)), ("baseline", dict(data=2, model=1))),
+    ("nccl", 2): (("psfnoise", dict(data=1, model=2)), ("baseline", dict(data=2, model=1))),
+    ("nccl", 4): (("psfnoise", dict(data=2, model=2)), ("baseline", dict(data=4, model=1))),
+}
+
+
+def _mesh_against(torch, ranks: list, ref: dict, name: str, lr: float) -> dict:
+    """Every rank's record of ``name`` against the unsharded ``ref``: the
+    largest |Δ| of training losses (relative), ``val_avg``, parameters, the
+    last step's gradients (relative to the arm's largest gradient: some,
+    such as an attention key bias's, are zero but for rounding) and
+    validation predictions; held: parameters at ``MESH_LR_ATOL``·lr,
+    BatchNorm running statistics at ``MESH_BUFFER_RTOL`` of the tensor's
+    largest (they carry the data's scale: a noisy psfnoise cell's first
+    variance is ~1e4), ``val_avg`` at 5 % or 1e-3, every rank's history the
+    same, replicated arms bitwise equal on every rank, a grid's members
+    split as the mesh says."""
+    out = {"loss": 0.0, "val_avg": 0.0, "param": 0.0, "buffer_relative": 0.0, "grad_relative": 0.0, "pred": 0.0}
+    for res in ranks:
+        got = res[name]
+        check(got["val_avg"] == ranks[0][name]["val_avg"], f"mesh {name}: ranks' histories differ")
+        for model, vals in ref["val_avg"].items():
+            for a, b in zip(got["val_avg"][model], vals, strict=True):
+                out["val_avg"] = max(out["val_avg"], abs(a - b))
+                check(abs(a - b) <= 0.05 * abs(b) + 1e-3, f"mesh {name}: {model} val_avg {a} vs {b}")
+        for model, vals in ref["losses"].items():
+            for a, b in zip(got["losses"][model], vals, strict=True):
+                out["loss"] = max(out["loss"], abs(a - b) / abs(b))
+        for arm, state in got["states"].items():
+            sl = slice(*got["members"][arm]) if arm in got["members"] else slice(None)
+            for k, v in state.items():
+                w = ref["states"][arm][k]
+                w = w[sl] if v.ndim and arm in got["members"] else w
+                d = float((v - w).abs().max()) if v.numel() else 0.0
+                if k in got["buffers"][arm]:
+                    d /= float(w.abs().max()) or 1.0
+                    out["buffer_relative"] = max(out["buffer_relative"], d)
+                    check(d <= MESH_BUFFER_RTOL, f"mesh {name}: {arm} {k} differs by {d} of its largest")
+                else:
+                    out["param"] = max(out["param"], d)
+                    check(d <= MESH_LR_ATOL * lr, f"mesh {name}: {arm} {k} differs by {d} > {MESH_LR_ATOL}·lr")
+                if arm not in got["members"]:
+                    check(torch.equal(v, ranks[0][name]["states"][arm][k]),
+                          f"mesh {name}: replicated {arm} {k} differs between ranks")
+            want = {k: w[sl] if arm in got["members"] else w for k, w in ref["grads"][arm].items()}
+            scale = max(float(w.abs().max()) for w in want.values()) or 1.0
+            for k, g in got["grads"][arm].items():
+                out["grad_relative"] = max(out["grad_relative"], float((g - want[k]).abs().max()) / scale)
+        for arm, p in got["preds"].items():
+            out["pred"] = max(out["pred"], float((p - ref["preds"][arm]).abs().max()))
+    return out
+
+
+def phase_mesh(torch, card):
+    """The mesh (``parallel``, ``Experiment.use_mesh``) on the card. (a)
+    NCCL at world size 1: the baseline at full width and the cut size,
+    batch 16, two cycles on ``use_mesh(data=1, model=1)`` captured and two
+    eager, and two captured without a mesh: all three bitwise equal (the
+    world's sums are copies, the collectives captured in the graphs); each
+    second cycle timed. (b) Two ranks on this one card over gloo (NCCL refuses a card
+    twice), eager, in processes of their own: psfnoise with ``model=2``
+    (each rank's ``tr_grid`` runs K2/K3 over its 15 members) and the
+    baseline with ``data=2`` (the deep arms' K2/K3 on the gathered rows,
+    global BatchNorm), each held against the same cycle unsharded on the
+    card (``_mesh_against``), and a captured cycle over gloo must raise.
+    (c) Where the machine has two or more cards: NCCL across up to four,
+    captured, the same comparisons. Returns the K1/K2/K3 launches of every
+    meshed cycle, (a)'s and every rank's."""
+    import socket
+    import tempfile
+
+    from moleculardiffusion_mivit_tpu_torch import parallel
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    def start_ranks(backend, world, out):
+        """The ranks' processes; each starts CUDA and waits for ``go``."""
+        port, procs = str(free_port()), []
+        for r in range(world):
+            with open(Path(out, f"rank{r}.log"), "w") as log:  # the child keeps its own descriptor
+                procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                                               backend, str(world), str(r), port, out], stdin=subprocess.PIPE,
+                                              stdout=log, stderr=subprocess.STDOUT, text=True))
+        return procs
+
+    def finish_ranks(procs, what, out):
+        """``go`` to every rank at once (each waits for the others), then
+        wait for all; past ``MESH_RANK_TIMEOUT_S`` kill them and fail."""
+        for p in procs:
+            p.stdin.write("go\n")
+            p.stdin.close()
+        t_end = time.perf_counter() + MESH_RANK_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(t_end - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+        logs = [Path(out, f"rank{r}.log").read_text() for r in range(len(procs))]
+        if not all(p.returncode == 0 for p in procs):
+            for r, log in enumerate(logs):
+                print(f"--- mesh {what} rank {r}\n{log[-6000:]}", file=sys.stderr)
+            fail(f"mesh {what}: ranks exited {[p.returncode for p in procs]} (a kill past {MESH_RANK_TIMEOUT_S} s "
+                 "is -9)")
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    multi = 4 if n_cards >= 4 else 2 if n_cards >= 2 else 0
+    tmp = tempfile.TemporaryDirectory()
+    out_b = Path(tmp.name, "b")
+    out_b.mkdir()
+    procs_b = start_ranks("gloo", 2, str(out_b))  # they start CUDA while part (a) runs
+    launches = {k: 0 for k in launch_counts()}
+
+    # (a) NCCL at world size 1
+    parallel.initialize_distributed("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                                    timeout_s=MESH_RANK_TIMEOUT_S)
+    mesh1 = parallel.make_mesh(data=1, model=1)
+    runs = {}
+    for key, fused, meshed in (("captured", True, True), ("eager", False, True), ("unmeshed", True, False)):
+        exp = _mesh_build("baseline", fused=fused)
+        if meshed:
+            exp.use_mesh(mesh1)
+        exp.build()
+        torch.cuda.synchronize()
+        counts0 = launch_counts()
+        exp.run(1)  # the capture cycle
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run(1, start_cycle=1)
+        torch.cuda.synchronize()
+        runs[key] = [exp, time.perf_counter() - t0]
+        if meshed:
+            for k, v in kernel_launches(counts0, [exp.engine]).items():
+                launches[k] += v
+    torch.distributed.destroy_process_group()
+    cap = runs["captured"][0]
+    a = {other: _compare_experiments(torch, cap, runs[other][0]) for other in ("eager", "unmeshed")}
+    for other, diffs in a.items():
+        for model, d in diffs.items():
+            check(d["bitwise"], f"mesh (a): {model}: captured on the mesh and {other} differ ({d})")
+    emit({"phase": "mesh", "part": "a", "card": card, "backend": "nccl", "world": 1, "batch": 16,
+          "sequences": _sequences(cap), "cycles": 2, "bitwise_equal": True,
+          "s_second_cycle": {k: v[1] for k, v in runs.items()}})
+    del runs, cap
+
+    # the unsharded references of (b), on this card while the ranks wait
+    refs = {}
+    for name in ("psfnoise", "baseline"):
+        exp = _mesh_build(name)
+        exp.build()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run(1)
+        torch.cuda.synchronize()
+        refs[name] = {**_mesh_record(torch, exp), "s_per_cycle": time.perf_counter() - t0,
+                      "lr": exp.train_cfg.lr_for_cycle(0)}
+        del exp
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on this card over gloo
+    t0 = time.perf_counter()
+    finish_ranks(procs_b, "(b)", out_b)
+    ranks = [torch.load(out_b / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    parts = {"b": ("gloo", 2, ranks, time.perf_counter() - t0)}
+    for res in ranks:
+        for name, got in res.items():
+            check(got["gloo_fused_raised"], f"mesh (b): a captured {name} cycle over gloo did not raise")
+    psf = [res["psfnoise"] for res in ranks]
+    check([r["members"]["tr_grid"] for r in psf] == [(0, 15), (15, 30)], "mesh (b): psfnoise members")
+    for r in psf:
+        check(r["launches"]["deep_resnet_embed_fwd"] > 0, "mesh (b): no K2 launch on a psfnoise rank")
+
+    # (c) NCCL across cards
+    if multi:
+        out_c = Path(tmp.name, "c")
+        out_c.mkdir()
+        t0 = time.perf_counter()
+        procs = start_ranks("nccl", multi, str(out_c))
+        finish_ranks(procs, "(c)", out_c)
+        parts["c"] = ("nccl", multi, [torch.load(out_c / f"rank{r}.pt", weights_only=False)
+                                      for r in range(multi)], time.perf_counter() - t0)
+    else:
+        emit({"phase": "mesh", "part": "c", "skipped": f"{n_cards} card: NCCL across cards needs two or more"})
+
+    for part, (backend, world, ranks, wall_s) in parts.items():
+        by_exp = {}
+        for name in refs:
+            by_exp[name] = {"mesh": ranks[0][name]["mesh"],
+                            "max_abs_diff": _mesh_against(torch, ranks, refs[name], name, refs[name]["lr"]),
+                            "s_per_cycle": {"sharded_by_rank": [r[name]["s_per_cycle"] for r in ranks],
+                                            "unsharded": refs[name]["s_per_cycle"]},
+                            "launches_by_rank": [{k: v for k, v in r[name]["launches"].items() if v}
+                                                 for r in ranks]}
+            for r in ranks:
+                for k, v in r[name]["launches"].items():
+                    launches[k] += v
+        emit({"phase": "mesh", "part": part, "card": card, "backend": backend, "world": world, "batch": 16,
+              "sequences_per_d": CUT_SEQS_PER_D, "by_experiment": by_exp, "ranks_wall_s": wall_s,
+              "note": "two ranks share one card over gloo: correctness, not speed" if backend == "gloo" else ""})
+    tmp.cleanup()
+    emit({"phase": "mesh", "part": "launches", "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 # The main paths, each driven by its phase, in groups that each run in a
 # process of their own: in one long process torch.profiler came to lose
 # single K1 records (one of 36 in a framerate cycle, one of 5 in a modular
@@ -3328,11 +3647,11 @@ PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features"
          "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16,
          "constrained": phase_constrained, "changepoint": phase_changepoint, "sim2real": phase_sim2real,
          "changepoint_study": phase_changepoint_study, "ensemble": phase_ensemble, "rescore": phase_rescore,
-         "serving": phase_serving}
+         "serving": phase_serving, "mesh": phase_mesh}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
                ("psfnoise",), ("denoising",),
                ("realdata", "constrained", "changepoint", "sim2real", "changepoint_study", "ensemble", "rescore"),
-               ("bf16", "serving"))
+               ("bf16", "serving"), ("mesh",))
 GROUP_TIMEOUT_S = 600
 
 
@@ -3377,6 +3696,10 @@ def main() -> None:
     from moleculardiffusion_mivit_tpu_torch.ops._build import build_all, load_library
     from moleculardiffusion_mivit_tpu_torch.utils.card import card_line
 
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase mesh, started by it
+        backend, world, rank, port, out = sys.argv[2:7]
+        mesh_rank(torch, backend, int(world), int(rank), int(port), out)
+        return
     if sys.argv[1:2] == ["--paths"]:  # a group of paths: alone, or in a process start_paths started
         on_go = sys.argv[2:3] == ["--on-go"]
         card, out = card_line(torch.device("cuda")), {}

@@ -1,8 +1,8 @@
 """Typed configuration for simulation, models and training.
 
 A copy of the dataclasses of ``moleculardiffusion_mivit_tpu/config.py``
-(``OpticsConfig``, ``ModelConfig``, ``TrainConfig``, ``BASELINE_OPTICS``,
-``PSFNOISE_OPTICS``, ``FRAMERATE_OPTICS``),
+(``OpticsConfig``, ``ModelConfig``, ``TrainConfig``, ``MeshConfig``,
+``BASELINE_OPTICS``, ``PSFNOISE_OPTICS``, ``FRAMERATE_OPTICS``),
 kept here so the port imports nothing of the JAX package. Field names,
 defaults and derived properties are the same.
 """
@@ -157,3 +157,23 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Layout of a data × model mesh of ranks (``parallel.make_mesh``).
+
+    The workload scales along ``data`` (the batch of generated sequences)
+    and ``model`` (the grid of small independent models, e.g. the 5×6×2
+    PSFNoise grid). Sequences are at most 61 tokens, so there is no
+    sequence axis.
+    """
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = 1
+    model_parallel: int = 1
+
+    @property
+    def shape(self):
+        return {self.data_axis: self.data_parallel, self.model_axis: self.model_parallel}

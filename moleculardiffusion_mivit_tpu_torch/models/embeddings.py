@@ -18,6 +18,12 @@ so validation scores do not depend on that global.
 
 ``BatchNorm`` also normalises with batch statistics in train mode, for the
 modules that do not run through K2/K3 (``models/resnet.py``).
+
+On a mesh, a training step whose minibatch is split over ranks
+(``parallel.collectives.sharded_rows``) makes the statistics global:
+``BatchNorm`` sums (Σx, Σx², count) over the ranks before it normalises,
+and ``DeepResNetEmbedding`` runs K2/K3 on the gathered rows of the
+minibatch and keeps its own rows' embedding (``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import (
     f32_convolutions,
     fused_deep_resnet_embed,
 )
+from moleculardiffusion_mivit_tpu_torch.parallel.collectives import all_reduce_sum, current_rows, gather_rows
 
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running value
 
@@ -60,8 +67,15 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = [0] + list(range(2, x.ndim))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            rows = current_rows()
+            if rows is None:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            else:  # the minibatch is split over ranks: sums over all of them
+                count = xf.new_full((xf.shape[1],), float(xf.numel() // xf.shape[1]))
+                sums = all_reduce_sum(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes), count]), rows.group)
+                mean = sums[0] / sums[2]
+                var = torch.clamp(sums[1] / sums[2] - mean * mean, min=0.0)
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
@@ -162,6 +176,9 @@ class DeepResNetEmbedding(nn.Module):
             "rb2_conv1": _hwio(r2.conv1), "rb2_conv2": _hwio(r2.conv2), "rb2_skip": _hwio(r2.skip_conv),
         }
         bns = self._bns()
+        rows = current_rows()
+        if rows is not None:  # the minibatch is split over ranks: K2/K3 see all its rows
+            x = gather_rows(x, rows)
         emb, stats = fused_deep_resnet_embed(
             x,
             kernels,
@@ -172,7 +189,7 @@ class DeepResNetEmbedding(nn.Module):
         )
         for name, m in bns.items():
             m.update_running(*stats[name])
-        return emb
+        return emb if rows is None else emb[rows.lo:rows.hi]
 
 
 EMBEDDING_REGISTRY = {

@@ -11,6 +11,8 @@ Usage:
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment psfnoise --cycles 100 --in-order
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment denoising --cycles 100 --seqs-per-d 128
     python -m moleculardiffusion_mivit_tpu_torch.run_experiment baseline --cycles 100 --plots
+    torchrun --nproc-per-node 4 -m moleculardiffusion_mivit_tpu_torch.run_experiment psfnoise \
+        --mesh data=2,model=2 --cycles 100
 
 Port of ``moleculardiffusion_mivit_tpu/run_experiment.py``: runs the named
 experiment on ``--device`` (CUDA by default; without a card it raises unless
@@ -28,7 +30,13 @@ is rescored on the in-order suite from its checkpoint, by
 ``python -m moleculardiffusion_mivit_tpu_torch.experiments.framerate --ckpt
 <out>/final``.
 
-Not offered: ``--mesh``, ``--no-aot-cache`` and ``--unroll`` (TPU-only).
+``--mesh data=D,model=M`` trains on a mesh of ``D · M`` ranks
+(``Experiment.use_mesh``), one process a rank started by ``torchrun``
+(``python -m torch.distributed.run``), which gives each its address, world
+size and rank: on the card each rank takes ``cuda:LOCAL_RANK`` and NCCL,
+with ``--device cpu`` gloo. Rank 0 alone writes the files and the events.
+
+Not offered: ``--no-aot-cache`` and ``--unroll`` (TPU-only).
 """
 
 from __future__ import annotations
@@ -75,6 +83,10 @@ def main(argv=None):
     ap.add_argument("--plots", action="store_true",
                     help="render the figures (val-MSE curves, error bars and violins, prediction-vs-D, PSF×noise "
                          "heatmaps) into <out>/figures after the run; needs matplotlib")
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="train on a mesh of ranks under torchrun, e.g. 'data=2,model=4': grid arms split their "
+                         "members over 'model' and each member's batch over 'data'; single-model arms keep every "
+                         "parameter and split the batch over every rank")
     ap.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.plots:
@@ -92,9 +104,25 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.experiment not in REGISTRY:
         ap.error(f"unknown experiment {args.experiment!r}; available: {sorted(REGISTRY)}")
+    mesh = None
+    if args.mesh:
+        from moleculardiffusion_mivit_tpu_torch.parallel import initialize_distributed, make_mesh
+
+        try:
+            spec = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh.split(","))}
+        except ValueError:
+            ap.error(f"--mesh takes data=D,model=M, got {args.mesh!r}")
+        if set(spec) - {"data", "model"}:
+            ap.error(f"--mesh takes the axes data and model, got {sorted(spec)}")
+        if device.type == "cuda":  # torchrun's rank on this host: its card
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        initialize_distributed("nccl" if device.type == "cuda" else "gloo")
+        mesh = make_mesh(**spec)
+    writes = mesh is None or mesh.rank == 0
     out_dir = args.out or f"results/{args.experiment}"
     os.makedirs(out_dir, exist_ok=True)
-    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"), stdout=True)
+    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl") if writes else None, stdout=writes)
 
     kwargs = dict(seed=args.seed, sequences_per_d=args.seqs_per_d, device=device)
     build_params = inspect.signature(REGISTRY[args.experiment]).parameters
@@ -113,6 +141,8 @@ def main(argv=None):
         exp.set_compute_dtype(args.compute_dtype)
     if args.no_stack_pairs:
         exp.stack_pairs = False
+    if mesh is not None:
+        exp.use_mesh(mesh)
     n_cycles = args.cycles or exp.train_cfg.num_cycles
 
     logger.log(
@@ -126,6 +156,7 @@ def main(argv=None):
         lr=exp.train_cfg.lr,
         loss=exp.train_cfg.loss,
         models=exp.model_names,
+        **({} if mesh is None else {"mesh": mesh.shape}),
     )
 
     t0 = time.time()
@@ -154,7 +185,7 @@ def main(argv=None):
     final = {name: h["val_avg"][-1] for name, h in exp.history.items() if h["val_avg"]}
     logger.log("final_val_avg", values=final)
 
-    if exp.in_order_data is not None:
+    if exp.in_order_data is not None:  # every rank predicts (collectives); rank 0 writes
         from moleculardiffusion_mivit_tpu_torch.evaluation import error_table, save_error_table_csv
 
         d_values = exp.in_order_data["d_values"]
@@ -163,12 +194,16 @@ def main(argv=None):
         if args.in_order_renders > 1:
             tables = exp.in_order_error_tables(n_renders=args.in_order_renders)
         csv_path = os.path.join(out_dir, f"{args.experiment}_errors.csv")
-        save_error_table_csv(tables, csv_path)
+        if writes:
+            save_error_table_csv(tables, csv_path)
+            np.savez_compressed(
+                os.path.join(out_dir, "in_order_predictions.npz"), d_values=np.asarray(d_values), **preds
+            )
         logger.log("error_tables", path=csv_path, tables=tables)
-        np.savez_compressed(
-            os.path.join(out_dir, "in_order_predictions.npz"), d_values=np.asarray(d_values), **preds
-        )
 
+    if not writes:
+        logger.close()
+        return exp
     with open(os.path.join(out_dir, "history.json"), "w") as f:
         json.dump(exp.history, f)
     if args.plots:

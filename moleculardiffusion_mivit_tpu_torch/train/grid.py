@@ -35,6 +35,7 @@ generator given to ``init_grid``; its epoch permutation from
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -45,9 +46,11 @@ from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import TrainConfig
 from moleculardiffusion_mivit_tpu_torch.models import init_model
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
+from moleculardiffusion_mivit_tpu_torch.parallel.collectives import BatchSplit, loss_share, sharded_rows
 from moleculardiffusion_mivit_tpu_torch.train.loop import (
     TrainState,
     _cast_for_compute,
+    _check_no_dropout,
     _check_supported,
     _loss,
     _set_lr,
@@ -68,9 +71,9 @@ class GridModule(nn.Module):
     is not a submodule: only its structure is used, by ``functional_call``.
     ``members`` are initialised modules of the template's architecture."""
 
-    def __init__(self, template: nn.Module, members: Sequence[nn.Module]):
+    def __init__(self, template: nn.Module, members: Sequence[nn.Module] = (), stacked=None):
         super().__init__()
-        params, buffers = stack_module_state(list(members))
+        params, buffers = stacked if stacked is not None else stack_module_state(list(members))
         self.__dict__["template"] = template
         self.param_names = list(params)
         self.buffer_names = list(buffers)
@@ -78,6 +81,16 @@ class GridModule(nn.Module):
             self.register_parameter(_key(name), nn.Parameter(p.detach().clone()))
         for name, b in buffers.items():
             self.register_buffer(_key(name), b.detach().clone())
+
+    @property
+    def n_members(self) -> int:
+        return getattr(self, _key(self.param_names[0])).shape[0]
+
+    def select(self, members: slice) -> "GridModule":
+        """A grid of the ``members`` of this one (copies), in its mode."""
+        params, buffers = self.stacked()
+        sub = ({n: v[members] for n, v in params.items()}, {n: v[members] for n, v in buffers.items()})
+        return GridModule(self.template, stacked=sub).train(self.training)
 
     def stacked(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """The template's parameters and buffers by name, each ``(M, ...)``."""
@@ -122,7 +135,8 @@ def make_perms(generator: torch.Generator, m: int, n: int, batch_size: int, devi
 
 
 def make_grid_impls(
-    model: nn.Module, train_cfg: TrainConfig, device=None, with_features: bool = False
+    model: nn.Module, train_cfg: TrainConfig, device=None, with_features: bool = False,
+    constrain_batch: Optional[BatchSplit] = None, members: Optional[slice] = None,
 ) -> GridImpls:
     """``(init_grid, train_cycle, evaluate, train_step, make_perms)`` for a
     grid of ``model``'s architecture. Data are member-major: ``videos (M,
@@ -144,40 +158,63 @@ def make_grid_impls(
       per-member mean losses ``(M,)``.
     - ``evaluate(state, videos, features=None)``: eval-mode predictions
       ``(M, N, ...)`` × ``d_max_normalization``.
+
+    On a mesh (``parallel.steps``): ``members`` is this rank's block of the
+    grid's members (``parallel.grid_sharding``): ``init_grid`` takes every
+    member's generator and makes only these, and ``train_cycle`` takes every
+    member's data and draws every member's permutation, and trains these
+    (member ``m`` keeps its global stream). ``constrain_batch`` splits each
+    member's minibatch over the ``data`` ranks of its column as
+    ``train.loop``'s step splits a single model's: ``idx (M, B)`` is global,
+    the rank keeps columns ``lo:hi`` of it, and the gradients and losses are
+    summed over the column's group.
     """
     _check_supported(train_cfg)
     dev = resolve_device(device)
+    split = constrain_batch
+    if split is not None:
+        _check_no_dropout(model)
 
     def init_grid(generators: Sequence[torch.Generator], capturable: bool = False) -> TrainState:
-        members = [init_model(copy.deepcopy(model), g) for g in generators]
-        grid = GridModule(model, members).to(dev).train()
+        gens = generators if members is None else generators[members]
+        grid = GridModule(model, [init_model(copy.deepcopy(model), g) for g in gens]).to(dev).train()
         return TrainState(grid, make_optimizer(grid, train_cfg, capturable))
 
-    def member_loss(run, bv, by, *bf):
+    def member_loss(run, bv, by, *bf, share=(1, 1)):
         out = run(bv, *bf).float()
         if by.ndim == 2 and out.ndim == 3:
             by = by[..., None]
-        return _loss(out, by, train_cfg.loss)
+        return loss_share(lambda o: _loss(o, by, train_cfg.loss), out, *share)
 
     def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None) -> torch.Tensor:
         if act_slope is not None:
             raise ValueError("a grid has no activation-slope stacks")
         if with_features and features is None:
             raise ValueError("this grid's models take features: pass features=")
-        rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        total = idx.shape[1]
+        lo, hi = (0, total) if split is None else split.bounds(total)
+        idx = idx[:, lo:hi]
+        member = torch.arange(idx.shape[0], device=idx.device)[:, None]
         grid = state.model
-        params, bv, bf = _cast_for_compute(train_cfg, grid.stacked()[0], videos[rows, idx],
-                                           features[rows, idx] if with_features else None)
-        batch = (bv, labels[rows, idx]) + ((bf,) if with_features else ())
-        with f32_convolutions():  # autograd's convolutions read the setting when they run
-            losses = grid.vmapped(member_loss, *batch, params=params)
+        params, bv, bf = _cast_for_compute(train_cfg, grid.stacked()[0], videos[member, idx],
+                                           features[member, idx] if with_features else None)
+        batch = (bv, labels[member, idx]) + ((bf,) if with_features else ())
+        loss = functools.partial(member_loss, share=(hi - lo, total))
+        with f32_convolutions(), sharded_rows(None if split is None else split.rows(total)):
+            losses = grid.vmapped(loss, *batch, params=params)
             state.optimizer.zero_grad(set_to_none=True)
             losses.sum().backward()
+        if split is not None:
+            losses = split.reduce(grid.parameters(), losses)
         state.optimizer.step()
         return losses.detach()
 
     def train_cycle(state: TrainState, videos, labels, generator, lr: float, batch_size: int, features=None):
         perms = make_perms(generator, videos.shape[0], videos.shape[1], batch_size, videos.device)
+        if members is not None:
+            perms = perms[members]
+            videos, labels = videos[members], labels[members]
+            features = None if features is None else features[members]
         _set_lr(state.optimizer, lr)
         state.model.train()
         losses = [train_step(state, videos, labels, perms[:, s], features=features) for s in range(perms.shape[1])]

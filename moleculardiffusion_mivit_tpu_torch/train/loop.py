@@ -48,6 +48,7 @@ from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
 from moleculardiffusion_mivit_tpu_torch.features import compute_features_for_multiple_trajectories
 from moleculardiffusion_mivit_tpu_torch.models import init_model
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
+from moleculardiffusion_mivit_tpu_torch.parallel.collectives import BatchSplit, loss_share, sharded_rows
 from moleculardiffusion_mivit_tpu_torch.sim import (
     average_trajectories_frames,
     render_videos,
@@ -115,6 +116,13 @@ def _cast_for_compute(cfg: TrainConfig, params: Dict[str, torch.Tensor], bv, bf)
     dtype = COMPUTE_DTYPES[cfg.compute_dtype]
     cast = lambda v: v.to(dtype) if v.dtype == torch.float32 else v  # noqa: E731
     return {n: cast(p) for n, p in params.items()}, cast(bv), None if bf is None else cast(bf)
+
+
+def _check_no_dropout(model: torch.nn.Module) -> None:
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Dropout) and mod.p > 0:
+            raise ValueError("dropout > 0 cannot train with its minibatch split over ranks: a rank's mask "
+                             "would not be its rows of the minibatch's mask")
 
 
 def _loss(pred: torch.Tensor, y: torch.Tensor, kind: str) -> torch.Tensor:
@@ -242,7 +250,8 @@ def generate_cycle_data(
 
 
 def make_train_impls(
-    model: torch.nn.Module, train_cfg: TrainConfig, device=None, with_features: bool = False
+    model: torch.nn.Module, train_cfg: TrainConfig, device=None, with_features: bool = False,
+    constrain_batch: Optional[BatchSplit] = None,
 ) -> TrainImpls:
     """``(init_state, train_cycle, evaluate, train_step)`` for one model;
     with ``with_features`` the model is called as ``model(videos,
@@ -262,9 +271,23 @@ def make_train_impls(
       ``generator``; returns the mean loss.
     - ``evaluate(state, videos, features=None)`` returns eval-mode
       predictions × ``d_max_normalization``.
+
+    ``constrain_batch`` (a ``parallel.collectives.BatchSplit``, the
+    counterpart of the JAX package's hook of that name): the step's
+    minibatch ``idx`` is the global one, the same on every rank of the
+    split; the rank keeps its rows of it, runs the forward inside
+    ``sharded_rows`` (BatchNorm and K2/K3 take global statistics),
+    back-propagates its share of the minibatch mean and sums the gradients
+    and the loss over the split's group before AdamW, so the parameters
+    stay the same on every rank and the returned loss is the minibatch's.
+    A model with dropout > 0 raises: a rank's mask would not be its rows
+    of the minibatch's mask.
     """
     _check_supported(train_cfg)
     dev = resolve_device(device)
+    split = constrain_batch
+    if split is not None:
+        _check_no_dropout(model)
 
     def init_state(generator: torch.Generator) -> TrainState:
         init_model(model, generator)
@@ -279,17 +302,23 @@ def make_train_impls(
         return videos, features
 
     def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None) -> torch.Tensor:
+        total = idx.shape[0]
+        lo, hi = (0, total) if split is None else split.bounds(total)
+        idx = idx[lo:hi]
         bv, by = videos.index_select(0, idx), labels.index_select(0, idx)
         bf = None if features is None else features.index_select(0, idx)
         kwargs = {} if act_slope is None else {"act_slope": act_slope}
-        with f32_convolutions():  # autograd's convolutions read the setting when they run
+        rows = None if split is None else split.rows(total)
+        with f32_convolutions(), sharded_rows(rows):  # autograd's convolutions read the setting when they run
             params, bv, bf = _cast_for_compute(train_cfg, dict(state.model.named_parameters()), bv, bf)
             out = functional_call(state.model, params, inputs(bv, bf), kwargs)
             if by.ndim == 2 and out.ndim == 3:
                 by = by[..., None]
-            loss = _loss(out.float(), by, train_cfg.loss)
+            loss = loss_share(lambda o: _loss(o, by, train_cfg.loss), out.float(), hi - lo, total)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        if split is not None:
+            loss = split.reduce(state.model.parameters(), loss)
         state.optimizer.step()
         return loss.detach()
 

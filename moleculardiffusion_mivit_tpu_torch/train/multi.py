@@ -16,7 +16,9 @@ their own parameters and step one after the other inside the stack's graph,
 each called with its FF slope from ``SLOPE_BY_ACTIVATION`` as a 0-d tensor,
 as the JAX package's stacked step passes it. With ``with_features`` every
 model takes the cycle's 25 global trajectory features beside the videos,
-and nothing is stacked.
+and nothing is stacked. On a mesh (``Experiment.use_mesh``) a stack's
+members keep their parameters on every rank and each steps with its own
+``train_step``, which splits the shared minibatch over the ranks.
 """
 
 from __future__ import annotations

@@ -147,9 +147,9 @@ def test_run_experiment_writes_the_files_and_events_of_the_jax_runner(small_vali
 def test_entry_points_raise_without_a_card_and_name_what_is_not_ported(monkeypatch, tmp_path):
     """With no card, the runner given no ``--device``, ``baseline.build``,
     ``images_features.build`` and ``psfnoise.build`` (the experiment of
-    ``GridArm``s) raise rather than run on the CPU; the unported part
-    (``use_mesh``) raises ``NotImplementedError`` naming its ROADMAP item
-    (the unported regime: ``test_unported_regimes_raise``)."""
+    ``GridArm``s) raise rather than run on the CPU; ``use_mesh`` raises
+    without an initialised process group rather than train unsharded (the
+    unported regime: ``test_unported_regimes_raise``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_experiment.main(["baseline", "--out", str(tmp_path)])
@@ -162,7 +162,7 @@ def test_entry_points_raise_without_a_card_and_name_what_is_not_ported(monkeypat
     with pytest.raises(RuntimeError, match="device='cpu'"):
         psfnoise.build(val_d_values=())
     exp = baseline.Experiment("x", None, None, {}, None, {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(RuntimeError, match="initialised process group"):
         exp.use_mesh(None)
 
 
