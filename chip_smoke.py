@@ -3480,6 +3480,27 @@ def _mesh_against(torch, ranks: list, ref: dict, name: str, lr: float) -> dict:
     return out
 
 
+def _route_b_cost(torch) -> dict:
+    """What route (b) repeats: K2 and K3 device ms (``time_ms``, device
+    only) on a baseline deep arm's batch of 16 sequences of 30 frames (the
+    rows every ``data`` rank runs, gathered) against the 8 and 4 of one
+    rank at ``data`` = 2 and 4 (what a kernel on the rank's rows alone,
+    route (a), would run). These launches compare, they are not the main
+    path's."""
+    from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as fe
+
+    out = {}
+    for b in (16, 8, 4):
+        args = _kernel_args(fe, *_embedding_inputs(torch, b, 30, 9, seed=3))
+        _, _, saved = fe.deep_resnet_embed_fwd(*args)
+        g_emb = torch.ones(b * 30, 64, device="cuda")
+        out[f"{b}x30"] = {"rows": b * 30 * 81,
+                          "k2_device_ms": time_ms(torch, lambda: fe.deep_resnet_embed_fwd(*args), device_only=True),
+                          "k3_device_ms": time_ms(torch, lambda: fe.deep_resnet_embed_bwd(*args, saved, g_emb),
+                                                  device_only=True)}
+    return out
+
+
 def phase_mesh(torch, card):
     """The mesh (``parallel``, ``Experiment.use_mesh``) on the card. (a)
     NCCL at world size 1: the baseline at full width and the cut size,
@@ -3491,7 +3512,9 @@ def phase_mesh(torch, card):
     (each rank's ``tr_grid`` runs K2/K3 over its 15 members) and the
     baseline with ``data=2`` (the deep arms' K2/K3 on the gathered rows,
     global BatchNorm), each held against the same cycle unsharded on the
-    card (``_mesh_against``), and a captured cycle over gloo must raise.
+    card (``_mesh_against``), and a captured cycle over gloo must raise;
+    beside them, K2/K3 on the gathered rows against a rank's own
+    (``_route_b_cost``).
     (c) Where the machine has two or more cards: NCCL across up to four,
     captured, the same comparisons. Returns the K1/K2/K3 launches of every
     meshed cycle, (a)'s and every rank's."""
@@ -3591,6 +3614,7 @@ def phase_mesh(torch, card):
                       "lr": exp.train_cfg.lr_for_cycle(0)}
         del exp
     torch.cuda.empty_cache()
+    route_b = _route_b_cost(torch)
 
     # (b) two ranks on this card over gloo
     t0 = time.perf_counter()
@@ -3631,7 +3655,8 @@ def phase_mesh(torch, card):
                     launches[k] += v
         emit({"phase": "mesh", "part": part, "card": card, "backend": backend, "world": world, "batch": 16,
               "sequences_per_d": CUT_SEQS_PER_D, "by_experiment": by_exp, "ranks_wall_s": wall_s,
-              "note": "two ranks share one card over gloo: correctness, not speed" if backend == "gloo" else ""})
+              "note": "two ranks share one card over gloo: correctness, not speed" if backend == "gloo" else "",
+              **({"route_b_k2_k3": route_b} if part == "b" else {})})
     tmp.cleanup()
     emit({"phase": "mesh", "part": "launches", "launches": launches, "phase_s": time.perf_counter() - t_phase})
     return launches

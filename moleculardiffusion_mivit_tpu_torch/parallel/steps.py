@@ -61,15 +61,16 @@ def evaluate_rows(evaluate, mesh: Mesh, videos, features=None, chunk: Optional[i
     n = videos.shape[axis]
     per = -(-n // size)
 
+    lo = min(index * per, n)
+    rows = min(per, n - lo)
+
     def block(t):
         if t is None:
             return None
-        if members is not None:
-            t = t[members]
-        pad = per * size - n
-        if pad:
-            t = torch.cat([t, t.new_zeros(t.shape[:axis] + (pad,) + t.shape[axis + 1:])], dim=axis)
-        return t.narrow(axis, index * per, per)
+        t = (t if members is None else t[members]).narrow(axis, lo, rows)
+        if rows < per:  # the set's end: zero rows up to the block's size
+            t = torch.cat([t, t.new_zeros(t.shape[:axis] + (per - rows,) + t.shape[axis + 1:])], dim=axis)
+        return t
 
     v, f = block(videos), block(features)
     step = chunk or per

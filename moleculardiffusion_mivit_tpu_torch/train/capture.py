@@ -25,6 +25,13 @@ their buffers) and the AdamW step (capturable, its learning rate a device
 tensor that ``train.loop._set_lr`` fills each cycle). When the batch size
 changes, the graphs of the old one are freed and the new one is captured.
 
+On a mesh (``Experiment.use_mesh``) a step's sums over ranks (the
+gradients, the losses, BatchNorm's statistics, K2/K3's gathered rows) are
+NCCL all-reduces that the graph captures with the rest; ``parallel.
+make_mesh`` makes each communicator before any capture, and gloo's
+collectives cannot be captured (``Experiment.run`` raises for them on the
+card).
+
 Eager execution runs the same step on the same buffers: that is how CPU
 tensors run. On the card a capture that fails raises; nothing goes on
 eagerly in its place (``experiments.Experiment`` runs eagerly on the card
