@@ -3512,9 +3512,9 @@ def phase_mesh(torch, card):
     (each rank's ``tr_grid`` runs K2/K3 over its 15 members) and the
     baseline with ``data=2`` (the deep arms' K2/K3 on the gathered rows,
     global BatchNorm), each held against the same cycle unsharded on the
-    card (``_mesh_against``), and a captured cycle over gloo must raise;
-    beside them, K2/K3 on the gathered rows against a rank's own
-    (``_route_b_cost``).
+    card, run beside the ranks (``_mesh_against``), and a captured cycle
+    over gloo must raise; then, on the idle card, K2/K3 on the gathered
+    rows against a rank's own (``_route_b_cost``).
     (c) Where the machine has two or more cards: NCCL across up to four,
     captured, the same comparisons. Returns the K1/K2/K3 launches of every
     meshed cycle, (a)'s and every rank's."""
@@ -3539,12 +3539,15 @@ def phase_mesh(torch, card):
                                               stdout=log, stderr=subprocess.STDOUT, text=True))
         return procs
 
-    def finish_ranks(procs, what, out):
-        """``go`` to every rank at once (each waits for the others), then
-        wait for all; past ``MESH_RANK_TIMEOUT_S`` kill them and fail."""
+    def go(procs):
+        """``go`` to every rank at once: each waits for the others."""
         for p in procs:
             p.stdin.write("go\n")
             p.stdin.close()
+
+    def finish_ranks(procs, what, out):
+        """Wait for every rank; past ``MESH_RANK_TIMEOUT_S`` kill them all
+        and fail."""
         t_end = time.perf_counter() + MESH_RANK_TIMEOUT_S
         try:
             for p in procs:
@@ -3601,7 +3604,10 @@ def phase_mesh(torch, card):
           "s_second_cycle": {k: v[1] for k, v in runs.items()}})
     del runs, cap
 
-    # the unsharded references of (b), on this card while the ranks wait
+    # (b) two ranks on this card over gloo, and beside them on the card the
+    # unsharded references (their seconds shared the card with the ranks)
+    t0 = time.perf_counter()
+    go(procs_b)
     refs = {}
     for name in ("psfnoise", "baseline"):
         exp = _mesh_build(name)
@@ -3614,13 +3620,10 @@ def phase_mesh(torch, card):
                       "lr": exp.train_cfg.lr_for_cycle(0)}
         del exp
     torch.cuda.empty_cache()
-    route_b = _route_b_cost(torch)
-
-    # (b) two ranks on this card over gloo
-    t0 = time.perf_counter()
     finish_ranks(procs_b, "(b)", out_b)
     ranks = [torch.load(out_b / f"rank{r}.pt", weights_only=False) for r in range(2)]
     parts = {"b": ("gloo", 2, ranks, time.perf_counter() - t0)}
+    route_b = _route_b_cost(torch)  # on the idle card
     for res in ranks:
         for name, got in res.items():
             check(got["gloo_fused_raised"], f"mesh (b): a captured {name} cycle over gloo did not raise")
@@ -3635,6 +3638,7 @@ def phase_mesh(torch, card):
         out_c.mkdir()
         t0 = time.perf_counter()
         procs = start_ranks("nccl", multi, str(out_c))
+        go(procs)
         finish_ranks(procs, "(c)", out_c)
         parts["c"] = ("nccl", multi, [torch.load(out_c / f"rank{r}.pt", weights_only=False)
                                       for r in range(multi)], time.perf_counter() - t0)
@@ -3655,7 +3659,8 @@ def phase_mesh(torch, card):
                     launches[k] += v
         emit({"phase": "mesh", "part": part, "card": card, "backend": backend, "world": world, "batch": 16,
               "sequences_per_d": CUT_SEQS_PER_D, "by_experiment": by_exp, "ranks_wall_s": wall_s,
-              "note": "two ranks share one card over gloo: correctness, not speed" if backend == "gloo" else "",
+              "note": "two ranks and the unsharded references share one card over gloo: correctness, not speed"
+              if backend == "gloo" else "the unsharded references' seconds: eager, beside part (b)'s ranks",
               **({"route_b_k2_k3": route_b} if part == "b" else {})})
     tmp.cleanup()
     emit({"phase": "mesh", "part": "launches", "launches": launches, "phase_s": time.perf_counter() - t_phase})
