@@ -4,7 +4,8 @@ A copy of the dataclasses of ``moleculardiffusion_mivit_tpu/config.py``
 (``OpticsConfig``, ``ModelConfig``, ``TrainConfig``, ``MeshConfig``,
 ``BASELINE_OPTICS``, ``PSFNOISE_OPTICS``, ``FRAMERATE_OPTICS``),
 kept here so the port imports nothing of the JAX package. Field names,
-defaults and derived properties are the same.
+defaults and derived properties are the same, but for ``MeshConfig``'s
+axis names.
 """
 
 from __future__ import annotations
@@ -161,19 +162,30 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Layout of a data × model mesh of ranks (``parallel.make_mesh``).
+    """Layout of a data × model mesh of ranks (``parallel.make_mesh``), as
+    ``run_experiment --mesh data=D,model=M`` gives it (``parse``).
 
     The workload scales along ``data`` (the batch of generated sequences)
     and ``model`` (the grid of small independent models, e.g. the 5×6×2
     PSFNoise grid). Sequences are at most 61 tokens, so there is no
-    sequence axis.
+    sequence axis. The axes are always named ``data`` and ``model``: the
+    JAX package's ``data_axis`` and ``model_axis`` fields are not kept.
     """
 
-    data_axis: str = "data"
-    model_axis: str = "model"
     data_parallel: int = 1
     model_parallel: int = 1
 
+    @classmethod
+    def parse(cls, spec: str) -> "MeshConfig":
+        """``"data=D,model=M"``; an axis left out is 1."""
+        try:
+            axes = {k: int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
+        except ValueError:
+            raise ValueError(f"a mesh is given as data=D,model=M, got {spec!r}") from None
+        if set(axes) - {"data", "model"}:
+            raise ValueError(f"a mesh has the axes data and model, got {sorted(axes)}")
+        return cls(axes.get("data", 1), axes.get("model", 1))
+
     @property
     def shape(self):
-        return {self.data_axis: self.data_parallel, self.model_axis: self.model_parallel}
+        return {"data": self.data_parallel, "model": self.model_parallel}

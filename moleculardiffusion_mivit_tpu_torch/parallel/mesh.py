@@ -22,9 +22,10 @@ JAX package's device array.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
-import inspect
+import itertools
 from typing import Any, Optional
 
 import torch
@@ -130,19 +131,14 @@ def grid_sharding(mesh: Mesh, n_members: int) -> slice:
 
 def shard_grid(state, mesh: Mesh):
     """This rank's part of a grid's ``TrainState`` (a ``train.grid.GridModule``
-    of every member and its AdamW): the members of ``grid_sharding``, their
-    optimizer state and a new optimizer with the old one's settings."""
-    grid, opt = state.model, state.optimizer
-    members = grid_sharding(mesh, grid.n_members)
-    local = grid.select(members)
-    takes = inspect.signature(type(opt).__init__).parameters  # defaults may hold more than it takes
-    defaults = {k: v.clone() if torch.is_tensor(v) else v for k, v in opt.defaults.items() if k in takes}
-    new = type(opt)(local.parameters(), **defaults)
-    for group, old_group in zip(new.param_groups, opt.param_groups):
-        group["lr"] = old_group["lr"].clone() if torch.is_tensor(old_group["lr"]) else old_group["lr"]
-    for p_old, p_new in zip(grid.parameters(), local.parameters()):
-        if p_old in opt.state:
-            new.state[p_new] = {k: (v[members].clone() if torch.is_tensor(v) and v.ndim else
-                                    v.clone() if torch.is_tensor(v) else v)
-                                for k, v in opt.state[p_old].items()}
-    return type(state)(local, new)
+    of every member and its AdamW): a copy whose parameters, buffers and
+    optimizer moments hold only the members of ``grid_sharding``."""
+    local = copy.deepcopy(state)  # the optimizer keeps the copied parameters
+    members = grid_sharding(mesh, next(local.model.parameters()).shape[0])
+    for t in itertools.chain(local.model.parameters(), local.model.buffers()):
+        t.data = t.data[members].clone()
+    for moments in local.optimizer.state.values():
+        for k, v in moments.items():
+            if torch.is_tensor(v) and v.ndim:  # not the 0-d step counts
+                moments[k] = v[members].clone()
+    return local

@@ -15,7 +15,8 @@ here runs the same program on its part (``parallel.mesh``):
   whole cycle (K1 included) and keeps its members and rows.
 
 The training closures are ``train.grid.make_grid_impls``'s, given the split
-and the members; the functions here add what crosses ranks: losses and
+and the members (``make_sharded_grid_impls``, which ``Experiment`` trains a
+grid arm with); the functions here add what crosses ranks: losses and
 predictions gathered, so every rank ends with every member's. The
 signatures are the JAX package's with a generator for a key.
 """
@@ -92,9 +93,33 @@ def gather_members(t: torch.Tensor, mesh: Mesh, members: slice, n_members: int) 
     return place_and_sum(t.contiguous(), (n_members,) + t.shape[1:], (members.start,), mesh.model_group)
 
 
+def make_sharded_grid_impls(model, train_cfg, mesh: Mesh, n_members: int, with_features: bool = False,
+                            device=None, eval_chunk: Optional[int] = None):
+    """``train.grid.make_grid_impls``' closures for this rank's block of a
+    grid of ``n_members`` on ``mesh``, as ``Experiment`` trains a grid arm
+    and ``make_sharded_grid_fns`` wraps them: ``init_grid`` makes this
+    rank's members; ``train_step`` and ``train_cycle`` train them, each
+    minibatch split over the column's ``data`` ranks, and return their
+    losses (``gather_members`` places them among every member's);
+    ``evaluate`` returns every member's predictions on every rank
+    (``evaluate_rows``, ``eval_chunk`` rows at a time)."""
+    from moleculardiffusion_mivit_tpu_torch.train.grid import make_grid_impls
+
+    members = grid_sharding(mesh, n_members)
+    impls = make_grid_impls(model, train_cfg, device, with_features, constrain_batch=grid_batch_constraint(mesh),
+                            members=members)
+
+    def evaluate(state, videos, features=None):
+        return evaluate_rows(lambda v, f: impls.evaluate(state, v, f), mesh, videos, features, eval_chunk,
+                             members, n_members)
+
+    return impls._replace(evaluate=evaluate)
+
+
 def make_sharded_grid_fns(model, train_cfg, mesh: Mesh, with_features: bool = False, device=None,
                           eval_chunk: Optional[int] = None):
-    """Sharded ``(init_grid, train_cycle, evaluate)`` for a model grid.
+    """Sharded ``(init_grid, train_cycle, evaluate)`` for a model grid, the
+    member count taken from the arguments (``make_sharded_grid_impls``).
 
     - ``init_grid(generators, capturable=False)``: every member's CPU
       generator; this rank's members on the device, with their AdamW.
@@ -104,16 +129,13 @@ def make_sharded_grid_fns(model, train_cfg, mesh: Mesh, with_features: bool = Fa
       minibatch split over the column's ``data`` ranks; ``losses (M,)``
       every member's mean, on every rank.
     - ``evaluate(grid, videos, features=None)``: every member's
-      predictions ``(M, N, ...)`` on every rank (``evaluate_rows``).
+      predictions ``(M, N, ...)`` on every rank.
     """
-    from moleculardiffusion_mivit_tpu_torch.train.grid import make_grid_impls
-
     impls = {}  # by the grid's member count
 
     def get_impls(n):
         if n not in impls:
-            impls[n] = make_grid_impls(model, train_cfg, device, with_features,
-                                       constrain_batch=grid_batch_constraint(mesh), members=grid_sharding(mesh, n))
+            impls[n] = make_sharded_grid_impls(model, train_cfg, mesh, n, with_features, device, eval_chunk)
         return impls[n]
 
     def init_grid(generators, capturable: bool = False):
@@ -125,9 +147,7 @@ def make_sharded_grid_fns(model, train_cfg, mesh: Mesh, with_features: bool = Fa
         return grid, gather_members(losses, mesh, grid_sharding(mesh, m), m)
 
     def evaluate(grid, videos, features=None):
-        m = videos.shape[0]
-        return evaluate_rows(lambda v, f: get_impls(m).evaluate(grid, v, f), mesh, videos, features,
-                             eval_chunk, grid_sharding(mesh, m), m)
+        return get_impls(videos.shape[0]).evaluate(grid, videos, features)
 
     return init_grid, train_cycle, evaluate
 

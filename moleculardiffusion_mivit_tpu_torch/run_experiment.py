@@ -106,19 +106,18 @@ def main(argv=None):
         ap.error(f"unknown experiment {args.experiment!r}; available: {sorted(REGISTRY)}")
     mesh = None
     if args.mesh:
+        from moleculardiffusion_mivit_tpu_torch.config import MeshConfig
         from moleculardiffusion_mivit_tpu_torch.parallel import initialize_distributed, make_mesh
 
         try:
-            spec = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh.split(","))}
-        except ValueError:
-            ap.error(f"--mesh takes data=D,model=M, got {args.mesh!r}")
-        if set(spec) - {"data", "model"}:
-            ap.error(f"--mesh takes the axes data and model, got {sorted(spec)}")
+            layout = MeshConfig.parse(args.mesh)
+        except ValueError as e:
+            ap.error(f"--mesh: {e}")
         if device.type == "cuda":  # torchrun's rank on this host: its card
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
             torch.cuda.set_device(device)
         initialize_distributed("nccl" if device.type == "cuda" else "gloo")
-        mesh = make_mesh(**spec)
+        mesh = make_mesh(layout.data_parallel, layout.model_parallel)
     writes = mesh is None or mesh.rank == 0
     out_dir = args.out or f"results/{args.experiment}"
     os.makedirs(out_dir, exist_ok=True)

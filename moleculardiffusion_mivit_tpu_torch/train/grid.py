@@ -71,9 +71,9 @@ class GridModule(nn.Module):
     is not a submodule: only its structure is used, by ``functional_call``.
     ``members`` are initialised modules of the template's architecture."""
 
-    def __init__(self, template: nn.Module, members: Sequence[nn.Module] = (), stacked=None):
+    def __init__(self, template: nn.Module, members: Sequence[nn.Module]):
         super().__init__()
-        params, buffers = stacked if stacked is not None else stack_module_state(list(members))
+        params, buffers = stack_module_state(list(members))
         self.__dict__["template"] = template
         self.param_names = list(params)
         self.buffer_names = list(buffers)
@@ -81,16 +81,6 @@ class GridModule(nn.Module):
             self.register_parameter(_key(name), nn.Parameter(p.detach().clone()))
         for name, b in buffers.items():
             self.register_buffer(_key(name), b.detach().clone())
-
-    @property
-    def n_members(self) -> int:
-        return getattr(self, _key(self.param_names[0])).shape[0]
-
-    def select(self, members: slice) -> "GridModule":
-        """A grid of the ``members`` of this one (copies), in its mode."""
-        params, buffers = self.stacked()
-        sub = ({n: v[members] for n, v in params.items()}, {n: v[members] for n, v in buffers.items()})
-        return GridModule(self.template, stacked=sub).train(self.training)
 
     def stacked(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """The template's parameters and buffers by name, each ``(M, ...)``."""
