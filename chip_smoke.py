@@ -182,14 +182,18 @@ in nine processes of their own, each started while the one before runs:
    members a rank, K2/K3 over them) and the baseline at ``data=2`` (the
    deep arms' K2/K3 on the gathered rows, global BatchNorm), each first
    step against the same step unsharded on the card (losses at 1e-5
-   relative, gradients at 1e-3 of the largest, parameters at 2.5·lr,
-   BatchNorm statistics at 1e-3 of their largest, replicated arms bitwise
-   equal across ranks); the baseline's step with per-rank BatchNorm
-   statistics missing the gradients' bound; a captured cycle over gloo
-   raising. (c) With two or more cards: NCCL across two or four, captured.
+   relative, gradients at 1e-3 of the largest, a ResNet arm's at 1e-1,
+   parameters at 2.5·lr, BatchNorm statistics at 1e-3 of their largest,
+   replicated arms bitwise equal across ranks); the baseline's step with
+   per-rank BatchNorm statistics missing the losses' and the gradients'
+   bounds; a captured cycle over gloo raising. (c) With two or more
+   cards: NCCL across two or four, the first step held as in (b), then
+   two captured cycles (finite losses, replicated arms bitwise equal on
+   every rank).
    ``chip_smoke.py --mesh-witness`` (not part of the smoke) measures
-   whether a grid's step depends on its member count and what route (b)
-   repeats of K2/K3.
+   whether a grid's step depends on its member count, how far the ResNet
+   arm's f32 step lies from float64 in two orders of BatchNorm's sums, and
+   what route (b) repeats of K2/K3.
 
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
@@ -3341,29 +3345,39 @@ def detect_pair(torch, preds) -> float:
 MESH_SEQS_PER_D = 4
 # The first step of a sharded arm against the same step unsharded, the
 # bounds of tests/test_torch_parallel.py's one-step cases: losses at 1e-5
-# relative; gradients at 1e-3 of the largest gradient (a grid's: of each
-# member's own; some, such as an attention key bias's, are zero but for
-# rounding); parameters at 2.5·lr (Adam's first update is ±lr·sign(g), so
-# they cannot see a fault: the gradients do, and a per-rank-BatchNorm
-# mutation of the baseline must miss their bound); BatchNorm running
-# statistics, which that step's batch statistics set, at 1e-3 of the
-# tensor's largest (they carry the data's scale: a noisy psfnoise cell's
-# first variance is ~1e4).
+# relative (continuous in the rounding: 6e-8 to 3e-7 on the card, where
+# per-rank BatchNorm statistics give 1e-3 to 6e-2); gradients at 1e-3 of
+# the largest (a grid's: of each member's own; some, such as an attention
+# key bias's, are zero but for rounding), but a ResNet arm's at 1e-1: its
+# training forward sums BatchNorm's statistics in another order when its
+# rows are split, so an element of a residual block's output lying within
+# that rounding of ReLU's kink can land on the other side, and BatchNorm's
+# backward, which centres the channel's gradient, spreads the change over
+# the channel's convolution weights (the baseline's ResNet at data=2 read
+# 1.29e-2 in one layer2 channel on the card, the same step in float64
+# 0 and 8e-6 in two f32 orders; a gradient not summed over the ranks is off
+# by 50 %); parameters at 2.5·lr (Adam's first update is ±lr·sign(g), so
+# they cannot see a fault); BatchNorm running statistics, which that
+# step's batch statistics set, at 1e-3 of the tensor's largest (they carry
+# the data's scale: a noisy psfnoise cell's first variance is ~1e4). A
+# per-rank-BatchNorm mutation of the baseline must miss the losses' and the
+# gradients' bounds.
 MESH_LOSS_RTOL = 1e-5
 MESH_GRAD_RTOL = 1e-3
+MESH_GRAD_RTOL_RESNET = 1e-1
 MESH_LR_ATOL = 2.5
 MESH_BUFFER_RTOL = 1e-3
 MESH_RANK_TIMEOUT_S = 120
 
 
-def _mesh_build(name, fused=False, seqs_per_d=MESH_SEQS_PER_D):
+def _mesh_build(name, fused=False):
     """Phase mesh's experiment ``name`` (``baseline`` or ``psfnoise``) at
-    full width, seed 0, ``seqs_per_d`` sequences a class, its whole cycle
-    one minibatch, built on the current card."""
+    full width, seed 0, ``MESH_SEQS_PER_D`` sequences a class, its whole
+    cycle one minibatch, built on the current card."""
     from moleculardiffusion_mivit_tpu_torch.experiments import baseline, psfnoise
 
     exp = {"baseline": baseline, "psfnoise": psfnoise}[name].build(
-        seed=0, device="cuda", sequences_per_d=seqs_per_d)
+        seed=0, device="cuda", sequences_per_d=MESH_SEQS_PER_D)
     exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=_sequences(exp))
     exp.fused_cycles = fused
     return exp
@@ -3376,6 +3390,7 @@ def _mesh_record(torch, exp, predictions=True) -> dict:
     validation predictions (a collective on a mesh: every rank calls it in
     one order)."""
     from moleculardiffusion_mivit_tpu_torch.experiments.base import GridArm
+    from moleculardiffusion_mivit_tpu_torch.models import MultiImageResNet
 
     preds = {}
     if predictions:
@@ -3383,12 +3398,14 @@ def _mesh_record(torch, exp, predictions=True) -> dict:
         preds = {arm_name: (exp._grid_predictions(arm_name, arm, combined) if isinstance(arm, GridArm)
                             else exp.predict(arm_name, combined)).cpu()
                  for arm_name, arm in exp.arms.items() if arm.model is not None}
-    return {"losses": _member_losses(exp), "val_avg": {n: h["val_avg"] for n, h in exp.history.items()},
-            "states": {a: {k: v.cpu() for k, v in st.model.state_dict().items()} for a, st in exp.states.items()},
+    return {"losses": _member_losses(exp), "val_avg": {n: list(h["val_avg"]) for n, h in exp.history.items()},
+            "states": {a: {k: v.to("cpu", copy=True) for k, v in st.model.state_dict().items()}
+                       for a, st in exp.states.items()},
             "buffers": {a: {n for n, _ in st.model.named_buffers()} for a, st in exp.states.items()},
-            "grads": {a: {n: p.grad.cpu() for n, p in st.model.named_parameters() if p.grad is not None}
-                      for a, st in exp.states.items()},
-            "preds": preds, "members": {a: (sl.start, sl.stop) for a, sl in exp._members.items()}}
+            "grads": {a: {n: p.grad.to("cpu", copy=True) for n, p in st.model.named_parameters()
+                          if p.grad is not None} for a, st in exp.states.items()},
+            "preds": preds, "members": {a: (sl.start, sl.stop) for a, sl in exp._members.items()},
+            "resnet_arms": {a for a, arm in exp.arms.items() if isinstance(arm.model, MultiImageResNet)}}
 
 
 # (backend, ranks) -> phase mesh's runs in its rank processes: (key,
@@ -3397,7 +3414,7 @@ def _mesh_record(torch, exp, predictions=True) -> dict:
 # cards, the same with data over the rest. A key ending in ``per_rank_bn``
 # is the baseline with its BatchNorm statistics taken on each rank's rows
 # alone (``current_rows`` blinded, as tests/torch_parallel_worker.py
-# does), which must miss the gradients' bound.
+# does), which must miss the losses' and the gradients' bounds.
 MESH_RUNS = {
     ("gloo", 2): (("psfnoise", "psfnoise", dict(data=1, model=2)), ("baseline", "baseline", dict(data=2, model=1)),
                   ("baseline_per_rank_bn", "baseline", dict(data=2, model=1))),
@@ -3413,10 +3430,12 @@ def mesh_rank(torch, backend: str, world: int, rank: int, port: int, out: str) -
     (``chip_smoke.py --mesh-rank``): after ``go`` on stdin, join the world
     over ``backend`` (``gloo``: every rank on card 0; ``nccl``: rank ``r``
     on card ``r``), then for each run of ``MESH_RUNS`` build its
-    experiment on its mesh, run its one-step cycle (eager over gloo,
-    captured over NCCL) with the launch counters read around it, and write
-    ``_mesh_record`` to ``out/rank<r>.pt``. Over gloo a captured cycle must
-    raise."""
+    experiment on its mesh, run its one-step cycle eagerly with the launch
+    counters read around it, and write ``_mesh_record`` to
+    ``out/rank<r>.pt``. Over gloo a captured cycle must then raise; over
+    NCCL two captured cycles follow (a capture and a replay: a captured
+    step's gradients live in the graph's pool and are not the first
+    step's), and their losses and replicated arms are recorded."""
     from moleculardiffusion_mivit_tpu_torch import parallel
     from moleculardiffusion_mivit_tpu_torch.models import embeddings
     from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
@@ -3434,7 +3453,7 @@ def mesh_rank(torch, backend: str, world: int, rank: int, port: int, out: str) -
     res, current_rows = {}, embeddings.current_rows
     for key, name, shape in MESH_RUNS[backend, world]:
         mutated = key.endswith("per_rank_bn")
-        exp = _mesh_build(name, fused=backend == "nccl").use_mesh(parallel.make_mesh(**shape))
+        exp = _mesh_build(name).use_mesh(parallel.make_mesh(**shape))
         exp.build()
         print(f"mesh rank {rank}: {key} built at {time.perf_counter() - T_START:.1f} s", file=sys.stderr, flush=True)
         torch.cuda.synchronize()
@@ -3452,13 +3471,20 @@ def mesh_rank(torch, backend: str, world: int, rank: int, port: int, out: str) -
         print(f"mesh rank {rank}: {key} cycle {seconds:.2f} s", file=sys.stderr, flush=True)
         res[key] = {**_mesh_record(torch, exp, predictions=not mutated), "s_per_cycle": seconds,
                     "launches": launches, "mesh": shape}
-        if backend == "gloo" and not mutated:  # a CUDA graph cannot hold gloo's collectives
+        if not mutated and backend == "gloo":  # a CUDA graph cannot hold gloo's collectives
             exp.fused_cycles = True
             try:
                 exp.run(1, start_cycle=1)
                 res[key]["gloo_fused_raised"] = False
             except ValueError:
                 res[key]["gloo_fused_raised"] = True
+        elif not mutated:  # two captured cycles, the collectives in the graphs: a capture, then a replay
+            exp.fused_cycles = True
+            exp.run(2, start_cycle=1)
+            res[key]["captured"] = {
+                "losses": _member_losses(exp),
+                "replicated": {a: {k: v.cpu() for k, v in st.model.state_dict().items()}
+                               for a, st in exp.states.items() if a not in exp._members}}
         del exp
         torch.cuda.empty_cache()
     torch.save(res, Path(out) / f"rank{rank}.pt")
@@ -3478,12 +3504,13 @@ def _grad_distance(got: dict, want: dict, grid: bool) -> float:
 def _mesh_against(torch, ranks: list, ref: dict, key: str) -> dict:
     """Every rank's record of run ``key`` against the unsharded ``ref``
     after the one-step cycle: the largest relative |Δ| of the training
-    losses, of the gradients (``_grad_distance``) and of the BatchNorm
-    running statistics (of the tensor's largest), the largest |Δ| of the
+    losses, of the gradients (``_grad_distance``; the ResNet arms' apart)
+    and of the BatchNorm running statistics (of the tensor's largest), the
+    largest |Δ| of the
     parameters, ``val_avg`` and the validation predictions; whether every
     rank's history is the same and the replicated arms are bitwise equal
     on every rank. ``phase_mesh`` holds them."""
-    out = {"loss": 0.0, "grad": 0.0, "buffer": 0.0, "param": 0.0, "val_avg": 0.0, "pred": 0.0,
+    out = {"loss": 0.0, "grad": 0.0, "grad_resnet": 0.0, "buffer": 0.0, "param": 0.0, "val_avg": 0.0, "pred": 0.0,
            "histories_equal": True, "replicated_bitwise": True}
     for res in ranks:
         got = res[key]
@@ -3507,11 +3534,52 @@ def _mesh_against(torch, ranks: list, ref: dict, key: str) -> dict:
                     out["param"] = max(out["param"], d)
                 if not grid:
                     out["replicated_bitwise"] &= bool(torch.equal(v, ranks[0][key]["states"][arm][k]))
-            out["grad"] = max(out["grad"], _grad_distance(got["grads"][arm],
-                                                          {k: w[sl] for k, w in ref["grads"][arm].items()}, grid))
+            which = "grad_resnet" if arm in got["resnet_arms"] else "grad"
+            out[which] = max(out[which], _grad_distance(got["grads"][arm],
+                                                        {k: w[sl] for k, w in ref["grads"][arm].items()}, grid))
         for arm, p in got["preds"].items():
             out["pred"] = max(out["pred"], float((p - ref["preds"][arm]).abs().max()))
     return out
+
+
+def _hold_mesh_runs(torch, part: str, backend: str, ranks: list, refs: dict, launches: dict) -> dict:
+    """Part ``part``'s runs (``MESH_RUNS``) held against the unsharded
+    ``refs`` by the ``MESH_*`` bounds (``_mesh_against``); the mutated run
+    must miss them; captured cycles finite and their replicated arms equal
+    on every rank. Adds the unmutated runs' launches to ``launches`` and
+    returns each run's line."""
+    by_run = {}
+    for key, name, _ in MESH_RUNS[backend, len(ranks)]:
+        ref, where = refs[name], f"mesh ({part}) {key}"
+        d = _mesh_against(torch, ranks, ref, key)
+        if "captured" in ranks[0][key]:
+            cap = [r[key]["captured"] for r in ranks]
+            check(all(math.isfinite(v) for c in cap for vals in c["losses"].values() for v in vals),
+                  f"{where}: a captured cycle's loss is not finite")
+            check(all(torch.equal(v, cap[0]["replicated"][a][k]) for c in cap
+                      for a, st in c["replicated"].items() for k, v in st.items()),
+                  f"{where}: a replicated arm differs between ranks after the captured cycles")
+        if key.endswith("per_rank_bn"):
+            check(d["loss"] > MESH_LOSS_RTOL and d["grad"] > MESH_GRAD_RTOL,
+                  f"{where}: per-rank BatchNorm statistics kept the losses ({d['loss']}) or the gradients "
+                  f"({d['grad']}) within their bounds: the checks cannot see them")
+        else:
+            check(d["histories_equal"], f"{where}: the ranks' histories differ")
+            check(d["replicated_bitwise"], f"{where}: a replicated arm differs between ranks")
+            check(d["loss"] <= MESH_LOSS_RTOL, f"{where}: losses differ by {d['loss']} relative")
+            check(d["grad"] <= MESH_GRAD_RTOL, f"{where}: gradients differ by {d['grad']} of their largest")
+            check(d["grad_resnet"] <= MESH_GRAD_RTOL_RESNET,
+                  f"{where}: a ResNet arm's gradients differ by {d['grad_resnet']} of their largest")
+            check(d["param"] <= MESH_LR_ATOL * ref["lr"], f"{where}: parameters differ by {d['param']}")
+            check(d["buffer"] <= MESH_BUFFER_RTOL, f"{where}: BatchNorm statistics differ by {d['buffer']}")
+            for r in ranks:
+                for k, v in r[key]["launches"].items():
+                    launches[k] += v
+        by_run[key] = {"mesh": ranks[0][key]["mesh"], "batch": ref["batch"], "max_abs_diff": d,
+                       "s_per_cycle": {"sharded_by_rank": [r[key]["s_per_cycle"] for r in ranks],
+                                       "unsharded": ref["s_per_cycle"]},
+                       "launches_by_rank": [{k: v for k, v in r[key]["launches"].items() if v} for r in ranks]}
+    return by_run
 
 
 def _route_b_cost(torch) -> dict:
@@ -3571,11 +3639,59 @@ def _member_count_witness(torch) -> dict:
     return out
 
 
+def _resnet_order_witness(torch) -> dict:
+    """Why a ResNet arm's sharded step is held at ``MESH_GRAD_RTOL_RESNET``:
+    the baseline's ResNet arm (``MESH_SEQS_PER_D``, seed 0, its initial
+    weights, cycle 0's data) takes its first full-batch step here in
+    float64 and in f32 with BatchNorm's sums over all 16 × 30 frames at
+    once and in two halves (the order of ``data`` = 2); each f32 step's
+    largest |Δ| from the float64 one, in its largest gradient
+    (``_grad_distance``), and its loss's relative |Δ|."""
+    import copy
+
+    from moleculardiffusion_mivit_tpu_torch.models import embeddings
+    from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    exp = _mesh_build("baseline")
+    exp.build()
+    videos, _, labels = exp.arms["resnet"].slice_fn(exp.generate_fn(seeded_generator(exp.device, 1, 0, 0)))
+    forward = embeddings.BatchNorm.forward
+
+    def summed_in(parts):
+        def fwd(self, x):  # the training forward in x's dtype, its sums over ``parts`` blocks of rows
+            axes, shape, n = [0, *range(2, x.ndim)], (1, -1) + (1,) * (x.ndim - 2), x.numel() // x.shape[1]
+            sums = sum(torch.stack([p.sum(dim=axes), (p * p).sum(dim=axes)]) for p in x.chunk(parts))
+            mean = sums[0] / n
+            mul = torch.rsqrt(torch.clamp(sums[1] / n - mean * mean, min=0.0) + embeddings.BN_EPS) * self.weight
+            return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return fwd
+
+    def step(dtype, parts):
+        model = copy.deepcopy(exp.states["resnet"].model).to(dtype)
+        embeddings.BatchNorm.forward = summed_in(parts)
+        try:
+            with f32_convolutions():
+                loss = ((model(videos.to(dtype)) - labels.to(dtype)) ** 2).mean()
+                loss.backward()
+        finally:
+            embeddings.BatchNorm.forward = forward
+        return float(loss.detach()), {k: p.grad.double() for k, p in model.named_parameters()}
+
+    loss64, grads64 = step(torch.float64, 1)
+    out = {}
+    for what, parts in (("f32_one_sum", 1), ("f32_two_halves", 2)):
+        loss, grads = step(torch.float32, parts)
+        out[what] = {"loss": abs(loss / loss64 - 1), "grad": _grad_distance(grads, grads64, grid=False)}
+    return out
+
+
 def mesh_witness(torch, card) -> None:
     """``chip_smoke.py --mesh-witness``: one-off measurements beside phase
-    mesh, not part of the smoke: ``_member_count_witness`` and
-    ``_route_b_cost``, each a JSON line."""
+    mesh, not part of the smoke: ``_member_count_witness``,
+    ``_resnet_order_witness`` and ``_route_b_cost``, each a JSON line."""
     emit({"mesh_witness": "member_count", "card": card, "by_arm": _member_count_witness(torch)})
+    emit({"mesh_witness": "resnet_order", "card": card, "from_float64": _resnet_order_witness(torch)})
     torch.cuda.empty_cache()
     emit({"mesh_witness": "route_b_k2_k3", "card": card, "by_rows": _route_b_cost(torch)})
 
@@ -3595,7 +3711,9 @@ def phase_mesh(torch, card):
     (``_mesh_against``, the ``MESH_*`` bounds); the baseline again with
     per-rank BatchNorm statistics, whose gradients must miss their bound;
     a captured cycle over gloo must raise. (c) Where the machine has two or
-    more cards: NCCL across up to four, captured, the same comparisons.
+    more cards: NCCL across up to four, the same comparisons of the first
+    (eager) step, then two captured cycles, whose losses must be finite
+    and whose replicated arms bitwise equal on every rank.
     Returns the K1/K2/K3 launches of every meshed cycle, (a)'s and every
     rank's of the unmutated runs."""
     import socket
@@ -3725,31 +3843,11 @@ def phase_mesh(torch, card):
         emit({"phase": "mesh", "part": "c", "skipped": f"{n_cards} card: NCCL across cards needs two or more"})
 
     for part, (backend, world, ranks, wall_s) in parts.items():
-        by_run = {}
-        for key, name, _ in MESH_RUNS[backend, world]:
-            ref, where = refs[name], f"mesh ({part}) {key}"
-            d = _mesh_against(torch, ranks, ref, key)
-            if key.endswith("per_rank_bn"):
-                check(d["grad"] > MESH_GRAD_RTOL, f"{where}: per-rank BatchNorm statistics kept the gradients "
-                      f"within {MESH_GRAD_RTOL} of their largest ({d['grad']}): the check cannot see them")
-            else:
-                check(d["histories_equal"], f"{where}: the ranks' histories differ")
-                check(d["replicated_bitwise"], f"{where}: a replicated arm differs between ranks")
-                check(d["loss"] <= MESH_LOSS_RTOL, f"{where}: losses differ by {d['loss']} relative")
-                check(d["grad"] <= MESH_GRAD_RTOL, f"{where}: gradients differ by {d['grad']} of their largest")
-                check(d["param"] <= MESH_LR_ATOL * ref["lr"], f"{where}: parameters differ by {d['param']}")
-                check(d["buffer"] <= MESH_BUFFER_RTOL, f"{where}: BatchNorm statistics differ by {d['buffer']}")
-                for r in ranks:
-                    for k, v in r[key]["launches"].items():
-                        launches[k] += v
-            by_run[key] = {"mesh": ranks[0][key]["mesh"], "batch": ref["batch"], "max_abs_diff": d,
-                           "s_per_cycle": {"sharded_by_rank": [r[key]["s_per_cycle"] for r in ranks],
-                                           "unsharded": ref["s_per_cycle"]},
-                           "launches_by_rank": [{k: v for k, v in r[key]["launches"].items() if v} for r in ranks]}
+        by_run = _hold_mesh_runs(torch, part, backend, ranks, refs, launches)
         emit({"phase": "mesh", "part": part, "card": card, "backend": backend, "world": world,
               "sequences_per_d": MESH_SEQS_PER_D, "by_run": by_run, "ranks_wall_s": wall_s,
               "note": "two ranks and the unsharded references share one card over gloo: correctness, not speed"
-              if backend == "gloo" else "the unsharded references' seconds: eager, beside part (b)'s ranks"})
+              if backend == "gloo" else "eager first steps; the unsharded references' seconds beside part (b)'s ranks"})
     tmp.cleanup()
     emit({"phase": "mesh", "part": "launches", "launches": launches, "phase_s": time.perf_counter() - t_phase})
     return launches

@@ -39,6 +39,7 @@ from moleculardiffusion_mivit_tpu.config import TrainConfig as JTrainConfig
 from moleculardiffusion_mivit_tpu.models import GeneralTransformer as JGeneral
 from moleculardiffusion_mivit_tpu.models import MultiImageResNet as JResNet
 from moleculardiffusion_mivit_tpu.train.grid import make_grid_impls as j_make_grid_impls
+from moleculardiffusion_mivit_tpu_torch.config import MeshConfig
 from moleculardiffusion_mivit_tpu_torch.train.grid import make_grid_impls
 from moleculardiffusion_mivit_tpu_torch.utils import restore_experiment
 from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
@@ -396,3 +397,14 @@ def test_run_experiment_mesh_under_torchrun(tmp_path):
     cycle = [r for r in rows if r["event"] == "cycle"]
     assert len(cycle) == 1 and all(np.isfinite(v) for v in cycle[0]["val_avg"].values())
     assert (out / "final" / "states" / "resnet.pt").is_file()
+
+
+def test_mesh_config_parses_the_command_line_layout():
+    """``run_experiment --mesh`` reads its layout through
+    ``MeshConfig.parse``: an axis left out is 1; another axis or a
+    malformed layout raises."""
+    assert MeshConfig.parse("data=2,model=4").shape == {"data": 2, "model": 4}
+    assert MeshConfig.parse("model=2") == MeshConfig(data_parallel=1, model_parallel=2)
+    for bad in ("data=2,pipe=2", "data=two", "data"):
+        with pytest.raises(ValueError):
+            MeshConfig.parse(bad)
