@@ -119,11 +119,12 @@ in nine processes of their own, each started while the one before runs:
    one launch and run through the whole pipeline.
 13. bf16: ``compute_dtype="bfloat16"`` (``phase_bf16``): the baseline
    experiment's seven arms captured against eager at batch 16 (bitwise),
-   batch 1 timed as f32 is (losses falling, K2-bf16/K3-bf16 once a step
+   batch 1 timed as f32 is (losses falling by the second timed cycle,
+   K2-bf16/K3-bf16 once a step
    of each deepcnn arm, the f32 K2/K3 never), batch 64 timed, and the f32
    cycle at batch 1, 16 and 64 beside it; masters, AdamW state and BN
-   buffers f32; denoising's ``trans_grid`` (7 members) two cycles at batch
-   1 and two at 16, the second of each timed; ``utils.flops.multi_cycle_flops`` of the baseline cycle
+   buffers f32; denoising's ``trans_grid`` (7 members, 16 sequences a
+   class) two cycles at batch 1 and two at 16, the second of each timed; ``utils.flops.multi_cycle_flops`` of the baseline cycle
    and each timed cycle's MFU against the card's bf16 peak.
 14. constrained (``phase_constrained``): ``single_state`` off the Brownian
    branch on the card (α = 0.5, 1.5, α ~ N(1, 0.3), with drift, in a box;
@@ -189,7 +190,13 @@ in nine processes of their own, each started while the one before runs:
    bounds; a captured cycle over gloo raising. (c) With two or more
    cards: NCCL across two or four, the first step held as in (b), then
    two captured cycles (finite losses, replicated arms bitwise equal on
-   every rank).
+   every rank). In (b) and (c) each rank then generates cycle 0 of the
+   baseline, images-features, denoising (their classes split over the
+   ranks) and psfnoise (classes over ``data``, members over ``model``) at
+   the protocol's size through ``Experiment.generate``: its part (K1 on it
+   alone), gathered (gloo in (b), NCCL in (c)), bitwise the unsharded
+   ``generate_fn`` run beside it on the card; each rank's K1 frames and
+   generation ms against the unsharded call's.
    ``chip_smoke.py --mesh-witness`` (not part of the smoke) measures
    whether a grid's step depends on its member count, how far the ResNet
    arm's f32 step lies from float64 in two orders of BatchNorm's sums, and
@@ -198,13 +205,15 @@ in nine processes of their own, each started while the one before runs:
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
 (``_batch_one_profiled``) runs, at the protocol's size, a capture cycle
-and one timed cycle (two in phases embeddings and denoising, whose loss
-check reads the second), and profiles a cycle of an experiment at
+and one timed cycle (two in phases experiment, embeddings, denoising and
+bf16, whose loss check reads the second), and profiles a cycle of an
+experiment at
 ``CUT_SEQS_PER_D`` = 16 sequences a class: the profiler costs ~30 µs of
 host time a kernel it records, 95 s for the 3.2 million of one
 protocol-size framerate cycle. Each runner call (``run_experiment.main``)
 trains its one cycle, and the captured-against-eager cycles of phases 5-11
-run, at that cut size too (phases 13 and 15 compare at the protocol's 64).
+run, at that cut size too (phases 13 and 15 compare at the protocol's
+64), and phase 13's denoising grid.
 Phase 13 counts the baseline cycle's FLOPs once (they depend neither on the
 batch size nor on the dtype), phases 14-19 share phase 12's process and
 phase 20 phase 13's, and each group's process starts up while the group
@@ -222,6 +231,7 @@ the package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -257,6 +267,11 @@ ENSEMBLE_N = 5 * CUT_SEQS_PER_D
 # largest reading of the same cast (0.17 at batch 8-16, 0.30 at 256, 0.26 at
 # 1024): about 13 bf16 ulps of its ~1.3 predictions
 SERVING_BF16_DELTA_LIMIT = 1.0
+# How far a model that starts on the predict-the-mean plateau may lie above
+# its start after the batch-1 cycles (phase psfnoise's tr_3_5): its cycle
+# means read 1.014 and 1.012 of its start, and 1.076 in a third cycle (an
+# H100 at 700 W); 0.10 holds them, and a model that climbs off fails
+PLATEAU_MARGIN = 0.10
 T_START = time.perf_counter()
 
 
@@ -931,8 +946,10 @@ def phase_experiment(torch, card):
     frozen validation suite. (a) Cycles at batch 16 captured and eager from
     the same seed: over two cycles, losses, validation MSEs and every
     parameter and buffer agree; the second is timed. (b) At batch 1,
-    captured, ``_batch_one_profiled``: a capture cycle and a timed one, then
-    a profiled cycle at the cut size. (c) K2/K3 run
+    captured, ``_batch_one_profiled``: a capture cycle and two timed ones
+    (the loss check reads the second: the leaky deep arm can sit on its
+    predict-the-mean plateau through cycle 1), then a profiled cycle at the
+    cut size. (c) K2/K3 run
     inside the replayed graphs once a step of each deepcnn arm and in no
     other unit; K1 once per D class and cycle plus the validation renders.
     (d) Finite losses and MSEs, training loss falling at batch 1."""
@@ -986,9 +1003,10 @@ def phase_experiment(torch, card):
           "launches_per_replay_by_unit": units16,
           "val_avg": {n: h["val_avg"] for n, h in cap.history.items()}})
 
-    # (b) batch 1, captured: a capture cycle, a timed one; a profiled one at
-    # the cut size
-    exp, marks, prof, units1, losses = _batch_one_profiled(torch, build, "experiment", deep, renders=4)
+    # (b) batch 1, captured: a capture cycle, two timed ones; a profiled one
+    # at the cut size
+    exp, marks, prof, units1, losses = _batch_one_profiled(torch, build, "experiment", deep, renders=4,
+                                                           timed_cycles=2)
     eng = exp.engine
     n_seq = _sequences(exp)
 
@@ -1003,11 +1021,11 @@ def phase_experiment(torch, card):
         cli_events = [json.loads(line)["event"] for line in Path(out, "metrics.jsonl").read_text().splitlines()]
     torch.cuda.synchronize()
     launches = kernel_launches(counts0, engines)
-    # (a) two experiments of two cycles; (b) two at the protocol's size and
+    # (a) two experiments of two cycles; (b) three at the protocol's size and
     # two at the cut size; the runner's one (at the cut size too)
-    builds, cycles = 5, 2 * 2 + 2 + 2 + 1
+    builds, cycles = 5, 2 * 2 + 3 + 2 + 1
     k1_want = n_val_renders * builds + 4 * cycles
-    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 2 * n_seq + 3 * n_cmp)
+    k23_want = len(deep) * (2 * 2 * (n_cmp // 16) + 3 * n_seq + 3 * n_cmp)
     check(launches["render_frames"] == k1_want, f"experiment: K1 launches {launches['render_frames']} != {k1_want}")
     for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
         check(launches[k] == k23_want, f"experiment: {k} launches {launches[k]} != {k23_want}")
@@ -1063,19 +1081,25 @@ def _captured_against_eager(torch, build, phase, card, tol=1e-4, seqs_per_d=CUT_
 
 
 def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None,
-                        kernels=("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"), timed_cycles=1):
+                        kernels=("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"), timed_cycles=1,
+                        plateau=()):
     """Part (b) of an experiment phase, at batch 1, captured. At the
     protocol's size: a capture cycle, then ``timed_cycles`` cycles without
     the profiler (the first is the batch-1 time; the embeddings experiment's
-    cnn_2layer_b and denoising's trans_poisson_noise are still on their
-    plateaus after one cycle, so there the loss check reads a second,
-    ``timed_cycles=2``). Checks finite losses and MSEs, training loss falling
+    cnn_2layer_b, denoising's trans_poisson_noise and the baseline's
+    deepcnn_2layer_leaky, at f32 and bf16, can still be on their plateaus
+    after one cycle, so there the loss check reads a second,
+    ``timed_cycles=2``). Checks finite
+    losses and MSEs, training loss falling
     for every model (each member of a grid), and K2/K3 recorded once a
     replay in exactly the ``deep`` arms' graphs (a grid arm once for all its
     members). The loss falls if the last cycle's mean is below the first's;
     with ``early_steps``, below the mean of cycle 0's first ``early_steps``
     steps (the loss from initialisation: a model on the predict-the-mean
-    plateau has fallen to it in cycle 0 and may stay there for cycles).
+    plateau has fallen to it in cycle 0 and may stay there for cycles). A
+    model in ``plateau`` starts on that plateau and may stay on it for the
+    smoke's cycles: its last cycle is held to at most ``1 + PLATEAU_MARGIN``
+    times its start instead (it must not climb off the plateau).
 
     Then, in an experiment of ``CUT_SEQS_PER_D`` sequences a class, a
     capture cycle and a profiled one: the card's busy share and the
@@ -1109,11 +1133,17 @@ def _batch_one_profiled(torch, build, phase, deep, renders, early_steps=None,
         check(all(math.isfinite(v) for vals in hist.values() for v in vals), f"{phase}: {n}: non-finite val MSE")
     for n, ls in losses.items():
         check(all(math.isfinite(v) for v in ls), f"{phase}: {n}: non-finite loss {ls}")
-        start = early[n] if early_steps else ls[0]
-        check(ls[-1] < start, f"{phase}: {n}: training loss did not fall: {ls} from {start}")
+    starts = {n: early[n] if early_steps else ls[0] for n, ls in losses.items()}
     if early_steps:
         emit({"phase": phase, "part": "b_loss", "early_steps": early_steps, "early_loss": early,
-              "cycle_loss": losses, "not_below_cycle_0": sorted(n for n, ls in losses.items() if ls[-1] >= ls[0])})
+              "cycle_loss": losses, "not_below_cycle_0": sorted(n for n, ls in losses.items() if ls[-1] >= ls[0]),
+              "plateau": {n: losses[n][-1] / starts[n] for n in plateau}, "plateau_margin": PLATEAU_MARGIN})
+    for n, ls in losses.items():
+        if n in plateau:
+            check(ls[-1] <= starts[n] * (1 + PLATEAU_MARGIN),
+                  f"{phase}: {n}: training loss rose off its plateau: {ls} from {starts[n]}")
+        else:
+            check(ls[-1] < starts[n], f"{phase}: {n}: training loss did not fall: {ls} from {starts[n]}")
     units1 = {"+".join(u.names): u.launches_per_replay for u in eng.units.values()}
     for key, per in units1.items():
         want = sum(1 for n in key.split("+") if n in deep)
@@ -1588,11 +1618,14 @@ def phase_psfnoise(torch, card):
     (a) Batch 16, captured against eager from one seed, two cycles: every
     member's losses, validation MSEs, parameters and buffers agree to 1e-4
     relative; the second cycle is timed. (b) Batch 1, captured: a capture
-    cycle and a timed one, a cut-size cycle profiled; every member's training loss
-    falls from initialisation (the second cycle's mean below the mean of
-    cycle 0's first 35 steps: the noisiest cells sit on the predict-the-mean
-    plateau for their first cycles, in the JAX record too, so the cycle
-    means of 0 and 2 are reported, not held); generation timed on its own. (c) Launches: K2/K3 once a grid step
+    cycle and a timed one, a cut-size cycle profiled; every member's
+    training loss falls from initialisation (the second cycle's mean below
+    the mean of cycle 0's first 35 steps: the noisiest cells sit on the
+    predict-the-mean plateau for their first cycles, in the JAX record too,
+    so the cycle means are reported, not held); ``tr_3_5`` alone, which
+    starts on that plateau with these draws, is held within
+    ``PLATEAU_MARGIN`` of its start instead; generation timed on its own.
+    (c) Launches: K2/K3 once a grid step
     for all 30 members (⌊352/b⌋ a cycle, in ``tr_grid``'s graph, never in
     ``res_grid``'s); K1 once per D class a cycle (6), once per validation D
     a build (5) and once for the in-order suite, each for all five PSF
@@ -1626,8 +1659,10 @@ def phase_psfnoise(torch, card):
     names = [f"{k}_{i}_{j}" for k in ("tr", "res") for i in range(5) for j in range(6)]
     check(cap.model_names == names, f"psfnoise: models {cap.model_names}")
     del cap
+    # early_steps: a tenth of the cycle's steps; plateau: the member whose
+    # first 35 steps already sit at the predict-the-mean level
     exp, marks, prof, units1, losses = _batch_one_profiled(
-        torch, build, "psfnoise", deep, renders=6, early_steps=35)  # a tenth of the cycle's steps
+        torch, build, "psfnoise", deep, renders=6, early_steps=35, plateau=("tr_3_5",))
     n_seq = _sequences(exp)
     check(n_seq == 352, f"psfnoise: {n_seq} sequences a cycle, expected 5 classes × 64 + 32")
     eng = exp.engine
@@ -2567,8 +2602,9 @@ def phase_bf16(torch, card):
     cycle and a timed one; every master, AdamW state and BN buffer f32; s a
     cycle and seq/s at f32 at batch 1, 16 and 64 in the same process. (c)
     Denoising's ``trans_grid`` (7 deep-ResNet transformers in one grid) at
-    bf16: two cycles at batch 1 and two at 16 (the first captures, the
-    second is timed), K2-bf16/K3-bf16 once a grid step. (d) ``utils.flops.multi_cycle_flops`` of the baseline cycle at
+    bf16, ``CUT_SEQS_PER_D`` sequences a class: two cycles at batch 1 and
+    two at 16 (the first captures, the second is timed), K2-bf16/K3-bf16
+    once a grid step. (d) ``utils.flops.multi_cycle_flops`` of the baseline cycle at
     f32 and bf16, and each timed cycle's achieved TFLOP/s and MFU against
     ``device_peak_flops``."""
     from moleculardiffusion_mivit_tpu_torch.experiments import baseline, denoising
@@ -2601,7 +2637,8 @@ def phase_bf16(torch, card):
     del cap
     # batch 1: a capture cycle and a timed one (f32 is timed the same way
     # below), then a profiled one at the cut size
-    exp, marks, prof, units1, losses = _batch_one_profiled(torch, build, "bf16", deep, renders=4, kernels=k23_bf16)
+    exp, marks, prof, units1, losses = _batch_one_profiled(torch, build, "bf16", deep, renders=4, kernels=k23_bf16,
+                                                           timed_cycles=2)
     check(_all_f32(torch, exp), "bf16: a master, AdamW state or buffer is not f32 after batch 1")
     check(not any(per.get(k, 0) for per in units1.values() for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd")),
           f"bf16: an f32 K2/K3 launch in a bf16 graph: {units1}")
@@ -2611,9 +2648,9 @@ def phase_bf16(torch, card):
     s_cycle["float32"] = {b: _timed_cycles(torch, build(b, True, dtype="float32"))[1] for b in (1, 16, 64)}
     counts1 = launch_counts()
     launches = kernel_launches(counts0, engines)
-    # batch 16: three captured cycles and two eager; batch 1: two and two at
+    # batch 16: three captured cycles and two eager; batch 1: three and two at
     # the cut size; batch 64: two
-    want = len(deep) * (5 * (n_seq // 16) + 2 * n_seq + 2 * prof["profiled_sequences"] + 2 * (n_seq // 64))
+    want = len(deep) * (5 * (n_seq // 16) + 3 * n_seq + 2 * prof["profiled_sequences"] + 2 * (n_seq // 64))
     for k in k23_bf16:
         check(launches[k] == want, f"bf16: {k} launches {launches[k]} != {want}")
     f32_want = len(deep) * (2 * n_seq + 2 * (n_seq // 16) + 2 * (n_seq // 64))
@@ -2624,7 +2661,7 @@ def phase_bf16(torch, card):
     grid_s, grid_capture_s, grid_losses = {}, {}, {}
     grid_engines = []
     for batch in (1, 16):
-        g = denoising.build(seed=0, device="cuda").set_compute_dtype("bfloat16")
+        g = denoising.build(seed=0, device="cuda", sequences_per_d=CUT_SEQS_PER_D).set_compute_dtype("bfloat16")
         del g.arms["resnet_grid"]
         g.train_cfg = g.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
         g.build()
@@ -3425,6 +3462,105 @@ MESH_RUNS = {
 }
 
 
+# (backend, ranks) -> phase mesh's generation-only checks in its rank
+# processes: (experiment, mesh) at the protocol's size (64 sequences a
+# class): the baseline, images-features and denoising split their classes
+# over the ranks (denoising's grids of 7 take no model axis of 2 or 4),
+# psfnoise its classes over data and its 30 members over model
+MESH_GEN_RUNS = {
+    ("gloo", 2): (("baseline", dict(data=2, model=1)), ("images_features", dict(data=2, model=1)),
+                  ("denoising", dict(data=2, model=1)), ("psfnoise", dict(data=1, model=2))),
+    ("nccl", 2): (("baseline", dict(data=2, model=1)), ("images_features", dict(data=2, model=1)),
+                  ("denoising", dict(data=2, model=1)), ("psfnoise", dict(data=1, model=2))),
+    ("nccl", 4): (("baseline", dict(data=4, model=1)), ("images_features", dict(data=4, model=1)),
+                  ("denoising", dict(data=4, model=1)), ("psfnoise", dict(data=2, model=2))),
+}
+MESH_GEN_REPEATS = 3
+
+
+def _bitwise(torch, a, b) -> bool:
+    """Whether two tensors hold the same bytes in the same shape and dtype."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().flatten().view(torch.uint8), b.contiguous().flatten().view(torch.uint8)))
+
+
+def _part_is_whole(torch, exp, part, got, whole) -> bool:
+    """Whether a rank's gathered cycle ``got`` is bitwise the unsharded
+    ``whole``: every value, or where its part holds a grid's members each
+    grid arm's slices of those members."""
+    if part.members is None:
+        return got.keys() == whole.keys() and all(
+            _bitwise(torch, got[k], v) if torch.is_tensor(v) else got[k] == v for k, v in whole.items())
+    return all((g is None and w is None) or _bitwise(torch, g, w[part.members])
+               for arm in exp.arms.values() for g, w in zip(arm.slice_fn(got), arm.slice_fn(whole)))
+
+
+def _mesh_generation(torch, backend: str, world: int, rank: int) -> dict:
+    """Phase mesh's generation-only checks on this rank (``MESH_GEN_RUNS``):
+    each experiment at the protocol's size on its mesh, cycle 0's data
+    through ``Experiment.generate`` (this rank's part, K1 included, then the
+    gather) against the unsharded ``generate_fn`` on the same card: whether
+    the gathered cycle is bitwise the unsharded one, the frames K1 renders
+    in each (counted at the renderer's frame core and PSF stack), the K1
+    launches of one sharded call, and the ms of ``MESH_GEN_REPEATS`` calls
+    of each after one of each unmeasured (the device synchronised around
+    each)."""
+    from moleculardiffusion_mivit_tpu_torch import parallel
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline, denoising, images_features, psfnoise
+    from moleculardiffusion_mivit_tpu_torch.sim import render
+    from moleculardiffusion_mivit_tpu_torch.train.capture import launch_counts
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+
+    frames = [0]
+    core, stack = render.render_frames_core, render.render_psf_stack
+
+    def counted_core(x_hr, *a, **k):
+        frames[0] += x_hr.numel() // x_hr.shape[-1]
+        return core(x_hr, *a, **k)
+
+    def counted_stack(x_hr, y_hr, intensities, sigmas, *a, **k):
+        frames[0] += len(sigmas) * (x_hr.numel() // x_hr.shape[-1])
+        return stack(x_hr, y_hr, intensities, sigmas, *a, **k)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        frames[0] = 0
+        t0 = time.perf_counter()
+        data = fn()
+        torch.cuda.synchronize()
+        return data, (time.perf_counter() - t0) * 1e3, frames[0]
+
+    build_fns = {"baseline": baseline.build,
+                 **{name: functools.partial(mod.build, val_d_values=())
+                    for name, mod in (("images_features", images_features), ("denoising", denoising),
+                                      ("psfnoise", psfnoise))}}
+    render.render_frames_core, render.render_psf_stack = counted_core, counted_stack
+    out = {}
+    try:
+        for name, shape in MESH_GEN_RUNS[backend, world]:
+            exp = build_fns[name](seed=0, device="cuda").use_mesh(parallel.make_mesh(**shape))
+            part, g = exp.generation_part(), seeded_generator("cuda", 1, 0, 0)
+            exp.generate(g), exp.generate_fn(g)  # cuFFT plans, the allocator, gloo's buffers
+            before = launch_counts()
+            got, _, k1_sharded = timed(lambda: exp.generate(g))
+            launches = {k: v - before[k] for k, v in launch_counts().items()}
+            sharded_ms = [timed(lambda: exp.generate(g))[1] for _ in range(MESH_GEN_REPEATS)]
+            whole, _, k1_whole = timed(lambda: exp.generate_fn(g))
+            whole_ms = [timed(lambda: exp.generate_fn(g))[1] for _ in range(MESH_GEN_REPEATS)]
+            out[name] = {"mesh": shape, "bitwise": _part_is_whole(torch, exp, part, got, whole),
+                         "members": None if part.members is None else (part.members.start, part.members.stop),
+                         "k1_frames": {"sharded": k1_sharded, "replicated": k1_whole},
+                         "launches": launches, "ms": {"sharded": sharded_ms, "replicated": whole_ms},
+                         "gathered_mb": sum(v.numel() * v.element_size() for v in got.values()
+                                            if torch.is_tensor(v)) / 1e6}
+            print(f"mesh rank {rank}: generation {name} {out[name]['ms']}", file=sys.stderr, flush=True)
+            del exp, got, whole
+            torch.cuda.empty_cache()
+    finally:
+        render.render_frames_core, render.render_psf_stack = core, stack
+    return out
+
+
 def mesh_rank(torch, backend: str, world: int, rank: int, port: int, out: str) -> None:
     """One rank of phase mesh's parts (b) and (c), started by ``phase_mesh``
     (``chip_smoke.py --mesh-rank``): after ``go`` on stdin, join the world
@@ -3487,6 +3623,7 @@ def mesh_rank(torch, backend: str, world: int, rank: int, port: int, out: str) -
                                for a, st in exp.states.items() if a not in exp._members}}
         del exp
         torch.cuda.empty_cache()
+    res["generation"] = _mesh_generation(torch, backend, world, rank)
     torch.save(res, Path(out) / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -3713,9 +3850,14 @@ def phase_mesh(torch, card):
     a captured cycle over gloo must raise. (c) Where the machine has two or
     more cards: NCCL across up to four, the same comparisons of the first
     (eager) step, then two captured cycles, whose losses must be finite
-    and whose replicated arms bitwise equal on every rank.
+    and whose replicated arms bitwise equal on every rank. In (b) and (c)
+    the ranks then check generation alone (``_mesh_generation``): each
+    rank's gathered cycle must be the unsharded one bitwise, and each must
+    render (K1) fewer frames than the whole, the ranks that split classes
+    all of them between them.
     Returns the K1/K2/K3 launches of every meshed cycle, (a)'s and every
-    rank's of the unmutated runs."""
+    rank's of the unmutated runs, and of the ranks' sharded generation
+    calls."""
     import socket
     import tempfile
 
@@ -3848,6 +3990,30 @@ def phase_mesh(torch, card):
               "sequences_per_d": MESH_SEQS_PER_D, "by_run": by_run, "ranks_wall_s": wall_s,
               "note": "two ranks and the unsharded references share one card over gloo: correctness, not speed"
               if backend == "gloo" else "eager first steps; the unsharded references' seconds beside part (b)'s ranks"})
+        gen = {}
+        for name, shape in MESH_GEN_RUNS[backend, world]:
+            by_rank = [r["generation"][name] for r in ranks]
+            check(all(g["bitwise"] for g in by_rank),
+                  f"mesh ({part}) generation {name} {shape}: a rank's gathered cycle is not the unsharded one")
+            whole = by_rank[0]["k1_frames"]["replicated"]
+            split = [g["k1_frames"]["sharded"] for g in by_rank]
+            # classes split over the ranks: their frames add up to the whole;
+            # a grid's members: each rank renders its members' PSF settings
+            check(all(0 < f < whole for f in split) and (by_rank[0]["members"] is not None or sum(split) == whole),
+                  f"mesh ({part}) generation {name}: K1 frames by rank {split} against {whole} replicated")
+            for g in by_rank:
+                for k, v in g["launches"].items():
+                    launches[k] += v
+            gen[name] = {"mesh": shape, "bitwise_equal": True, "members_by_rank": [g["members"] for g in by_rank],
+                         "k1_frames_by_rank": [g["k1_frames"]["sharded"] for g in by_rank],
+                         "k1_frames_replicated": by_rank[0]["k1_frames"]["replicated"],
+                         "k1_launches_by_rank": [g["launches"]["render_frames"] for g in by_rank],
+                         "ms_by_rank": [g["ms"] for g in by_rank], "gathered_mb": by_rank[0]["gathered_mb"]}
+        emit({"phase": "mesh", "part": f"{part}_generation", "card": card, "backend": backend, "world": world,
+              "sequences_per_d": 64, "by_experiment": gen,
+              "note": "ms: each rank's Experiment.generate (its part, then the gather) against the unsharded "
+                      "generate_fn on the same card, median of the list" + (
+                          "; two gloo ranks share one card: correctness, not speed" if backend == "gloo" else "")})
     tmp.cleanup()
     emit({"phase": "mesh", "part": "launches", "launches": launches, "phase_s": time.perf_counter() - t_phase})
     return launches

@@ -110,6 +110,7 @@ from moleculardiffusion_mivit_tpu_torch.features import (
     compute_per_frame_features,
 )
 from moleculardiffusion_mivit_tpu_torch.models import HybridFusionTransformer, ModularTransformer
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import GenerationPart, part_units
 from moleculardiffusion_mivit_tpu_torch.sim import (
     average_trajectories_frames,
     brownian_motion,
@@ -142,51 +143,78 @@ def study_train_config(seqs_per_d: int, seed: int = 0) -> TrainConfig:
 
 
 def generate(generator: torch.Generator, train_cfg: TrainConfig, optics, seqs_per_d: int,
-             mix: bool) -> Dict[str, torch.Tensor]:
+             mix: bool, part: Optional[GenerationPart] = None) -> Optional[Dict[str, torch.Tensor]]:
     """The example's ``generate`` on the generator's device: per class ``i``,
     ``single_state`` from ``fold_in(generator, i, 0)``, rendered (K1) from
     ``fold_in(generator, i, 1)`` and normalised; the frame-averaged
     trajectories, their per-frame tokens and the per-frame labels (D over
     ``d_max_normalization``). With ``mix``, videos, labels, tokens and
-    averaged trajectories swap tails at the same splits
-    (``mix_tails_multi`` from ``fold_in(generator, 999)``). Returns
-    ``{"videos" (N, F, S, S), "labels" (N, F), "pf_features" (N, F, 6),
-    "avg" (N, F, 2)}``."""
+    averaged trajectories swap tails at the same splits (``mix_classes``).
+    Returns ``{"videos" (N, F, S, S), "labels" (N, F), "pf_features" (N, F,
+    6), "avg" (N, F, 2)}``. With ``part`` (``parallel.mesh.GenerationPart``)
+    its classes alone and unmixed (``None`` for none): the cross-class swap
+    runs on the gathered cycle."""
     p, f = train_cfg.n_pos_per_frame, train_cfg.n_frames
+    classes = part_units(part, len(train_cfg.training_ds))
+    if not classes:
+        return None
     videos, labels, avgs = [], [], []
-    for i, ds in enumerate(train_cfg.training_ds):
-        trajs, labs = single_state(fold_in(generator, i, 0), seqs_per_d, f * p, Ds=tuple(ds))
+    for i in classes:
+        trajs, labs = single_state(fold_in(generator, i, 0), seqs_per_d, f * p, Ds=tuple(train_cfg.training_ds[i]))
         trajs = trajs / train_cfg.traj_div_factor
         videos.append(render_videos(fold_in(generator, i, 1), trajs, train_cfg, optics))
         avgs.append(average_trajectories_frames(trajs, p))
         labels.append(labs[:, :, 1].reshape(seqs_per_d, f, p).mean(dim=2) / train_cfg.d_max_normalization)
-    videos, labels, avg = torch.cat(videos), torch.cat(labels), torch.cat(avgs)
-    pf = compute_per_frame_features(avg)
-    if mix:
-        videos, labels, pf, avg = mix_tails_multi(fold_in(generator, MIX_STREAM), (videos, labels, pf, avg),
-                                                  len(train_cfg.training_ds), f)
-    return {"videos": videos, "labels": labels, "pf_features": pf, "avg": avg}
+    avg = torch.cat(avgs)
+    data = {"videos": torch.cat(videos), "labels": torch.cat(labels), "pf_features": compute_per_frame_features(avg),
+            "avg": avg}
+    return mix_classes(generator, data, train_cfg) if mix and part is None else data
+
+
+def mix_classes(generator: torch.Generator, data: Dict[str, torch.Tensor], train_cfg: TrainConfig):
+    """``generate``'s tail swap across classes: videos, labels, tokens and
+    averaged trajectories at the same splits (``mix_tails_multi`` from
+    ``fold_in(generator, 999)``)."""
+    keys = ("videos", "labels", "pf_features", "avg")
+    mixed = mix_tails_multi(fold_in(generator, MIX_STREAM), tuple(data[k] for k in keys), len(train_cfg.training_ds),
+                            train_cfg.n_frames)
+    return dict(data, **dict(zip(keys, mixed)))
 
 
 def generate_continuous(generator: torch.Generator, train_cfg: TrainConfig, optics, seqs_per_d: int,
-                        d_range: Tuple[float, float]) -> Dict[str, torch.Tensor]:
+                        d_range: Tuple[float, float], part: Optional[GenerationPart] = None
+                        ) -> Optional[Dict[str, torch.Tensor]]:
     """The example's continuous curriculum: ``4·seqs_per_d`` sequences at D ~
     U(lo, hi) each (from ``fold_in(generator, 0)``), Brownian from ``(1)``,
-    rendered from ``(2)``; sequence i swaps its tail with sequence n−1−i for
-    the first ``(n // 2) // 2``, videos, labels, tokens and averaged
-    trajectories at the same splits (``mix_tails_uniform`` from ``(3)``)."""
+    block ``b`` of ``seqs_per_d`` sequences rendered from ``(2, b)``;
+    sequence i swaps its tail with sequence n−1−i for the first ``(n // 2)
+    // 2``, videos, labels, tokens and averaged trajectories at the same
+    splits (``mix_uniform``). With ``part`` its blocks alone and unmixed."""
     lo, hi = d_range
     p, f = train_cfg.n_pos_per_frame, train_cfg.n_frames
-    n = seqs_per_d * len(train_cfg.training_ds)
+    n_blocks = len(train_cfg.training_ds)
+    n = seqs_per_d * n_blocks
+    blocks = part_units(part, n_blocks)
+    if not blocks:
+        return None
     gd = fold_in(generator, 0)
     d = lo + (hi - lo) * torch.rand(n, generator=gd, device=gd.device)
     trajs = brownian_motion(fold_in(generator, 1), n, f, p, d, float(p)) / train_cfg.traj_div_factor
-    videos = render_videos(fold_in(generator, 2), trajs, train_cfg, optics)
-    avg = average_trajectories_frames(trajs, p)
-    pf = compute_per_frame_features(avg)
-    labels = (d / train_cfg.d_max_normalization)[:, None].expand(n, f).contiguous()
-    videos, labels, pf, avg = mix_tails_uniform(fold_in(generator, 3), (videos, labels, pf, avg), f)
-    return {"videos": videos, "labels": labels, "pf_features": pf, "avg": avg}
+    rows = slice(blocks.start * seqs_per_d, blocks.stop * seqs_per_d)
+    videos = torch.cat([render_videos(fold_in(generator, 2, b), trajs[b * seqs_per_d:(b + 1) * seqs_per_d], train_cfg,
+                                      optics) for b in blocks])
+    avg = average_trajectories_frames(trajs[rows], p)
+    labels = (d[rows] / train_cfg.d_max_normalization)[:, None].expand(rows.stop - rows.start, f).contiguous()
+    data = {"videos": videos, "labels": labels, "pf_features": compute_per_frame_features(avg), "avg": avg}
+    return mix_uniform(generator, data, train_cfg) if part is None else data
+
+
+def mix_uniform(generator: torch.Generator, data: Dict[str, torch.Tensor], train_cfg: TrainConfig):
+    """``generate_continuous``'s tail swap (``mix_tails_uniform`` from
+    ``fold_in(generator, 3)``)."""
+    keys = ("videos", "labels", "pf_features", "avg")
+    mixed = mix_tails_uniform(fold_in(generator, 3), tuple(data[k] for k in keys), train_cfg.n_frames)
+    return dict(data, **dict(zip(keys, mixed)))
 
 
 def pack_hybrid(data: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -232,17 +260,24 @@ def build_modular(seed: int, seqs_per_d: int, with_hybrid: bool, continuous=None
     train_cfg = study_train_config(seqs_per_d, seed)
     optics = BASELINE_OPTICS
 
-    def generate_fn(generator):
-        if continuous is None:
-            data = generate(generator, train_cfg, optics, seqs_per_d, mix=True)
-        else:
-            data = generate_continuous(generator, train_cfg, optics, seqs_per_d, continuous)
+    def finish(generator, data):
+        """The cross-class steps: the tail swap, then the hybrid's packed
+        features of the swapped trajectories."""
+        data = mix_classes(generator, data, train_cfg) if continuous is None else mix_uniform(generator, data,
+                                                                                              train_cfg)
         if with_hybrid:
             data["hybrid_features"] = pack_hybrid(data)
         return data
 
+    def generate_fn(generator, part=None):
+        if continuous is None:
+            data = generate(generator, train_cfg, optics, seqs_per_d, mix=False, part=part)
+        else:
+            data = generate_continuous(generator, train_cfg, optics, seqs_per_d, continuous, part=part)
+        return finish(generator, data) if part is None else data
+
     return Experiment("changepoint_modular", train_cfg, optics, modular_arms(with_hybrid), generate_fn, {},
-                      device=dev)
+                      device=dev, finish_fn=finish)
 
 
 def planted_sets(train_cfg: TrainConfig, optics, per_class: int, device, with_hybrid: bool = False):

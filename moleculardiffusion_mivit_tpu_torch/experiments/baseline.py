@@ -21,6 +21,7 @@ from moleculardiffusion_mivit_tpu_torch.evaluation import (
 )
 from moleculardiffusion_mivit_tpu_torch.experiments.base import Experiment, ModelEntry
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import part_units
 from moleculardiffusion_mivit_tpu_torch.sim import brownian_motion, render_videos
 from moleculardiffusion_mivit_tpu_torch.train.loop import (
     generate_cycle_data,
@@ -44,10 +45,15 @@ def build(
     otherwise). ``continuous_d=(lo, hi)`` swaps the 4-class curriculum for
     per-sequence D ~ Uniform(lo, hi) at the same per-cycle budget (4 ×
     sequences_per_d); in sequence mode the tail swap is then
-    ``mix_tails_uniform``. ``generate_fn(generator)`` draws the data from
-    ``fold_in(generator, 0)`` (and D from ``fold_in(generator, 2)`` in the
-    continuous curriculum) and the mixing splits from ``fold_in(generator,
-    1)``."""
+    ``mix_tails_uniform``. ``generate_fn(generator, part=None)`` draws the
+    data from ``fold_in(generator, 0)`` (``generate_cycle_data``: class
+    ``i`` from its own streams); in the continuous curriculum D from
+    ``fold_in(generator, 2)`` and the walks from ``fold_in(generator, 0)``
+    for every row, and block ``b`` of ``sequences_per_d`` rows renders from
+    ``fold_in(generator, 3, b)``. The mixing splits come from
+    ``fold_in(generator, 1)``. With a ``part`` (on a mesh) it returns that
+    part's classes or blocks, unmixed: the experiment's ``finish_fn`` mixes
+    the gathered cycle."""
     dev = resolve_device(device)
     train_cfg = TrainConfig(
         seed=seed,
@@ -78,33 +84,51 @@ def build(
 
     if continuous_d is not None:
         d_lo, d_hi = continuous_d
-        n_total = sequences_per_d * len(train_cfg.training_ds)
+        n_blocks = len(train_cfg.training_ds)
+        n_total = sequences_per_d * n_blocks
         p = train_cfg.n_pos_per_frame
 
-        def generate_fn(generator):
-            g = fold_in(generator, 0)
+        def mix(generator, data):
+            data["videos"], data["labels"] = mix_tails_uniform(fold_in(generator, 1), (data["videos"], data["labels"]),
+                                                               train_cfg.n_frames)
+            return data
+
+        def generate_part(generator, part):
+            blocks = part_units(part, n_blocks)
+            if not blocks:
+                return None
             gd = fold_in(generator, 2)
             d = d_lo + (d_hi - d_lo) * torch.rand(n_total, generator=gd, device=gd.device)
-            trajs = brownian_motion(g, n_total, train_cfg.n_frames, p, d, float(p)) / train_cfg.traj_div_factor
-            videos = render_videos(g, trajs, train_cfg, optics)
-            dn = d / train_cfg.d_max_normalization
+            trajs = brownian_motion(fold_in(generator, 0), n_total, train_cfg.n_frames, p, d,
+                                    float(p)) / train_cfg.traj_div_factor
+            rows = slice(blocks.start * sequences_per_d, blocks.stop * sequences_per_d)
+            videos = torch.cat([render_videos(fold_in(generator, 3, b),
+                                              trajs[b * sequences_per_d:(b + 1) * sequences_per_d], train_cfg, optics)
+                                for b in blocks])
+            dn = d[rows] / train_cfg.d_max_normalization
             if train_cfg.sequence_mode:
-                labels = dn[:, None].expand(n_total, train_cfg.n_frames).contiguous()
+                labels = dn[:, None].expand(dn.shape[0], train_cfg.n_frames).contiguous()
             else:
                 labels = dn[:, None]
-            if train_cfg.mix_trajectories:
-                videos, labels = mix_tails_uniform(fold_in(generator, 1), (videos, labels), train_cfg.n_frames)
             return {"videos": videos, "labels": labels}
 
     else:
 
-        def generate_fn(generator):
-            videos, labels = generate_cycle_data(fold_in(generator, 0), train_cfg, optics)
-            if train_cfg.mix_trajectories:
-                videos, labels = mix_trajectory_tails(
-                    fold_in(generator, 1), videos, labels, len(train_cfg.training_ds), train_cfg.n_frames
-                )
-            return {"videos": videos, "labels": labels}
+        def mix(generator, data):
+            data["videos"], data["labels"] = mix_trajectory_tails(
+                fold_in(generator, 1), data["videos"], data["labels"], len(train_cfg.training_ds), train_cfg.n_frames
+            )
+            return data
+
+        def generate_part(generator, part):
+            out = generate_cycle_data(fold_in(generator, 0), train_cfg, optics, part=part)
+            return None if out is None else {"videos": out[0], "labels": out[1]}
+
+    finish_fn = mix if train_cfg.mix_trajectories else None
+
+    def generate_fn(generator, part=None):
+        data = generate_part(generator, part)
+        return mix(generator, data) if part is None and finish_fn else data
 
     trajs = load_validation_trajectories(length=val_length, device=dev)
     rendered = render_validation_videos(trajs, train_cfg, optics, device=dev)
@@ -118,4 +142,5 @@ def build(
             "labels": None,
             "d_values": IN_ORDER_D_VALUES[:n_d],
         }
-    return Experiment("baseline", train_cfg, optics, arms, generate_fn, val_data, in_order, device=dev)
+    return Experiment("baseline", train_cfg, optics, arms, generate_fn, val_data, in_order, device=dev,
+                      finish_fn=finish_fn)

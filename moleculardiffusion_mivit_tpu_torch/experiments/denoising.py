@@ -11,9 +11,11 @@ trained with **L1 loss** on D classes 1, 3, 5, 7 (validation stays MSE).
 The 7 transformers form one ``GridArm`` (``trans_grid``) and the 7 ResNets
 another (``resnet_grid``); member ``m`` reads setting ``SETTINGS[m]``.
 
-Random streams (``utils.rng``): cycle data from ``generate_fn(g)``, class
-``i`` simulating from ``fold_in(g, i, 0)`` and rendering from ``fold_in(g,
-i, 1)``; validation at D rendered from ``(seed + 99, int(D))``.
+Random streams (``utils.rng``): cycle data from ``generate_fn(g,
+part=None)``, class ``i`` simulating from ``fold_in(g, i, 0)`` and rendering
+from ``fold_in(g, i, 1)`` (with a mesh's ``part``, its classes alone: their
+render, noise and RL-TV); validation at D rendered from ``(seed + 99,
+int(D))``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from moleculardiffusion_mivit_tpu_torch.denoise import trajs_to_vid_norm_rl
 from moleculardiffusion_mivit_tpu_torch.evaluation import load_validation_trajectories
 from moleculardiffusion_mivit_tpu_torch.experiments.base import Experiment, GridArm
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import part_units
 from moleculardiffusion_mivit_tpu_torch.sim import single_state
 from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
 
@@ -47,10 +50,11 @@ DENOISING_OPTICS = OpticsConfig(
 
 def grid_slice(data):
     """``(N, 7, F, S, S)`` → setting-major ``(7, N, F, S, S)`` and the shared
-    labels tiled over the settings."""
+    labels tiled over the settings (a generation part's: over its members'
+    settings)."""
     videos_m = data["videos"].transpose(0, 1)
     labels = data["labels"]
-    labels_m = None if labels is None else labels[None].expand((len(SETTINGS),) + tuple(labels.shape))
+    labels_m = None if labels is None else labels[None].expand((videos_m.shape[0],) + tuple(labels.shape))
     return videos_m, None, labels_m
 
 
@@ -86,13 +90,19 @@ def build(
     def render(generator, trajs):
         return trajs_to_vid_norm_rl(generator, trajs, p, train_cfg.center, optics, RL_ITERATIONS)
 
-    def generate_fn(generator):
+    def generate_fn(generator, part=None):
+        classes = part_units(part, len(train_cfg.training_ds))
+        if not classes:
+            return None
         videos, labels = [], []
-        for i, ds in enumerate(train_cfg.training_ds):
-            trajs, lab = single_state(fold_in(generator, i, 0), sequences_per_d, t, Ds=tuple(ds))
+        for i in classes:
+            trajs, lab = single_state(fold_in(generator, i, 0), sequences_per_d, t, Ds=tuple(train_cfg.training_ds[i]))
             videos.append(render(fold_in(generator, i, 1), trajs / train_cfg.traj_div_factor))
             labels.append(lab[:, :1, 1] / train_cfg.d_max_normalization)
-        return {"videos": torch.cat(videos), "labels": torch.cat(labels)}
+        videos = torch.cat(videos)
+        if part is not None and part.members is not None:  # every setting comes of one RL-TV run: keep its members'
+            videos = videos[:, part.members]
+        return {"videos": videos, "labels": torch.cat(labels)}
 
     frozen = load_validation_trajectories(length=val_length, device=dev)
     val_data = {}

@@ -9,8 +9,9 @@ classes 1, 3, 5, 7. ``param_counts`` gives each arm's learnable parameter
 count, as the reference prints them.
 
 Random streams (``utils.rng``), in the layout of ``baseline``: the cycle's
-data from ``fold_in(g, 0)`` (``train.loop.generate_cycle_data``), with ``g``
-the experiment's per-cycle stream; the validation videos as
+data from ``fold_in(g, 0)`` (``train.loop.generate_cycle_data``, class by
+class; with a mesh's ``part``, that part's classes), with ``g`` the
+experiment's per-cycle stream; the validation videos as
 ``evaluation.render_validation_videos`` renders them.
 """
 
@@ -64,9 +65,9 @@ def build(
             arms[key_name + suffix] = ModelEntry(model=GeneralTransformer(cfg, embedding=emb), slice_fn=identity_slice)
     arms["resnet"] = ModelEntry(model=MultiImageResNet(), slice_fn=identity_slice)
 
-    def generate_fn(generator):
-        videos, labels = generate_cycle_data(fold_in(generator, 0), train_cfg, optics)
-        return {"videos": videos, "labels": labels}
+    def generate_fn(generator, part=None):
+        out = generate_cycle_data(fold_in(generator, 0), train_cfg, optics, part=part)
+        return None if out is None else {"videos": out[0], "labels": out[1]}
 
     # only the classes validated on are rendered (the experiment has no in-order sweep)
     trajs = load_validation_trajectories(length=val_length, device=dev)

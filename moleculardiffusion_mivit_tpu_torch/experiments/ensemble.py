@@ -13,9 +13,10 @@ learning rate 1e-4 × 0.9 every 5 cycles.
 Cycle data (``generate``), member-major, all members in one call: member
 ``m`` draws from ``fold_in(g, 0, m)`` (its D from ``(0)``, its walks from
 ``(1)``; per class ``i`` of the discrete curriculum ``single_state`` from
-``(i)``), then every member's sequences render in one K1 launch and get
-their localisation noise and 25 features in one call each, from ``fold_in(g,
-1)``. ``continuous``: D ~ U(d_low, d_high) a sequence, Brownian walks with
+``(i)``), then every member's sequences render in one K1 launch, member
+``m``'s render and localisation noise from ``fold_in(g, 1, m)``, and get
+their 25 features in one call (on a mesh, a rank's members alone:
+``parallel.mesh.GenerationPart``). ``continuous``: D ~ U(d_low, d_high) a sequence, Brownian walks with
 ``dt`` = sub-positions a frame (a sub-step's sd is sqrt(2·D)), labels D /
 ``d_max_normalization``. ``discrete``: ``--n`` split over ``--classes``, D ~
 N(c, 1) truncated at 0 a sequence, labels the simulator's.
@@ -108,6 +109,7 @@ from moleculardiffusion_mivit_tpu_torch.experiments.base import Experiment, Grid
 from moleculardiffusion_mivit_tpu_torch.experiments.images_features import make_dataset
 from moleculardiffusion_mivit_tpu_torch.features import N_FEATURES
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import GenerationPart
 from moleculardiffusion_mivit_tpu_torch.sim import brownian_motion, single_state
 from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
 from moleculardiffusion_mivit_tpu_torch.utils.card import card_line
@@ -136,13 +138,23 @@ def mivit(model_cfg: Optional[ModelConfig] = None) -> GeneralTransformer:
 
 def generate(generator: torch.Generator, train_cfg: TrainConfig, optics, members: int, n: int,
              curriculum: str = "continuous", d_range: Tuple[float, float] = (0.1, 10.5),
-             classes: Sequence[float] = ()) -> Dict[str, torch.Tensor]:
+             classes: Sequence[float] = (), part: Optional[GenerationPart] = None) -> Optional[Dict[str, torch.Tensor]]:
     """One cycle's data of every member on the generator's device (see the
     module docstring for the streams): ``{"videos" (M, n, F, S, S),
-    "features" (M, n, 25), "labels" (M, n, 1)}``, rendered in one call."""
+    "features" (M, n, 25), "labels" (M, n, 1)}``, rendered in one call.
+    With ``part`` (``parallel.mesh.GenerationPart``) the members of its
+    block alone (of its ``members`` if it names a grid's), bitwise the whole
+    call's; ``None`` for a part with none."""
     p, f = train_cfg.n_pos_per_frame, train_cfg.n_frames
+    ids = range(members)
+    if part is not None:
+        ids = ids[part.members or slice(None)]
+        mine = part.units(len(ids))
+        ids = ids[mine.start:mine.stop]
+    if not ids:
+        return None
     trajs, labels = [], []
-    for m in range(members):
+    for m in ids:
         gm = fold_in(generator, 0, m)
         if curriculum == "continuous":
             lo, hi = d_range
@@ -159,10 +171,11 @@ def generate(generator: torch.Generator, train_cfg: TrainConfig, optics, members
                 labels.append(lab[:, :1, 1])
         else:
             raise ValueError(f"unknown curriculum {curriculum!r}; expected 'continuous' or 'discrete'")
-    data = make_dataset(fold_in(generator, 1), torch.cat(trajs) / train_cfg.traj_div_factor, train_cfg, optics)
+    data = make_dataset([fold_in(generator, 1, m) for m in ids], torch.cat(trajs) / train_cfg.traj_div_factor,
+                        train_cfg, optics)
 
     def member_major(t):
-        return t.reshape((members, n) + tuple(t.shape[1:]))
+        return t.reshape((len(ids), n) + tuple(t.shape[1:]))
 
     return {"videos": member_major(data["videos"]), "features": member_major(data["features"]),
             "labels": member_major(torch.cat(labels) / train_cfg.d_max_normalization)}
@@ -178,8 +191,8 @@ def build(seed: int, members: int, n: int, curriculum: str = "continuous",
     train_cfg = train_config(seed)
     optics = BASELINE_OPTICS
 
-    def generate_fn(g):
-        return generate(g, train_cfg, optics, max(members, 1), n, curriculum, d_range, classes)
+    def generate_fn(g, part=None):
+        return generate(g, train_cfg, optics, max(members, 1), n, curriculum, d_range, classes, part)
 
     if members:
         arms = {"ensemble": GridArm(model=mivit(model_cfg), names=[f"member_{m}" for m in range(members)],

@@ -21,10 +21,13 @@ Random streams (``utils.rng``):
 
 - ``render_framerate_stack(g, ...)``: rate ``i`` renders from
   ``fold_in(g, i)``;
-- cycle data: ``generate_fn(g)``, with ``g`` the experiment's per-cycle
-  stream; class ``i`` simulates from ``fold_in(g, i, 0)`` and renders from
-  ``fold_in(g, i, 1)``; with ``continuous_d``, D from ``fold_in(g, 0)``,
-  the walks from ``fold_in(g, 1)``, the render from ``fold_in(g, 2)``;
+- cycle data: ``generate_fn(g, part=None)``, with ``g`` the experiment's
+  per-cycle stream; class ``i`` simulates from ``fold_in(g, i, 0)`` and
+  renders from ``fold_in(g, i, 1)``; with ``continuous_d``, D from
+  ``fold_in(g, 0)`` and the walks from ``fold_in(g, 1)`` for every row,
+  and block ``b`` (the rows of class ``b``'s count) renders from
+  ``fold_in(g, 2, b)``; with a mesh's ``part``, its classes or blocks
+  alone;
 - validation at D: the render from ``(seed + 99, int(D))``;
 - the in-order rescore: chunk ``start`` renders from ``fold_in((123),
   start)``.
@@ -50,6 +53,7 @@ from moleculardiffusion_mivit_tpu_torch.evaluation import (
 )
 from moleculardiffusion_mivit_tpu_torch.experiments.base import Experiment, ModelEntry, class_sequence_counts
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import part_units
 from moleculardiffusion_mivit_tpu_torch.sim import brownian_motion, normalize_images, single_state, trajectories_to_video
 from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
 
@@ -142,21 +146,29 @@ def build(
     if continuous_d is not None:
         d_lo, d_hi = continuous_d
         n_total = sum(counts)
+        starts = np.cumsum((0,) + counts)  # block b: the rows of class b's count
 
-        def generate_fn(generator):
+        def generate_fn(generator, part=None):
+            blocks = part_units(part, len(counts))
+            if not blocks:
+                return None
             gd = fold_in(generator, 0)
             d = d_lo + (d_hi - d_lo) * torch.rand(n_total, generator=gd, device=gd.device)
             trajs = brownian_motion(fold_in(generator, 1), n_total, train_cfg.n_frames, ORIGINAL_N_POS, d,
                                     float(ORIGINAL_N_POS)) / train_cfg.traj_div_factor
-            return {"videos": render_framerate_stack(fold_in(generator, 2), trajs, optics, rates),
-                    "labels": (d / d_max)[:, None]}
+            videos = [render_framerate_stack(fold_in(generator, 2, b), trajs[starts[b]:starts[b + 1]], optics, rates)
+                      for b in blocks]
+            return {"videos": torch.cat(videos), "labels": (d / d_max)[starts[blocks.start]:starts[blocks.stop], None]}
 
     else:
 
-        def generate_fn(generator):
+        def generate_fn(generator, part=None):
+            classes = part_units(part, len(counts))
+            if not classes:
+                return None
             videos, labels = [], []
-            for i, (ds, n) in enumerate(zip(train_cfg.training_ds, counts)):
-                trajs, lab = single_state(fold_in(generator, i, 0), n, t, Ds=tuple(ds))
+            for i in classes:
+                trajs, lab = single_state(fold_in(generator, i, 0), counts[i], t, Ds=tuple(train_cfg.training_ds[i]))
                 videos.append(render_framerate_stack(fold_in(generator, i, 1), trajs / train_cfg.traj_div_factor,
                                                      optics, rates))
                 labels.append(lab[:, :1, 1] / d_max)

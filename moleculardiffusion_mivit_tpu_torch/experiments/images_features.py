@@ -20,9 +20,10 @@ arms: ``tta_error_tables``.
 Random streams (``utils.rng``), mirroring the JAX package's ``fold_in``
 layout:
 
-- cycle data: ``generate_fn(g)``, with ``g`` the experiment's per-cycle
-  stream; class ``i`` simulates from ``fold_in(g, i, 0)`` and makes its
-  dataset from ``fold_in(g, i, 1)``;
+- cycle data: ``generate_fn(g, part=None)``, with ``g`` the experiment's
+  per-cycle stream; class ``i`` simulates from ``fold_in(g, i, 0)`` and
+  makes its dataset from ``fold_in(g, i, 1)``; with a mesh's ``part``, its
+  classes alone (their features too);
 - ``make_dataset(g, ...)``: the render from ``fold_in(g, 0)``, the
   localisation noise from ``fold_in(g, 1)``;
 - validation at D: ``make_dataset`` from ``(seed + 99, int(D))``;
@@ -60,9 +61,11 @@ from moleculardiffusion_mivit_tpu_torch.models import (
     MultiImageFeatureResNet,
     MultiImageResNet,
 )
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import part_units
 from moleculardiffusion_mivit_tpu_torch.sim import (
     average_trajectories_frames,
     render_videos,
+    render_videos_blocks,
     render_videos_many,
     single_state,
 )
@@ -93,16 +96,25 @@ def _trajectory_variants(generator: torch.Generator, trajs, videos, train_cfg: T
     return {"videos": videos, "trajs_raw": trajs, "trajs_avg": trajs_avg, "trajs_avg_err": trajs_avg + noise}
 
 
-def _render_dataset(generator: torch.Generator, trajs, train_cfg: TrainConfig, optics) -> Dict[str, Any]:
+def _render_dataset(generator, trajs, train_cfg: TrainConfig, optics) -> Dict[str, Any]:
     """``make_dataset`` without the features."""
-    videos = render_videos(fold_in(generator, 0), trajs, train_cfg, optics)
-    return _trajectory_variants(fold_in(generator, 1), trajs, videos, train_cfg)
+    if isinstance(generator, torch.Generator):
+        videos = render_videos(fold_in(generator, 0), trajs, train_cfg, optics)
+        return _trajectory_variants(fold_in(generator, 1), trajs, videos, train_cfg)
+    videos = render_videos_blocks([fold_in(g, 0) for g in generator], trajs, train_cfg, optics)
+    blocks = [_trajectory_variants(fold_in(g, 1), t, v, train_cfg)
+              for g, t, v in zip(generator, trajs.chunk(len(generator)), videos.chunk(len(generator)))]
+    return {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}
 
 
-def make_dataset(generator: torch.Generator, trajs, train_cfg: TrainConfig, optics, dt: float = 1.0) -> Dict[str, Any]:
+def make_dataset(generator, trajs, train_cfg: TrainConfig, optics, dt: float = 1.0) -> Dict[str, Any]:
     """Normalised videos, the 25 features of the frame-averaged trajectories,
     and the three trajectory variants (raw, averaged, averaged +
-    localisation noise), on the generator's device."""
+    localisation noise), on the generator's device. ``generator`` may be a
+    list: the rows then split into as many equal blocks, block ``b`` made
+    from ``generator[b]`` alone (bitwise ``make_dataset`` of that block),
+    every block rendered in one K1 launch and the features of all rows in
+    one call."""
     data = _render_dataset(generator, trajs, train_cfg, optics)
     data["features"] = compute_features_for_multiple_trajectories(data["trajs_avg"], dt=dt)
     return data
@@ -180,10 +192,13 @@ def build(
     p = train_cfg.n_pos_per_frame
     t = train_cfg.n_frames * p
 
-    def generate_fn(generator):
+    def generate_fn(generator, part=None):
+        classes = part_units(part, len(train_cfg.training_ds))
+        if not classes:
+            return None
         parts, labels = [], []
-        for i, ds in enumerate(train_cfg.training_ds):
-            trajs, lab = single_state(fold_in(generator, i, 0), sequences_per_d, t, Ds=tuple(ds))
+        for i in classes:
+            trajs, lab = single_state(fold_in(generator, i, 0), sequences_per_d, t, Ds=tuple(train_cfg.training_ds[i]))
             parts.append(_render_dataset(fold_in(generator, i, 1), trajs / train_cfg.traj_div_factor,
                                          train_cfg, optics))
             labels.append(lab[:, :1, 1] / d_max)

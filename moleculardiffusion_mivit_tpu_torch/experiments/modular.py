@@ -22,9 +22,10 @@ and per-frame tokens with the MLP.
 
 Random streams (``utils.rng``), in the layout of ``images_features``:
 
-- cycle data: ``generate_fn(g)``, with ``g`` the experiment's per-cycle
-  stream; class ``i`` simulates from ``fold_in(g, i, 0)`` and renders from
-  ``fold_in(g, i, 1)``;
+- cycle data: ``generate_fn(g, part=None)``, with ``g`` the experiment's
+  per-cycle stream; class ``i`` simulates from ``fold_in(g, i, 0)`` and
+  renders from ``fold_in(g, i, 1)``; with a mesh's ``part``, its classes
+  alone (their tokens and features too);
 - ``make_dataset(g, ...)``: the render from ``g``;
 - validation at D: ``make_dataset`` from ``(seed + 99, int(D))``;
 - the in-order sweep: ``make_dataset`` from ``fold_in((seed + 99), 777)``
@@ -56,6 +57,7 @@ from moleculardiffusion_mivit_tpu_torch.features import (
     compute_per_frame_features,
 )
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, HybridFusionTransformer, ModularTransformer
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import part_units
 from moleculardiffusion_mivit_tpu_torch.sim import (
     average_trajectories_frames,
     render_videos,
@@ -161,10 +163,13 @@ def build(
     t = train_cfg.n_frames * p
     d_max = train_cfg.d_max_normalization
 
-    def generate_fn(generator):
+    def generate_fn(generator, part=None):
+        classes = part_units(part, len(train_cfg.training_ds))
+        if not classes:
+            return None
         videos, avg, labels = [], [], []
-        for i, ds in enumerate(train_cfg.training_ds):
-            trajs, lab = single_state(fold_in(generator, i, 0), sequences_per_d, t, Ds=tuple(ds))
+        for i in classes:
+            trajs, lab = single_state(fold_in(generator, i, 0), sequences_per_d, t, Ds=tuple(train_cfg.training_ds[i]))
             trajs = trajs / train_cfg.traj_div_factor
             videos.append(render_videos(fold_in(generator, i, 1), trajs, train_cfg, optics))
             avg.append(average_trajectories_frames(trajs, p))

@@ -10,10 +10,13 @@ one ``(N, 5, 6, F, 9, 9)`` tensor (``sim.trajectories_to_video_psf_noise_grid``,
 (``tr_grid``) and the 30 ResNets another (``res_grid``): each half of the
 grid steps as one program (``train.grid``), member ``m = 6 i + j``.
 
-Random streams (``utils.rng``): cycle data from ``generate_fn(g)``, class
-``i`` simulating from ``fold_in(g, i, 0)`` and rendering from ``fold_in(g,
-i, 1)``; validation at D rendered from ``(seed + 99, int(D))``; the in-order
-suite from ``fold_in((seed + 99), 777)`` (``evaluation.build_in_order_data``).
+Random streams (``utils.rng``): cycle data from ``generate_fn(g,
+part=None)``, class ``i`` simulating from ``fold_in(g, i, 0)`` and rendering
+from ``fold_in(g, i, 1)`` (each PSF setting's noise from its own streams);
+with a mesh's ``part``, its classes and its members' cells alone (videos
+``(N_p, 1, M_p, F, S, S)``: K1 renders those cells' PSF settings alone);
+validation at D rendered from ``(seed + 99, int(D))``; the in-order suite
+from ``fold_in((seed + 99), 777)`` (``evaluation.build_in_order_data``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from moleculardiffusion_mivit_tpu_torch.evaluation import (
 )
 from moleculardiffusion_mivit_tpu_torch.experiments.base import Experiment, GridArm, class_sequence_counts
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiImageResNet
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import part_units
 from moleculardiffusion_mivit_tpu_torch.sim import single_state, trajectories_to_video_psf_noise_grid
 from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
 
@@ -44,7 +48,9 @@ def grid_slice(data):
     """``(N, N_PSF, N_NOISE, F, S, S)`` → model-major ``(M, N, F, S, S)``
     (member ``i · N_NOISE + j`` reads cell (PSF ``i``, noise ``j``)) and the
     shared labels tiled over the members. All members share one set of
-    sequences, the half-count D = 10.2 class included."""
+    sequences, the half-count D = 10.2 class included. A generation part's
+    cells come as one row of the grid, ``(N, 1, M_p, F, S, S)``
+    (``generate_fn``), and give its members' ``(M_p, N, F, S, S)``."""
     v = data["videos"]
     n = v.shape[0]
     m = v.shape[1] * v.shape[2]
@@ -90,16 +96,21 @@ def build(
     t = train_cfg.n_frames * p
     counts = class_sequence_counts(train_cfg.training_ds, sequences_per_d)
 
-    def render(generator, trajs):
+    def render(generator, trajs, members=None):
         return trajectories_to_video_psf_noise_grid(
-            generator, trajs, p, train_cfg.center, optics, psf_settings, noise_settings
+            generator, trajs, p, train_cfg.center, optics, psf_settings, noise_settings, members
         )
 
-    def generate_fn(generator):
+    def generate_fn(generator, part=None):
+        classes = part_units(part, len(counts))
+        if not classes:
+            return None
+        members = None if part is None else part.members
         videos, labels = [], []
-        for i, (ds, n) in enumerate(zip(train_cfg.training_ds, counts)):
-            trajs, lab = single_state(fold_in(generator, i, 0), n, t, Ds=tuple(ds))
-            videos.append(render(fold_in(generator, i, 1), trajs / train_cfg.traj_div_factor))
+        for i in classes:
+            trajs, lab = single_state(fold_in(generator, i, 0), counts[i], t, Ds=tuple(train_cfg.training_ds[i]))
+            cells = render(fold_in(generator, i, 1), trajs / train_cfg.traj_div_factor, members)
+            videos.append(cells if members is None else cells[:, None])  # a part's cells: one row of the grid
             labels.append(lab[:, :1, 1] / train_cfg.d_max_normalization)
         return {"videos": torch.cat(videos), "labels": torch.cat(labels)}
 

@@ -1,13 +1,18 @@
 """Training over a data × model mesh of ranks on ``torch.distributed``
-(``mesh``: the ranks and the grid's placement; ``steps``: sharded grid
-training and evaluation; ``collectives``: the sums over ranks and the split
-of a minibatch)."""
+(``mesh``: the ranks, the grid's placement and each rank's part of a
+cycle's generation; ``steps``: sharded grid training and evaluation;
+``collectives``: the sums and gathers over ranks and the split of a
+minibatch)."""
 
+from moleculardiffusion_mivit_tpu_torch.parallel.collectives import gather_part  # noqa: F401
 from moleculardiffusion_mivit_tpu_torch.parallel.mesh import (  # noqa: F401
+    GenerationPart,
     Mesh,
+    generation_part,
     grid_sharding,
     initialize_distributed,
     make_mesh,
+    part_units,
     shard_grid,
 )
 from moleculardiffusion_mivit_tpu_torch.parallel.steps import (  # noqa: F401

@@ -1,10 +1,12 @@
 """The collectives of a mesh of ranks, and how a minibatch splits over them.
 
-Every collective here is a sum over a process group written as
-``torch.distributed.all_reduce``: gloo on CUDA tensors offers only
-``all_reduce``, ``broadcast`` and ``barrier``, and two ranks on one card run
-over gloo (NCCL refuses a card twice). A gather is an ``all_reduce`` into a
-buffer of zeros in which each rank has written its own block.
+Every sum here is ``torch.distributed.all_reduce``. A gather of equal
+blocks (``gather_blocks``) is ``all_gather_into_tensor`` under NCCL; under
+gloo, which on CUDA tensors offers only ``all_reduce``, ``broadcast`` and
+``barrier`` (two ranks on one card run over gloo: NCCL refuses a card
+twice), it is an ``all_reduce`` into a buffer of zeros in which each rank
+has written its own block (``place_and_sum``). A cycle's data generated in
+parts is joined by ``gather_part``, bitwise under either backend.
 
 A minibatch of ``B`` rows splits over the ``n`` ranks of a group in
 contiguous blocks of ``ceil(B / n)`` rows (``BatchSplit.bounds``), as XLA
@@ -56,6 +58,58 @@ def place_and_sum(block: torch.Tensor, shape: Sequence[int], starts: Sequence[in
         view = view.narrow(axis, start, size)
     view.copy_(block)
     return all_reduce_(buf, group)
+
+
+def gather_blocks(block: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``block`` (one shape on every rank of ``group``),
+    concatenated along axis 0 in the group's rank order, on every rank:
+    ``all_gather_into_tensor`` under NCCL, ``place_and_sum`` otherwise
+    (the same values: the sum adds zeros)."""
+    block = block.contiguous()
+    size, index = dist.get_world_size(group), dist.get_rank(group)
+    shape = (size * block.shape[0],) + tuple(block.shape[1:])
+    if dist.get_backend(group) == "nccl":
+        out = block.new_empty(shape)
+        dist.all_gather_into_tensor(out, block, group=group)
+        return out
+    return place_and_sum(block, shape, (index * block.shape[0],), group)
+
+
+def gather_part(data, group, device, dim: int = 0):
+    """The whole of a cycle whose ranks each generated a part
+    (``parallel.mesh.GenerationPart``): ``data`` is this rank's part, a dict
+    (or a tuple) of tensors whose blocks concatenate along ``dim`` (``None``
+    where every rank has ``None``), or ``None`` on a rank with no unit.
+    Returns on ``device`` of every rank of ``group`` each tensor's blocks
+    concatenated in the group's rank order, bitwise the ranks' values. One
+    gather of each rank's row count; only where a rank has no unit (more
+    ranks than units), the first rank with one broadcasts its tensors'
+    shapes and dtypes; then each tensor's bytes, every block padded to the
+    largest (``gather_blocks``: under gloo a sum of bytes with zeros, exact
+    whatever the values)."""
+    as_tuple = isinstance(data, (tuple, list))
+    items = dict(enumerate(data)) if as_tuple else data
+    layout = None if items is None else {k: None if v is None else (tuple(v.shape), v.dtype) for k, v in items.items()}
+    own = 0 if items is None else next(v.shape[dim] for v in items.values() if v is not None)
+    rows = gather_blocks(torch.tensor([own], device=device), group).tolist()
+    if 0 in rows:
+        box = [layout]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, rows.index(max(rows))), group=group,
+                                   device=device)
+        layout = box[0]
+    top = max(rows)
+    out = {}
+    for key, spec in layout.items():
+        if spec is None:
+            out[key] = None
+            continue
+        shape, dtype = spec
+        block = torch.zeros((top,) + shape[:dim] + shape[dim + 1:], dtype=dtype, device=device)
+        if own:
+            block[:own] = items[key].movedim(dim, 0)
+        whole = gather_blocks(block.view(torch.uint8), group).view(dtype).movedim(0, dim)
+        out[key] = torch.cat([whole.narrow(dim, r * top, n) for r, n in enumerate(rows) if n], dim)
+    return tuple(out.values()) if as_tuple else out
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -16,6 +16,10 @@ arguments), and every rank runs the same program on its own part:
   replicated and its gradients summed over the world
   (``parallel.collectives.BatchSplit``).
 
+A cycle's data is generated in parts (``GenerationPart``): each rank makes
+its block of the cycle's units (D classes, or a grid's members) and the
+ranks that need the whole gather it (``parallel.collectives.gather_part``).
+
 Rank ``r`` sits at ``(r // model, r % model)``, the row-major order of the
 JAX package's device array.
 """
@@ -117,6 +121,57 @@ def make_mesh(data: int = 1, model: int = 1) -> Mesh:
             dist.all_reduce(one, group=group)
         torch.cuda.synchronize()
     return mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationPart:
+    """Which units of a cycle this rank generates, the counterpart of the
+    JAX package's data born sharded: its block of any count of units
+    (``units``: D classes, or an ensemble's members), and of a grid whose
+    arms' data is member-specific, the members of its ``model`` block
+    (``members``; ``None``: every member). The ranks of ``group`` (``size``
+    of them, this one at ``index``) generate disjoint blocks and together
+    the whole: ``parallel.collectives.gather_part`` joins them. A grid's
+    part with ``members`` returns those members' data alone; without, a
+    sharded grid keeps its block of every member's (``member_block``)."""
+
+    index: int
+    size: int
+    group: Any
+    members: Optional[slice] = None
+
+    def units(self, n: int) -> range:
+        """This rank's contiguous block of ``range(n)``: ``n`` split over the
+        ``size`` ranks, the first ``n % size`` blocks one longer; empty on a
+        rank past ``n``."""
+        q, r = divmod(n, self.size)
+        lo = self.index * q + min(self.index, r)
+        return range(lo, lo + q + (self.index < r))
+
+
+def generation_part(mesh: Mesh, members: Optional[slice] = None) -> GenerationPart:
+    """This rank's ``GenerationPart`` on ``mesh``. Without ``members`` the
+    units split over every rank and the whole cycle is gathered over the
+    world (a single-model arm's minibatch reads any row); with a grid's
+    ``members`` (``grid_sharding``) they split over the ``data`` ranks of
+    this rank's column, which hold those members and gather over the
+    column."""
+    if members is None:
+        return GenerationPart(mesh.rank, mesh.size, mesh.world_group)
+    return GenerationPart(mesh.data_index, mesh.data, mesh.data_group, members)
+
+
+def part_units(part: Optional[GenerationPart], n: int) -> range:
+    """The units of ``n`` that ``part`` generates: all of them without a
+    part (an unsharded cycle)."""
+    return range(n) if part is None else part.units(n)
+
+
+def member_block(members: slice, *arrays):
+    """Member-major ``arrays`` holding every member's data (``None``
+    passes), cut to a sharded grid's block ``members``: what its rank
+    trains on when the data was not generated member by member."""
+    return tuple(None if a is None else a[members] for a in arrays)
 
 
 def grid_sharding(mesh: Mesh, n_members: int) -> slice:

@@ -9,16 +9,23 @@ here runs the same program on its part (``parallel.mesh``):
   (``grid_batch_constraint``), a single-model arm's over every rank
   (``dp_batch_constraint``), and the gradients and losses are summed over
   that group in the step (``parallel.collectives.BatchSplit``);
-- every rank draws the cycle's data and every member's permutation from the
-  same streams and keeps its part, so a sharded run is the unsharded run up
-  to the order of the sums. Generation is replicated: each rank renders the
-  whole cycle (K1 included) and keeps its members and rows.
+- generation is partitioned, as the JAX package's cycle is born sharded:
+  each rank generates its part of the cycle (``parallel.mesh.
+  GenerationPart``: its block of the D classes, and of a grid its
+  ``model`` block of members), the render (K1), noise, features and RL-TV
+  of that part alone, from the part's own streams; the ranks that need the
+  whole gather it once a cycle (``parallel.collectives.gather_part``: a
+  grid's ``data`` column, the world for single-model arms), bitwise the
+  cycle an unsharded run generates. Every rank draws every member's
+  permutation from the same streams, so a sharded run is the unsharded
+  run up to the order of the sums.
 
 The training closures are ``train.grid.make_grid_impls``'s, given the split
 and the members (``make_sharded_grid_impls``, which ``Experiment`` trains a
 grid arm with); the functions here add what crosses ranks: losses and
-predictions gathered, so every rank ends with every member's. The
-signatures are the JAX package's with a generator for a key.
+predictions gathered (``gather_blocks``: ``all_gather_into_tensor`` under
+NCCL), so every rank ends with every member's. The signatures are the JAX
+package's with a generator for a key.
 """
 
 from __future__ import annotations
@@ -27,8 +34,9 @@ from typing import Optional
 
 import torch
 
-from moleculardiffusion_mivit_tpu_torch.parallel.collectives import BatchSplit, place_and_sum
-from moleculardiffusion_mivit_tpu_torch.parallel.mesh import Mesh, grid_sharding
+from moleculardiffusion_mivit_tpu_torch import resolve_device
+from moleculardiffusion_mivit_tpu_torch.parallel.collectives import BatchSplit, gather_blocks, gather_part
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import Mesh, generation_part, grid_sharding, member_block
 from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in
 
 
@@ -52,11 +60,11 @@ def evaluate_rows(evaluate, mesh: Mesh, videos, features=None, chunk: Optional[i
     """Every prediction of ``evaluate`` on every rank: the set's ``N`` rows
     (axis 0, or axis 1 of a grid's member-major arrays) zero-padded to a
     multiple of the ranks that split them, each rank predicting its block
-    (``chunk`` rows at a time), the blocks placed into zeros of the whole
-    and summed over the world, the padding sliced off. A grid
-    (``members``, the rank's block of ``n_members``) splits its rows over
-    the ``data`` ranks and places its members' rows at their block; a
-    single-model arm splits its rows over every rank."""
+    (``chunk`` rows at a time), the blocks gathered over the world
+    (``gather_blocks``), the padding sliced off. A grid (``members``, the
+    rank's block of ``n_members``) splits its rows over the ``data`` ranks,
+    its members' rows in their block; a single-model arm splits its rows
+    over every rank."""
     axis = 0 if members is None else 1
     index, size = (mesh.rank, mesh.size) if members is None else (mesh.data_index, mesh.data)
     n = videos.shape[axis]
@@ -78,19 +86,19 @@ def evaluate_rows(evaluate, mesh: Mesh, videos, features=None, chunk: Optional[i
     parts = [evaluate(v.narrow(axis, s, min(step, per - s)),
                       None if f is None else f.narrow(axis, s, min(step, per - s)))
              for s in range(0, per, step)]
-    preds = torch.cat(parts, dim=axis)
-    if members is None:
-        shape, starts = (per * size,) + preds.shape[1:], (index * per,)
-    else:
-        shape, starts = (n_members, per * size) + preds.shape[2:], (members.start, index * per)
-    return place_and_sum(preds.contiguous(), shape, starts, mesh.world_group).narrow(axis, 0, n)
+    preds = gather_blocks(torch.cat(parts, dim=axis), mesh.world_group)
+    if members is not None:  # rank d·model + m's block of members × rows: to (members, rows)
+        rest = tuple(preds.shape[2:])
+        preds = (preds.reshape((mesh.data, mesh.model, n_members // mesh.model, per) + rest)
+                 .permute((1, 2, 0, 3) + tuple(range(4, 4 + len(rest)))).reshape((n_members, mesh.data * per) + rest))
+    return preds.narrow(axis, 0, n)
 
 
-def gather_members(t: torch.Tensor, mesh: Mesh, members: slice, n_members: int) -> torch.Tensor:
-    """A member-major tensor of this rank's members placed among every
-    member's (``(n_members, ...)``), summed over the rank's ``model``
+def gather_members(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A member-major tensor of this rank's members (its ``grid_sharding``
+    block) among every member's, gathered over the rank's ``model``
     group."""
-    return place_and_sum(t.contiguous(), (n_members,) + t.shape[1:], (members.start,), mesh.model_group)
+    return gather_blocks(t, mesh.model_group)
 
 
 def make_sharded_grid_impls(model, train_cfg, mesh: Mesh, n_members: int, with_features: bool = False,
@@ -143,8 +151,9 @@ def make_sharded_grid_fns(model, train_cfg, mesh: Mesh, with_features: bool = Fa
 
     def train_cycle(grid, videos, labels, features, generator, lr, batch_size: int):
         m = videos.shape[0]
+        videos, labels, features = member_block(grid_sharding(mesh, m), videos, labels, features)
         losses = get_impls(m).train_cycle(grid, videos, labels, generator, float(lr), batch_size, features)
-        return grid, gather_members(losses, mesh, grid_sharding(mesh, m), m)
+        return grid, gather_members(losses, mesh)
 
     def evaluate(grid, videos, features=None):
         return get_impls(videos.shape[0]).evaluate(grid, videos, features)
@@ -154,16 +163,26 @@ def make_sharded_grid_fns(model, train_cfg, mesh: Mesh, with_features: bool = Fa
 
 def make_sharded_cycle_program(model, train_cfg, mesh: Mesh, data_fn, with_features: bool = False, device=None):
     """One cycle of generation and training: ``cycle(grid, generator, lr,
-    batch_size) -> (grid, losses)``. ``data_fn(generator) -> (videos (M, N,
-    ...), labels (M, N, k), features (M, N, 25) or None)`` runs on every
-    rank from ``fold_in(generator, 0)`` (replicated generation); the epoch
-    draws from ``fold_in(generator, 1)``."""
-    _, train_cycle, _ = make_sharded_grid_fns(model, train_cfg, mesh, with_features, device)
+    batch_size) -> (grid, losses)``, generation partitioned over the mesh.
+    ``data_fn(generator, part) -> (videos (M_p, N_p, ...), labels (M_p,
+    N_p, k), features (M_p, N_p, 25) or None)`` gets this rank's
+    ``GenerationPart`` (its ``data`` block of the rows' units, the members
+    of its ``model`` block) and returns that part alone, from
+    ``fold_in(generator, 0)``; the column's ranks gather the rows
+    (``gather_part``) and train their members on them; the epoch draws
+    from ``fold_in(generator, 1)``."""
+    dev = resolve_device(device)
+    impls = {}  # by the grid's member count
 
     def cycle(grid, generator, lr, batch_size: int):
-        videos, labels, features = data_fn(fold_in(generator, 0))
-        return train_cycle(grid, videos, labels, features if with_features else None,
-                           fold_in(generator, 1), lr, batch_size)
+        m = next(grid.model.parameters()).shape[0] * mesh.model
+        part = generation_part(mesh, grid_sharding(mesh, m))
+        videos, labels, features = gather_part(data_fn(fold_in(generator, 0), part), part.group, dev, dim=1)
+        if m not in impls:
+            impls[m] = make_sharded_grid_impls(model, train_cfg, mesh, m, with_features, device)
+        losses = impls[m].train_cycle(grid, videos, labels, fold_in(generator, 1), float(lr), batch_size,
+                                      features if with_features else None)
+        return grid, gather_members(losses, mesh)
 
     return cycle
 

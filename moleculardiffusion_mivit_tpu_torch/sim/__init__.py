@@ -19,6 +19,7 @@ from moleculardiffusion_mivit_tpu_torch.sim.render import (  # noqa: F401
     normalize_images,
     render_frames_core,
     render_videos,
+    render_videos_blocks,
     render_videos_many,
     render_widefield,
     render_widefield_panel,

@@ -167,6 +167,43 @@ def trajectories_to_videos(
     return frames
 
 
+def trajectories_to_video_blocks(
+    generators: Sequence[torch.Generator],
+    trajectories: torch.Tensor,
+    n_pos_per_frame: int,
+    center: bool = False,
+    optics: OpticsConfig = OpticsConfig(),
+) -> torch.Tensor:
+    """``trajectories_to_video`` of ``len(generators)`` equal blocks of the
+    rows, ``(N, F, S, S)``: block ``b`` draws from ``generators[b]`` alone,
+    as ``trajectories_to_video(generators[b], block)`` does, and all blocks
+    render in one call of the frame core (one K1 launch on the card), whose
+    frames are each their own sub-positions'."""
+    n, t, _ = trajectories.shape
+    p = n_pos_per_frame
+    n_frames, nb = t // p, n // len(generators)
+    s, u = optics.output_size, optics.upsampling_factor
+    part_mean, part_std = optics.particle_intensity
+    bg_mean, bg_std = optics.background_intensity
+    dev = trajectories.device
+
+    x_hr, y_hr = _prepare_subpositions(trajectories, p, center, optics)
+    if part_mean > 1e-4 and part_std > 1e-4:
+        intensities = torch.cat([part_mean / p + (part_std / p) * torch.randn((nb, n_frames, p), generator=g,
+                                                                              device=dev) for g in generators])
+        frames = render_frames_core(x_hr, y_hr, intensities, optics.gaussian_sigma_hr, s, u)
+    else:
+        frames = torch.zeros((n, n_frames, s, s), dtype=torch.float32, device=dev)
+
+    block = (nb,) + tuple(frames.shape[1:])
+    frames = frames + torch.cat([_clipped_background(g, block, bg_mean, bg_std) for g in generators])
+    if optics.poisson_noise != -1:
+        k = float(optics.poisson_noise)
+        lam = torch.full(block, k, dtype=torch.float32, device=dev)
+        frames = frames * torch.cat([_poisson(g, lam) / k for g in generators])
+    return frames
+
+
 def trajectories_to_video_multiple_settings(
     generator: torch.Generator,
     trajectories: torch.Tensor,
@@ -249,6 +286,7 @@ def trajectories_to_video_psf_noise_grid(
     optics: OpticsConfig = OpticsConfig(),
     psf_settings: Tuple[float, ...] = (2.0, 1.75, 1.5, 1.25, 1.0),
     noise_settings: Tuple[float, ...] = (0.0, 1 / 50, 1 / 25, 1 / 20, 1 / 10, 1 / 5),
+    members: Optional[slice] = None,
 ) -> torch.Tensor:
     """The PSF-size × noise-level grid (the published PSFNoise sweep), as
     the JAX package's: trajectories ``(N, T, 2)`` → ``(N, N_PSF, N_NOISE, F,
@@ -263,10 +301,15 @@ def trajectories_to_video_psf_noise_grid(
       background of std ``μ · noise_settings[j]`` to the *noised arm 0*,
       then draws shot noise ``Pois(·k)/k`` again.
 
-    Streams, in the JAX key layout: intensities ``fold_in(g, 0)``;
-    arm ``j``'s background ``fold_in(g, 1, j)``; arm 0's shot noise
-    ``fold_in(g, 2)``, arm ``j``'s ``fold_in(g, 3, j)``. ``generator`` lies
-    on the trajectories' device."""
+    Streams: intensities ``fold_in(g, 0)``; PSF ``i``'s arm 0 shot noise
+    ``fold_in(g, 2, i)``, its arm ``j``'s background ``fold_in(g, 1, j, i)``
+    and shot noise ``fold_in(g, 3, j, i)``: each PSF setting draws from its
+    own streams, so a part of the grid is exactly that part of the whole.
+    ``members`` (a slice of the cells, cell (``i``, ``j``) = member ``i ·
+    N_NOISE + j``): those cells alone, ``(N, n_members, F, S, S)`` in member
+    order, each bitwise the whole grid's: K1 renders their PSF settings
+    alone, and each such setting's arm 0 is drawn. ``generator`` lies on the
+    trajectories' device."""
     from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in
 
     n, t, _ = trajectories.shape
@@ -275,7 +318,9 @@ def trajectories_to_video_psf_noise_grid(
     s, u = optics.output_size, optics.upsampling_factor
     part_mean, part_std = optics.particle_intensity
     bg_mean = optics.background_intensity[0]
-    n_psf = len(psf_settings)
+    n_psf, n_noise = len(psf_settings), len(noise_settings)
+    cells = range(n_psf * n_noise)[members or slice(None)]
+    psfs = sorted({m // n_noise for m in cells})
     dev = trajectories.device
 
     x_hr, y_hr = _prepare_subpositions(trajectories, p, center, optics)
@@ -283,19 +328,27 @@ def trajectories_to_video_psf_noise_grid(
         g_int = fold_in(generator, 0)
         frame_intensity = part_mean + part_std * torch.randn((n, n_frames), generator=g_int, device=dev)
         intensities = (frame_intensity / p)[..., None].expand(n, n_frames, p)
-        clean = render_psf_stack(x_hr, y_hr, intensities, psf_sigmas(optics, psf_settings), s, u)
+        sigmas = psf_sigmas(optics, psf_settings)
+        clean = render_psf_stack(x_hr, y_hr, intensities, tuple(sigmas[i] for i in psfs), s, u)
     else:
-        clean = torch.zeros((n_psf, n, n_frames, s, s), dtype=torch.float32, device=dev)
+        clean = torch.zeros((len(psfs), n, n_frames, s, s), dtype=torch.float32, device=dev)
 
     k = torch.tensor(float(optics.poisson_noise), dtype=torch.float32)
-    arm0 = _poisson(fold_in(generator, 2), torch.clamp(clean + torch.tensor(bg_mean, dtype=torch.float32), min=0.0)
-                    * k) / k
-    arms = [arm0]
-    for j in range(1, len(noise_settings)):
-        noised = arm0 + _clipped_background(fold_in(generator, 1, j), arm0.shape, bg_mean,
-                                            part_mean * noise_settings[j])
-        arms.append(_poisson(fold_in(generator, 3, j), torch.clamp(noised, min=0.0) * k) / k)
-    return torch.stack(arms, dim=1).permute(2, 0, 1, 3, 4, 5)
+    out = []
+    for i, frames in zip(psfs, clean):
+        arm0 = _poisson(fold_in(generator, 2, i), torch.clamp(frames + torch.tensor(bg_mean, dtype=torch.float32),
+                                                               min=0.0) * k) / k
+        for j in range(n_noise):
+            if i * n_noise + j not in cells:
+                continue
+            if j == 0:
+                out.append(arm0)
+                continue
+            noised = arm0 + _clipped_background(fold_in(generator, 1, j, i), arm0.shape, bg_mean,
+                                                part_mean * noise_settings[j])
+            out.append(_poisson(fold_in(generator, 3, j, i), torch.clamp(noised, min=0.0) * k) / k)
+    grid = torch.stack(out, dim=1)
+    return grid if members is not None else grid.reshape((n, n_psf, n_noise) + tuple(grid.shape[2:]))
 
 
 def widefield_subpositions(
@@ -479,6 +532,18 @@ def render_videos(
     and centering, normalised against ``(bg_mean, bg_sigma, part_mean +
     bg_mean)``."""
     return render_videos_many([generator], trajectories, train_cfg, optics)[0]
+
+
+def render_videos_blocks(
+    generators: Sequence[torch.Generator], trajectories: torch.Tensor, train_cfg: TrainConfig, optics: OpticsConfig
+) -> torch.Tensor:
+    """``render_videos`` of equal blocks of the rows, block ``b`` from
+    ``generators[b]`` alone, in one K1 launch (``trajectories_to_video_blocks``)."""
+    bg_mean, bg_sigma = optics.background_intensity
+    part_mean = optics.particle_intensity[0]
+    videos = trajectories_to_video_blocks(generators, trajectories, train_cfg.n_pos_per_frame, train_cfg.center,
+                                          optics)
+    return normalize_images(videos, bg_mean, bg_sigma, part_mean + bg_mean)[0]
 
 
 def render_videos_many(

@@ -118,10 +118,12 @@ class GridImpls(NamedTuple):
     make_perms: Callable
 
 
-def make_perms(generator: torch.Generator, m: int, n: int, batch_size: int, device) -> torch.Tensor:
+def make_perms(generator: torch.Generator, m: int, n: int, batch_size: int, device, first: int = 0) -> torch.Tensor:
     """Each member's epoch permutation, ``(M, n // batch_size, batch_size)``:
-    member ``i`` draws ``epoch_permutation`` from ``fold_in(generator, i)``."""
-    return torch.stack([epoch_permutation(fold_in(generator, i), n, batch_size, device) for i in range(m)])
+    member ``i`` (of ``first … first + M - 1``) draws ``epoch_permutation``
+    from ``fold_in(generator, i)``."""
+    return torch.stack([epoch_permutation(fold_in(generator, i), n, batch_size, device)
+                        for i in range(first, first + m)])
 
 
 def make_grid_impls(
@@ -151,9 +153,9 @@ def make_grid_impls(
 
     On a mesh (``parallel.steps``): ``members`` is this rank's block of the
     grid's members (``parallel.grid_sharding``): ``init_grid`` takes every
-    member's generator and makes only these, and ``train_cycle`` takes every
-    member's data and draws every member's permutation, and trains these
-    (member ``m`` keeps its global stream). ``constrain_batch`` splits each
+    member's generator and makes only these, and ``train_cycle`` takes these
+    members' data alone (``parallel.mesh.member_block``) and trains them,
+    member ``m`` on its permutation from its global stream. ``constrain_batch`` splits each
     member's minibatch over the ``data`` ranks of its column as
     ``train.loop``'s step splits a single model's: ``idx (M, B)`` is global,
     the rank keeps columns ``lo:hi`` of it, and the gradients and losses are
@@ -200,11 +202,8 @@ def make_grid_impls(
         return losses.detach()
 
     def train_cycle(state: TrainState, videos, labels, generator, lr: float, batch_size: int, features=None):
-        perms = make_perms(generator, videos.shape[0], videos.shape[1], batch_size, videos.device)
-        if members is not None:
-            perms = perms[members]
-            videos, labels = videos[members], labels[members]
-            features = None if features is None else features[members]
+        perms = make_perms(generator, videos.shape[0], videos.shape[1], batch_size, videos.device,
+                           0 if members is None else members.start)
         _set_lr(state.optimizer, lr)
         state.model.train()
         losses = [train_step(state, videos, labels, perms[:, s], features=features) for s in range(perms.shape[1])]

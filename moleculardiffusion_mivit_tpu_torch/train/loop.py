@@ -49,12 +49,13 @@ from moleculardiffusion_mivit_tpu_torch.features import compute_features_for_mul
 from moleculardiffusion_mivit_tpu_torch.models import init_model
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
 from moleculardiffusion_mivit_tpu_torch.parallel.collectives import BatchSplit, loss_share, sharded_rows
+from moleculardiffusion_mivit_tpu_torch.parallel.mesh import GenerationPart, part_units
 from moleculardiffusion_mivit_tpu_torch.sim import (
     average_trajectories_frames,
     render_videos,
     single_state,
 )
-from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
 
 
 class TrainState(NamedTuple):
@@ -213,25 +214,35 @@ def epoch_permutation(generator: torch.Generator, n: int, batch_size: int, devic
 
 
 def generate_cycle_data(
-    generator: torch.Generator, train_cfg: TrainConfig, optics: OpticsConfig, with_features: bool = False
+    generator: torch.Generator, train_cfg: TrainConfig, optics: OpticsConfig, with_features: bool = False,
+    part: Optional[GenerationPart] = None,
 ):
     """One cycle's fresh dataset on the generator's device: per D class,
     ``single_state`` trajectories divided by ``traj_div_factor``, rendered
     with per-frame centering, normalised against ``(bg_mean, bg_sigma,
     part_mean + bg_mean)``; labels divided by ``d_max_normalization``.
+    Class ``i`` simulates from ``fold_in(generator, i, 0)`` and renders from
+    ``fold_in(generator, i, 1)``.
 
     Returns ``(videos (N, F, S, S), labels (N, 1) or (N, F))``, and with
     ``with_features`` also the 25 features ``(N, 25)`` of the frame-averaged
     trajectories (``features.compute_features_for_multiple_trajectories``).
+    With ``part`` (``parallel.mesh.GenerationPart``) only the classes of its
+    block, their rows bitwise the whole call's; ``None`` for a part with no
+    class.
     """
     p = train_cfg.n_pos_per_frame
     t = train_cfg.n_frames * p
+    classes = part_units(part, len(train_cfg.training_ds))
+    if not classes:
+        return None
 
     all_videos, all_labels, all_trajs = [], [], []
-    for ds in train_cfg.training_ds:
-        trajs, labels = single_state(generator, train_cfg.sequences_per_d, t, Ds=tuple(ds))
+    for i in classes:
+        trajs, labels = single_state(fold_in(generator, i, 0), train_cfg.sequences_per_d, t,
+                                     Ds=tuple(train_cfg.training_ds[i]))
         trajs = trajs / train_cfg.traj_div_factor
-        videos = render_videos(generator, trajs, train_cfg, optics)
+        videos = render_videos(fold_in(generator, i, 1), trajs, train_cfg, optics)
         all_videos.append(videos)
         all_labels.append(labels)
         all_trajs.append(trajs)

@@ -1,5 +1,5 @@
-"""Weight conversion, random-number helpers, metrics logging, checkpoints
-and FLOP accounting."""
+"""Weight conversion, random-number helpers, metrics logging, checkpoints,
+FLOP accounting and profiling hooks."""
 
 from moleculardiffusion_mivit_tpu_torch.utils.checkpoint import (  # noqa: F401
     restore_experiment,
@@ -12,3 +12,4 @@ from moleculardiffusion_mivit_tpu_torch.utils.flops import (  # noqa: F401
     multi_cycle_flops,
     utilization,
 )
+from moleculardiffusion_mivit_tpu_torch.utils.profiling import profile_trace, time_block  # noqa: F401

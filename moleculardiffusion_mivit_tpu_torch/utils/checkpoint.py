@@ -47,8 +47,7 @@ def save_experiment(exp, path: str) -> None:
         if arm_name in getattr(exp, "_members", {}):
             from moleculardiffusion_mivit_tpu_torch.parallel.steps import gather_members
 
-            members, n = exp._members[arm_name], len(exp.arms[arm_name].names)
-            saved = {k: _map_members(v, lambda t: gather_members(t, mesh, members, n)) for k, v in saved.items()}
+            saved = {k: _map_members(v, lambda t: gather_members(t, mesh)) for k, v in saved.items()}
         if writes:
             torch.save(saved, os.path.join(states, f"{arm_name}.pt"))
     if writes:

@@ -9,7 +9,11 @@ import torch
 
 def seeded_generator(device, *keys: int) -> torch.Generator:
     """A generator on ``device`` seeded from the integers ``keys`` mixed by
-    numpy's ``SeedSequence`` (nearby keys give unrelated streams)."""
+    numpy's ``SeedSequence`` (nearby keys give unrelated streams).
+    ``SeedSequence`` pads keys shorter than its pool of four 32-bit words
+    with zeros, so trailing zero keys within those words name the same
+    stream: ``fold_in(g, k)`` is ``fold_in(g, k, 0)`` (a seed takes two
+    words). A function that draws from ``(k)`` takes no ``(k, 0)``."""
     seed = int(np.random.SeedSequence([int(k) for k in keys]).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed & 0x7FFF_FFFF_FFFF_FFFF)
 

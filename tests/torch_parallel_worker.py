@@ -68,9 +68,9 @@ def mixed_experiment(seed: int = 0) -> Experiment:
     first regime)."""
     train_cfg = small_train_cfg(8).replace(seed=seed)
 
-    def generate_fn(g):
-        videos, labels = generate_cycle_data(g, train_cfg, BASELINE_OPTICS)
-        return {"videos": videos, "labels": labels}
+    def generate_fn(g, part=None):
+        out = generate_cycle_data(g, train_cfg, BASELINE_OPTICS, part=part)
+        return None if out is None else {"videos": out[0], "labels": out[1]}
 
     def grid_slice(data):
         v, lab = data["videos"], data["labels"]
@@ -96,9 +96,9 @@ def pair_experiment(stack_pairs: bool) -> Experiment:
     (relu, leaky_relu): one activation-pair stack below batch 32."""
     train_cfg = small_train_cfg(4).replace(seed=3, initial_batch_size=2)
 
-    def generate_fn(g):
-        videos, labels = generate_cycle_data(g, train_cfg, BASELINE_OPTICS)
-        return {"videos": videos, "labels": labels}
+    def generate_fn(g, part=None):
+        out = generate_cycle_data(g, train_cfg, BASELINE_OPTICS, part=part)
+        return None if out is None else {"videos": out[0], "labels": out[1]}
 
     def single_slice(data):
         return data["videos"], None, data["labels"]
@@ -233,9 +233,10 @@ def run_pair(out_dir: Path, port: int, rank: int) -> None:
     train_cfg = small_train_cfg(4)
     model = GeneralTransformer(ModelConfig(**SMALL_CFG), embedding="linear")
 
-    def data_fn(g):
-        videos, labels = generate_cycle_data(g, train_cfg, BASELINE_OPTICS)
-        return videos[None].expand((2,) + videos.shape), labels[None].expand((2,) + labels.shape), None
+    def data_fn(g, part):  # the part's classes, for its members (one here: model = 1 holds both)
+        videos, labels = generate_cycle_data(g, train_cfg, BASELINE_OPTICS, part=part)
+        m = part.members.stop - part.members.start
+        return videos[None].expand((m,) + videos.shape), labels[None].expand((m,) + labels.shape), None
 
     init_grid, _, _ = parallel.make_sharded_grid_fns(model, train_cfg, mesh, device="cpu")
     grid = init_grid([seeded_generator("cpu", 5, m) for m in range(2)])
