@@ -4,8 +4,9 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with a CUDA card, ``nvcc`` and PyTorch built for CUDA. Phases, one JSON
 line each on stdout (a phase's line also carries ``t``, its process's
-seconds so far); phases 4-6, 7, 8, 9, 10, 11, 12 + 14-19, 13 + 20 and 21
-in nine processes of their own, each started while the one before runs:
+seconds so far); phases 4-6, 7, 8, 9, 10, 11 + 22, 12 + 14-19, 13 + 20
+and 21 in nine processes of their own, each started while the one before
+runs:
 
 1. device: the card's name and power limit; build every kernel under
    ``moleculardiffusion_mivit_tpu_torch/csrc/`` with ``nvcc`` (in parallel).
@@ -190,7 +191,14 @@ in nine processes of their own, each started while the one before runs:
    bounds; a captured cycle over gloo raising. (c) With two or more
    cards: NCCL across two or four, the first step held as in (b), then
    two captured cycles (finite losses, replicated arms bitwise equal on
-   every rank). In (b) and (c) each rank then generates cycle 0 of the
+   every rank). (b) and (c) also run ``bf16_dropout``: the baseline cut
+   to its deep-ResNet transformer at dropout 0.1 and bf16 compute, the
+   batch over ``data`` (K2-bf16/K3-bf16 on the gathered bf16 rows, each
+   rank's dropout masks its global rows of the minibatch's), held to the
+   JAX package's bounds for its sharded bf16 cycle (``MESH_BF16_*``), its
+   masters and AdamW state f32; in (c) its captured NCCL cycles at bf16
+   too; its launches listed apart (path ``mesh_bf16_dropout``). In (b)
+   and (c) each rank then generates cycle 0 of the
    baseline, images-features, denoising (their classes split over the
    ranks) and psfnoise (classes over ``data``, members over ``model``) at
    the protocol's size through ``Experiment.generate``: its part (K1 on it
@@ -201,6 +209,15 @@ in nine processes of their own, each started while the one before runs:
    whether a grid's step depends on its member count, how far the ResNet
    arm's f32 step lies from float64 in two orders of BatchNorm's sums, and
    what route (b) repeats of K2/K3.
+22. dropout (``phase_dropout``): keyed dropout (``models.dropout``) on the
+   training path: the baseline cut to ``DROPOUT_ARM`` at dropout 0.1,
+   ``CUT_SEQS_PER_D`` sequences a class, through ``Experiment.run``: two
+   batch-16 cycles captured and two eager, bitwise equal; the eager first
+   step's attention masks (a hook) and every site's mask for that step on
+   the card bitwise the CPU's; three captured batch-1 cycles, losses
+   finite and falling; the kernels and device ms of one batch-16 replay
+   with dropout and at dropout 0; K1/K2/K3 launches against the phase's
+   count, listed apart (path ``dropout``).
 
 Depth cut to keep the whole within 900 s (75 % of the 1,200 s limit), no
 check dropped. The batch-1 part of every experiment phase and of phase 13
@@ -3379,6 +3396,143 @@ def detect_pair(torch, preds) -> float:
 # Phase mesh's cycles: MESH_SEQS_PER_D sequences a class, the whole cycle one
 # minibatch (16 sequences for the baseline, 22 a member for psfnoise), so a
 # cycle is one AdamW step and what it records is that first step's.
+# The dropout rate of phase dropout's arm and of phase mesh's bf16 run (the
+# JAX package's mesh and training tests train at 0.1), and the arm: the
+# baseline's deep-ResNet transformer at its full width (K2/K3 on its path).
+DROPOUT = 0.1
+DROPOUT_ARM = "deepcnn_2layer_s"
+
+
+def _dropout_experiment(seqs_per_d: int, dropout: float = DROPOUT, dtype: str = "float32"):
+    """The baseline experiment (seed 0, on the card, not built) cut to one
+    arm, ``DROPOUT_ARM`` at ``dropout``, ``seqs_per_d`` sequences a class,
+    trained at ``dtype``."""
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline
+    from moleculardiffusion_mivit_tpu_torch.experiments.base import ModelEntry
+    from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer
+
+    exp = baseline.build(seed=0, device="cuda", sequences_per_d=seqs_per_d, try_leaky_relu=False)
+    arm = exp.arms[DROPOUT_ARM]
+    model = GeneralTransformer(arm.model.config.replace(dropout=dropout), embedding="deep_resnet")
+    exp.arms = {DROPOUT_ARM: ModelEntry(model=model, slice_fn=arm.slice_fn)}
+    return exp.set_compute_dtype(dtype)
+
+
+def phase_dropout(torch, card):
+    """Keyed dropout (``models.dropout``) on the training path: the
+    baseline cut to ``DROPOUT_ARM`` at dropout ``DROPOUT``, ``CUT_SEQS_PER_D``
+    sequences a class, through ``Experiment.run``. (a) At batch 16 two
+    cycles captured and two eager from one seed: bitwise equal (losses,
+    validation MSEs, every parameter and buffer), each replay drawing the
+    masks of its step. (b) The masks of the eager run's first step at each
+    of the arm's attention dropouts (read by a hook: the output is nonzero
+    where the mask keeps, on the inputs that are nonzero) bitwise equal to
+    ``dropout_mask`` on the CPU for the step's key and ``idx[0]``, and
+    every site's mask for that step card against CPU; the kept share.
+    (c) At batch 1 captured, three cycles: finite losses, falling. (d) The
+    kernels one replay of the batch-16 graph runs, and their device ms,
+    with dropout and at dropout 0 (a twin built alike). K1/K2/K3 launches
+    against the counts the phase computes; they are listed apart from the
+    other paths' (path ``dropout``)."""
+    from moleculardiffusion_mivit_tpu_torch.models import dropout as tdrop
+    from moleculardiffusion_mivit_tpu_torch.train.capture import kernel_launches, launch_counts
+    from moleculardiffusion_mivit_tpu_torch.train.loop import epoch_permutation
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import dropout_key, seeded_generator
+
+    t_phase = time.perf_counter()
+    engines = []
+
+    def build(batch, fused, dropout=DROPOUT):
+        exp = _dropout_experiment(CUT_SEQS_PER_D, dropout)
+        exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=batch)
+        exp.fused_cycles = fused
+        exp.build()
+        engines.append(exp.engine)
+        return exp
+
+    counts0 = launch_counts()
+    runs, seen = {}, []
+    for fused in (True, False):
+        exp = build(16, fused)
+        cfg = exp.arms[DROPOUT_ARM].model.config
+        hooks = []
+        if not fused:  # the eager first step's attention masks, layer by layer
+            for layer in range(cfg.num_layers):
+                mod = getattr(exp.states[DROPOUT_ARM].model.transformer, f"layer_{layer}").self_attn.dropout
+                hooks.append(mod.register_forward_hook(
+                    lambda m, args, out: seen.append((m.site, args[0].cpu(), out.cpu()))
+                    if m.training and len(seen) < cfg.num_layers else None))
+        exp.run(2)
+        for h in hooks:
+            h.remove()
+        runs[fused] = exp
+    cap, eag = runs[True], runs[False]
+    diffs = _compare_experiments(torch, cap, eag)
+    check(all(d["bitwise"] for d in diffs.values()), f"dropout: captured and eager differ: {diffs}")
+
+    # (b) the first step's key and idx[0]: Experiment.run's stream of arm 0
+    # in cycle 0
+    n_seq, train_cfg = _sequences(cap), cap.train_cfg
+    g = seeded_generator("cuda", train_cfg.seed + 1, 0, 1, 0)
+    first = epoch_permutation(g, n_seq, 16, "cuda")[0, 0]
+    key = dropout_key(g)
+    keep = 1 - DROPOUT
+    hooked = []
+    for site, x, out in seen:
+        want = tdrop.dropout_mask(tdrop.step_key(torch.tensor(key), first.cpu()), site, 0, x.shape, keep)
+        live = x != 0
+        hooked.append({"site": site, "live_share": float(live.float().mean()),
+                       "equal": bool(torch.equal((out != 0)[live], want[live]))})
+    check(len(hooked) == cfg.num_layers and all(h["equal"] and h["live_share"] > 0.99 for h in hooked),
+          f"dropout: the eager step's attention masks are not the CPU's: {hooked}")
+    tokens = train_cfg.n_frames + 1
+    site_shapes = ((16, cfg.num_heads, tokens, tokens), (16, tokens, cfg.embed_dim),
+                   (16, tokens, cfg.hidden_dim), (16, tokens, cfg.embed_dim))
+    kept, card_equal = [], True
+    for layer in range(cfg.num_layers):
+        for k, shape in enumerate(site_shapes):
+            site = 4 * layer + k
+            on = [tdrop.dropout_mask(tdrop.step_key(torch.tensor(key, device=d), first.to(d)), site, 0, shape, keep)
+                  for d in ("cpu", "cuda")]
+            card_equal &= bool(torch.equal(on[0], on[1].cpu()))
+            kept.append(float(on[1].float().mean()))
+    check(card_equal, "dropout: a site's mask on the card differs from the CPU's")
+
+    # (c) batch 1, captured: three cycles, the losses falling
+    one = build(1, True)
+    one.run(3)
+    losses = _member_losses(one)[DROPOUT_ARM]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"dropout: batch-1 losses not finite and falling: {losses}")
+    torch.cuda.synchronize()
+    launches = kernel_launches(counts0, engines)
+    # three builds (six validation renders each), 2 × 2 + 3 cycles (a
+    # render a class); K2/K3 once a step: 2 × 2 × (n_seq / 16) + 3 × n_seq
+    k1_want, k23_want = 6 * 3 + 4 * (2 * 2 + 3), 2 * 2 * (n_seq // 16) + 3 * n_seq
+    check(launches["render_frames"] == k1_want, f"dropout: K1 launches {launches['render_frames']} != {k1_want}")
+    for k in ("deep_resnet_embed_fwd", "deep_resnet_embed_bwd"):
+        check(launches[k] == k23_want, f"dropout: {k} launches {launches[k]} != {k23_want}")
+
+    # (d) one replay of the batch-16 graph with dropout and at dropout 0
+    # (after the counts: these replays are not the main path's)
+    twin = build(16, True, dropout=0.0)
+    twin.run(1)
+    per_replay = {}
+    for what, exp in (("dropout", cap), ("no_dropout", twin)):
+        unit = next(iter(exp.engine.units.values()))
+        unit.counter.zero_()
+        _, _, device_ms, n_kernels, _ = _profiled(torch, unit.graph.replay)
+        per_replay[what] = {"kernels": n_kernels, "device_ms": device_ms}
+    emit({"phase": "dropout", "card": card, "arm": DROPOUT_ARM, "dropout": DROPOUT, "sequences": n_seq,
+          "a": {"batch": 16, "cycles": 2, "bitwise_equal": True, "captures": cap.engine.captures,
+                "replays": cap.engine.replays},
+          "b": {"key": key, "idx0": int(first), "hooked_attention_masks": hooked, "card_equals_cpu": card_equal,
+                "kept_share_by_site": kept},
+          "c": {"batch": 1, "train_loss": losses}, "d_one_batch16_replay": per_replay,
+          "launches": {k: v for k, v in launches.items() if v}, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 MESH_SEQS_PER_D = 4
 # The first step of a sharded arm against the same step unsharded, the
 # bounds of tests/test_torch_parallel.py's one-step cases: losses at 1e-5
@@ -3408,13 +3562,17 @@ MESH_RANK_TIMEOUT_S = 120
 
 
 def _mesh_build(name, fused=False):
-    """Phase mesh's experiment ``name`` (``baseline`` or ``psfnoise``) at
-    full width, seed 0, ``MESH_SEQS_PER_D`` sequences a class, its whole
-    cycle one minibatch, built on the current card."""
+    """Phase mesh's experiment ``name`` (``baseline``, ``psfnoise``, or
+    ``bf16_dropout``: ``_dropout_experiment`` at bf16) at full width, seed
+    0, ``MESH_SEQS_PER_D`` sequences a class, its whole cycle one
+    minibatch, on the current card (not built)."""
     from moleculardiffusion_mivit_tpu_torch.experiments import baseline, psfnoise
 
-    exp = {"baseline": baseline, "psfnoise": psfnoise}[name].build(
-        seed=0, device="cuda", sequences_per_d=MESH_SEQS_PER_D)
+    if name == "bf16_dropout":
+        exp = _dropout_experiment(MESH_SEQS_PER_D, dtype="bfloat16")
+    else:
+        exp = {"baseline": baseline, "psfnoise": psfnoise}[name].build(
+            seed=0, device="cuda", sequences_per_d=MESH_SEQS_PER_D)
     exp.train_cfg = exp.train_cfg.replace(adaptive_batch_size=-1, fixed_batch_size=_sequences(exp))
     exp.fused_cycles = fused
     return exp
@@ -3454,12 +3612,26 @@ def _mesh_record(torch, exp, predictions=True) -> dict:
 # does), which must miss the losses' and the gradients' bounds.
 MESH_RUNS = {
     ("gloo", 2): (("psfnoise", "psfnoise", dict(data=1, model=2)), ("baseline", "baseline", dict(data=2, model=1)),
-                  ("baseline_per_rank_bn", "baseline", dict(data=2, model=1))),
+                  ("baseline_per_rank_bn", "baseline", dict(data=2, model=1)),
+                  ("bf16_dropout", "bf16_dropout", dict(data=2, model=1))),
     ("nccl", 2): (("psfnoise", "psfnoise", dict(data=1, model=2)), ("baseline", "baseline", dict(data=2, model=1)),
-                  ("baseline_per_rank_bn", "baseline", dict(data=2, model=1))),
+                  ("baseline_per_rank_bn", "baseline", dict(data=2, model=1)),
+                  ("bf16_dropout", "bf16_dropout", dict(data=2, model=1))),
     ("nccl", 4): (("psfnoise", "psfnoise", dict(data=2, model=2)), ("baseline", "baseline", dict(data=4, model=1)),
-                  ("baseline_per_rank_bn", "baseline", dict(data=4, model=1))),
+                  ("baseline_per_rank_bn", "baseline", dict(data=4, model=1)),
+                  ("bf16_dropout", "bf16_dropout", dict(data=4, model=1))),
 }
+# The bf16 run (``bf16_dropout``: one deep-ResNet arm at dropout 0.1, K2-
+# bf16/K3-bf16 on the gathered rows, dropout on the global rows) against
+# the same step unsharded at bf16, by the JAX package's bounds for its
+# sharded bf16 cycle (tests/test_parallel.py): losses at 1e-2 relative
+# plus 1e-3, parameters at 4·lr, predictions at 1e-3 relative plus 5e-3;
+# its gradients, each rank's K3-bf16 partial rounded to bf16 before the
+# f32 sum, at phase bf16's ``BF16_GRAD_MAX_TOL`` of their largest. Its
+# launches are listed apart (path ``mesh_bf16_dropout``).
+MESH_BF16_LOSS = (1e-2, 1e-3)
+MESH_BF16_PARAM_LR = 4.0
+MESH_BF16_PRED = (1e-3, 5e-3)
 
 
 # (backend, ranks) -> phase mesh's generation-only checks in its rank
@@ -3606,7 +3778,7 @@ def mesh_rank(torch, backend: str, world: int, rank: int, port: int, out: str) -
         launches = kernel_launches(counts0, [exp.engine])
         print(f"mesh rank {rank}: {key} cycle {seconds:.2f} s", file=sys.stderr, flush=True)
         res[key] = {**_mesh_record(torch, exp, predictions=not mutated), "s_per_cycle": seconds,
-                    "launches": launches, "mesh": shape}
+                    "launches": launches, "mesh": shape, "all_f32": _all_f32(torch, exp)}
         if not mutated and backend == "gloo":  # a CUDA graph cannot hold gloo's collectives
             exp.fused_cycles = True
             try:
@@ -3679,12 +3851,33 @@ def _mesh_against(torch, ranks: list, ref: dict, key: str) -> dict:
     return out
 
 
-def _hold_mesh_runs(torch, part: str, backend: str, ranks: list, refs: dict, launches: dict) -> dict:
+def _bf16_ratios(ranks: list, ref: dict, key: str) -> dict:
+    """The bf16 run's losses and predictions against the unsharded ones,
+    the largest |Δ| over its bound (``MESH_BF16_LOSS``, ``MESH_BF16_PRED``):
+    at most 1 within it."""
+    out = {"loss_of_bound": 0.0, "pred_of_bound": 0.0}
+    for res in ranks:
+        got = res[key]
+        for model, vals in ref["losses"].items():
+            for a, b in zip(got["losses"][model], vals, strict=True):
+                out["loss_of_bound"] = max(out["loss_of_bound"],
+                                           abs(a - b) / (MESH_BF16_LOSS[1] + MESH_BF16_LOSS[0] * abs(b)))
+        for arm, p in got["preds"].items():
+            q = ref["preds"][arm]
+            out["pred_of_bound"] = max(out["pred_of_bound"],
+                                       float(((p - q).abs() / (MESH_BF16_PRED[1] + MESH_BF16_PRED[0] * q.abs())).max()))
+    return out
+
+
+def _hold_mesh_runs(torch, part: str, backend: str, ranks: list, refs: dict, launches: dict,
+                    apart: dict) -> dict:
     """Part ``part``'s runs (``MESH_RUNS``) held against the unsharded
-    ``refs`` by the ``MESH_*`` bounds (``_mesh_against``); the mutated run
-    must miss them; captured cycles finite and their replicated arms equal
-    on every rank. Adds the unmutated runs' launches to ``launches`` and
-    returns each run's line."""
+    ``refs`` by the ``MESH_*`` bounds (``_mesh_against``; the bf16 run by
+    ``MESH_BF16_*``, its masters and AdamW state f32 and K2-bf16 launched);
+    the mutated run must miss them; captured cycles finite and their
+    replicated arms equal on every rank. Adds the unmutated f32 runs'
+    launches to ``launches``, the bf16 run's to ``apart``, and returns each
+    run's line."""
     by_run = {}
     for key, name, _ in MESH_RUNS[backend, len(ranks)]:
         ref, where = refs[name], f"mesh ({part}) {key}"
@@ -3700,6 +3893,21 @@ def _hold_mesh_runs(torch, part: str, backend: str, ranks: list, refs: dict, lau
             check(d["loss"] > MESH_LOSS_RTOL and d["grad"] > MESH_GRAD_RTOL,
                   f"{where}: per-rank BatchNorm statistics kept the losses ({d['loss']}) or the gradients "
                   f"({d['grad']}) within their bounds: the checks cannot see them")
+        elif key == "bf16_dropout":
+            d.update(_bf16_ratios(ranks, ref, key))
+            check(d["histories_equal"], f"{where}: the ranks' histories differ")
+            check(d["replicated_bitwise"], f"{where}: a replicated arm differs between ranks")
+            check(all(r[key]["all_f32"] for r in ranks), f"{where}: a master, AdamW state or buffer is not f32")
+            check(all(r[key]["launches"]["deep_resnet_embed_fwd_bf16"] > 0 for r in ranks),
+                  f"{where}: a rank launched no K2-bf16")
+            check(d["loss_of_bound"] <= 1, f"{where}: losses differ by {d['loss_of_bound']} of their bound")
+            check(d["pred_of_bound"] <= 1, f"{where}: predictions differ by {d['pred_of_bound']} of their bound")
+            check(d["grad"] <= BF16_GRAD_MAX_TOL, f"{where}: gradients differ by {d['grad']} of their largest")
+            check(d["param"] <= MESH_BF16_PARAM_LR * ref["lr"], f"{where}: parameters differ by {d['param']}")
+            check(d["buffer"] <= MESH_BUFFER_RTOL, f"{where}: BatchNorm statistics differ by {d['buffer']}")
+            for r in ranks:
+                for k, v in r[key]["launches"].items():
+                    apart[k] = apart.get(k, 0) + v
         else:
             check(d["histories_equal"], f"{where}: the ranks' histories differ")
             check(d["replicated_bitwise"], f"{where}: a replicated arm differs between ranks")
@@ -3949,7 +4157,7 @@ def phase_mesh(torch, card):
     t0 = time.perf_counter()
     go(procs_b)
     refs = {}
-    for name in ("psfnoise", "baseline"):
+    for name in ("psfnoise", "baseline", "bf16_dropout"):
         exp = _mesh_build(name)
         exp.build()
         torch.cuda.synchronize()
@@ -3984,8 +4192,9 @@ def phase_mesh(torch, card):
     else:
         emit({"phase": "mesh", "part": "c", "skipped": f"{n_cards} card: NCCL across cards needs two or more"})
 
+    apart = {k: 0 for k in launches}
     for part, (backend, world, ranks, wall_s) in parts.items():
-        by_run = _hold_mesh_runs(torch, part, backend, ranks, refs, launches)
+        by_run = _hold_mesh_runs(torch, part, backend, ranks, refs, launches, apart)
         emit({"phase": "mesh", "part": part, "card": card, "backend": backend, "world": world,
               "sequences_per_d": MESH_SEQS_PER_D, "by_run": by_run, "ranks_wall_s": wall_s,
               "note": "two ranks and the unsharded references share one card over gloo: correctness, not speed"
@@ -4015,8 +4224,9 @@ def phase_mesh(torch, card):
                       "generate_fn on the same card, median of the list" + (
                           "; two gloo ranks share one card: correctness, not speed" if backend == "gloo" else "")})
     tmp.cleanup()
-    emit({"phase": "mesh", "part": "launches", "launches": launches, "phase_s": time.perf_counter() - t_phase})
-    return launches
+    emit({"phase": "mesh", "part": "launches", "launches": launches, "bf16_dropout_launches": apart,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches, {"mesh_bf16_dropout": apart}
 
 
 # The main paths, each driven by its phase, in groups that each run in a
@@ -4029,9 +4239,9 @@ PATHS = {"slice": phase_slice, "experiment": phase_experiment, "images_features"
          "psfnoise": phase_psfnoise, "denoising": phase_denoising, "realdata": phase_realdata, "bf16": phase_bf16,
          "constrained": phase_constrained, "changepoint": phase_changepoint, "sim2real": phase_sim2real,
          "changepoint_study": phase_changepoint_study, "ensemble": phase_ensemble, "rescore": phase_rescore,
-         "serving": phase_serving, "mesh": phase_mesh}
+         "serving": phase_serving, "mesh": phase_mesh, "dropout": phase_dropout}
 PATH_GROUPS = (("slice", "experiment", "images_features"), ("modular",), ("embeddings",), ("framerate",),
-               ("psfnoise",), ("denoising",),
+               ("psfnoise",), ("denoising", "dropout"),
                ("realdata", "constrained", "changepoint", "sim2real", "changepoint_study", "ensemble", "rescore"),
                ("bf16", "serving"), ("mesh",))
 GROUP_TIMEOUT_S = 600
@@ -4093,7 +4303,10 @@ def main() -> None:
         T_START = time.perf_counter()
         for name in sys.argv[3 if on_go else 2:]:
             t = time.perf_counter()
-            out[name] = {"launches": PATHS[name](torch, card), "seconds": time.perf_counter() - t}
+            got = PATHS[name](torch, card)
+            launches, apart = got if isinstance(got, tuple) else (got, {})  # a phase's other runs, listed apart
+            out[name] = {"launches": launches, "seconds": time.perf_counter() - t}
+            out.update({path: {"launches": v, "seconds": None} for path, v in apart.items()})
         emit({"paths": out})
         return
 
@@ -4134,7 +4347,8 @@ def main() -> None:
         t = time.perf_counter()
         for name, got in run_paths(proc, group).items():
             by_path[name] = got["launches"]
-            phase_s[name] = got["seconds"]
+            if got["seconds"] is not None:
+                phase_s[name] = got["seconds"]
         phase_s["+".join(group) + " process"] = time.perf_counter() - t
         proc = following
     names = {k for path in by_path.values() for k in path}

@@ -22,7 +22,9 @@ False`` each arm runs its own eager epoch (``train.loop``'s
 ``train_cycle``). Both draw arm ``j``'s permutation from the stream named
 by ``(seed + 1, cycle, 1, j)``, ``j`` its index among the arms (a grid's
 member ``m`` from ``fold_in`` of it by ``m``, ``train.grid.make_perms``),
-so the flags change the execution and not the update sequence. Arm ``i``
+and its dropout key from the same generator (``utils.rng.dropout_key``;
+``train.grid.make_drop_keys``), so the flags change the execution and not
+the update sequence. Arm ``i``
 initialises from the CPU stream ``(seed, 1000 + i)``, a grid's member ``m``
 from ``(seed, 1000 + i, m)``.
 
@@ -59,6 +61,7 @@ import torch.distributed as dist
 from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
 from moleculardiffusion_mivit_tpu_torch.models import init_model
+from moleculardiffusion_mivit_tpu_torch.models.dropout import key_tensor, uses_dropout
 from moleculardiffusion_mivit_tpu_torch.parallel.collectives import gather_part
 from moleculardiffusion_mivit_tpu_torch.parallel.mesh import (
     GenerationPart,
@@ -73,7 +76,7 @@ from moleculardiffusion_mivit_tpu_torch.parallel.steps import (
     make_sharded_grid_impls,
 )
 from moleculardiffusion_mivit_tpu_torch.train.capture import EpochEngine, Member, units_by_layout
-from moleculardiffusion_mivit_tpu_torch.train.grid import make_grid_impls, make_perms
+from moleculardiffusion_mivit_tpu_torch.train.grid import make_drop_keys, make_grid_impls, make_perms
 from moleculardiffusion_mivit_tpu_torch.train.loop import (
     TrainState,
     _set_lr,
@@ -82,7 +85,7 @@ from moleculardiffusion_mivit_tpu_torch.train.loop import (
     make_train_impls,
 )
 from moleculardiffusion_mivit_tpu_torch.train.multi import STACK_BELOW_BATCH, detect_activation_stacks
-from moleculardiffusion_mivit_tpu_torch.utils.rng import seeded_generator
+from moleculardiffusion_mivit_tpu_torch.utils.rng import dropout_key, seeded_generator
 
 # The reference trains its out-of-range tail class (D = 10.2) on half the
 # per-class sequence count.
@@ -449,14 +452,18 @@ class Experiment:
         members = {}
         for name, videos, labels, feats, g in learned:
             _set_lr(self.states[name].optimizer, lr)
+            dropout = uses_dropout(self.arms[name].model)
             if isinstance(self.arms[name], GridArm):
                 sl = self._members.get(name)  # this rank's members, each with its own stream
-                perm = make_perms(g, videos.shape[0], videos.shape[1], bs, self.device, 0 if sl is None else sl.start)
+                first = 0 if sl is None else sl.start
+                perm = make_perms(g, videos.shape[0], videos.shape[1], bs, self.device, first)
                 perm = perm.transpose(0, 1).contiguous()
+                key = make_drop_keys(g, videos.shape[0], self.device, first) if dropout else None
             else:
                 perm = epoch_permutation(g, videos.shape[0], bs, self.device)
+                key = key_tensor(dropout_key(g), self.device) if dropout else None
             members[name] = Member(name, self.states[name], self._impls[name].train_step,
-                                   videos, labels, perm, slopes.get(name), feats)
+                                   videos, labels, perm, slopes.get(name), feats, key)
         if self.merge_scans:
             by_steps: Dict[int, List[str]] = {}
             for name, m in members.items():

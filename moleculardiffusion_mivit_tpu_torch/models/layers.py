@@ -5,6 +5,11 @@ parameter names follow the flax tree (``q_proj``, ``layer_0``, ``norm1``…),
 so ``utils.convert.torch_state_from_flax`` maps a flax checkpoint onto these
 modules by name. Post-norm encoder layers, LayerNorm eps 1e-5, attention
 written out (no fused attention operator): sequences are at most 61 tokens.
+
+Dropout is ``models.dropout.KeyedDropout``, flax's formula with a mask keyed
+by the training step. Each application has its own site: encoder layer
+``i`` the four ``SITES_PER_LAYER · i + k`` (attention weights, the attention
+residual, the FF hidden layer, the FF residual), the head ``HEAD_SITE``.
 """
 
 from __future__ import annotations
@@ -16,8 +21,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from moleculardiffusion_mivit_tpu_torch.models.dropout import KeyedDropout
+
 MAX_TOKENS = 128
 LN_EPS = 1e-5
+SITES_PER_LAYER = 4
+HEAD_SITE = 2047  # the last site below models.dropout.MAX_SITES
 
 
 def activation_by_name(name) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -35,7 +44,7 @@ def activation_by_name(name) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, site: int = 0):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise ValueError("embed_dim must be divisible by num_heads")
@@ -44,7 +53,7 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = nn.Linear(embed_dim, embed_dim)
         self.v_proj = nn.Linear(embed_dim, embed_dim)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = KeyedDropout(dropout, site)
 
     def forward(self, x, mask=None):
         b, t, _ = x.shape
@@ -64,12 +73,13 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, embed_dim: int, hidden_dim: int, activation: str = "relu", dropout: float = 0.0):
+    def __init__(self, embed_dim: int, hidden_dim: int, activation: str = "relu", dropout: float = 0.0,
+                 site: int = 0):
         super().__init__()
         self.fc1 = nn.Linear(embed_dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, embed_dim)
         self.act = activation_by_name(activation)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = KeyedDropout(dropout, site)
 
     def forward(self, x, act_slope=None):
         """``act_slope``, a float or a 0-d tensor, replaces the activation by
@@ -87,17 +97,19 @@ class FeedForward(nn.Module):
 class TransformerEncoderLayerWithSkip(nn.Module):
     """Post-norm: ``x + drop(MHA) → LN → x + drop(FF) → LN``."""
 
-    def __init__(self, embed_dim, num_heads, hidden_dim, activation="relu", dropout=0.0):
+    def __init__(self, embed_dim, num_heads, hidden_dim, activation="relu", dropout=0.0, index=0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout)
+        site = SITES_PER_LAYER * index
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout, site)
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.feed_forward = FeedForward(embed_dim, hidden_dim, activation, dropout)
+        self.feed_forward = FeedForward(embed_dim, hidden_dim, activation, dropout, site + 2)
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = KeyedDropout(dropout, site + 1)
+        self.dropout_ff = KeyedDropout(dropout, site + 3)
 
     def forward(self, x, mask=None, act_slope=None):
         x = self.norm1(x + self.dropout(self.self_attn(x, mask)))
-        return self.norm2(x + self.dropout(self.feed_forward(x, act_slope)))
+        return self.norm2(x + self.dropout_ff(self.feed_forward(x, act_slope)))
 
 
 class Transformer(nn.Module):
@@ -116,7 +128,7 @@ class Transformer(nn.Module):
         for i in range(num_layers):
             self.add_module(
                 f"layer_{i}",
-                TransformerEncoderLayerWithSkip(embed_dim, num_heads, hidden_dim, activation, dropout),
+                TransformerEncoderLayerWithSkip(embed_dim, num_heads, hidden_dim, activation, dropout, i),
             )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
@@ -136,7 +148,7 @@ class MLPHead(nn.Module):
         self.fc1 = nn.Linear(in_dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, output_dim)
         self.act = activation_by_name(activation)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = KeyedDropout(dropout, HEAD_SITE)
 
     def forward(self, x):
         return self.fc2(self.dropout(self.act(self.fc1(x))))

@@ -136,8 +136,10 @@ class _AllReduceSum(torch.autograd.Function):
 
 class _GatherRows(torch.autograd.Function):
     """The rows of every rank along ``dim``: ``x`` (this rank's ``n`` rows)
-    written at ``lo`` of ``total`` and summed over ``group``. Backward: the
-    output gradient summed over the group, this rank's rows of it."""
+    written at ``lo`` of ``total`` in zeros, whose bytes are summed over
+    ``group`` (exact in any dtype and on any backend: each byte is one
+    rank's, the others add 0; a bf16 minibatch too). Backward: the output
+    gradient summed over the group, this rank's rows of it."""
 
     @staticmethod
     def forward(x, lo, total, group, dim):
@@ -145,7 +147,8 @@ class _GatherRows(torch.autograd.Function):
         shape[dim] = total
         buf = x.new_zeros(shape)
         buf.narrow(dim, lo, x.shape[dim]).copy_(x)
-        return all_reduce_(buf, group)
+        all_reduce_(buf.view(torch.uint8), group)
+        return buf
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -11,8 +11,10 @@ step), whose data carry the member axis first, whose permutation is
 batch size ``EpochEngine`` keeps static buffers: each member's cycle
 data (copied in once a cycle: its inputs of any shape, its labels and, for a
 model that takes them, its features), its epoch permutation ``(steps, B)``
-or ``(steps, M, B)``, its per-step losses ``(steps,)`` or ``(steps, M)``,
-and one device step counter that the step itself advances.
+or ``(steps, M, B)``, for a model with dropout its cycle's dropout key (0-d,
+a grid's ``(M,)``: each step folds in its ``idx[0]``, so every replay draws
+new masks), its per-step losses ``(steps,)`` or ``(steps, M)``, and one
+device step counter that the step itself advances.
 On the card the first cycle of a batch size runs ``WARMUP_STEPS`` steps
 eagerly on a side stream, which makes the optimizer's state, the kernels'
 one-time set-up (``ops.fused_embedding``'s border table, shared-memory
@@ -36,9 +38,9 @@ Eager execution runs the same step on the same buffers: that is how CPU
 tensors run. On the card a capture that fails raises; nothing goes on
 eagerly in its place (``experiments.Experiment`` runs eagerly on the card
 only when its caller sets ``fused_cycles = False``, through each model's own
-``train_cycle``). A step
-must make no host synchronisation and draw no random number: a model with
-dropout > 0 raises before capture, since every replay would reuse one mask.
+``train_cycle``). A step must make no host synchronisation and draw from no
+generator: dropout hashes the key buffer and the step's indices
+(``models.dropout``), so a captured epoch equals the eager one bitwise.
 
 The kernel wrappers' launch counters count Python calls. A call made while
 capturing records its kernels in the graph without running them, and a
@@ -84,6 +86,7 @@ class Member(NamedTuple):
     perm: torch.Tensor  # (steps, batch) minibatch indices on the data's device; a grid's (steps, M, batch)
     act_slope: Optional[torch.Tensor] = None
     features: Optional[torch.Tensor] = None  # (N, F), for a model that takes them
+    drop_key: Optional[torch.Tensor] = None  # the cycle's dropout key (int64, a grid's (M,)), for dropout > 0
 
 
 def _shape(t: Optional[torch.Tensor]):
@@ -103,6 +106,7 @@ class _Unit:
         self.labels = [torch.empty_like(m.labels) for m in members]
         self.features = [None if m.features is None else torch.empty_like(m.features) for m in members]
         self.perms = [torch.empty_like(m.perm) for m in members]
+        self.drop_keys = [None if m.drop_key is None else torch.empty_like(m.drop_key) for m in members]
         self.losses = [torch.empty(m.perm.shape[:-1], device=m.perm.device) for m in members]
         self.counter = torch.zeros(1, dtype=torch.long, device=members[0].perm.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -111,18 +115,20 @@ class _Unit:
     def matches(self, members: Sequence[Member]) -> bool:
         return all(
             m.state is s and m.videos.shape == v.shape and m.labels.shape == y.shape
-            and m.perm.shape == p.shape and _shape(m.features) == _shape(f)
-            for m, s, v, y, p, f in zip(members, self.states, self.videos, self.labels, self.perms, self.features,
-                                        strict=True)
+            and m.perm.shape == p.shape and _shape(m.features) == _shape(f) and _shape(m.drop_key) == _shape(k)
+            for m, s, v, y, p, f, k in zip(members, self.states, self.videos, self.labels, self.perms, self.features,
+                                           self.drop_keys, strict=True)
         )
 
     def load(self, members: Sequence[Member]) -> None:
-        for m, v, y, p, f in zip(members, self.videos, self.labels, self.perms, self.features):
+        for m, v, y, p, f, k in zip(members, self.videos, self.labels, self.perms, self.features, self.drop_keys):
             v.copy_(m.videos)
             y.copy_(m.labels)
             p.copy_(m.perm)
             if f is not None:
                 f.copy_(m.features)
+            if k is not None:
+                k.copy_(m.drop_key)
         self.counter.zero_()
 
     def step(self) -> None:
@@ -130,7 +136,7 @@ class _Unit:
         for i, state in enumerate(self.states):
             idx = self.perms[i].index_select(0, self.counter)[0]
             loss = self.train_steps[i](state, self.videos[i], self.labels[i], idx, self.slopes[i],
-                                       features=self.features[i])
+                                       features=self.features[i], drop_key=self.drop_keys[i])
             self.losses[i].index_copy_(0, self.counter, loss.unsqueeze(0))
         self.counter.add_(1)
 
@@ -227,12 +233,6 @@ class EpochEngine:
 
     def _capture(self, unit: _Unit) -> None:
         for state in unit.states:
-            for mod in state.model.modules():
-                if isinstance(mod, torch.nn.Dropout) and mod.p > 0:
-                    raise ValueError(
-                        "dropout > 0 cannot run in a captured step: every replay would "
-                        "apply the same mask; train it with capture off"
-                    )
             state.optimizer.zero_grad(set_to_none=True)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()

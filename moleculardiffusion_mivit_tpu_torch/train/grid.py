@@ -24,12 +24,16 @@ PSF × 6 noise × {transformer, ResNet}); here a grid of ``M`` models is one
 
 Nothing here loops over members, and ``train_step`` makes no host
 synchronisation and draws no random number, so ``train.capture`` captures
-it in a CUDA graph like a single model's step. A model with dropout > 0
-raises under ``torch.vmap`` (one mask cannot serve every member).
+it in a CUDA graph like a single model's step.
 
 Random streams: member ``m``'s initial weights come from the ``m``-th CPU
 generator given to ``init_grid``; its epoch permutation from
-``fold_in(generator, m)`` (``make_perms``).
+``fold_in(generator, m)`` (``make_perms``) and its dropout key from the same
+generator (``make_drop_keys``: ``utils.rng.dropout_key``), so member ``m``
+draws what a model alone draws from ``train.loop``'s ``train_cycle`` given
+``fold_in(generator, m)``. Under ``torch.vmap`` each member hashes its own
+key (``models.dropout``), so its masks do not depend on the grid's member
+count or on its position in the grid.
 """
 
 from __future__ import annotations
@@ -45,19 +49,19 @@ from torch.func import functional_call, stack_module_state
 from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import TrainConfig
 from moleculardiffusion_mivit_tpu_torch.models import init_model
+from moleculardiffusion_mivit_tpu_torch.models.dropout import key_tensor, keyed_dropout, step_key, uses_dropout
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
 from moleculardiffusion_mivit_tpu_torch.parallel.collectives import BatchSplit, loss_share, sharded_rows
 from moleculardiffusion_mivit_tpu_torch.train.loop import (
     TrainState,
     _cast_for_compute,
-    _check_no_dropout,
     _check_supported,
     _loss,
     _set_lr,
     epoch_permutation,
     make_optimizer,
 )
-from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in
+from moleculardiffusion_mivit_tpu_torch.utils.rng import dropout_key, fold_in
 
 
 def _key(name: str) -> str:
@@ -87,21 +91,26 @@ class GridModule(nn.Module):
         return ({n: getattr(self, _key(n)) for n in self.param_names},
                 {n: getattr(self, _key(n)) for n in self.buffer_names})
 
-    def vmapped(self, fn: Callable, *args, params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    def vmapped(self, fn: Callable, *args, params: Optional[Dict[str, torch.Tensor]] = None,
+                keys=None) -> torch.Tensor:
         """``torch.vmap`` over the members of ``fn(model, *member_args)``,
         ``model(*inputs)`` running the template on one member's parameters
         and buffers, in this module's train or eval mode; every ``args``
         tensor has the member axis first. ``params`` (stacked, by template
-        name) stand in for the module's own, e.g. their bf16 casts."""
+        name) stand in for the module's own, e.g. their bf16 casts.
+        ``keys``: the members' dropout step keys (``models.dropout.step_key``
+        of ``(M,)`` keys), each member's forward inside its own."""
         self.template.train(self.training)
         own, buffers = self.stacked()
         params = own if params is None else params
         template = self.template
 
-        def one(p, b, *a):
-            return fn(lambda *inputs: functional_call(template, (p, b), inputs), *a)
+        def one(p, b, k, *a):
+            with keyed_dropout(k):
+                return fn(lambda *inputs: functional_call(template, (p, b), inputs), *a)
 
-        return torch.vmap(one)(params, buffers, *args)
+        return torch.vmap(one, in_dims=(0, 0, None if keys is None else 0) + (0,) * len(args))(
+            params, buffers, keys, *args)
 
     def _apply(self, fn, recurse=True):
         self.template._apply(fn, recurse)
@@ -126,6 +135,13 @@ def make_perms(generator: torch.Generator, m: int, n: int, batch_size: int, devi
                         for i in range(first, first + m)])
 
 
+def make_drop_keys(generator: torch.Generator, m: int, device, first: int = 0) -> torch.Tensor:
+    """Each member's dropout key ``(M,)``: member ``i`` (of ``first … first
+    + M - 1``) takes ``utils.rng.dropout_key`` of ``fold_in(generator, i)``,
+    the generator of its permutation (``make_perms``)."""
+    return key_tensor([dropout_key(fold_in(generator, i, device="cpu")) for i in range(first, first + m)], device)
+
+
 def make_grid_impls(
     model: nn.Module, train_cfg: TrainConfig, device=None, with_features: bool = False,
     constrain_batch: Optional[BatchSplit] = None, members: Optional[slice] = None,
@@ -141,13 +157,14 @@ def make_grid_impls(
       ``GridModule`` with one member per CPU generator (``init_model``
       from each), on the device, and its AdamW.
     - ``train_step(state, videos, labels, idx, act_slope=None,
-      features=None)``: one minibatch of every member, ``idx (M, B)``, in
-      ``compute_dtype`` (the parameters and inputs cast inside the step, as
-      ``train.loop``'s); returns the per-member losses ``(M,)`` (not
-      synchronised).
+      features=None, drop_key=None)``: one minibatch of every member, ``idx
+      (M, B)``, in ``compute_dtype`` (the parameters and inputs cast inside
+      the step, as ``train.loop``'s; ``drop_key (M,)``, the members'
+      dropout keys, each folded with its ``idx[m, 0]``); returns the
+      per-member losses ``(M,)`` (not synchronised).
     - ``train_cycle(state, videos, labels, generator, lr, batch_size,
-      features=None)``: one epoch in ``make_perms`` order; returns the
-      per-member mean losses ``(M,)``.
+      features=None)``: one epoch in ``make_perms`` order with
+      ``make_drop_keys``' keys; returns the per-member mean losses ``(M,)``.
     - ``evaluate(state, videos, features=None)``: eval-mode predictions
       ``(M, N, ...)`` × ``d_max_normalization``.
 
@@ -155,7 +172,7 @@ def make_grid_impls(
     grid's members (``parallel.grid_sharding``): ``init_grid`` takes every
     member's generator and makes only these, and ``train_cycle`` takes these
     members' data alone (``parallel.mesh.member_block``) and trains them,
-    member ``m`` on its permutation from its global stream. ``constrain_batch`` splits each
+    member ``m`` on its permutation and dropout key from its global stream. ``constrain_batch`` splits each
     member's minibatch over the ``data`` ranks of its column as
     ``train.loop``'s step splits a single model's: ``idx (M, B)`` is global,
     the rank keeps columns ``lo:hi`` of it, and the gradients and losses are
@@ -164,8 +181,8 @@ def make_grid_impls(
     _check_supported(train_cfg)
     dev = resolve_device(device)
     split = constrain_batch
-    if split is not None:
-        _check_no_dropout(model)
+    dropout = uses_dropout(model)
+    first = 0 if members is None else members.start
 
     def init_grid(generators: Sequence[torch.Generator], capturable: bool = False) -> TrainState:
         gens = generators if members is None else generators[members]
@@ -178,12 +195,14 @@ def make_grid_impls(
             by = by[..., None]
         return loss_share(lambda o: _loss(o, by, train_cfg.loss), out, *share)
 
-    def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None) -> torch.Tensor:
+    def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None,
+                   drop_key=None) -> torch.Tensor:
         if act_slope is not None:
             raise ValueError("a grid has no activation-slope stacks")
         if with_features and features is None:
             raise ValueError("this grid's models take features: pass features=")
         total = idx.shape[1]
+        keys = None if drop_key is None else step_key(drop_key, idx[:, 0])
         lo, hi = (0, total) if split is None else split.bounds(total)
         idx = idx[:, lo:hi]
         member = torch.arange(idx.shape[0], device=idx.device)[:, None]
@@ -193,7 +212,7 @@ def make_grid_impls(
         batch = (bv, labels[member, idx]) + ((bf,) if with_features else ())
         loss = functools.partial(member_loss, share=(hi - lo, total))
         with f32_convolutions(), sharded_rows(None if split is None else split.rows(total)):
-            losses = grid.vmapped(loss, *batch, params=params)
+            losses = grid.vmapped(loss, *batch, params=params, keys=keys)
             state.optimizer.zero_grad(set_to_none=True)
             losses.sum().backward()
         if split is not None:
@@ -202,11 +221,12 @@ def make_grid_impls(
         return losses.detach()
 
     def train_cycle(state: TrainState, videos, labels, generator, lr: float, batch_size: int, features=None):
-        perms = make_perms(generator, videos.shape[0], videos.shape[1], batch_size, videos.device,
-                           0 if members is None else members.start)
+        perms = make_perms(generator, videos.shape[0], videos.shape[1], batch_size, videos.device, first)
+        keys = make_drop_keys(generator, videos.shape[0], videos.device, first) if dropout else None
         _set_lr(state.optimizer, lr)
         state.model.train()
-        losses = [train_step(state, videos, labels, perms[:, s], features=features) for s in range(perms.shape[1])]
+        losses = [train_step(state, videos, labels, perms[:, s], features=features, drop_key=keys)
+                  for s in range(perms.shape[1])]
         return torch.stack(losses).mean(dim=0)
 
     @torch.no_grad()

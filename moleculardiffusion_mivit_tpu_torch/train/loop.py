@@ -30,6 +30,13 @@ with its state, the BatchNorm running statistics and ``evaluate`` stay f32.
 The loss is taken in f32. The deep-ResNet embedding then runs K2-bf16/K3-bf16
 (``ops.fused_embedding``).
 
+Dropout is keyed as the JAX package keys it (``models.dropout``): each
+cycle's ``train_cycle`` takes the model's dropout key from its generator
+(``utils.rng.dropout_key``, beside the permutation it draws), and each step
+folds in its minibatch's first index ``idx[0]``. A run with dropout is then
+a function of its seed, on any layout of the cycle: eager or captured, a
+model alone or a grid member, unsharded or its minibatch split over ranks.
+
 On the card a model's optimizer may be *capturable* (``make_optimizer(...,
 capturable=True)``): its learning rate is then a 0-d device tensor that
 ``_set_lr`` fills in place, so a CUDA graph that holds the AdamW step
@@ -47,6 +54,7 @@ from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
 from moleculardiffusion_mivit_tpu_torch.features import compute_features_for_multiple_trajectories
 from moleculardiffusion_mivit_tpu_torch.models import init_model
+from moleculardiffusion_mivit_tpu_torch.models.dropout import key_tensor, keyed_dropout, step_key, uses_dropout
 from moleculardiffusion_mivit_tpu_torch.ops.fused_embedding import f32_convolutions
 from moleculardiffusion_mivit_tpu_torch.parallel.collectives import BatchSplit, loss_share, sharded_rows
 from moleculardiffusion_mivit_tpu_torch.parallel.mesh import GenerationPart, part_units
@@ -55,7 +63,7 @@ from moleculardiffusion_mivit_tpu_torch.sim import (
     render_videos,
     single_state,
 )
-from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
+from moleculardiffusion_mivit_tpu_torch.utils.rng import dropout_key, fold_in, seeded_generator
 
 
 class TrainState(NamedTuple):
@@ -117,13 +125,6 @@ def _cast_for_compute(cfg: TrainConfig, params: Dict[str, torch.Tensor], bv, bf)
     dtype = COMPUTE_DTYPES[cfg.compute_dtype]
     cast = lambda v: v.to(dtype) if v.dtype == torch.float32 else v  # noqa: E731
     return {n: cast(p) for n, p in params.items()}, cast(bv), None if bf is None else cast(bf)
-
-
-def _check_no_dropout(model: torch.nn.Module) -> None:
-    for mod in model.modules():
-        if isinstance(mod, torch.nn.Dropout) and mod.p > 0:
-            raise ValueError("dropout > 0 cannot train with its minibatch split over ranks: a rank's mask "
-                             "would not be its rows of the minibatch's mask")
 
 
 def _loss(pred: torch.Tensor, y: torch.Tensor, kind: str) -> torch.Tensor:
@@ -271,15 +272,18 @@ def make_train_impls(
     - ``init_state(generator)`` initialises the model from a CPU generator,
       moves it to the device and makes its optimizer.
     - ``train_step(state, videos, labels, idx, act_slope=None,
-      features=None)`` is one minibatch forward/backward/AdamW update at the
-      optimizer's current LR, in ``compute_dtype`` (``act_slope``: see
-      ``models.layers.FeedForward``; ``features`` are indexed by ``idx`` like
-      the videos); returns the loss (on the device, not synchronised). It
-      makes no host synchronisation, so ``train.capture`` captures it in a
-      CUDA graph.
+      features=None, drop_key=None)`` is one minibatch forward/backward/AdamW
+      update at the optimizer's current LR, in ``compute_dtype``
+      (``act_slope``: see ``models.layers.FeedForward``; ``features`` are
+      indexed by ``idx`` like the videos; ``drop_key``, a 0-d int64 tensor
+      on the device, the cycle's dropout key, needed by a model with
+      dropout > 0, folded with ``idx[0]``); returns the loss (on the device,
+      not synchronised). It makes no host synchronisation, so
+      ``train.capture`` captures it in a CUDA graph.
     - ``train_cycle(state, videos, labels, generator, lr, batch_size,
       features=None)`` runs one epoch in a permuted order drawn from
-      ``generator``; returns the mean loss.
+      ``generator``, with the dropout key ``utils.rng.dropout_key(generator)``;
+      returns the mean loss.
     - ``evaluate(state, videos, features=None)`` returns eval-mode
       predictions × ``d_max_normalization``.
 
@@ -291,14 +295,13 @@ def make_train_impls(
     back-propagates its share of the minibatch mean and sums the gradients
     and the loss over the split's group before AdamW, so the parameters
     stay the same on every rank and the returned loss is the minibatch's.
-    A model with dropout > 0 raises: a rank's mask would not be its rows
-    of the minibatch's mask.
+    Dropout folds the global ``idx[0]`` and takes the rank's global rows, so
+    a rank's mask is its rows of the minibatch's mask.
     """
     _check_supported(train_cfg)
     dev = resolve_device(device)
     split = constrain_batch
-    if split is not None:
-        _check_no_dropout(model)
+    dropout = uses_dropout(model)
 
     def init_state(generator: torch.Generator) -> TrainState:
         init_model(model, generator)
@@ -312,15 +315,18 @@ def make_train_impls(
             raise ValueError("this model takes features: pass features=")
         return videos, features
 
-    def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None) -> torch.Tensor:
+    def train_step(state: TrainState, videos, labels, idx, act_slope=None, features=None,
+                   drop_key=None) -> torch.Tensor:
         total = idx.shape[0]
+        keys = None if drop_key is None else step_key(drop_key, idx[0])
         lo, hi = (0, total) if split is None else split.bounds(total)
         idx = idx[lo:hi]
         bv, by = videos.index_select(0, idx), labels.index_select(0, idx)
         bf = None if features is None else features.index_select(0, idx)
         kwargs = {} if act_slope is None else {"act_slope": act_slope}
         rows = None if split is None else split.rows(total)
-        with f32_convolutions(), sharded_rows(rows):  # autograd's convolutions read the setting when they run
+        # autograd's convolutions read the setting when they run
+        with f32_convolutions(), sharded_rows(rows), keyed_dropout(keys):
             params, bv, bf = _cast_for_compute(train_cfg, dict(state.model.named_parameters()), bv, bf)
             out = functional_call(state.model, params, inputs(bv, bf), kwargs)
             if by.ndim == 2 and out.ndim == 3:
@@ -335,9 +341,10 @@ def make_train_impls(
 
     def train_cycle(state: TrainState, videos, labels, generator, lr: float, batch_size: int, features=None):
         perm = epoch_permutation(generator, videos.shape[0], batch_size, videos.device)
+        key = key_tensor(dropout_key(generator), videos.device) if dropout else None
         _set_lr(state.optimizer, lr)
         state.model.train()
-        losses = [train_step(state, videos, labels, idx, features=features) for idx in perm]
+        losses = [train_step(state, videos, labels, idx, features=features, drop_key=key) for idx in perm]
         return torch.stack(losses).mean()
 
     @torch.no_grad()

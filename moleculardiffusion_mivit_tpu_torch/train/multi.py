@@ -9,7 +9,9 @@ or, with ``merge_scans``, every model's) is a captured CUDA graph replayed
 once a step; on CPU tensors the same steps run eagerly.
 
 Per-model random streams are derived from each model's index in the dict
-(``utils.rng.fold_in``, the counterpart of ``fold_in(k_train, i)``), so
+(``utils.rng.fold_in``, the counterpart of ``fold_in(k_train, i)``; the
+permutation and the dropout key from the same generator, as the JAX package
+splits ``k_perm`` and ``k_drop``), so
 ``stack_pairs`` and ``merge_scans`` change the execution layout and never
 the update sequence. The port has no stacked leaves: a stack's members keep
 their own parameters and step one after the other inside the stack's graph,
@@ -30,6 +32,7 @@ import torch
 from moleculardiffusion_mivit_tpu_torch import resolve_device
 from moleculardiffusion_mivit_tpu_torch.config import OpticsConfig, TrainConfig
 from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, init_model
+from moleculardiffusion_mivit_tpu_torch.models.dropout import key_tensor, uses_dropout
 from moleculardiffusion_mivit_tpu_torch.train.capture import EpochEngine, Member, units_by_layout
 from moleculardiffusion_mivit_tpu_torch.train.loop import (
     TrainState,
@@ -39,7 +42,7 @@ from moleculardiffusion_mivit_tpu_torch.train.loop import (
     make_optimizer,
     make_train_impls,
 )
-from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in
+from moleculardiffusion_mivit_tpu_torch.utils.rng import dropout_key, fold_in
 
 # FF activations expressible as a leaky-relu slope: relu is slope 0 (the
 # gradient differs only at inputs of exactly 0), the reference's leaky_relu
@@ -103,7 +106,8 @@ def make_multi_cycle(
     - ``cycle(states, generator, lr, batch_size, val_videos=None,
       val_targets=None, val_features=None)`` generates the data from
       ``fold_in(generator, 0)``, trains every model one epoch (model ``i``'s
-      permutation from ``fold_in(fold_in(generator, 1), i)``) and, given
+      permutation and dropout key from ``fold_in(fold_in(generator, 1),
+      i)``) and, given
       validation videos and targets, scores each model: ``val_mse[name] =
       mean((pred - val_targets)²)`` in physical D units. Returns ``(states,
       losses, val_mse)`` keyed by model name; states update in place.
@@ -149,9 +153,11 @@ def make_multi_cycle(
         k_train = fold_in(generator, 1)
         members = {}
         for i, name in enumerate(names):
-            perm = epoch_permutation(fold_in(k_train, i), videos.shape[0], batch_size, dev)
+            g = fold_in(k_train, i)
+            perm = epoch_permutation(g, videos.shape[0], batch_size, dev)
+            key = key_tensor(dropout_key(g), dev) if uses_dropout(models[name]) else None
             members[name] = Member(name, per[name], impls[name].train_step, videos, labels, perm, slopes.get(name),
-                                   feats)
+                                   feats, key)
         for name in names:
             _set_lr(per[name].optimizer, lr)
         losses = engine.run([[members[n] for n in unit] for unit in layout], batch_size)

@@ -25,3 +25,16 @@ def fold_in(generator: torch.Generator, *keys: int, device=None) -> torch.Genera
     generator names a key here, and drawing from it does not change what
     this returns."""
     return seeded_generator(device or generator.device, generator.initial_seed(), *keys)
+
+
+# The key that names a generator's dropout stream beside its draws (ASCII
+# "DROP"): no other ``fold_in`` of a cycle uses it.
+DROPOUT_STREAM = 0x4452_4F50
+
+
+def dropout_key(generator: torch.Generator) -> int:
+    """The dropout key (a 63-bit integer) that goes with ``generator``'s
+    draws, the counterpart of the ``k_drop`` that the JAX package splits
+    beside ``k_perm``: the seed of the stream ``(generator's seed,
+    DROPOUT_STREAM)``. ``models.dropout`` folds in each step's ``idx[0]``."""
+    return seeded_generator("cpu", generator.initial_seed(), DROPOUT_STREAM).initial_seed()

@@ -567,11 +567,18 @@ def test_embedding_kernels_in_a_captured_graph_equal_the_eager_call(cuda_device)
 
 
 def test_dropout_and_a_failed_capture_raise(cuda_device):
-    """On the card nothing goes on eagerly in a capture's place: a model with
-    dropout > 0 raises before capture (each replay would reuse one mask), and
-    a step that synchronises with the host fails its capture and raises."""
-    with pytest.raises(ValueError, match="dropout"):
-        _captured_against_eager(cuda_device, [(2, 1e-3)], dropout=0.1)
+    """On the card nothing goes on eagerly in a capture's place. A model with
+    dropout 0.1 is captured like any other: each replay folds its step's
+    ``idx[0]`` into the key buffer and draws new masks, so two captured
+    cycles leave the losses, parameters and BN statistics of two eager ones
+    (``test_captured_cycle_equals_eager_cycle_on_card``'s bounds). A step that
+    synchronises with the host fails its capture and raises."""
+    engine, models, ref_models, losses = _captured_against_eager(cuda_device, [(2, 1e-3), (2, 1e-3)], dropout=0.1)
+    assert engine.captures == 3 and engine.replays == 3 * (8 - 2 + 8)
+    for cyc in losses:
+        for got, want in cyc.values():
+            assert abs(got - want) <= 1e-5 * abs(want)
+    _assert_models_equal(models, ref_models)
 
     from moleculardiffusion_mivit_tpu_torch.config import BASELINE_OPTICS, TrainConfig
     from moleculardiffusion_mivit_tpu_torch.train import multi as tmulti
@@ -593,6 +600,20 @@ def test_dropout_and_a_failed_capture_raise(cuda_device):
         cycle(states, torch.Generator(device=cuda_device).manual_seed(0), 1e-3, 2)
     assert cycle.engine.captures == 0
     torch.cuda.synchronize()
+
+
+def test_dropout_masks_on_card_equal_the_cpus(cuda_device):
+    """The keyed dropout masks (``models.dropout``: integer hashing only)
+    at a transformer's shapes, on the card, bitwise the CPU's for the same
+    key, ``idx[0]``, site and rows."""
+    from moleculardiffusion_mivit_tpu_torch.models import dropout as tdrop
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import dropout_key, seeded_generator
+
+    key = dropout_key(seeded_generator("cpu", 3))
+    for site, lo, shape in ((0, 0, (16, 4, 61, 61)), (2, 5, (3, 61, 256)), (tdrop.MAX_SITES - 1, 0, (16, 128))):
+        masks = [tdrop.dropout_mask(tdrop.step_key(torch.tensor(key, device=d), torch.tensor(7, device=d)),
+                                    site, lo, shape, 0.9) for d in ("cpu", cuda_device)]
+        assert torch.equal(masks[0], masks[1].cpu()), (site, lo, shape)
 
 
 def test_features_on_card_match_the_cpu(cuda_device):

@@ -29,8 +29,9 @@ from moleculardiffusion_mivit_tpu_torch.models import GeneralTransformer, MultiI
 from moleculardiffusion_mivit_tpu_torch.models import embeddings as tembeddings
 from moleculardiffusion_mivit_tpu_torch.ops import fused_embedding as tfe
 from moleculardiffusion_mivit_tpu_torch.train import loop as tloop
-from moleculardiffusion_mivit_tpu_torch.train.grid import GridModule, make_grid_impls, make_perms
+from moleculardiffusion_mivit_tpu_torch.train.grid import GridModule, make_drop_keys, make_grid_impls, make_perms
 from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
+from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in
 
 SMALL = dict(use_pos_encoding=False, embed_dim=16, num_heads=2, hidden_dim=32, num_layers=1)
 M = 3
@@ -346,3 +347,43 @@ def test_vmap_rule_hands_the_member_axis_to_the_kernels_once(monkeypatch):
                                        err_msg=name)
         for name, b in mod.named_buffers():
             np.testing.assert_allclose(buffers[name][m].numpy(), b.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_grid_with_dropout_equals_members_trained_alone_given_their_keys(dtype):
+    """At dropout 0.1, two epochs of a grid of linear-embedding transformers
+    (6 steps) against each member trained alone by ``train.loop``'s
+    ``train_cycle`` given ``fold_in(g, m)``, the generator of its
+    permutation and of its dropout key (``make_drop_keys``). Losses at 1e-5
+    relative plus 1e-7, the JAX package's tolerance for a grid's cycle
+    against its merged steps (``tests/test_experiments.py``, also at dropout
+    0.1). Parameters: in float64 at the same tolerance; in f32 at 6·lr (one
+    Adam step moves a parameter by at most ~lr), since the grid's batched
+    sums round differently and Adam turns the rounding noise of a gradient
+    that is analytically 0 (the attention key bias's: softmax is
+    shift-invariant) into steps of ±lr."""
+    dt = getattr(torch, dtype)
+    lr = 1e-4
+    cfg = TrainConfig(lr=lr)
+    tmodel = GeneralTransformer(ModelConfig(**{**SMALL, "num_layers": 2}, dropout=0.1), embedding="linear").to(dt)
+    impls = make_grid_impls(tmodel, cfg, device="cpu")
+    state = impls.init_grid([torch.Generator().manual_seed(20 + m) for m in range(M)])
+    state.model.to(dt)
+    state = tloop.TrainState(state.model, tloop.make_optimizer(state.model, cfg))
+    alone = [_member(state.model, m) for m in range(M)]
+    singles = [tloop.make_train_impls(mod, cfg, device="cpu") for mod in alone]
+    states = [tloop.TrainState(mod, tloop.make_optimizer(mod, cfg)) for mod in alone]
+    videos, labels = (torch.from_numpy(v).to(dt) for v in _data(3))
+    assert len(set(make_drop_keys(torch.Generator().manual_seed(0), M, "cpu").tolist())) == M
+    for c in range(2):
+        g = torch.Generator().manual_seed(c)
+        got = impls.train_cycle(state, videos, labels, g, lr, 2)
+        for m in range(M):
+            want = singles[m].train_cycle(states[m], videos[m], labels[m], fold_in(g, m), lr, 2)
+            np.testing.assert_allclose(float(got[m]), float(want), rtol=1e-5, atol=1e-7)
+    tol = dict(rtol=1e-5, atol=1e-7) if dtype == "float64" else dict(rtol=0, atol=6 * lr)
+    for m in range(M):
+        want = alone[m].state_dict()
+        for key, v in _member(state.model, m).state_dict().items():
+            assert v.dtype == dt
+            np.testing.assert_allclose(v.numpy(), want[key].numpy(), **tol, err_msg=f"member {m} {key}")

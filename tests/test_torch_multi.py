@@ -145,8 +145,8 @@ def test_multi_cycle_with_features_matches_per_model_train_cycles():
             torch.testing.assert_close(value, ref[key], rtol=1e-6, atol=1e-6, msg=f"{name} {key}")
 
 
-def _arms():
-    cfg = ModelConfig(**SMALL)
+def _arms(**kw):
+    cfg = ModelConfig(**SMALL, **kw)
     return {
         "lin_s": GeneralTransformer(cfg, embedding="linear"),
         "deep_s": GeneralTransformer(cfg, embedding="deep_resnet"),
@@ -225,3 +225,40 @@ def test_scanned_multi_cycle_stacks_each_cycles_results():
         states_b, loss, val_mse = cycle(states_b, gk, lr, 4, val, torch.tensor(1.0))
         torch.testing.assert_close(losses["lin"][k], loss["lin"], rtol=0, atol=0)
         torch.testing.assert_close(vals["lin"][k], val_mse["lin"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("merge_scans,stack_pairs", [(False, False), (True, False), (False, True)])
+def test_multi_cycle_with_dropout_equals_per_model_train_cycles_bitwise(merge_scans, stack_pairs):
+    """At dropout 0.1 the cycle of five models, in separate units, merged
+    into one or with the activation pairs stacked, equals per-model
+    ``train_cycle`` calls on the same generators bitwise over two cycles
+    (losses, parameters, BN statistics): model ``i`` draws its permutation
+    and its dropout key from ``fold_in(fold_in(g_cycle, 1), i)`` whatever the
+    layout, as the JAX package's merged and stacked scans keep each model's
+    streams (``tests/test_train.py``'s merged-scan and ``stack_pairs``
+    cases). A stacked member steps with its slope as a tensor, whose
+    forward is its activation's."""
+    cfg = TrainConfig(sequences_per_d=2, n_frames=4)
+    models, ref_models = _arms(dropout=0.1), _arms(dropout=0.1)
+    init_states, cycle = tmulti.make_multi_cycle(
+        models, cfg, BASELINE_OPTICS, merge_scans=merge_scans, stack_pairs=stack_pairs, device="cpu"
+    )
+    g = torch.Generator().manual_seed(5)
+    states = init_states(g)
+    impls, ref_states = {}, {}
+    for i, (name, m) in enumerate(ref_models.items()):
+        init_model(m, fold_in(g, i, device="cpu"))
+        impls[name] = tloop.make_train_impls(m, cfg, device="cpu")
+        ref_states[name] = tloop.TrainState(m.train(), tloop.make_optimizer(m, cfg))
+    for c, batch in enumerate((2, 4)):
+        gc = seeded_generator("cpu", 9, c)
+        lr = cfg.lr_for_cycle(5 * c)
+        states, losses, _ = cycle(states, gc, lr, batch)
+        videos, labels = tloop.generate_cycle_data(fold_in(gc, 0), cfg, BASELINE_OPTICS)
+        for i, name in enumerate(ref_models):
+            loss = impls[name].train_cycle(ref_states[name], videos, labels, fold_in(fold_in(gc, 1), i), lr, batch)
+            assert torch.equal(losses[name], loss), (name, c)
+    for name, m in models.items():
+        ref = ref_models[name].state_dict()
+        for key, value in m.state_dict().items():
+            assert torch.equal(value, ref[key]), f"{name} {key}"

@@ -17,8 +17,14 @@ the member's largest gradient (entries that are zero but for rounding, such
 as an attention key bias's, and BatchNorm's cancelling sums: the unsharded
 port's deep-ResNet step lies up to 6e-5 of that scale from JAX's); parameters after
 one step at 2.5·lr (Adam's first update is ±lr·sign(g), so parameters alone
-cannot see a fault, and the gradients are compared); after a batch-1 cycle,
-parameters at 20·lr and ``val_avg`` at 5 % relative or 1e-3.
+cannot see a fault, and the gradients are compared); after a batch-1 cycle
+(its grid at dropout 0.1), parameters at 20·lr and ``val_avg`` at 5 %
+relative or 1e-3. At bf16 compute, JAX's bounds for its sharded bf16 cycle
+against the unsharded one: losses at 1e-2 relative plus 1e-3, parameters at
+4·lr, predictions at 1e-3 relative plus 5e-3; a deep-ResNet step at bf16 at
+``chip_smoke.py``'s phase-bf16 bounds for K2-bf16/K3-bf16: losses at 1e-2
+relative, each member's summed gradients at 5e-2 in relative L2 and 5e-2 of
+its largest gradient in any entry.
 """
 
 import json
@@ -152,13 +158,38 @@ def mesh_run(tmp_path_factory):
         for stack in (False, True):
             pairs[stack] = worker.pair_experiment(stack)
             pairs[stack].run(num_cycles=1)
+        bf16 = _unsharded_bf16()
+        deep_bf16 = worker.grid_state(inputs["deep_resnet"]["members"], "deep_resnet")
+        drop = worker.grid_state(inputs["linear"]["members"], "linear", dropout=0.1)
+        losses_drop = make_grid_impls(worker.grid_model("linear", 0.1), worker.small_train_cfg().replace(lr=LR),
+                                      "cpu").train_cycle(drop, inputs["linear"]["videos"], inputs["linear"]["labels"],
+                                                         torch.Generator().manual_seed(0), LR, N_ROWS["linear"])
+        losses_bf16 = make_grid_impls(
+            worker.grid_model("deep_resnet"), worker.small_train_cfg().replace(lr=LR, compute_dtype="bfloat16"), "cpu"
+        ).train_cycle(deep_bf16, inputs["deep_resnet"]["videos"], inputs["deep_resnet"]["labels"],
+                      torch.Generator().manual_seed(0), LR, N_ROWS["deep_resnet"])
     finally:
         _wait(procs, "the 4-rank mesh")
         torch.set_num_threads(threads)
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     unsharded = worker.mixed_experiment()
     restore_experiment(unsharded, str(out / "ckpt"))
-    return dict(restored_unsharded=unsharded, ranks=ranks, jax=ref, eval7=eval7, mixed=mixed, pairs=pairs, deep64=(losses64, deep64))
+    return dict(restored_unsharded=unsharded, ranks=ranks, jax=ref, eval7=eval7, mixed=mixed, pairs=pairs,
+                deep64=(losses64, deep64), bf16=bf16, deep_bf16=(losses_bf16, deep_bf16),
+                linear_dropout=(losses_drop, drop))
+
+
+def _unsharded_bf16():
+    """``worker.bf16_grid``'s cycle unsharded at bf16: losses, parameters,
+    predictions."""
+    model, train_cfg, videos, labels, feats = worker.bf16_grid()
+    impls = make_grid_impls(model, train_cfg, "cpu", with_features=True)
+    inits, g = worker.bf16_generators()
+    state = impls.init_grid(inits)
+    losses = impls.train_cycle(state, videos, labels, g, worker.LR, worker.BF16_BATCH, feats)
+    params, _ = state.model.stacked()
+    return {"losses": losses, "params": {n: p.detach().clone() for n, p in params.items()},
+            "preds": impls.evaluate(state, videos, feats)}
 
 
 def _grads_close(got, want, where, atol):
@@ -231,6 +262,70 @@ def case_grid_step_deep_resnet_float64(run):
         for name, p in params.items():
             np.testing.assert_allclose(got["grads"][name].numpy(), p.grad[sl].numpy(), rtol=0, atol=1e-10 * scale,
                                        err_msg=name)
+
+
+def case_grid_step_linear_dropout(run):
+    """(i) at dropout 0.1 against the port unsharded from the same weights
+    and key: each ``data`` rank draws its rows of the minibatch's masks
+    (``models.dropout``: global rows), so the one-step bounds of (i) hold
+    (losses at 1e-5, summed gradients as ``_grads_close``, parameters at
+    2.5·lr); a rank drawing its local rows' masks instead misses them."""
+    losses, state = run["linear_dropout"]
+    params, _ = state.model.stacked()
+    for res in run["ranks"]:
+        got = res["grid_linear_dropout"]
+        lo = res["model_index"] * 2
+        np.testing.assert_allclose(got["losses"].numpy(), losses.numpy(), rtol=1e-5)
+        for j in range(2):
+            _grads_close({n: g[j] for n, g in got["grads"].items()}, {n: p.grad[lo + j] for n, p in params.items()},
+                         f"rank {res['rank']} member {lo + j}", GRAD_ATOL["linear"])
+            for name, p in params.items():
+                np.testing.assert_allclose(got["params"][name][j].numpy(), p[lo + j].detach().numpy(), rtol=0,
+                                           atol=2.5 * LR, err_msg=f"member {lo + j} {name}")
+
+
+def case_sharded_bf16(run):
+    """The counterpart of the JAX package's ``test_sharded_bf16_matches_
+    unsharded``: a 4-member early-fusion grid with features at dropout 0.1
+    on ``data=2, model=2`` at bf16 trains like the port unsharded at bf16
+    (JAX's bounds); on every rank the parameters and the AdamW moments stay
+    f32 and an FF layer's input is bf16 in every training forward. The
+    attention key biases are held to Adam's step bound instead, 2·lr a step
+    over the cycle's 4: their gradient is analytically 0 (softmax is
+    shift-invariant), so Adam turns each side's rounding noise into steps
+    of ±lr whose signs the two layouts draw apart."""
+    want = run["bf16"]
+    steps = worker.N_GRID * 4 // worker.BF16_BATCH
+    for res in run["ranks"]:
+        got = res["sharded_bf16"]
+        assert got["param_dtypes"] == got["moment_dtypes"] == {torch.float32}
+        assert got["forward_dtypes"] and set(got["forward_dtypes"]) == {torch.bfloat16}
+        np.testing.assert_allclose(got["losses"].numpy(), want["losses"].numpy(), rtol=1e-2, atol=1e-3)
+        sl = slice(res["model_index"] * 2, res["model_index"] * 2 + 2)
+        for name, p in want["params"].items():
+            bound = 2 * steps if name.endswith("k_proj.bias") else 4
+            np.testing.assert_allclose(got["params"][name].numpy(), p[sl].numpy(), rtol=0, atol=bound * worker.LR,
+                                       err_msg=f"rank {res['rank']} {name}")
+        np.testing.assert_allclose(got["preds"].numpy(), want["preds"].numpy(), rtol=1e-3, atol=5e-3)
+
+
+def case_grid_step_deep_resnet_bf16(run):
+    """(ii) at bf16 compute: K2-bf16/K3-bf16's plain versions on the rows
+    gathered over ``data`` = 2 against the port unsharded at bf16 from the
+    same weights, at phase bf16's bounds (module docstring)."""
+    losses, state = run["deep_bf16"]
+    params, _ = state.model.stacked()
+    for res in run["ranks"]:
+        got = res["grid_deep_bf16"]
+        np.testing.assert_allclose(got["losses"].numpy(), losses.numpy(), rtol=1e-2)
+        lo = res["model_index"] * 2
+        for j in range(2):
+            scale = max(float(p.grad[lo + j].abs().max()) for p in params.values())
+            for name, p in params.items():
+                g, w = got["grads"][name][j], p.grad[lo + j]
+                assert g.dtype == torch.float32, name
+                assert float((g - w).abs().max()) <= 5e-2 * scale, (res["rank"], j, name)
+                assert float((g - w).norm()) <= 5e-2 * float(w.norm()) + 1e-6 * scale, (res["rank"], j, name)
 
 
 def _per_rank_bn_misses(run, kind, key):
@@ -364,7 +459,8 @@ CASES = {f.__name__[5:]: f for f in (
     case_grid_step_linear, case_grid_step_deep_resnet, case_grid_step_resnet, case_grid_step_deep_resnet_float64,
     case_per_rank_bn_statistics_miss_deep_resnet, case_per_rank_bn_statistics_miss_resnet, case_batch1_cycle,
     case_replicated_bitwise_and_members_on_their_rank, case_checkpoint, case_padded_evaluation, case_stacked_pairs,
-    case_mesh_placement_and_refusals)}
+    case_mesh_placement_and_refusals, case_sharded_bf16, case_grid_step_deep_resnet_bf16,
+    case_grid_step_linear_dropout)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -383,17 +479,20 @@ def test_two_coordinated_processes(tmp_path):
     assert losses[0] == losses[1] and len(losses[0]) == 2 and all(np.isfinite(losses[0]))
 
 
-def test_run_experiment_mesh_under_torchrun(tmp_path):
-    """(vii) ``run_experiment baseline --device cpu --mesh data=2,model=1``
-    under ``torchrun`` with 2 ranks: rank 0 alone writes ``metrics.jsonl``,
-    its rows finite."""
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_run_experiment_mesh_under_torchrun(tmp_path, compute_dtype):
+    """(vii) ``run_experiment baseline --device cpu --mesh data=2,model=1
+    --compute-dtype …`` under ``torchrun`` with 2 ranks: rank 0 alone writes
+    ``metrics.jsonl``, its rows finite."""
     out = tmp_path / "run"
     _wait([_spawn(["-m", "torch.distributed.run", "--nproc-per-node", "2", "--master-port", str(_free_port()),
                    str(WORKER), "cli", "baseline", "--device", "cpu", "--mesh", "data=2,model=1", "--cycles", "1",
-                   "--seqs-per-d", "2", "--checkpoint-last", "0", "--out", str(out)], _env())],
+                   "--seqs-per-d", "2", "--checkpoint-last", "0", "--compute-dtype", compute_dtype,
+                   "--out", str(out)], _env())],
           "torchrun")
     rows = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
     assert [r["event"] for r in rows].count("start") == 1 and rows[0]["mesh"] == {"data": 2, "model": 1}
+    assert rows[0]["compute_dtype"] == compute_dtype
     cycle = [r for r in rows if r["event"] == "cycle"]
     assert len(cycle) == 1 and all(np.isfinite(v) for v in cycle[0]["val_avg"].values())
     assert (out / "final" / "states" / "resnet.pt").is_file()

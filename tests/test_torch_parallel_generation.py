@@ -191,6 +191,35 @@ def test_no_two_streams_of_a_cycle_alias(name, monkeypatch):
     assert not {seed: keys for seed, keys in names.items() if len(keys) > 1}, name
 
 
+def test_no_two_streams_of_a_training_cycle_alias(monkeypatch):
+    """``test_no_two_streams_of_a_cycle_alias`` over a whole cycle of
+    training with dropout (``torch_parallel_worker.dropout_experiment``: a
+    grid arm and an activation-pair stack at dropout 0.1): the generation's
+    streams, each arm's permutation stream, each grid member's
+    (``fold_in``) and each model's dropout key (``utils.rng.dropout_key``:
+    the stream ``(seed of the permutation's generator, DROPOUT_STREAM)``),
+    four of them, one a model; no two key tuples give one seed."""
+    import torch_parallel_worker as mesh_worker
+
+    from moleculardiffusion_mivit_tpu_torch.experiments import base
+
+    exp = mesh_worker.dropout_experiment(0)
+    exp.build()
+    names, make = {}, rng.seeded_generator
+
+    def named(device, *keys):
+        g = make(device, *keys)
+        names.setdefault(g.initial_seed(), set()).add(tuple(int(k) for k in keys))
+        return g
+
+    monkeypatch.setattr(rng, "seeded_generator", named)
+    monkeypatch.setattr(base, "seeded_generator", named)
+    exp.run(num_cycles=1)
+    keys = [k for ks in names.values() for k in ks]
+    assert sum(k[-1] == rng.DROPOUT_STREAM for k in keys) == 4
+    assert not {seed: ks for seed, ks in names.items() if len(ks) > 1}
+
+
 def test_block_render_is_each_block_rendered_alone():
     """``sim.trajectories_to_video_blocks`` (the ensemble's members in one
     K1 launch, each from its own generator) equals ``trajectories_to_video``

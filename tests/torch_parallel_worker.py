@@ -61,7 +61,8 @@ def _val_data(train_cfg, seed):
 
 
 def mixed_experiment(seed: int = 0) -> Experiment:
-    """A grid arm of ``N_GRID`` linear-embedding transformers, a deep-ResNet
+    """A grid arm of ``N_GRID`` linear-embedding transformers at dropout 0.1
+    (as the JAX package's ``_mixed_experiment``), a deep-ResNet
     transformer (K2/K3's plain version, global BN by gathered rows) and a
     ``MultiImageResNet`` (``BatchNorm``'s summed statistics) on one
     generated dataset of 16 sequences a cycle, batch 1 (the schedule's
@@ -81,7 +82,7 @@ def mixed_experiment(seed: int = 0) -> Experiment:
         return data["videos"], None, data["labels"]
 
     arms = {
-        "grid": GridArm(model=GeneralTransformer(ModelConfig(**SMALL_CFG), embedding="linear"),
+        "grid": GridArm(model=GeneralTransformer(ModelConfig(dropout=0.1, **SMALL_CFG), embedding="linear"),
                         names=[f"g{i}" for i in range(N_GRID)], slice_fn=grid_slice),
         "deep": ModelEntry(model=GeneralTransformer(ModelConfig(**SMALL_CFG), embedding="deep_resnet"),
                            slice_fn=single_slice),
@@ -110,6 +111,31 @@ def pair_experiment(stack_pairs: bool) -> Experiment:
     return exp
 
 
+def dropout_experiment(seed: int) -> Experiment:
+    """A grid arm of two linear-embedding transformers, and a relu/leaky
+    pair of them (an activation stack below batch 32), all at dropout 0.1,
+    on 16 sequences a cycle at batch 2."""
+    cfg = small_train_cfg(8).replace(seed=seed, adaptive_batch_size=-1, fixed_batch_size=2)
+
+    def generate_fn(g, part=None):
+        out = generate_cycle_data(g, cfg, BASELINE_OPTICS, part=part)
+        return None if out is None else {"videos": out[0], "labels": out[1]}
+
+    def grid_slice(data):
+        return data["videos"][None].expand(2, *data["videos"].shape), None, data["labels"][None].expand(2, -1, -1)
+
+    def single(data):
+        return data["videos"], None, data["labels"]
+
+    def model(act="relu"):
+        return GeneralTransformer(ModelConfig(dropout=0.1, activation=act, **SMALL_CFG), embedding="linear")
+
+    arms = {"grid": GridArm(model=model(), names=["g0", "g1"], slice_fn=grid_slice),
+            "relu": ModelEntry(model=model(), slice_fn=single),
+            "leaky": ModelEntry(model=model("leaky_relu"), slice_fn=single)}
+    return Experiment("dropout", cfg, BASELINE_OPTICS, arms, generate_fn, {}, device="cpu")
+
+
 def eval_set(seed: int = 11, n: int = 7):
     """A ``n``-sequence evaluation set (not a multiple of the ranks)."""
     v, _ = generate_cycle_data(seeded_generator("cpu", seed), small_train_cfg(n).replace(training_ds=((3, 1),)),
@@ -121,39 +147,87 @@ def _state(st) -> dict:
     return {k: v.detach().clone() for k, v in st.model.state_dict().items()}
 
 
-def grid_model(kind: str):
+def grid_model(kind: str, dropout: float = 0.0):
     """The model of a one-step case: the small transformer with the
-    ``linear`` or ``deep_resnet`` embedding, or ``MultiImageResNet``."""
+    ``linear`` or ``deep_resnet`` embedding (at ``dropout``), or
+    ``MultiImageResNet``."""
     if kind == "resnet":
         return MultiImageResNet(single_prediction=True)
-    return GeneralTransformer(ModelConfig(**SMALL_CFG), embedding=kind)
+    return GeneralTransformer(ModelConfig(dropout=dropout, **SMALL_CFG), embedding=kind)
 
 
-def grid_state(members, kind, dtype=torch.float32):
+def grid_state(members, kind, dtype=torch.float32, dropout: float = 0.0):
     """A ``TrainState`` of a grid of ``kind`` holding the state dicts
     ``members``, in ``dtype``."""
     mods = []
     for sd in members:
-        mod = grid_model(kind)
+        mod = grid_model(kind, dropout)
         mod.load_state_dict(sd)
         mods.append(mod)
-    grid = GridModule(grid_model(kind), mods).to(dtype).train()
+    grid = GridModule(grid_model(kind, dropout), mods).to(dtype).train()
     return TrainState(grid, make_optimizer(grid, small_train_cfg()))
 
 
-def _grid_step(mesh, inputs, kind, dtype=torch.float32):
+def _grid_step(mesh, inputs, kind, dtype=torch.float32, compute_dtype="float32", dropout=0.0):
     """One full-batch step of the sharded grid of case (i) or (ii) from the
-    converted JAX weights, in ``dtype``; returns this rank's members'
-    losses, summed gradients and new parameters."""
-    model = grid_model(kind)
-    train_cfg = small_train_cfg().replace(lr=inputs["lr"])
-    state = grid_state(inputs[kind]["members"][parallel.grid_sharding(mesh, N_GRID)], kind, dtype)
+    converted JAX weights, in ``dtype`` (at ``compute_dtype``, the
+    transformers at ``dropout``); returns this rank's members' losses,
+    summed gradients and new parameters."""
+    model = grid_model(kind, dropout)
+    train_cfg = small_train_cfg().replace(lr=inputs["lr"], compute_dtype=compute_dtype)
+    state = grid_state(inputs[kind]["members"][parallel.grid_sharding(mesh, N_GRID)], kind, dtype, dropout)
     step = parallel.make_sharded_grid_step(model, train_cfg, mesh, device="cpu")
     videos, labels = inputs[kind]["videos"].to(dtype), inputs[kind]["labels"].to(dtype)
     state, losses = step(state, videos, labels, inputs["lr"])
     params, _ = state.model.stacked()
     return {"losses": losses, "grads": {n: p.grad.clone() for n, p in params.items()},
             "params": {n: p.detach().clone() for n, p in params.items()}}
+
+
+BF16_BATCH = 4
+
+
+def bf16_grid():
+    """``test_sharded_bf16_matches_unsharded``'s grid in the JAX package: a
+    linear-embedding transformer with early fusion of the 25 features at
+    dropout 0.1, trained at bf16; ``(model, train_cfg, videos, labels,
+    features)``, the data one generated cycle given to all ``N_GRID``
+    members."""
+    train_cfg = small_train_cfg(8).replace(compute_dtype="bfloat16")
+    videos, labels, feats = generate_cycle_data(seeded_generator("cpu", 0), train_cfg, BASELINE_OPTICS,
+                                                with_features=True)
+    model = GeneralTransformer(ModelConfig(dropout=0.1, **SMALL_CFG), embedding="linear", use_global_features=True,
+                               fusion_type="early", global_feature_dim=feats.shape[1])
+    tile = lambda t: t[None].expand((N_GRID,) + t.shape).contiguous()  # noqa: E731
+    return model, train_cfg, tile(videos), tile(labels), tile(feats)
+
+
+def bf16_generators():
+    """The grid's members' initial streams, and its cycle's."""
+    return [seeded_generator("cpu", 1, m) for m in range(N_GRID)], seeded_generator("cpu", 7)
+
+
+def _sharded_bf16(mesh) -> dict:
+    """One cycle (4 steps of 4) of ``bf16_grid`` on the mesh: this rank's
+    members' parameters, every member's losses and predictions, the dtypes
+    of the parameters, of the AdamW moments and of an FF layer's input in
+    each training forward."""
+    model, train_cfg, videos, labels, feats = bf16_grid()
+    seen = []
+    hook = model.transformer.layer_0.feed_forward.fc1.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0].dtype) if mod.training else None)
+    init_grid, train_cycle, evaluate = parallel.make_sharded_grid_fns(model, train_cfg, mesh, with_features=True,
+                                                                      device="cpu")
+    inits, g = bf16_generators()
+    grid = init_grid(inits)
+    grid, losses = train_cycle(grid, videos, labels, feats, g, LR, BF16_BATCH)
+    hook.remove()
+    params, _ = grid.model.stacked()
+    return {"losses": losses, "params": {n: p.detach().clone() for n, p in params.items()},
+            "preds": evaluate(grid, videos, feats), "forward_dtypes": seen,
+            "param_dtypes": {p.dtype for p in grid.model.parameters()},
+            "moment_dtypes": {v.dtype for st in grid.optimizer.state.values() for k, v in st.items()
+                              if k.startswith("exp_avg")}}
 
 
 def run_cases(out_dir: Path) -> None:
@@ -184,6 +258,9 @@ def run_cases(out_dir: Path) -> None:
     res["grid_deep"] = _grid_step(mesh, inputs, "deep_resnet")
     res["grid_resnet"] = _grid_step(mesh, inputs, "resnet")
     res["grid_deep_float64"] = _grid_step(mesh, inputs, "deep_resnet", torch.float64)
+    res["grid_deep_bf16"] = _grid_step(mesh, inputs, "deep_resnet", compute_dtype="bfloat16")
+    res["grid_linear_dropout"] = _grid_step(mesh, inputs, "linear", dropout=0.1)
+    res["sharded_bf16"] = _sharded_bf16(mesh)
     from moleculardiffusion_mivit_tpu_torch.models import embeddings
 
     real = embeddings.current_rows
