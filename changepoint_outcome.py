@@ -16,24 +16,51 @@ records, by the rules in the docstring of
   --seqs-per-d 256 --seed S``) against ``results/changepoint_scaled`` (one
   JAX draw): the AUC held when |mean P − record| ≤ max(0.03,
   3·sd_P·sqrt(1 + 1/n_P)).
+- The continuous-curriculum demo (C1, C2): at the cut (10 cycles × 64 a
+  class), the port's eight card seeds of each curriculum
+  (``results/torch_changepoint_demo_cut10_{continuous,discrete}_seed{0..7}``)
+  against four JAX seeds of each
+  (``results/changepoint_outcome/jax_cut10_{continuous,discrete}_seed{1..4}.json``):
+  the AUC held per curriculum when |mean P − mean J| ≤ max(0.03,
+  3·sqrt(sd_P²/n_P + sd_J²/n_J)), and the sign of (discrete − continuous)
+  held equal on both sides; at the records' protocol (100 cycles × 64), the
+  port's four seeds of each (``results/torch_changepoint_demo_{continuous,
+  discrete}_seed{0..3}``) against ``results/changepoint_continuous`` and
+  ``results/changepoint_demo``: each record held within max(0.03,
+  3·sd_P·sqrt(1 + 1/n_P)) of the port's mean.
 - Reported, not held: false-positive rates, median split errors, the
   rates by |ΔD| with their intervals, the demo's detection rate and
-  ``results/changepoint_demo``, and the continuous-curriculum runs
+  ``results/changepoint_demo``, the continuous-curriculum runs
   (``results/torch_changepoint_{modular,demo}_continuous_seed0``, ``--continuous
   0.1,8``) beside ``results/changepoint_modular_continuous`` and
-  ``results/changepoint_continuous``.
+  ``results/changepoint_continuous``, and per C1/C2 seed the detection
+  rate, the mean scores and ``const_frame_sd``.
 
 It reads only the JSON reports. Writes
 ``results/changepoint_outcome/verdict.json`` and exits 1 when a held rule
 misses.
 
-Usage: ``python3 changepoint_outcome.py [--out results/changepoint_outcome]``.
+``--jax-seeds N [--first-jax-seed K] [--cycles 10] [--seqs-per-d 64]
+[--continuous 0.1,8]`` makes JAX's C1 seeds instead: for each seed k = K …
+K + N − 1, ``examples/sequence_changepoint_demo.py`` under JAX on the CPU
+with ``deepcnn_2layer_s`` the experiment's only arm, built with seed k
+(``jax_demo_seed``), written to
+``jax_cut{cycles}_{continuous,discrete}_seed{k}.json`` with its seconds.
+Run each seed in its own process to run them side by side.
+
+Usage: ``python3 changepoint_outcome.py [--out results/changepoint_outcome]
+[--jax-seeds N --first-jax-seed K --cycles C [--continuous LO,HI]]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import os
+import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +83,105 @@ ARMS = ("mod_images", "mod_both_concat", "mod_hybrid")
 MIN_LIMIT = {"roc_auc": 0.02, "detection_rate": 0.05}
 DEMO_MIN_LIMIT = 0.03
 MODULAR_FILE, DEMO_FILE = "changepoint_modular.json", "changepoint_metrics.json"
+DEMO_MODEL = "deepcnn_2layer_s"
+# the continuous-curriculum demo against the JAX package (C1 at the cut, C2 at the records' protocol)
+CURRICULA = ("continuous", "discrete")
+CUT_CYCLES = 10
+C1_PORT_SEEDS, C1_JAX_SEEDS, C2_PORT_SEEDS = range(8), range(1, 5), range(4)
+C2_RECORDS = {"continuous": RESULTS / "changepoint_continuous", "discrete": RESULTS / "changepoint_demo"}
+PER_SEED = ("roc_auc", "detection_rate", "mean_score_mixed", "mean_score_const", "const_frame_sd")
+
+
+def c1_port_dir(curriculum: str, seed: int) -> Path:
+    return RESULTS / f"torch_changepoint_demo_cut{CUT_CYCLES}_{curriculum}_seed{seed}"
+
+
+def c2_port_dir(curriculum: str, seed: int) -> Path:
+    return RESULTS / f"torch_changepoint_demo_{curriculum}_seed{seed}"
+
+
+def c1_jax_file(curriculum: str, seed: int, out: Path = OUT) -> Path:
+    return out / f"jax_cut{CUT_CYCLES}_{curriculum}_seed{seed}.json"
+
+
+def _demo_example():
+    spec = importlib.util.spec_from_file_location("changepoint_demo_example",
+                                                  ROOT / "examples" / "sequence_changepoint_demo.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def const_frame_sd(preds) -> float:
+    """The mean over constant-D sequences of the sd (ddof 1) of each one's
+    per-frame predictions ``(N, F)``, in D units."""
+    p = np.asarray(preds, dtype=np.float64).reshape(len(preds), -1)
+    return float(p.std(axis=1, ddof=1).mean())
+
+
+def jax_demo_seed(k: int, cycles: int, continuous: str | None, seqs_per_d: int = 64) -> dict:
+    """``examples/sequence_changepoint_demo.py`` under JAX with its model
+    (``deepcnn_2layer_s``) the experiment's only arm, at seed ``k``: the
+    baseline experiment built with ``seed=k`` and ``exp.build(key(k))`` (k =
+    0 gives the example's keys), then the example's own ``main`` (its
+    ``--cycles``, ``--seqs-per-d``, ``--continuous``, its training loop and
+    its evaluation: key 777, 64 a class) on that experiment. Returns the
+    example's report with the seed, the seconds (build, training, all),
+    each validation's time, and ``const_frame_sd`` of its predictions on
+    the constant-D controls."""
+    import jax
+
+    import moleculardiffusion_mivit_tpu.experiments as jexperiments
+    from moleculardiffusion_mivit_tpu.experiments import baseline
+
+    ex = _demo_example()
+    t0 = time.perf_counter()
+    d_range = tuple(float(x) for x in continuous.split(",")) if continuous else None
+    exp = baseline.build(seed=k, sequences=True, continuous_d=d_range, sequences_per_d=seqs_per_d)
+    exp.arms = {DEMO_MODEL: exp.arms[DEMO_MODEL]}
+    exp.build(jax.random.key(k))
+    built_s = time.perf_counter() - t0
+    exp.build = lambda key=None: None
+    marks, preds = [], []
+    run, predict = exp.run, exp.predict
+
+    def timed_run(*a, callback=None, **kw):
+        def mark(c, avgs):
+            marks.append({"cycle": c, "t": time.perf_counter() - t0, "val_avg": avgs})
+            if callback:
+                callback(c, avgs)
+
+        t_run = time.perf_counter()
+        out = run(*a, callback=mark, **kw)
+        marks.append({"train_s": time.perf_counter() - t_run})
+        return out
+
+    def recording(name, data):
+        out = predict(name, data)
+        preds.append(np.asarray(out)[..., 0])
+        return out
+
+    exp.run, exp.predict = timed_run, recording
+
+    def get_experiment(name, **kw):
+        assert name == "baseline" and kw == dict(sequences=True, continuous_d=d_range, sequences_per_d=seqs_per_d), kw
+        return exp
+
+    argv = ["sequence_changepoint_demo.py", "--cycles", str(cycles), "--seqs-per-d", str(seqs_per_d)]
+    argv += ["--continuous", continuous] if continuous else []
+    saved = jexperiments.get_experiment, sys.argv
+    with tempfile.TemporaryDirectory() as tmp:
+        jexperiments.get_experiment, sys.argv = get_experiment, argv + ["--out", tmp]
+        try:
+            ex.main()
+        finally:
+            jexperiments.get_experiment, sys.argv = saved
+        report = json.loads((Path(tmp) / DEMO_FILE).read_text())
+    # the example predicts the planted set, then its controls, then the calibration split
+    return {"report": report, "seed": k, "const_frame_sd": const_frame_sd(preds[1]), "built_s": built_s,
+            "train_s": marks[-1]["train_s"], "validations": marks[:-1], "seconds": time.perf_counter() - t0,
+            "command": " ".join(["python3 changepoint_outcome.py --jax-seeds 1 --first-jax-seed", str(k),
+                                 "--cycles", str(cycles)] + (["--continuous", continuous] if continuous else []))}
 
 
 def _load(d: Path, name: str) -> dict:
@@ -116,6 +242,70 @@ def judge(port_modular: list, jax_modular: list, port_demo: list, demo_record: d
     return out
 
 
+def judge_continuous_demo(c1_port: dict, c1_jax: dict, c2_port: dict, c2_records: dict) -> dict:
+    """The continuous-curriculum demo's rule (C1, C2) of
+    ``changepoint_study.py``'s docstring. Each argument maps a curriculum
+    to its per-seed dicts (``seed`` and ``PER_SEED``; a record is one
+    ``changepoint_metrics.json``)."""
+    out = {"held": {}, "c1": {}, "c2": {}}
+    for curr in CURRICULA:
+        p, j = _stats([r["roc_auc"] for r in c1_port[curr]]), _stats([r["roc_auc"] for r in c1_jax[curr]])
+        limit = max(DEMO_MIN_LIMIT, 3 * np.sqrt(p["sd"] ** 2 / len(c1_port[curr]) + j["sd"] ** 2 / len(c1_jax[curr])))
+        delta = abs(p["mean"] - j["mean"])
+        out["c1"][curr] = {"roc_auc": {"port": p, "jax": j, "limit": float(limit), "delta": float(delta)},
+                           "per_seed": {"port": [{k: r.get(k) for k in ("seed", *PER_SEED)} for r in c1_port[curr]],
+                                        "jax": [{k: r.get(k) for k in ("seed", *PER_SEED)} for r in c1_jax[curr]]}}
+        for k in PER_SEED[1:]:
+            out["c1"][curr][k] = {side: _stats([r[k] for r in runs[curr]])
+                                  for side, runs in (("port", c1_port), ("jax", c1_jax))
+                                  if all(r.get(k) is not None for r in runs[curr])}
+        out["held"][f"c1_{curr}_roc_auc"] = bool(delta <= limit)
+    gap = {side: out["c1"]["discrete"]["roc_auc"][side]["mean"] - out["c1"]["continuous"]["roc_auc"][side]["mean"]
+           for side in ("port", "jax")}
+    out["c1"]["discrete_minus_continuous"] = gap
+    out["held"]["c1_direction"] = bool(np.sign(gap["port"]) == np.sign(gap["jax"]))
+    for curr in CURRICULA:
+        p = _stats([r["roc_auc"] for r in c2_port[curr]])
+        record = c2_records[curr]["roc_auc"]
+        limit = max(DEMO_MIN_LIMIT, 3 * p["sd"] * np.sqrt(1 + 1 / len(c2_port[curr])))
+        delta = abs(p["mean"] - record)
+        out["c2"][curr] = {"roc_auc": {"port": p, "record": record, "limit": float(limit), "delta": float(delta)},
+                           "per_seed": [{k: r.get(k) for k in ("seed", *PER_SEED)} for r in c2_port[curr]],
+                           "record": {k: c2_records[curr].get(k) for k in PER_SEED}}
+        out["held"][f"c2_{curr}_roc_auc"] = bool(delta <= limit)
+    out["ok"] = all(out["held"].values())
+    return out
+
+
+def with_continuous_demo(verdict: dict, continuous_demo: dict) -> dict:
+    """``judge``'s verdict with the C1/C2 verdict under ``continuous_demo``
+    and its held rules among the others (``demo_``-prefixed)."""
+    held = {**verdict["held"], **{f"demo_{k}": v for k, v in continuous_demo["held"].items()}}
+    return {**verdict, "held": held, "continuous_demo": continuous_demo, "ok": all(held.values())}
+
+
+def _port_demo_seed(d: Path) -> dict:
+    """A port run's example report with its seed and ``const_frame_sd``."""
+    full = _load(d, "changepoint_metrics_report.json")
+    return {**full["report"], "seed": full["seed"], "const_frame_sd": full.get("const_frame_sd"),
+            "card": full["card"], "seconds": full["seconds"]}
+
+
+def _jax_demo_seed(path: Path) -> dict:
+    full = json.loads(path.read_text())
+    return {**full["report"], "seed": full["seed"], "const_frame_sd": full["const_frame_sd"],
+            "seconds": full["seconds"]}
+
+
+def load_continuous_demo(out: Path = OUT) -> tuple:
+    """The C1/C2 runs the rule names: ``(c1_port, c1_jax, c2_port,
+    c2_records)`` for ``judge_continuous_demo``."""
+    c1_port = {c: [_port_demo_seed(c1_port_dir(c, s)) for s in C1_PORT_SEEDS] for c in CURRICULA}
+    c1_jax = {c: [_jax_demo_seed(c1_jax_file(c, s, out)) for s in C1_JAX_SEEDS] for c in CURRICULA}
+    c2_port = {c: [_port_demo_seed(c2_port_dir(c, s)) for s in C2_PORT_SEEDS] for c in CURRICULA}
+    return c1_port, c1_jax, c2_port, {c: _load(d, DEMO_FILE) for c, d in C2_RECORDS.items()}
+
+
 def _continuous() -> dict:
     """Each continuous-curriculum run beside its JAX record, where the run
     exists: the AUC and detection rate of every arm."""
@@ -136,11 +326,28 @@ def _continuous() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(OUT))
+    ap.add_argument("--jax-seeds", type=int, default=0, help="run this many JAX seeds of the demo's arm alone")
+    ap.add_argument("--first-jax-seed", type=int, default=1, help="the first JAX seed (0 is the record's key)")
+    ap.add_argument("--cycles", type=int, default=10, help="the JAX seeds' training cycles")
+    ap.add_argument("--seqs-per-d", type=int, default=64, help="the JAX seeds' sequences a class a cycle")
+    ap.add_argument("--continuous", default=None, metavar="LO,HI", help="the JAX seeds' continuous curriculum")
     args = ap.parse_args(argv)
+    if args.jax_seeds:
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        out = Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        curriculum = "continuous" if args.continuous else "discrete"
+        for k in range(args.first_jax_seed, args.first_jax_seed + args.jax_seeds):
+            seed = jax_demo_seed(k, args.cycles, args.continuous, args.seqs_per_d)
+            path = out / f"jax_cut{args.cycles}_{curriculum}_seed{k}.json"
+            path.write_text(json.dumps(seed, indent=1) + "\n")
+            print(f"{path}: roc_auc {seed['report']['roc_auc']} in {seed['seconds']:.0f}s", flush=True)
+        return 0
     verdict = judge([_load(d, MODULAR_FILE) for d in PORT_MODULAR], [_load(d, MODULAR_FILE) for d in JAX_MODULAR],
                     [_load(d, DEMO_FILE) | {"seed": s} for s, d in zip(PORT_SEEDS, PORT_DEMO)],
                     _load(DEMO_RECORD, DEMO_FILE), _load(DEMO_REPORTED, DEMO_FILE), _continuous())
     out = Path(args.out)
+    verdict = with_continuous_demo(verdict, judge_continuous_demo(*load_continuous_demo(out)))
     out.mkdir(parents=True, exist_ok=True)
     (out / "verdict.json").write_text(json.dumps(verdict, indent=1) + "\n")
     print(json.dumps({k: verdict[k] for k in ("held", "ok")}, indent=1))

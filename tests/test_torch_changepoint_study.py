@@ -460,3 +460,182 @@ def test_studies_on_the_card_judged_by_the_rule(outcome):
     verdict = outcome.judge(modular, jax_runs, demo, json.loads((outcome.DEMO_RECORD / outcome.DEMO_FILE).read_text()),
                             json.loads((outcome.DEMO_REPORTED / outcome.DEMO_FILE).read_text()), outcome._continuous())
     assert json.loads(json.dumps(verdict)) == json.loads((outcome.OUT / "verdict.json").read_text())
+
+
+# The demo's trainer witness: one cycle of the demo's arm (the relu member
+# of the deep-ResNet pair) through the port's Experiment, step by step
+# against JAX's train_step. Width and depth shrink alike on both sides
+# (SMALL); everything else is the demo's configuration.
+WITNESS_SEQS_PER_D = 8  # 32 sequences a cycle: 32 steps at the first cycles' batch of 1
+WITNESS_ARM, WITNESS_PAIR = "deepcnn_2layer_s", ("deepcnn_2layer_s", "deepcnn_2layer_leaky")
+CURRICULA = {"continuous": (0.1, 8.0), "discrete": None}
+
+
+def _flax_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", params=list(CURRICULA))
+def jax_demo_cycle(request):
+    """JAX's side of the demo's witness, per curriculum: the JAX package's
+    ``baseline.build(sequences=True, continuous_d=…)`` at the small width,
+    one cycle of its ``generate_fn`` (the curriculum's videos and tail-swapped
+    per-frame labels, real optics), the minibatches its ``train_cycle`` draws
+    (``permutation(split(key)[0], n)`` at the first cycle's batch of 1), the
+    arm's flax weights, its per-step losses and state after the cycle, and
+    how far JAX moves from itself when its videos move by one ulp."""
+    from moleculardiffusion_mivit_tpu.evaluation import validation as jvalidation
+    from moleculardiffusion_mivit_tpu.experiments import baseline as jbaseline
+    from moleculardiffusion_mivit_tpu.train import loop as jloop
+    from moleculardiffusion_mivit_tpu_torch.utils.convert import torch_state_from_flax
+
+    curriculum = request.param
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jbaseline, "ModelConfig", lambda **kw: JModelConfig(**kw).replace(**SMALL))
+    mp.setattr(jbaseline, "load_validation_trajectories", lambda length: jvalidation.generate_frozen_validation(
+        d_values=(1, 3, 5, 7), n_particles=2, t_steps=10 * length, in_order_particles=1))
+    try:
+        jexp = jbaseline.build(sequences=True, continuous_d=CURRICULA[curriculum],
+                               sequences_per_d=WITNESS_SEQS_PER_D)
+    finally:
+        mp.undo()
+    jcfg = jexp.train_cfg
+    data = jexp.generate_fn(jax.random.key(11))
+    videos, labels = np.asarray(data["videos"]), np.asarray(data["labels"])
+    n, batch = videos.shape[0], jcfg.batch_size_for_cycle(0)
+    steps = n // batch
+    jmodel = jexp.arms[WITNESS_ARM].model
+    impls = jloop.make_train_impls(jmodel, jcfg)
+    state0 = impls.init_state(jax.random.key(3), jnp.asarray(videos[:1]))
+    k_perm, k_drop = jax.random.split(jax.random.key(5))  # train_cycle's split of the arm's key
+    perm = np.asarray(jax.random.permutation(k_perm, n)[: steps * batch].reshape(steps, batch))
+    step = jax.jit(impls.train_step)
+    lr = jnp.float32(jcfg.lr_for_cycle(0))
+
+    def jax_cycle(v):
+        state = state0.replace(opt_state=jloop._set_lr(state0.opt_state, lr))
+        losses = []
+        for idx in perm:
+            state, loss = step(state, jnp.asarray(v), jnp.asarray(labels), None, jnp.asarray(idx), k_drop)
+            losses.append(float(loss))
+        adam = next(s for s in jax.tree.leaves(state.opt_state, is_leaf=lambda x: hasattr(x, "mu"))
+                    if hasattr(s, "mu"))
+        return np.array(losses), {"state": torch_state_from_flax(_flax_tree(state.params),
+                                                                 _flax_tree(state.batch_stats)),
+                                  "exp_avg": torch_state_from_flax(_flax_tree(adam.mu)),
+                                  "exp_avg_sq": torch_state_from_flax(_flax_tree(adam.nu))}
+
+    jax_losses, want = jax_cycle(videos)
+    spread_losses, spread = np.zeros(steps), {k: {name: 0.0 for name in v} for k, v in want.items()}
+    for direction in (np.inf, -np.inf):
+        ulp_losses, moved = jax_cycle(np.nextafter(videos, np.float32(direction)))
+        spread_losses = np.maximum(spread_losses, np.maximum.accumulate(np.abs(ulp_losses - jax_losses)))
+        for kind, ref in want.items():
+            for name, w in ref.items():
+                spread[kind][name] = max(spread[kind][name], float((moved[kind][name] - w).abs().max()))
+    start = torch_state_from_flax(_flax_tree(state0.params), _flax_tree(state0.batch_stats))
+    return dict(curriculum=curriculum, videos=videos, labels=labels, perm=perm, jcfg=jcfg, start=start,
+                losses=jax_losses, want=want, spread_losses=spread_losses, spread=spread)
+
+
+def _port_demo_cycle_misses(ref, monkeypatch, betas=(0.9, 0.999)):
+    """The port's side of the demo's witness: ``experiments.baseline.build``
+    as ``changepoint_study demo`` builds it (sequence mode, the curriculum,
+    ``fused_cycles`` and ``stack_pairs`` on) at the small width, kept to the
+    deep-ResNet relu/leaky pair, run one cycle eagerly on the CPU (K2/K3's
+    plain versions) through ``Experiment.run``: its ``generate_fn`` hands it
+    JAX's cycle data, ``epoch_permutation`` JAX's minibatches, and the relu
+    member starts from JAX's weights, AdamW with ``betas``. Returns the steps
+    whose loss misses and the tensors that miss, by the bounds of
+    ``test_demo_cycle_matches_jax_step_by_step``."""
+    from moleculardiffusion_mivit_tpu_torch import evaluation as tval
+    from moleculardiffusion_mivit_tpu_torch.config import ModelConfig
+    from moleculardiffusion_mivit_tpu_torch.experiments import base as tbase
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline as tbaseline
+
+    jcfg = ref["jcfg"]
+    monkeypatch.setattr(tbaseline, "ModelConfig", lambda **kw: ModelConfig(**kw).replace(**SMALL))
+    monkeypatch.setattr(tbaseline, "load_validation_trajectories", lambda length, device: tval.generate_frozen_validation(
+        d_values=(1, 3, 5, 7), n_particles=2, t_steps=10 * length, in_order_particles=1, device=device))
+    exp = tbaseline.build(sequences=True, continuous_d=CURRICULA[ref["curriculum"]],
+                          sequences_per_d=WITNESS_SEQS_PER_D, device="cpu")
+    cfg = exp.train_cfg
+    assert (cfg.lr, cfg.weight_decay, cfg.loss, cfg.d_max_normalization, cfg.sequence_mode, cfg.mix_trajectories,
+            cfg.batch_size_for_cycle(0)) == (jcfg.lr, jcfg.weight_decay, jcfg.loss, jcfg.d_max_normalization,
+                                             jcfg.sequence_mode, jcfg.mix_trajectories, jcfg.batch_size_for_cycle(0))
+    exp.arms = {name: exp.arms[name] for name in WITNESS_PAIR}
+    tv, tl = torch.from_numpy(ref["videos"]), torch.from_numpy(ref["labels"])
+    exp.generate_fn = lambda generator, part=None: {"videos": tv.clone(), "labels": tl.clone()}
+    perm = torch.from_numpy(ref["perm"].copy())
+    monkeypatch.setattr(tbase, "epoch_permutation", lambda generator, n, batch_size, device: perm.clone())
+    exp.build()
+    assert exp.fused_cycles and [g for g, _ in exp._stack_groups] == [list(WITNESS_PAIR)]
+    model = exp.arms[WITNESS_ARM].model
+    model.load_state_dict(ref["start"])
+    optimizer = exp.states[WITNESS_ARM].optimizer
+    for group in optimizer.param_groups:
+        group["betas"] = betas
+    exp.run(num_cycles=1)
+    (unit,) = exp.engine.units.values()
+    assert unit.names == WITNESS_PAIR  # the pair stepped as one unit
+    port_losses = unit.losses[0].numpy().astype(np.float64)
+    jax_losses = ref["losses"]
+    loss_misses = np.flatnonzero(np.abs(port_losses - jax_losses) > 1e-5 * jax_losses + 3 * ref["spread_losses"])
+
+    got = {"state": model.state_dict(),
+           **{k: {name: optimizer.state[p][k] for name, p in model.named_parameters()}
+              for k in ("exp_avg", "exp_avg_sq")}}
+    off = {}
+    for kind, want in ref["want"].items():
+        for name, w in want.items():
+            diff = float((got[kind][name] - w).abs().max())
+            if diff > 1e-4 * float(w.abs().max()) + 3 * ref["spread"][kind][name]:
+                off[f"{kind}:{name}"] = (diff, ref["spread"][kind][name])
+    return loss_misses.tolist(), off
+
+
+def test_demo_cycle_matches_jax_step_by_step(jax_demo_cycle, monkeypatch):
+    """One whole cycle of the change-point demo's arm (``deepcnn_2layer_s``:
+    GeneralTransformer, deep-ResNet embedding through K2/K3's plain versions,
+    relu, sequence mode, per-frame MSE) trained by the port's ``Experiment``
+    as ``changepoint_study demo`` trains it (the relu member of the stacked
+    deep-ResNet pair, the fused cycle, eager on the CPU), against the JAX
+    package's ``train_step`` called once per step through the same
+    minibatches in the same order, from the same flax weights (converted by
+    ``utils.convert``), on the same cycle of the curriculum's data (JAX's
+    ``generate_fn``: videos with the curriculum's tail swaps and their
+    per-frame labels; ``test_continuous_data_matches_jax_given_its_draws``
+    holds the port's ``generate_fn`` against it). 32 steps at the first
+    cycles' batch of 1 and learning rate 1e-4. Parametrised over the
+    continuous curriculum (``--continuous 0.1,8``) and the discrete control.
+
+    Held (F7's bounds): each step's loss at 1e-5 relative, and after the
+    cycle every parameter, AdamW moment and BatchNorm statistic at 1e-4 of
+    its tensor's largest entry, each widened by 3 × JAX's own distance from
+    itself when its videos move by one ulp up or down (the larger of the
+    two; the running maximum over steps for the losses). Measured in f32:
+    MEASURED."""
+    loss_misses, off = _port_demo_cycle_misses(jax_demo_cycle, monkeypatch)
+    assert not loss_misses, loss_misses
+    assert not off, off
+
+
+@pytest.mark.parametrize("mutation", ["bn_momentum_0.91", "adamw_beta2_0.998"])
+def test_demo_witness_fails_on_a_mutated_trainer(jax_demo_cycle, monkeypatch, mutation):
+    """The demo's witness has the power to see a trainer that differs: with
+    the running statistics' momentum at 0.91 in place of flax's 0.9, or
+    AdamW's second-moment decay at 0.998 in place of optax's 0.999, the
+    port's cycle misses JAX's by the witness's own bounds, on either
+    curriculum."""
+    from moleculardiffusion_mivit_tpu_torch.models import embeddings
+
+    betas = (0.9, 0.999)
+    if mutation.startswith("bn_momentum"):
+        monkeypatch.setattr(embeddings, "BN_MOMENTUM", 0.91)
+    else:
+        betas = (0.9, 0.998)
+    loss_misses, off = _port_demo_cycle_misses(jax_demo_cycle, monkeypatch, betas)
+    if mutation.startswith("bn_momentum"):
+        assert any(k.startswith("state:") and "running_" in k for k in off), off
+    else:
+        assert any(k.startswith("exp_avg_sq:") for k in off), off
