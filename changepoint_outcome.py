@@ -30,9 +30,10 @@ records, by the rules in the docstring of
   3·sd_P·sqrt(1 + 1/n_P)) of the port's mean.
 - Reported, not held: false-positive rates, median split errors, the
   rates by |ΔD| with their intervals, the demo's detection rate and
-  ``results/changepoint_demo``, the continuous-curriculum runs
-  (``results/torch_changepoint_{modular,demo}_continuous_seed0``, ``--continuous
-  0.1,8``) beside ``results/changepoint_modular_continuous`` and
+  ``results/changepoint_demo``, the single continuous-curriculum runs
+  (``results/torch_changepoint_modular_continuous_seed0`` and the demo's
+  earlier seed 0, ``results/torch_changepoint_demo_continuous_seed0_earlier_streams``,
+  ``--continuous 0.1,8``) beside ``results/changepoint_modular_continuous`` and
   ``results/changepoint_continuous``, and per C1/C2 seed the detection
   rate, the mean scores and ``const_frame_sd``.
 
@@ -40,13 +41,13 @@ It reads only the JSON reports. Writes
 ``results/changepoint_outcome/verdict.json`` and exits 1 when a held rule
 misses.
 
-``--jax-seeds N [--first-jax-seed K] [--cycles 10] [--seqs-per-d 64]
-[--continuous 0.1,8]`` makes JAX's C1 seeds instead: for each seed k = K …
-K + N − 1, ``examples/sequence_changepoint_demo.py`` under JAX on the CPU
-with ``deepcnn_2layer_s`` the experiment's only arm, built with seed k
-(``jax_demo_seed``), written to
-``jax_cut{cycles}_{continuous,discrete}_seed{k}.json`` with its seconds.
-Run each seed in its own process to run them side by side.
+``--jax-seeds N [--first-jax-seed K] [--cycles 10] [--continuous 0.1,8]``
+makes JAX's C1 seeds instead, by ``changepoint_jax_seeds.py`` in a process
+of its own (this script imports no JAX): for each seed k = K … K + N − 1,
+``examples/sequence_changepoint_demo.py`` under JAX on the CPU with
+``deepcnn_2layer_s`` the experiment's only arm, built with seed k, written
+to ``jax_cut{cycles}_{continuous,discrete}_seed{k}.json`` with its
+seconds. Run each seed in its own process to run them side by side.
 
 Usage: ``python3 changepoint_outcome.py [--out results/changepoint_outcome]
 [--jax-seeds N --first-jax-seed K --cycles C [--continuous LO,HI]]``.
@@ -55,12 +56,9 @@ Usage: ``python3 changepoint_outcome.py [--out results/changepoint_outcome]
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
-import os
+import subprocess
 import sys
-import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
@@ -75,15 +73,15 @@ PORT_MODULAR = [RESULTS / f"torch_changepoint_modular_seed{s}" for s in PORT_SEE
 PORT_DEMO = [RESULTS / f"torch_changepoint_demo_seed{s}" for s in PORT_SEEDS]
 DEMO_RECORD = RESULTS / "changepoint_scaled"  # JAX, 150 cycles × 256 a class, one draw
 DEMO_REPORTED = RESULTS / "changepoint_demo"  # JAX, 100 cycles × 64 a class
-CONTINUOUS = {  # port run → JAX record, reported
+CONTINUOUS = {  # port run → JAX record, reported (the demo's from the streams before the re-keying of the
+    # continuous curriculum's render; C2 re-ran its seed 0)
     "modular": (RESULTS / "torch_changepoint_modular_continuous_seed0", RESULTS / "changepoint_modular_continuous"),
-    "demo": (RESULTS / "torch_changepoint_demo_continuous_seed0", RESULTS / "changepoint_continuous"),
+    "demo": (RESULTS / "torch_changepoint_demo_continuous_seed0_earlier_streams", RESULTS / "changepoint_continuous"),
 }
 ARMS = ("mod_images", "mod_both_concat", "mod_hybrid")
 MIN_LIMIT = {"roc_auc": 0.02, "detection_rate": 0.05}
 DEMO_MIN_LIMIT = 0.03
 MODULAR_FILE, DEMO_FILE = "changepoint_modular.json", "changepoint_metrics.json"
-DEMO_MODEL = "deepcnn_2layer_s"
 # the continuous-curriculum demo against the JAX package (C1 at the cut, C2 at the records' protocol)
 CURRICULA = ("continuous", "discrete")
 CUT_CYCLES = 10
@@ -102,86 +100,6 @@ def c2_port_dir(curriculum: str, seed: int) -> Path:
 
 def c1_jax_file(curriculum: str, seed: int, out: Path = OUT) -> Path:
     return out / f"jax_cut{CUT_CYCLES}_{curriculum}_seed{seed}.json"
-
-
-def _demo_example():
-    spec = importlib.util.spec_from_file_location("changepoint_demo_example",
-                                                  ROOT / "examples" / "sequence_changepoint_demo.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def const_frame_sd(preds) -> float:
-    """The mean over constant-D sequences of the sd (ddof 1) of each one's
-    per-frame predictions ``(N, F)``, in D units."""
-    p = np.asarray(preds, dtype=np.float64).reshape(len(preds), -1)
-    return float(p.std(axis=1, ddof=1).mean())
-
-
-def jax_demo_seed(k: int, cycles: int, continuous: str | None, seqs_per_d: int = 64) -> dict:
-    """``examples/sequence_changepoint_demo.py`` under JAX with its model
-    (``deepcnn_2layer_s``) the experiment's only arm, at seed ``k``: the
-    baseline experiment built with ``seed=k`` and ``exp.build(key(k))`` (k =
-    0 gives the example's keys), then the example's own ``main`` (its
-    ``--cycles``, ``--seqs-per-d``, ``--continuous``, its training loop and
-    its evaluation: key 777, 64 a class) on that experiment. Returns the
-    example's report with the seed, the seconds (build, training, all),
-    each validation's time, and ``const_frame_sd`` of its predictions on
-    the constant-D controls."""
-    import jax
-
-    import moleculardiffusion_mivit_tpu.experiments as jexperiments
-    from moleculardiffusion_mivit_tpu.experiments import baseline
-
-    ex = _demo_example()
-    t0 = time.perf_counter()
-    d_range = tuple(float(x) for x in continuous.split(",")) if continuous else None
-    exp = baseline.build(seed=k, sequences=True, continuous_d=d_range, sequences_per_d=seqs_per_d)
-    exp.arms = {DEMO_MODEL: exp.arms[DEMO_MODEL]}
-    exp.build(jax.random.key(k))
-    built_s = time.perf_counter() - t0
-    exp.build = lambda key=None: None
-    marks, preds = [], []
-    run, predict = exp.run, exp.predict
-
-    def timed_run(*a, callback=None, **kw):
-        def mark(c, avgs):
-            marks.append({"cycle": c, "t": time.perf_counter() - t0, "val_avg": avgs})
-            if callback:
-                callback(c, avgs)
-
-        t_run = time.perf_counter()
-        out = run(*a, callback=mark, **kw)
-        marks.append({"train_s": time.perf_counter() - t_run})
-        return out
-
-    def recording(name, data):
-        out = predict(name, data)
-        preds.append(np.asarray(out)[..., 0])
-        return out
-
-    exp.run, exp.predict = timed_run, recording
-
-    def get_experiment(name, **kw):
-        assert name == "baseline" and kw == dict(sequences=True, continuous_d=d_range, sequences_per_d=seqs_per_d), kw
-        return exp
-
-    argv = ["sequence_changepoint_demo.py", "--cycles", str(cycles), "--seqs-per-d", str(seqs_per_d)]
-    argv += ["--continuous", continuous] if continuous else []
-    saved = jexperiments.get_experiment, sys.argv
-    with tempfile.TemporaryDirectory() as tmp:
-        jexperiments.get_experiment, sys.argv = get_experiment, argv + ["--out", tmp]
-        try:
-            ex.main()
-        finally:
-            jexperiments.get_experiment, sys.argv = saved
-        report = json.loads((Path(tmp) / DEMO_FILE).read_text())
-    # the example predicts the planted set, then its controls, then the calibration split
-    return {"report": report, "seed": k, "const_frame_sd": const_frame_sd(preds[1]), "built_s": built_s,
-            "train_s": marks[-1]["train_s"], "validations": marks[:-1], "seconds": time.perf_counter() - t0,
-            "command": " ".join(["python3 changepoint_outcome.py --jax-seeds 1 --first-jax-seed", str(k),
-                                 "--cycles", str(cycles)] + (["--continuous", continuous] if continuous else []))}
 
 
 def _load(d: Path, name: str) -> dict:
@@ -328,21 +246,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(OUT))
     ap.add_argument("--jax-seeds", type=int, default=0, help="run this many JAX seeds of the demo's arm alone")
     ap.add_argument("--first-jax-seed", type=int, default=1, help="the first JAX seed (0 is the record's key)")
-    ap.add_argument("--cycles", type=int, default=10, help="the JAX seeds' training cycles")
-    ap.add_argument("--seqs-per-d", type=int, default=64, help="the JAX seeds' sequences a class a cycle")
+    ap.add_argument("--cycles", type=int, default=CUT_CYCLES, help="the JAX seeds' training cycles")
     ap.add_argument("--continuous", default=None, metavar="LO,HI", help="the JAX seeds' continuous curriculum")
     args = ap.parse_args(argv)
-    if args.jax_seeds:
-        os.environ.setdefault("JAX_PLATFORMS", "cpu")
-        out = Path(args.out)
-        out.mkdir(parents=True, exist_ok=True)
-        curriculum = "continuous" if args.continuous else "discrete"
-        for k in range(args.first_jax_seed, args.first_jax_seed + args.jax_seeds):
-            seed = jax_demo_seed(k, args.cycles, args.continuous, args.seqs_per_d)
-            path = out / f"jax_cut{args.cycles}_{curriculum}_seed{k}.json"
-            path.write_text(json.dumps(seed, indent=1) + "\n")
-            print(f"{path}: roc_auc {seed['report']['roc_auc']} in {seed['seconds']:.0f}s", flush=True)
-        return 0
+    if args.jax_seeds:  # in a process of its own: this script imports no JAX
+        return subprocess.call([sys.executable, str(ROOT / "changepoint_jax_seeds.py"),
+                                *(sys.argv[1:] if argv is None else argv)])
     verdict = judge([_load(d, MODULAR_FILE) for d in PORT_MODULAR], [_load(d, MODULAR_FILE) for d in JAX_MODULAR],
                     [_load(d, DEMO_FILE) | {"seed": s} for s, d in zip(PORT_SEEDS, PORT_DEMO)],
                     _load(DEMO_RECORD, DEMO_FILE), _load(DEMO_REPORTED, DEMO_FILE), _continuous())
