@@ -102,14 +102,14 @@ JAX's side trains that arm alone: one fair draw of its distribution a seed.
   training, its compile included, and 328 s in all
   (``results/changepoint_outcome/jax_cost_single_cyc.json``), so a seed of ten
   cycles takes at most ~50 min and the eight ~2 h; the port's sixteen
-  ~15 chip-minutes. Held, per curriculum: the AUC when |mean P − mean J| ≤
+  ~15 min on one H100. Held, per curriculum: the AUC when |mean P − mean J| ≤
   max(0.03, 3·sqrt(sd_P²/n_P + sd_J²/n_J)), n_P = 8, n_J = 4. Held: the
   sign of (discrete − continuous) of the mean AUC is the same on both
   sides.
 - C2, at the records' protocol, the port alone: ``demo --cycles 100
   --seqs-per-d 64 --seed S [--continuous 0.1,8] --out
   results/torch_changepoint_demo_{discrete,continuous}_seedS``, S = 0…3
-  (~342 s a run on the H100: ~46 chip-minutes for the eight). Continuous
+  (~342 s a run on the H100: ~46 min on one H100 for the eight). Continuous
   seed 0 (AUC 0.873) runs again with the same command, so that its report
   carries the field below; a rerun that differs is reported beside it.
   Held: ``results/changepoint_continuous`` (JAX, 0.767) within max(0.03,
