@@ -35,30 +35,28 @@ records, by the rules in the docstring of
   earlier seed 0, ``results/torch_changepoint_demo_continuous_seed0_earlier_streams``,
   ``--continuous 0.1,8``) beside ``results/changepoint_modular_continuous`` and
   ``results/changepoint_continuous``, and per C1/C2 seed the detection
-  rate, the mean scores and ``const_frame_sd``.
+  rate, the mean scores and ``const_frame_sd``; and, where they exist, the
+  port's C1 seeds re-run and scored on JAX's own evaluation set as well
+  (``results/changepoint_outcome/shared_eval``, by
+  ``changepoint_shared_eval.py``) beside JAX's seeds on that set.
 
 It reads only the JSON reports. Writes
 ``results/changepoint_outcome/verdict.json`` and exits 1 when a held rule
 misses.
 
-``--jax-seeds N [--first-jax-seed K] [--cycles 10] [--continuous 0.1,8]``
-makes JAX's C1 seeds instead, by ``changepoint_jax_seeds.py`` in a process
-of its own (this script imports no JAX): for each seed k = K … K + N − 1,
-``examples/sequence_changepoint_demo.py`` under JAX on the CPU with
-``deepcnn_2layer_s`` the experiment's only arm, built with seed k, written
-to ``jax_cut{cycles}_{continuous,discrete}_seed{k}.json`` with its
-seconds. Run each seed in its own process to run them side by side.
+JAX's C1 seeds are made by ``changepoint_jax_seeds.py`` (``python3
+changepoint_jax_seeds.py --jax-seeds 1 --first-jax-seed K --cycles 10
+[--continuous 0.1,8]``, one process a seed), not here: this script imports
+no JAX.
 
-Usage: ``python3 changepoint_outcome.py [--out results/changepoint_outcome]
-[--jax-seeds N --first-jax-seed K --cycles C [--continuous LO,HI]]``.
+Usage: ``python3 changepoint_outcome.py [--out results/changepoint_outcome]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -100,6 +98,21 @@ def c2_port_dir(curriculum: str, seed: int) -> Path:
 
 def c1_jax_file(curriculum: str, seed: int, out: Path = OUT) -> Path:
     return out / f"jax_cut{CUT_CYCLES}_{curriculum}_seed{seed}.json"
+
+
+def eval_set_digest(arrays: dict) -> str:
+    """SHA-256 over an evaluation set's arrays in key order (name, dtype,
+    shape and bytes): the same set on both sides of C1."""
+    h = hashlib.sha256()
+    for name in sorted(arrays):
+        a = np.ascontiguousarray(arrays[name])
+        h.update(f"{name}:{a.dtype.str}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def shared_eval_file(curriculum: str, seed: int, out: Path = OUT) -> Path:
+    return out / "shared_eval" / f"port_cut{CUT_CYCLES}_{curriculum}_seed{seed}.json"
 
 
 def _load(d: Path, name: str) -> dict:
@@ -195,6 +208,53 @@ def judge_continuous_demo(c1_port: dict, c1_jax: dict, c2_port: dict, c2_records
     return out
 
 
+def judge_shared_eval(shared: dict, c1_jax: dict, c1_port: dict) -> dict:
+    """Reported, not held: the port's C1 seeds re-run and scored on JAX's
+    own evaluation set (``changepoint_shared_eval.py``) beside JAX's seeds,
+    which scored that set. ``shared`` maps a curriculum to those runs'
+    dicts, ``c1_jax`` and ``c1_port`` as for ``judge_continuous_demo``. Per
+    curriculum: each side's statistics, the AUC's distance on the one set
+    with C1's limit on it, and each re-run's own-set AUC beside the
+    committed C1 run of its seed; the sign of (discrete − continuous) on
+    the one set."""
+    out = {}
+    for curr in CURRICULA:
+        runs, jax = shared[curr], c1_jax[curr]
+        cell = {}
+        for k in ("roc_auc", "detection_rate", "mean_score_mixed", "mean_score_const"):
+            cell[k] = {"port_own_set": _stats([r["own_set"][k] for r in runs]),
+                       "port_jax_set": _stats([r["jax_set"][k] for r in runs]), "jax": _stats([r[k] for r in jax])}
+        cell["const_frame_sd"] = {"port_own_set": _stats([r["own_set_const_frame_sd"] for r in runs]),
+                                  "port_jax_set": _stats([r["jax_set_const_frame_sd"] for r in runs]),
+                                  "jax": _stats([r["const_frame_sd"] for r in jax])}
+        p, j = cell["roc_auc"]["port_jax_set"], cell["roc_auc"]["jax"]
+        limit = max(DEMO_MIN_LIMIT, 3 * np.sqrt(p["sd"] ** 2 / len(runs) + j["sd"] ** 2 / len(jax)))
+        cell["roc_auc"].update(delta=float(abs(p["mean"] - j["mean"])), limit=float(limit),
+                               within=bool(abs(p["mean"] - j["mean"]) <= limit))
+        c1 = {r["seed"]: r["roc_auc"] for r in c1_port[curr]}
+        cell["per_seed"] = [{"seed": r["seed"], "c1_run": c1.get(r["seed"]), "own_set": r["own_set"]["roc_auc"],
+                             "jax_set": r["jax_set"]["roc_auc"]} for r in runs]
+        cell["own_set_repeats_c1"] = sum(s["own_set"] == s["c1_run"] for s in cell["per_seed"])
+        out[curr] = cell
+    gap = {side: out["discrete"]["roc_auc"][side]["mean"] - out["continuous"]["roc_auc"][side]["mean"]
+           for side in ("port_own_set", "port_jax_set", "jax")}
+    digests = {r["jax_set_sha256"] for c in CURRICULA for r in shared[c]}
+    digests |= {r.get("eval_set_sha256") for c in CURRICULA for r in c1_jax[c]}
+    out.update(discrete_minus_continuous=gap, same_sign_on_jax_set=bool(np.sign(gap["port_jax_set"]) ==
+                                                                        np.sign(gap["jax"])),
+               one_set=len(digests) == 1, cards=sorted({r["card"] for c in CURRICULA for r in shared[c]}))
+    return out
+
+
+def load_shared_eval(out: Path = OUT) -> dict | None:
+    """The shared-evaluation runs of every C1 port seed, or None if any is
+    missing."""
+    files = {c: [shared_eval_file(c, s, out) for s in C1_PORT_SEEDS] for c in CURRICULA}
+    if not all(f.exists() for fs in files.values() for f in fs):
+        return None
+    return {c: [json.loads(f.read_text()) for f in fs] for c, fs in files.items()}
+
+
 def with_continuous_demo(verdict: dict, continuous_demo: dict) -> dict:
     """``judge``'s verdict with the C1/C2 verdict under ``continuous_demo``
     and its held rules among the others (``demo_``-prefixed)."""
@@ -212,7 +272,7 @@ def _port_demo_seed(d: Path) -> dict:
 def _jax_demo_seed(path: Path) -> dict:
     full = json.loads(path.read_text())
     return {**full["report"], "seed": full["seed"], "const_frame_sd": full["const_frame_sd"],
-            "seconds": full["seconds"]}
+            "eval_set_sha256": full.get("eval_set_sha256"), "seconds": full["seconds"]}
 
 
 def load_continuous_demo(out: Path = OUT) -> tuple:
@@ -244,19 +304,17 @@ def _continuous() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(OUT))
-    ap.add_argument("--jax-seeds", type=int, default=0, help="run this many JAX seeds of the demo's arm alone")
-    ap.add_argument("--first-jax-seed", type=int, default=1, help="the first JAX seed (0 is the record's key)")
-    ap.add_argument("--cycles", type=int, default=CUT_CYCLES, help="the JAX seeds' training cycles")
-    ap.add_argument("--continuous", default=None, metavar="LO,HI", help="the JAX seeds' continuous curriculum")
     args = ap.parse_args(argv)
-    if args.jax_seeds:  # in a process of its own: this script imports no JAX
-        return subprocess.call([sys.executable, str(ROOT / "changepoint_jax_seeds.py"),
-                                *(sys.argv[1:] if argv is None else argv)])
     verdict = judge([_load(d, MODULAR_FILE) for d in PORT_MODULAR], [_load(d, MODULAR_FILE) for d in JAX_MODULAR],
                     [_load(d, DEMO_FILE) | {"seed": s} for s, d in zip(PORT_SEEDS, PORT_DEMO)],
                     _load(DEMO_RECORD, DEMO_FILE), _load(DEMO_REPORTED, DEMO_FILE), _continuous())
     out = Path(args.out)
-    verdict = with_continuous_demo(verdict, judge_continuous_demo(*load_continuous_demo(out)))
+    runs = load_continuous_demo(out)
+    continuous_demo = judge_continuous_demo(*runs)
+    shared = load_shared_eval(out)
+    if shared is not None:
+        continuous_demo["shared_eval"] = judge_shared_eval(shared, runs[1], runs[0])
+    verdict = with_continuous_demo(verdict, continuous_demo)
     out.mkdir(parents=True, exist_ok=True)
     (out / "verdict.json").write_text(json.dumps(verdict, indent=1) + "\n")
     print(json.dumps({k: verdict[k] for k in ("held", "ok")}, indent=1))

@@ -400,6 +400,40 @@ def test_demo_subcommand_runs_tiny_on_the_cpu(monkeypatch, tmp_path):
     assert set(out["val_avg"]) == {"linear_2layer_s", "cnn_2layer_s", "deepcnn_2layer_s", "resnet"}
 
 
+def test_shared_eval_scores_a_given_set_as_the_demo_scores_its_own(monkeypatch):
+    """``changepoint_shared_eval.shared_seed`` on the CPU, cut as the test
+    above: one C1-style demo run, then the given set scored through
+    ``score_on``. Handed the demo's own planted set (8 a class from the
+    stream 777, built as ``run_demo`` builds it), it reads the demo's own
+    report and ``const_frame_sd`` exactly, so the scores it gives on JAX's
+    set differ from the port's own only by the set."""
+    import functools
+
+    from moleculardiffusion_mivit_tpu_torch import evaluation as tval
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline
+    from moleculardiffusion_mivit_tpu_torch.train.loop import generate_cycle_data, mix_trajectory_tails
+    from moleculardiffusion_mivit_tpu_torch.utils.rng import fold_in, seeded_generator
+
+    monkeypatch.setattr(baseline, "load_validation_trajectories", lambda length, device: tval.generate_frozen_validation(
+        d_values=(1, 3, 5, 7), n_particles=2, t_steps=10 * length, in_order_particles=1, device=device))
+    monkeypatch.setattr(baseline, "build", functools.partial(baseline.build, try_leaky_relu=False))
+    monkeypatch.setattr(study, "DEMO_EVAL_PER_CLASS", 8)
+    exp = baseline.build(sequences=True, sequences_per_d=2, device="cpu")
+    cfg = exp.train_cfg.replace(sequences_per_d=8)
+    g = seeded_generator(exp.device, study.EVAL_STREAM)
+    videos, labels = generate_cycle_data(fold_in(g, 0), cfg, exp.optics)
+    mixed, mixed_labels = mix_trajectory_tails(fold_in(g, 1), videos, labels, len(cfg.training_ds), cfg.n_frames)
+    cal_videos, cal_labels = generate_cycle_data(fold_in(g, 2), cfg, exp.optics)
+    own_set = {f"{name}_{k}": t.numpy() for name, pair in (("mixed", (mixed, mixed_labels)), ("const", (videos, labels)),
+                                                            ("cal", (cal_videos, cal_labels)))
+               for k, t in zip(("videos", "labels"), pair)}
+    shared = _load(ROOT / "changepoint_shared_eval.py", "changepoint_shared_eval")
+    r = shared.shared_seed("discrete", 0, own_set, "cpu", cycles=1, seqs_per_d=2)
+    assert r["jax_set"] == {k: r["own_set"][k] for k in tcp.DEMO_FIELDS} and r["own_set"]["n_controls"] == 32
+    assert r["jax_set_const_frame_sd"] == r["own_set_const_frame_sd"]
+    assert r["command"] == "python3 changepoint_shared_eval.py --seeds 0 --device cpu"
+
+
 def test_study_needs_a_card_or_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cmd in ("demo", "modular"):
@@ -471,6 +505,22 @@ def test_outcome_rule_holds_and_misses_on_synthetic_reports(outcome):
                                                                "c2_continuous_roc_auc"]
     assert missed["c1"]["discrete_minus_continuous"]["port"] < 0 < missed["c1"]["discrete_minus_continuous"]["jax"]
 
+    # reported, not held: the port's C1 seeds re-run and scored on JAX's evaluation set
+    def shared(own, on_jax, digest="d"):
+        return [{"seed": r["seed"], "card": "H100", "own_set": r, "own_set_const_frame_sd": 0.2,
+                 "jax_set": dict(r, roc_auc=a), "jax_set_const_frame_sd": 0.25, "jax_set_sha256": digest}
+                for r, a in zip(own, on_jax)]
+
+    c1_jax_set = {c: [dict(r, eval_set_sha256="d") for r in runs] for c, runs in c1_jax.items()}
+    rerun = {c: shared(c1_port[c], [r["roc_auc"] + 0.01 for r in c1_jax[c] * 2]) for c in outcome.CURRICULA}
+    report = outcome.judge_shared_eval(rerun, c1_jax_set, c1_port)
+    assert report["one_set"] and report["same_sign_on_jax_set"] and report["continuous"]["roc_auc"]["within"]
+    assert report["continuous"]["own_set_repeats_c1"] == 8 and report["cards"] == ["H100"]
+    flipped = {"continuous": shared(c1_port["continuous"], [0.80] * 8, "e"), "discrete": rerun["discrete"]}
+    report = outcome.judge_shared_eval(flipped, c1_jax_set, c1_port)
+    assert not (report["one_set"] or report["same_sign_on_jax_set"] or report["continuous"]["roc_auc"]["within"])
+    assert report["discrete"]["roc_auc"]["within"]
+
 
 def test_jax_single_arm_seed_runs_one_tiny_cycle(monkeypatch):
     """``changepoint_jax_seeds.jax_demo_seed``, the JAX side of the C1 seeds,
@@ -480,8 +530,11 @@ def test_jax_single_arm_seed_runs_one_tiny_cycle(monkeypatch):
     experiment's only arm, built at seed 3, on the continuous curriculum,
     then the example's own evaluation (64 a class from key 777: 128 planted
     transitions against 256 controls). The report has the example's keys
-    in its order, and the seed file the seed, the seconds and
-    ``const_frame_sd``."""
+    in its order, and the seed file the seed, the seconds,
+    ``const_frame_sd`` of the controls' predictions (the second of the
+    example's three, recorded only after ``run`` returns, whose last cycle
+    predicts the validation set through the same method) and the
+    evaluation set's digest, the same as the committed seeds'."""
     from moleculardiffusion_mivit_tpu.evaluation import validation as jvalidation
     from moleculardiffusion_mivit_tpu.experiments import baseline as jbaseline
 
@@ -496,7 +549,15 @@ def test_jax_single_arm_seed_runs_one_tiny_cycle(monkeypatch):
     assert report["model"] == "deepcnn_2layer_s" and report["curriculum"] == "continuous U(0.1, 8.0)"
     assert seed["seed"] == 3 and 0 < seed["train_s"] < seed["seconds"] and np.isfinite(seed["const_frame_sd"])
     assert [v["cycle"] for v in seed["validations"]] == [0]
-    assert seed["command"].endswith("--first-jax-seed 3 --cycles 1 --continuous 0.1,8")
+    assert seed["command"] == "python3 changepoint_jax_seeds.py --jax-seeds 1 --first-jax-seed 3 --cycles 1 --continuous 0.1,8"
+    # only the example's three predictions, not the validation run() makes at its last cycle
+    preds, eval_set = seed["arrays"]["preds"], seed["arrays"]["eval_set"]
+    assert list(preds) == ["mixed", "const", "cal"] and all(p.shape == (256, 30) for p in preds.values())
+    assert seed["const_frame_sd"] == seeds.const_frame_sd(preds["const"])
+    assert seed["const_frame_sd"] != seeds.const_frame_sd(preds["mixed"])
+    assert eval_set["mixed_videos"].shape == eval_set["const_videos"].shape == (256, 30, 9, 9)
+    committed = json.loads((ROOT / "results" / "changepoint_outcome" / "jax_cut10_discrete_seed1.json").read_text())
+    assert seed["eval_set_sha256"] == committed["eval_set_sha256"]  # the set does not depend on the training
 
 
 def test_studies_on_the_card_judged_by_the_rule(outcome):
@@ -506,8 +567,12 @@ def test_studies_on_the_card_judged_by_the_rule(outcome):
     continuous-curriculum demo's C1 (eight card seeds a curriculum at 10
     cycles × 64 against four JAX seeds a curriculum, keys 1-4, made on the
     CPU) and C2 (four card seeds a curriculum at 100 cycles × 64 against
-    the two JAX records), each run at its rule's protocol, judged again
-    here, give the committed ``results/changepoint_outcome/verdict.json``."""
+    the two JAX records), each run at its rule's protocol, and the C1 seeds
+    re-run on the card and scored on JAX's evaluation set too (one set,
+    by its digest), judged again here, give the committed
+    ``results/changepoint_outcome/verdict.json``. Each JAX seed file names
+    the wrapper's command and its ``const_frame_sd`` is that of the
+    controls' predictions saved beside it."""
     modular = [json.loads((d / outcome.MODULAR_FILE).read_text()) for d in outcome.PORT_MODULAR]
     demo = [json.loads((d / outcome.DEMO_FILE).read_text()) | {"seed": s}
             for s, d in zip(outcome.PORT_SEEDS, outcome.PORT_DEMO)]
@@ -530,7 +595,25 @@ def test_studies_on_the_card_judged_by_the_rule(outcome):
             assert all((r["cycles"], r["seqs_per_d"], r["n_mixed"], r["n_controls"], r["curriculum"])
                        == (cycles, 64, 128, 256, label) and r["seconds"] > 0 for r in runs[curr])
         assert all(r["card"].startswith("NVIDIA H100") for r in c1_port[curr] + c2_port[curr])
-    verdict = outcome.with_continuous_demo(verdict, outcome.judge_continuous_demo(c1_port, c1_jax, c2_port, records))
+    seeds = _load(ROOT / "changepoint_jax_seeds.py", "changepoint_jax_seeds")
+    for curr in outcome.CURRICULA:
+        for r in c1_jax[curr]:
+            path = outcome.c1_jax_file(curr, r["seed"])
+            command = json.loads(path.read_text())["command"]
+            assert command.startswith(f"python3 changepoint_jax_seeds.py --jax-seeds 1 --first-jax-seed {r['seed']} ")
+            with np.load(str(path).replace(".json", "_preds.npz")) as preds:
+                assert sorted(preds) == sorted(seeds.PRED_SETS) and all(preds[k].shape == (256, 30) for k in preds)
+                assert r["const_frame_sd"] == seeds.const_frame_sd(preds["const"])
+    continuous_demo = outcome.judge_continuous_demo(c1_port, c1_jax, c2_port, records)
+    shared = outcome.load_shared_eval()
+    assert shared is not None
+    for curr in outcome.CURRICULA:
+        assert [r["seed"] for r in shared[curr]] == list(outcome.C1_PORT_SEEDS)
+        assert all(r["own_set"]["cycles"] == 10 and r["jax_set"]["n_controls"] == 256 for r in shared[curr])
+    continuous_demo["shared_eval"] = outcome.judge_shared_eval(shared, c1_jax, c1_port)
+    assert continuous_demo["shared_eval"]["one_set"]
+    assert all(card.startswith("NVIDIA H100") for card in continuous_demo["shared_eval"]["cards"])
+    verdict = outcome.with_continuous_demo(verdict, continuous_demo)
     assert json.loads(json.dumps(verdict)) == json.loads((outcome.OUT / "verdict.json").read_text())
 
 
@@ -540,10 +623,16 @@ def test_studies_on_the_card_judged_by_the_rule(outcome):
 # (SMALL); everything else is the demo's configuration.
 WITNESS_SEQS_PER_D = 4  # 16 sequences a cycle: 16 steps at the first cycles' batch of 1
 WITNESS_ARM, WITNESS_PAIR = "deepcnn_2layer_s", ("deepcnn_2layer_s", "deepcnn_2layer_leaky")
+KEY_BIASES = {f"transformer.layer_{i}.self_attn.k_proj.bias" for i in range(SMALL["num_layers"])}
 CURRICULA = {"continuous": (0.1, 8.0), "discrete": None}
 # (loss, tensor) bounds: F7's in float32; in float64 both sides agree to
 # ~1e-13 of a tensor's largest entry, so the witness holds them to 1e-10
 WITNESS_BOUNDS = {np.float32: (1e-5, 1e-4), np.float64: (1e-10, 1e-10)}
+# A parameter whose AdamW first moment after the cycle stays below this
+# share of the model's largest first moment has a gradient of zero to
+# rounding: its value and moments are float noise, left out of the tensor
+# bound on both sides alike (the attention key biases; see the witness)
+ZERO_GRADIENT = 1e-12
 
 
 def _flax_tree(tree):
@@ -732,17 +821,32 @@ def port_demo_cycle(ref, monkeypatch, betas=(0.9, 0.999)):
                        for k in ("exp_avg", "exp_avg_sq")}}
 
 
+def zero_gradient_leaves(exp_avg: dict) -> set:
+    """The parameters whose first moment's largest entry is at most
+    ``ZERO_GRADIENT`` of the largest over all of them."""
+    top = max(float(m.abs().max()) for m in exp_avg.values())
+    return {name for name, m in exp_avg.items() if float(m.abs().max()) <= ZERO_GRADIENT * top}
+
+
 def demo_cycle_misses(ref, losses, got):
     """The steps whose loss misses and the tensors that miss: each loss at
     ``WITNESS_BOUNDS[dtype][0]`` relative, each tensor at
     ``WITNESS_BOUNDS[dtype][1]`` of its largest entry, each widened by 3 ×
-    JAX's own distance from itself under a one-ulp move of the videos."""
+    JAX's own distance from itself under a one-ulp move of the videos. The
+    parameters of zero gradient (``zero_gradient_leaves`` of JAX's first
+    moments) and their moments are left out; the port must find the same
+    ones zero (a miss under ``"zero_gradient_leaves"`` if not)."""
     loss_rtol, rtol = WITNESS_BOUNDS[ref["dtype"]]
     jax_losses = ref["losses"]
     loss_misses = np.flatnonzero(np.abs(losses - jax_losses) > loss_rtol * jax_losses + 3 * ref["spread_losses"])
     off = {}
+    zero = zero_gradient_leaves(ref["want"]["exp_avg"])
+    if zero_gradient_leaves(got["exp_avg"]) != zero:
+        off["zero_gradient_leaves"] = (sorted(zero), sorted(zero_gradient_leaves(got["exp_avg"])))
     for kind, want in ref["want"].items():
         for name, w in want.items():
+            if name in zero:
+                continue
             diff = float((got[kind][name] - w).abs().max())
             if diff > rtol * float(w.abs().max()) + 3 * ref["spread"][kind][name]:
                 off[f"{kind}:{name}"] = (diff, ref["spread"][kind][name])
@@ -771,23 +875,65 @@ def test_demo_cycle_matches_jax_step_by_step(jax_demo_cycles, monkeypatch, curri
     own distance from itself when its videos move by one ulp up or down
     (the larger of the two; the running maximum over steps for the losses).
     Measured: losses 4e-16 / 5e-16 of a loss apart (continuous /
-    discrete), tensors 3.2e-13 / 7.1e-13 of their largest entry, the two
-    attention key biases aside: their gradient is 0 in exact arithmetic, so
-    they and their moments are float noise, 1.5-1.7 of their largest entry
-    apart and inside JAX's own one-ulp distance here (at 8 sequences a
-    class one discrete key-bias tensor lies outside it). In float32 at F7's
-    bounds (1e-5, 1e-4) the verdict turns on the draw: on this cycle the
-    continuous case holds and the discrete one misses (steps 10-11, 8
-    tensors); at 8 a class the continuous one misses and the discrete one
-    holds. Either side's float32 cycle can lie further from the float64
-    one: JAX's 9.5e-5 / 4.0e-5 of a loss here and the port's 4.3e-6 /
-    2.9e-5; at 8 a class JAX's 1.6e-4 / 9.7e-4 and the port's 3.6e-5 /
-    1.1e-2. So the float64 twin is the witness.
+    discrete), tensors 3.2e-13 / 7.1e-13 of their largest entry.
+
+    Left out by a rule (``ZERO_GRADIENT``): the parameters whose gradient is
+    zero to rounding, read from the AdamW first moment after the cycle. They
+    are the two attention key biases: a bias b added to every key adds q·b
+    to every logit of a query, which the softmax takes away, so dL/db = 0 in
+    exact arithmetic. Their first moments are 3.6e-18-8.0e-18 (JAX) and
+    2.0e-18-2.7e-18 (port) of the largest first moment here, 1.6e-18-8.0e-18
+    and 7.6e-19-3.7e-18 at 8 a class; the next smallest parameter's is
+    6.2e-3 (1.1e-3 at 8 a class). AdamW divides that noise by its own root
+    mean square, so these biases move by ~lr a step in a direction set by
+    rounding: 1.2-1.7 of their largest entry apart, inside JAX's own
+    one-ulp distance at 4 a class, not always at 8. The port must find the
+    same parameters of zero gradient, and the test asserts they are the key
+    biases. ``test_torch_changepoint_witness.py`` holds the same witness at
+    8 sequences a class (32 steps).
+
+    In float32 at F7's bounds (1e-5, 1e-4) the verdict turns on the draw:
+    on this cycle the continuous case holds and the discrete one misses
+    (steps 10-11, 8 tensors); at 8 a class the continuous one misses and the
+    discrete one holds. Either side's float32 cycle can lie further from the
+    float64 one: JAX's 9.5e-5 / 4.0e-5 of a loss here and the port's 4.3e-6
+    / 2.9e-5; at 8 a class JAX's 1.6e-4 / 9.7e-4 and the port's 3.6e-5 /
+    1.1e-2, and the port's discrete tensors 11.4 of their largest entry
+    from float64 against JAX's 1.37 (key biases aside): the cycle amplifies
+    float32 rounding, so one float32 cycle says nothing of the card's
+    float32 path either way. So the float64 twin is the witness.
     ``tests/changepoint_witness_f32.py`` measures these."""
     ref = jax_demo_cycles(curriculum)
     loss_misses, off = demo_cycle_misses(ref, *port_demo_cycle(ref, monkeypatch))
     assert not loss_misses, loss_misses
     assert not off, off
+    assert zero_gradient_leaves(ref["want"]["exp_avg"]) == KEY_BIASES
+
+
+@pytest.mark.parametrize("curriculum", list(CURRICULA))
+def test_demo_config_and_cycle_schedules_match_jax(monkeypatch, curriculum):
+    """What the demo's trainer carries from cycle to cycle, beyond the one
+    cycle the witness steps through: ``baseline.build(sequences=True, …)``
+    at 64 a class has JAX's ``TrainConfig`` field for field, the same arms
+    and, over the record's 100 cycles, JAX's batch size and learning rate
+    each cycle."""
+    from moleculardiffusion_mivit_tpu.evaluation import validation as jvalidation
+    from moleculardiffusion_mivit_tpu.experiments import baseline as jbaseline
+    from moleculardiffusion_mivit_tpu_torch import evaluation as tval
+    from moleculardiffusion_mivit_tpu_torch.experiments import baseline as tbaseline
+
+    monkeypatch.setattr(jbaseline, "load_validation_trajectories", _tiny_validation(jvalidation))
+    monkeypatch.setattr(tbaseline, "load_validation_trajectories", _tiny_validation(tval, device="cpu"))
+    kw = dict(sequences=True, continuous_d=CURRICULA[curriculum], sequences_per_d=64)
+    jexp, texp = jbaseline.build(**kw), tbaseline.build(device="cpu", **kw)
+    jcfg, tcfg = jexp.train_cfg, texp.train_cfg
+    assert set(jcfg.__dataclass_fields__) == set(tcfg.__dataclass_fields__)
+    assert {k: str(getattr(tcfg, k)) for k in tcfg.__dataclass_fields__} == {
+        k: str(getattr(jcfg, k)) for k in jcfg.__dataclass_fields__}
+    assert sorted(jexp.arms) == sorted(texp.arms)
+    schedule = [(jcfg.batch_size_for_cycle(c), float(jcfg.lr_for_cycle(c))) for c in range(100)]
+    assert [(tcfg.batch_size_for_cycle(c), float(tcfg.lr_for_cycle(c))) for c in range(100)] == schedule
+    assert len(set(schedule)) > 1  # the schedule moves within the record's cycles
 
 
 @pytest.mark.parametrize("mutation", ["bn_momentum_0.91", "adamw_beta2_0.998"])

@@ -259,7 +259,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "moleculardiffusion_mivit_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_cycle.py", ROOT / "feature_outliers.py",
         ROOT / "denoising_outcome.py", ROOT / "realdata_outcome.py", ROOT / "images_features_bf16_outcome.py",
-        ROOT / "changepoint_outcome.py", ROOT / "ensemble_outcome.py", ROOT / "rescore_outcome.py"]
+        ROOT / "changepoint_outcome.py", ROOT / "changepoint_shared_eval.py", ROOT / "ensemble_outcome.py",
+        ROOT / "rescore_outcome.py"]
     scanned = {path.relative_to(ROOT).as_posix() for path in files}
     assert {f"moleculardiffusion_mivit_tpu_torch/{m}.py" for m in (
         "ops/hull", "ops/curve_fit", "features/features", "features/msd", "experiments/images_features",
